@@ -10,11 +10,17 @@ the JAX model, so a JAX ``state_dict`` loads unchanged
   attended through ``paged_attention_decode``. The JAX model replaces
   the pool arrays functionally; the port writes them in place and
   returns the same tensors.
-- the UNCACHED causal branch (llama.py:354-372), for ``s < 256`` on the
-  card (the JAX package takes its flash kernel from 256 on; not ported).
+- the UNCACHED causal branch (llama.py:354-372), the training path:
+  differentiable end to end; from 256 query rows on its attention is
+  flash attention (the CUDA kernels on the card), below that the plain
+  core. :meth:`LlamaForCausalLM.loss` is the shifted causal-LM cross
+  entropy.
 
 Not ported here: LoRA, tensor/pipeline/sequence parallelism, recompute,
-and ``generate()`` over contiguous caches (ROADMAP.md).
+and ``generate()`` over contiguous caches (ROADMAP.md). The config keeps
+the JAX package's ``recompute``, ``mp_axis`` and ``fsdp_axis`` fields so
+that its configurations construct unchanged; a value that would ask for
+one of those features raises.
 """
 
 from __future__ import annotations
@@ -45,7 +51,20 @@ class LlamaConfig:
     rms_norm_eps: float = 1e-6
     rope_theta: float = 10000.0
     tie_word_embeddings: bool = False
+    recompute: bool = False
     dtype: str = "float32"
+    # the JAX package's parallel axes; the port runs on one device
+    mp_axis: str | None = None
+    fsdp_axis: str | None = None
+
+    def __post_init__(self):
+        if self.recompute:
+            raise NotImplementedError(
+                "recompute is not ported yet (ROADMAP.md A2)")
+        if self.mp_axis is not None or self.fsdp_axis is not None:
+            raise NotImplementedError(
+                "tensor and FSDP parallelism are not ported: pass "
+                "mp_axis=None and fsdp_axis=None")
 
     @property
     def head_dim(self) -> int:
@@ -263,3 +282,15 @@ class LlamaForCausalLM(nn.Module):
         else:
             logits = self.lm_head(hidden)
         return (logits, new_caches) if paged is not None else logits
+
+    def loss(self, logits, labels, ignore_index=-100):
+        """Shifted causal-LM cross entropy (counterpart: llama.py:723):
+        position t predicts label t + 1."""
+        shift_logits = logits[:, :-1]
+        shift_labels = labels[:, 1:]
+        return F.cross_entropy(
+            shift_logits.reshape(-1, shift_logits.shape[-1]),
+            shift_labels.reshape(-1), ignore_index=ignore_index)
+
+    def num_params(self) -> int:
+        return sum(p.numel() for p in self.parameters())

@@ -8,6 +8,12 @@
   (``model.rope_cos``/``model.rope_sin``) are loaded when present, so a
   test compares like with like; they are never required. Missing and
   extra keys and shape mismatches raise, naming the key.
+- :func:`export_numpy_state` is its inverse: the model's parameters as
+  ``{name: numpy array}`` (bf16 values as exact fp32 arrays).
+- :func:`load_optimizer_state` carries a JAX optimizer state, converted
+  to numpy (``{"step", "moment1", "moment2", "master"}``), into the
+  port's optimizer, so that both packages can continue from one
+  mid-training state.
 - :func:`init_random` draws every parameter on the model's own device
   from one ``torch.Generator`` seeded with ``seed``, using the JAX
   package's initialisers (XavierNormal for Linear, N(0, 1) for
@@ -22,7 +28,8 @@ import numpy as np
 import torch
 from torch import nn
 
-__all__ = ["load_numpy_state", "init_random"]
+__all__ = ["load_numpy_state", "export_numpy_state", "load_optimizer_state",
+           "init_random"]
 
 _OPTIONAL = ("model.rope_cos", "model.rope_sin")
 
@@ -58,6 +65,54 @@ def load_numpy_state(model: nn.Module, state: dict) -> None:
         for name, arr in state.items():
             dst = targets[name]
             dst.copy_(_to_tensor(arr).to(device=dst.device, dtype=dst.dtype))
+
+
+def export_numpy_state(model: nn.Module) -> dict:
+    """``{name: numpy array}`` of the parameters; bf16 becomes fp32."""
+    out = {}
+    for name, p in model.named_parameters():
+        t = p.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            t = t.float()
+        out[name] = t.numpy().copy()
+    return out
+
+
+def load_optimizer_state(opt, state: dict) -> None:
+    """Fill ``opt.state`` from a numpy copy of the JAX optimizer state.
+
+    ``state["step"]`` is the number of updates taken; each slot
+    (``opt.slots``, e.g. ``moment1``/``moment2``) is ``{name: array}`` over
+    the optimizer's parameters; ``state["master"]`` (with
+    ``multi_precision``) holds an fp32 array or None per parameter. Every
+    tensor lands on its parameter's device in fp32. Raises KeyError on a
+    missing slot or parameter and ValueError on a shape mismatch."""
+    params = opt.params
+    new = {"step": int(np.asarray(state["step"]))}
+    groups = list(opt.slots) + (["master"] if opt.multi_precision else [])
+    for group in groups:
+        if group not in state:
+            raise KeyError(f"optimizer state has no {group!r}")
+        src = state[group]
+        missing = sorted(k for k in params if k not in src)
+        if missing:
+            raise KeyError(f"optimizer state {group!r} is missing "
+                           f"{missing}")
+        new[group] = {}
+        for k, p in params.items():
+            if src[k] is None:
+                if group != "master":
+                    raise KeyError(f"optimizer state {group!r} has None "
+                                   f"for {k}")
+                new[group][k] = None
+                continue
+            t = _to_tensor(src[k])
+            if tuple(t.shape) != tuple(p.shape):
+                raise ValueError(f"shape mismatch for {group}/{k}: state "
+                                 f"has {tuple(t.shape)}, parameter has "
+                                 f"{tuple(p.shape)}")
+            new[group][k] = t.to(device=p.device, dtype=torch.float32)
+    opt.state = new
 
 
 def init_random(model: nn.Module, seed: int) -> None:

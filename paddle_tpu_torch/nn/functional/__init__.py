@@ -4,11 +4,12 @@ import torch
 
 from .attention import (cached_prefill_attention, paged_attention_decode,
                         scaled_dot_product_attention)
+from .loss import cross_entropy
 from .norm import rms_norm
 
 __all__ = ["cached_prefill_attention", "paged_attention_decode",
-           "scaled_dot_product_attention", "rms_norm", "silu", "linear",
-           "embedding"]
+           "scaled_dot_product_attention", "cross_entropy", "rms_norm",
+           "silu", "linear", "embedding"]
 
 
 def silu(x: torch.Tensor) -> torch.Tensor:

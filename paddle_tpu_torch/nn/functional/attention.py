@@ -10,9 +10,11 @@ entry points carry the serving path:
   (its ``kernel_applicable`` gates on ``t == 1``).
 - :func:`cached_prefill_attention` — the contiguous-cache twin sharing
   the same grouped core.
-- :func:`scaled_dot_product_attention` — uncached causal attention for
-  ``s < 256``. At ``s >= 256`` on the card the JAX package takes its
-  Pallas flash kernel, which is not ported yet, so this raises there.
+- :func:`scaled_dot_product_attention` — uncached attention: from
+  ``FLASH_MIN_SEQ`` query rows on it takes flash attention
+  (``ops/kernels/flash_attention.py``; the CUDA kernels on the card, their
+  plain versions on the CPU), below that the plain core, as the JAX
+  package routes it on its accelerator.
 
 bf16 note: a bf16 product in PyTorch returns bf16, while the JAX code
 asks XLA for the fp32 sum (``preferred_element_type``). The plain cores
@@ -26,6 +28,7 @@ import math
 
 import torch
 
+from ...ops.kernels.flash_attention import flash_attention
 from ...ops.kernels.paged_attention import (paged_attention_cuda,
                                             paged_attention_plain)
 from ...ops.kernels.routing import use_kernel
@@ -58,15 +61,11 @@ def _plain_attention(q, k, v, is_causal=False):
 
 def scaled_dot_product_attention(query, key, value, is_causal=False):
     """Uncached attention (counterpart: attention.py:325), q/k/v with the
-    same head count. Raises NotImplementedError on a CUDA tensor with a
-    query of FLASH_MIN_SEQ rows or more: there the JAX package runs its
-    flash kernel, and the port runs no plain path on the card."""
-    if query.is_cuda and query.shape[1] >= FLASH_MIN_SEQ:
-        raise NotImplementedError(
-            f"uncached attention at s={query.shape[1]} >= {FLASH_MIN_SEQ} "
-            f"needs the flash attention forward kernel, not ported yet "
-            f"(ROADMAP.md: 'Flash attention forward kernel and the uncached "
-            f"forward at s >= 256')")
+    same head count, differentiable. A query of FLASH_MIN_SEQ rows or
+    more takes :func:`flash_attention` on every device; a shorter one the
+    plain core (the counterpart of ``_xla_attention``)."""
+    if query.shape[1] >= FLASH_MIN_SEQ:
+        return flash_attention(query, key, value, causal=is_causal)
     return _plain_attention(query, key, value, is_causal=is_causal)
 
 

@@ -4,8 +4,8 @@ Each ``csrc/<name>.cu`` is compiled by ``nvcc`` into its own shared
 library with a plain C interface (no PyTorch headers, so a build takes
 seconds) and loaded with ``ctypes``. Libraries land in
 ``build/kernels/`` at the repository root (git-ignored), named by a
-hash of their source, so an edited source rebuilds and an unchanged one
-is reused. ``build_all`` starts one ``nvcc`` per source at once and
+hash of their source and the shared ``csrc/*.cuh`` headers, so an
+edited source rebuilds and an unchanged one is reused. ``build_all`` starts one ``nvcc`` per source at once and
 waits for all of them; ``library`` builds one on first use.
 
 Nothing here runs at import time: the CPU tests import every module,
@@ -27,7 +27,11 @@ _PKG = Path(__file__).resolve().parents[2]
 SOURCES = {
     "rms_norm": _PKG / "csrc" / "rms_norm.cu",
     "paged_attention": _PKG / "csrc" / "paged_attention.cu",
+    "flash_attention_fwd": _PKG / "csrc" / "flash_attention_fwd.cu",
+    "flash_attention_bwd": _PKG / "csrc" / "flash_attention_bwd.cu",
 }
+# headers the sources include; a change to one rebuilds every source
+HEADERS = sorted((_PKG / "csrc").glob("*.cuh"))
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
@@ -45,8 +49,11 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    digest = hashlib.sha256(SOURCES[name].read_bytes()
-                            + " ".join(ARCH_FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256(SOURCES[name].read_bytes())
+    for header in HEADERS:
+        h.update(header.read_bytes())
+    h.update(" ".join(ARCH_FLAGS).encode())
+    digest = h.hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

@@ -8,7 +8,11 @@ bounds it on the H100 and how the design answers that.
   and the yardstick the kernel is held against on the card);
 - :func:`rms_norm_cuda` — the kernel's wrapper: launches on a CUDA
   tensor or raises; ``rms_norm_cuda.launches`` counts its launches;
-- :func:`rms_norm` — the router the model calls.
+- :func:`rms_norm` — the differentiable router the model calls: its
+  forward is the kernel on a CUDA tensor and the plain version on a CPU
+  one; its backward is the closed form of the JAX package's ``_rms_bwd``
+  (fused_norm.py:80), an XLA composition there and a torch composition
+  here (:func:`rms_norm_bwd_plain`).
 """
 
 from __future__ import annotations
@@ -20,7 +24,8 @@ import torch
 from .build import library
 from .routing import use_kernel
 
-__all__ = ["rms_norm", "rms_norm_plain", "rms_norm_cuda", "MAX_D"]
+__all__ = ["rms_norm", "rms_norm_plain", "rms_norm_cuda",
+           "rms_norm_bwd_plain", "MAX_D"]
 
 MAX_D = 8192
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -82,8 +87,48 @@ def rms_norm_cuda(x: torch.Tensor, weight: torch.Tensor,
 rms_norm_cuda.launches = 0
 
 
-def rms_norm(x: torch.Tensor, weight: torch.Tensor,
-             eps: float) -> torch.Tensor:
+def rms_norm_bwd_plain(x, weight, g, eps: float):
+    """``(dx, dw)`` of ``_rms_bwd`` (fused_norm.py:80-94): fp32 row
+    statistics; dx in x's dtype, dw in the weight's."""
+    xf = x.float().reshape(-1, x.shape[-1])
+    gf = g.float().reshape(xf.shape)
+    inv = torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
+    xhat = xf * inv
+    gw = gf * weight.float()[None, :]
+    dx = (gw - xhat * (gw * xhat).mean(dim=-1, keepdim=True)) * inv
+    dw = (gf * xhat).sum(dim=0)
+    return dx.reshape(x.shape).to(x.dtype), dw.to(weight.dtype)
+
+
+def _forward(x, weight, eps):
     if use_kernel(x):
         return rms_norm_cuda(x, weight, eps)
     return rms_norm_plain(x, weight, eps)
+
+
+class _RMSNorm(torch.autograd.Function):
+    """Counterpart of ``_rms`` (``jax.custom_vjp``, fused_norm.py:71):
+    saves ``(x, weight)`` and recomputes the statistics in the backward."""
+
+    @staticmethod
+    def forward(ctx, x, weight, eps):
+        ctx.save_for_backward(x, weight)
+        ctx.eps = eps
+        return _forward(x, weight, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, weight = ctx.saved_tensors
+        dx, dw = rms_norm_bwd_plain(x, weight, g, ctx.eps)
+        return dx, dw, None
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor,
+             eps: float) -> torch.Tensor:
+    """RMSNorm over the last axis; differentiable in x and weight. When
+    no gradient is wanted (serving runs under ``torch.no_grad()``) the
+    forward is called directly, without the autograd Function's host
+    cost."""
+    if torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad):
+        return _RMSNorm.apply(x, weight, float(eps))
+    return _forward(x, weight, float(eps))

@@ -16,20 +16,36 @@ Tolerances, each with its reason:
   ``|out| < 2``. q, the probabilities and the output are each rounded to
   bf16, and a rounding can flip by one ulp when the fp32 sums before it
   are taken in another order.
+- flash forward, dQ and dK/dV (bf16 only), against the plain versions
+  run on fp32 copies of the inputs (outputs not rounded to bf16): each
+  row within ``2**-7`` of its own largest magnitude plus 1e-3, and each
+  output within 4e-3 in relative Frobenius norm. The kernels round their
+  outputs to bf16 (at most 2**-8 of a row's largest magnitude; ~1.7e-3
+  relative in Frobenius norm) and P and dS to bf16 as tensor-core
+  operands where the plain versions keep fp32. A row-wise bound, not
+  one from the whole output's largest value: in causal attention the
+  first rows are far larger than the rest. lse 1e-4 absolute (exact
+  bf16 products, sums in another order).
+- a training step, kernels vs plain versions, bf16 model: loss 1e-2
+  absolute and each gradient 5e-2 in relative L2 — bf16 gradients carry
+  2**-8 relative rounding per element through every layer's products.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from paddle_tpu_torch.models import LlamaForCausalLM, llama_tiny
-from paddle_tpu_torch.nn.functional import scaled_dot_product_attention
+from paddle_tpu_torch.jit import TrainStep
+from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM, llama_tiny
+from paddle_tpu_torch.nn.functional import rms_norm
+from paddle_tpu_torch.ops.kernels import flash_attention as FA
 from paddle_tpu_torch.ops.kernels import (launch_counts,
                                           paged_attention_cuda,
                                           paged_attention_plain,
                                           plain_reference,
                                           reset_launch_counts, rms_norm_cuda,
                                           rms_norm_plain)
+from paddle_tpu_torch.optimizer import AdamW
 from paddle_tpu_torch.serving import ServingEngine
 
 pytestmark = pytest.mark.cuda
@@ -127,10 +143,203 @@ def test_paged_kernel_raises_outside_its_gate(cuda):
         rms_norm_cuda(q.new_ones(2, 9000), q.new_ones(9000), 1e-6)
 
 
-def test_uncached_forward_raises_at_flash_length(cuda):
-    q = torch.zeros((1, 256, 2, 64), device=cuda)
-    with pytest.raises(NotImplementedError, match="flash"):
-        scaled_dot_product_attention(q, q, q, is_causal=True)
+def _small_llama(cuda, dtype="bfloat16"):
+    """Two layers, head_dim 64 (the flash kernels take 64 and 128)."""
+    cfg = LlamaConfig(vocab_size=512, hidden_size=256, intermediate_size=512,
+                      num_hidden_layers=2, num_attention_heads=4,
+                      num_key_value_heads=2, max_position_embeddings=512,
+                      dtype=dtype)
+    return LlamaForCausalLM(cfg, device=cuda, seed=3)
+
+
+def test_uncached_forward_launches_flash_at_256_rows(cuda):
+    model = _small_llama(cuda)
+    ids = torch.tensor(np.random.default_rng(1).integers(0, 512, (2, 256)),
+                       device=cuda)
+    reset_launch_counts()
+    with torch.no_grad():
+        logits = model(ids)
+    torch.cuda.synchronize()
+    L = model.config.num_hidden_layers
+    assert launch_counts() == {"rms_norm": 2 * L + 1, "paged_attention": 0,
+                               "flash_fwd": L, "flash_dq": 0, "flash_dkv": 0}
+    assert torch.isfinite(logits.float()).all()
+    with torch.no_grad():
+        short = model(ids[:, :255])
+    assert launch_counts()["flash_fwd"] == L   # s < 256: the plain core
+    assert torch.isfinite(short.float()).all()
+
+
+def _flash_inputs(b, sq, sk, h, d, dtype, device, seed=0):
+    g = torch.Generator(device=device).manual_seed(seed)
+    shapes = [(b, sq, h, d), (b, sk, h, d), (b, sk, h, d), (b, sq, h, d)]
+    return [torch.randn(s, generator=g, device=device).to(DT[dtype])
+            for s in shapes]
+
+
+def _assert_flash_close(got, want32):
+    """A bf16 kernel output against the fp32 plain one: every row within
+    2**-7 of its largest magnitude plus 1e-3, and 4e-3 in relative
+    Frobenius norm."""
+    diff = got.float() - want32
+    row_tol = 2 ** -7 * want32.abs().amax(-1) + 1e-3
+    worst = (diff.abs().amax(-1) / row_tol).max().item()
+    fro = (diff.norm() / want32.norm().clamp(min=1e-30)).item()
+    assert worst <= 1.0 and fro <= 4e-3, (worst, fro)
+
+
+@pytest.mark.parametrize("b,sq,sk,h,d,causal", [
+    (2, 256, 256, 4, 128, True),
+    (1, 2048, 2048, 2, 128, True),
+    (2, 1000, 1000, 3, 64, False),
+    (2, 1000, 1000, 3, 64, True),
+    (1, 700, 1000, 2, 128, True),
+    (1, 1000, 700, 2, 128, True),
+    (1, 64, 64, 1, 64, False),
+    (2, 300, 300, 2, 128, True),
+    (1, 333, 517, 2, 64, False),
+])
+def test_flash_kernels_match_plain(cuda, b, sq, sk, h, d, causal):
+    q, k, v, do = _flash_inputs(b, sq, sk, h, d, "bfloat16", cuda)
+    scale = d ** -0.5
+    reset_launch_counts()
+    out, lse = FA.flash_fwd_cuda(q, k, v, scale, causal)
+    q32, k32, v32, do32 = (x.float() for x in (q, k, v, do))
+    want_o, want_l = FA.flash_fwd_plain(q32, k32, v32, scale, causal)
+    delta = FA.flash_delta(do, want_o.bfloat16())
+    grads = (FA.flash_bwd_dq_cuda(q, k, v, do, want_l, delta, scale, causal),
+             *FA.flash_bwd_dkv_cuda(q, k, v, do, want_l, delta, scale,
+                                    causal))
+    torch.cuda.synchronize()
+    assert launch_counts() == {"rms_norm": 0, "paged_attention": 0,
+                               "flash_fwd": 1, "flash_dq": 1, "flash_dkv": 1}
+    want_g = FA.flash_block_grads_plain(q32, k32, v32, do32, want_l, delta,
+                                        scale, causal)
+    for got, want in zip((out,) + grads, (want_o,) + want_g):
+        assert got.dtype == torch.bfloat16 and got.shape == want.shape
+        _assert_flash_close(got, want)
+    dead = want_l <= -1e29
+    assert torch.equal(lse <= -1e29, dead)
+    assert (out.transpose(1, 2)[dead] == 0).all()
+    live_err = (lse - want_l)[~dead].abs().max().item()
+    assert live_err <= 1e-4, live_err
+
+
+def test_flash_kernels_take_strided_views(cuda):
+    """q, k, v as views of one [b, s, 3, h, d] projection: read through
+    their strides, no copy."""
+    qkv = torch.randn((2, 384, 3, 4, 64), device=cuda).bfloat16()
+    q, k, v = qkv.unbind(2)
+    assert not q.is_contiguous()
+    out, lse = FA.flash_fwd_cuda(q, k, v, 0.125, True)
+    want, _ = FA.flash_fwd_plain(q.float(), k.float(), v.float(), 0.125,
+                                 True)
+    torch.cuda.synchronize()
+    _assert_flash_close(out, want)
+
+
+def test_flash_raises_outside_its_gate(cuda):
+    q, k, v, do = _flash_inputs(1, 256, 256, 2, 64, "bfloat16", cuda)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        FA.flash_attention(q, k, v, attn_mask=torch.zeros(256, 256,
+                                                          device=cuda))
+    with pytest.raises(ValueError, match="head dim"):
+        FA.flash_fwd_cuda(*(torch.zeros((1, 256, 2, 96), device=cuda)
+                            .bfloat16() for _ in range(3)), 0.1, True)
+    with pytest.raises(ValueError, match="all be bfloat16"):
+        FA.flash_fwd_cuda(q.half(), k.half(), v.half(), 0.125, True)
+    with pytest.raises(ValueError, match="all be bfloat16"):
+        FA.flash_fwd_cuda(q, k.float(), v, 0.125, True)
+    with pytest.raises(ValueError, match="all be bfloat16"):   # fp32 too
+        FA.flash_fwd_cuda(q.float(), k.float(), v.float(), 0.125, True)
+    with pytest.raises(ValueError, match="all be bfloat16"):
+        FA.flash_attention(q.float(), k.float(), v.float(), causal=True)
+    with pytest.raises(ValueError, match="repeat GQA"):
+        FA.flash_fwd_cuda(q, k[:, :, :1], v[:, :, :1], 0.125, True)
+    wide = torch.zeros((1, 256, 2, 128), device=cuda).bfloat16()
+    with pytest.raises(ValueError, match="strides"):   # d 64, stride 2
+        FA.flash_fwd_cuda(wide[..., ::2], wide[..., ::2], wide[..., ::2],
+                          0.125, True)
+    lse = torch.zeros((1, 2, 256), device=cuda)
+    with pytest.raises(ValueError, match="lse"):
+        FA.flash_bwd_dq_cuda(q, k, v, do, lse.double(), lse, 0.125, True)
+    with pytest.raises(ValueError, match="dO"):
+        FA.flash_bwd_dkv_cuda(q, k, v, do.float(), lse, lse, 0.125, True)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rms_norm_autograd_on_the_card(cuda, dtype):
+    """The kernel's forward keeps the graph: x and the weight get
+    gradients, equal to the plain path's."""
+    rng = np.random.default_rng(7)
+    x0 = torch.tensor(rng.standard_normal((4, 33, 512)), dtype=DT[dtype],
+                      device=cuda)
+    w0 = torch.tensor(rng.standard_normal(512), dtype=DT[dtype], device=cuda)
+    c = torch.tensor(rng.standard_normal((4, 33, 512)), dtype=torch.float32,
+                     device=cuda)
+    grads = []
+    for plain in (False, True):
+        x = x0.clone().requires_grad_(True)
+        w = w0.clone().requires_grad_(True)
+        reset_launch_counts()
+        if plain:
+            with plain_reference():
+                y = rms_norm(x, w, 1e-6)
+        else:
+            y = rms_norm(x, w, 1e-6)
+        assert launch_counts()["rms_norm"] == (0 if plain else 1)
+        assert y.grad_fn is not None
+        (y.float() * c).sum().backward()
+        assert x.grad is not None and w.grad is not None
+        grads.append((x.grad, w.grad))
+    (gx, gw), (px, pw) = grads
+    rtol = 2e-5 if dtype == "float32" else 2 ** -7
+    torch.testing.assert_close(gx.float(), px.float(), rtol=rtol, atol=1e-5)
+    torch.testing.assert_close(gw.float(), pw.float(), rtol=rtol, atol=1e-4)
+
+
+def test_rms_norm_without_grad_launches_the_kernel_directly(cuda):
+    """Under no_grad (serving) the router calls the wrapper without the
+    autograd Function: one launch, no graph, the same values."""
+    x = torch.randn((8, 4096), device=cuda).bfloat16()
+    w = torch.randn((4096,), device=cuda).bfloat16().requires_grad_(True)
+    reset_launch_counts()
+    with torch.no_grad():
+        y = rms_norm(x, w, 1e-6)
+    assert launch_counts()["rms_norm"] == 1 and y.grad_fn is None
+    torch.testing.assert_close(y, rms_norm_cuda(x, w.detach(), 1e-6),
+                               rtol=0, atol=0)
+
+
+def test_train_step_kernels_vs_plain(cuda):
+    """One TrainStep from one state through the kernels and inside
+    plain_reference(), bf16, b 2 x s 256 (the flash route)."""
+    ids = torch.tensor(np.random.default_rng(2).integers(0, 512, (2, 256)),
+                       device=cuda)
+    results = []
+    for plain in (False, True):
+        model = _small_llama(cuda)
+        step = TrainStep(model, AdamW(learning_rate=1e-3, parameters=model),
+                         lambda logits, y: model.loss(logits, y))
+        reset_launch_counts()
+        if plain:
+            with plain_reference():
+                loss = step(ids, ids)
+        else:
+            loss = step(ids, ids)
+        torch.cuda.synchronize()
+        results.append((loss.item(), launch_counts(),
+                        {k: p.grad.float() for k, p in
+                         model.named_parameters()}))
+    (lk, ck, gk), (lp, cp, gp) = results
+    L = 2
+    assert ck == {"rms_norm": 2 * L + 1, "paged_attention": 0,
+                  "flash_fwd": L, "flash_dq": L, "flash_dkv": L}
+    assert not any(cp.values())
+    assert abs(lk - lp) <= 1e-2
+    for k in gk:
+        rel = ((gk[k] - gp[k]).norm() / gp[k].norm()).item()
+        assert rel <= 5e-2, (k, rel)
 
 
 def test_engine_decode_step_kernels_vs_plain(cuda):
@@ -157,7 +366,8 @@ def test_engine_decode_step_kernels_vs_plain(cuda):
         want = eng.decode_logits()
     assert launch_counts() == counts   # the plain run launched nothing
     L = model.config.num_hidden_layers
-    assert counts == {"rms_norm": 2 * L + 1, "paged_attention": L}
+    assert counts == {"rms_norm": 2 * L + 1, "paged_attention": L,
+                      "flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
     err = (got - want).abs().max().item()
     assert err < 0.05, err
     top2 = want.topk(2, dim=-1).values
