@@ -1,24 +1,30 @@
 #!/usr/bin/env python3
-"""Plant known faults in the flash attention kernels and show which of
-``chip_smoke.py``'s checks catch each one (a mutation check, on one GPU).
+"""Plant known faults in the flash attention and MoE kernels and show
+which of ``chip_smoke.py``'s checks catch each one (a mutation check, on
+one GPU).
 
     python3 chip_mutants.py [--only NAME ...]
 
 For the unchanged kernels (``control``) and for each fault below, the
 script copies ``paddle_tpu_torch/`` and ``chip_smoke.py`` into a fresh
 temporary directory, edits one kernel source there (the repository is
-never touched), and runs, in a child process on that copy:
+never touched), and runs, in a child process on that copy, the checks
+of the fault's kind (the control runs both kinds):
 
-- the flash kernel check of ``chip_smoke.py`` (``_flash_errors``) at
-  the training path's shape, q/k/v [4, 2048, 16, 128] bf16 causal;
-- train parity (``train_parity_run``): three training steps of the
+- flash: the flash kernel check of ``chip_smoke.py`` (``_flash_errors``)
+  at the training path's shape, q/k/v [4, 2048, 16, 128] bf16 causal,
+  and train parity (``train_parity_run``): three training steps of the
   ``bench.py::_llama_flagship`` configuration through the kernels and
   inside ``plain_reference()``, from one state: the one the smoke's
   train phase leaves, 10 steps through the kernels on the fixed batch
   (from a fresh optimizer, Adam's first steps move every weight by
   ~lr whatever the size of its gradient, so the master weights of two
   runs part by up to 2 lr a step wherever a tiny gradient changes
-  sign).
+  sign);
+- moe: the MoE kernel checks (``routing_errors``, ``moe_errors``) at the
+  Qwen2-MoE training shapes, and the MoE train parity of
+  ``phase_train_moe_parity`` (``MOE_PARITY``) after 10 steps of the
+  ``qwen2_moe_fused`` configuration.
 
 It prints one JSON line per run and then a summary line. It exits 0
 when the control passes both checks and every fault fails the kernel
@@ -37,11 +43,15 @@ import subprocess
 import sys
 import tempfile
 
+import numpy as np
+
 BWD, FWD = "flash_attention_bwd.cu", "flash_attention_fwd.cu"
+ROUTE, GG = "moe_routing.cu", "moe_grouped_gemm.cu"
 FP8 = ('#include "flash_common.cuh"',
        '#include "flash_common.cuh"\n#include <cuda_fp8.h>')
 
-# name -> (what it does, [(source, old text, new text), ...])
+# name -> (what it does, [(source, old text, new text), ...][, kind]);
+# the kind is "flash" unless given
 MUTANTS = {
     "fwd_rows_from_512_x1.07": (
         "forward: output rows from 512 on scaled by 1.07 (a systematic 7% "
@@ -68,6 +78,33 @@ MUTANTS = {
         [(BWD, *FP8),
          (BWD, "        s[nt][i] = p;                                   // P^T",
           "        s[nt][i] = float(__nv_fp8_e4m3(p));             // P^T")]),
+    "moe_scatter_keeps_one_copy": (
+        "grouped forward: the scatter stores instead of adding, so a token "
+        "row keeps one of its two experts' contributions",
+        [(GG, "      atomicAdd(out + (int64_t)rows[r] * d.D + dt * kT "
+              "+ acc_col(lane, n, i),\n                acc[n][i] * gw[r]);",
+          "      out[(int64_t)rows[r] * d.D + dt * kT + acc_col(lane, n, i)]"
+          " =\n                acc[n][i] * gw[r];")], "moe"),
+    "moe_dx_drops_gate_branch": (
+        "grouped dX: dx takes dh1 W_in^T only, without dhg W_gate^T",
+        [(GG, "    if (d.gated) {\n      load_dense(sa, dhg + e * CH,",
+          "    if (false) {\n      load_dense(sa, dhg + e * CH,")], "moe"),
+    "moe_dw_out_without_gate_weight": (
+        "grouped dW: dW_out = h^T g, the gate weight left out of dy",
+        [(GG, "      load_dy(sb1, g, d.D, rows, gw, dt * kT);",
+          "      for (int i = threadIdx.x; i < kT; i += kThreads) "
+          "gw[i] = rows[i] >= 0 ? 1.f : 0.f;\n      __syncthreads();\n"
+          "      load_dy(sb1, g, d.D, rows, gw, dt * kT);")], "moe"),
+    "moe_dw_skips_last_block": (
+        "grouped dW: the loop over an expert's slots skips its last "
+        "64-slot block",
+        [(GG, "for (int sb = 0; sb < n_sb; ++sb) {",
+          "for (int sb = 0; sb < n_sb - 1; ++sb) {")], "moe"),
+    "moe_routing_top2_not_after_top1": (
+        "routing: count1 reported as 0, so the top-2 claims take slots "
+        "from position 0, on top of the top-1 claims instead of after them",
+        [(ROUTE, "count1_out[tid] = (float)run1[tid];",
+          "count1_out[tid] = 0.f;")], "moe"),
 }
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -93,21 +130,14 @@ def _copy(name: str) -> str:
     return root
 
 
-def child(name: str) -> dict:
-    """Both checks on the tree this file sits in (a mutated copy)."""
-    import numpy as np
-    import torch
-    sys.path.insert(0, HERE)
-    import chip_smoke as S
-    from paddle_tpu_torch.jit import TrainStep
+def _kind(name: str) -> str:
+    entry = MUTANTS.get(name, ())
+    return entry[2] if len(entry) > 2 else "flash"
+
+
+def _flash_checks(torch, S, K, TrainStep, AdamW) -> tuple:
     from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
-    from paddle_tpu_torch.ops import kernels as K
-    from paddle_tpu_torch.ops.kernels import build
     from paddle_tpu_torch.ops.kernels import flash_attention as F
-    from paddle_tpu_torch.optimizer import AdamW
-    torch.backends.cuda.matmul.allow_tf32 = False
-    build.build_all(["rms_norm", "flash_attention_fwd",
-                     "flash_attention_bwd"])
     b, s, h, d = 4, S.TRAIN_SEQ, 16, 128
     gen = torch.Generator(device="cuda").manual_seed(S.SEED + 4)
     q, k, v, do = (torch.randn((b, s, h, d), generator=gen,
@@ -125,14 +155,71 @@ def child(name: str) -> dict:
     for _ in range(S.TRAIN_STEPS):
         step(batch, batch)
     parity = S.train_parity_run(torch, K, model, opt, TrainStep, batch)
-    grads = parity.pop("grad_rel_l2")
-    parity["top_grad_rel_l2"] = sorted(grads.items(),
-                                       key=lambda kv: -kv[1])[:5]
-    return {"mutant": name,
-            "fault": MUTANTS.get(name, ("none (the kernels as they are)",))[0],
-            "flash": flash, "train_parity": parity,
-            "caught_by_kernel_check": bool(flash["failures"]),
-            "caught_by_train_parity": bool(parity["failures"])}
+    del model, opt, step
+    torch.cuda.empty_cache()
+    return flash, parity
+
+
+def _moe_checks(torch, S, K, TrainStep, AdamW) -> tuple:
+    from paddle_tpu_torch.models import Qwen2MoeConfig, Qwen2MoeForCausalLM
+    from paddle_tpu_torch.ops.kernels import moe_grouped_gemm as GG
+    from paddle_tpu_torch.ops.kernels import moe_routing as MR
+    gen = torch.Generator(device="cuda").manual_seed(S.SEED + 5)
+    inp = S.moe_inputs(torch, GG, MR, gen)
+    route = S.routing_errors(torch, MR, inp["logits"], inp["u"])
+    grouped = S.moe_errors(torch, GG, inp["x"], inp["row_id"],
+                           inp["gate_w"], inp["wi"], inp["wg"], inp["wo"],
+                           inp["g"])
+    check = {"routing": route, "grouped": grouped,
+             "failures": route["failures"] + grouped["failures"]}
+    del inp
+    torch.cuda.empty_cache()
+    cfg = S.moe_config(Qwen2MoeConfig, S.MOE_SEQ)
+    model = Qwen2MoeForCausalLM(cfg, device="cuda", seed=S.SEED)
+    batch = torch.tensor(np.random.default_rng(S.SEED).integers(
+        0, cfg.vocab_size, (S.MOE_BATCH, S.MOE_SEQ)), dtype=torch.int32,
+        device="cuda")
+    opt = AdamW(learning_rate=S.TRAIN_LR, parameters=model)
+    step = TrainStep(model, opt, lambda logits, y: model.loss(logits, y))
+    for _ in range(S.MOE_STEPS):
+        step(batch, batch)
+    parity = S.train_parity_run(
+        torch, K, model, opt, TrainStep, batch,
+        kernels=S.FLASH_KERNELS + S.MOE_KERNELS, limits=S.MOE_PARITY,
+        reseed=lambda: model.generator.manual_seed(S.SEED + 6),
+        probes=S.moe_probes(model), probe_limits=S.MOE_PROBE_LIMITS)
+    return check, parity
+
+
+def child(name: str) -> dict:
+    """The checks of the mutant's kind on the tree this file sits in (a
+    mutated copy); the control runs both kinds."""
+    import torch
+    sys.path.insert(0, HERE)
+    import chip_smoke as S
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.ops import kernels as K
+    from paddle_tpu_torch.ops.kernels import build
+    from paddle_tpu_torch.optimizer import AdamW
+    torch.backends.cuda.matmul.allow_tf32 = False
+    build.build_all()
+    kinds = ("flash", "moe") if name == "control" else (_kind(name),)
+    out = {"mutant": name, "fault": MUTANTS.get(
+        name, ("none (the kernels as they are)",))[0]}
+    caught_k, caught_p = False, False
+    for kind in kinds:
+        check, parity = (_flash_checks if kind == "flash" else _moe_checks)(
+            torch, S, K, TrainStep, AdamW)
+        grads = parity.pop("grad_rel_l2")
+        parity["top_grad_rel_l2"] = sorted(grads.items(),
+                                           key=lambda kv: -kv[1])[:5]
+        out[kind] = check
+        out[kind + "_train_parity"] = parity
+        caught_k |= bool(check["failures"])
+        caught_p |= bool(parity["failures"])
+    out["caught_by_kernel_check"] = caught_k
+    out["caught_by_train_parity"] = caught_p
+    return out
 
 
 def main(argv=None) -> int:
@@ -155,7 +242,7 @@ def main(argv=None) -> int:
             proc = subprocess.run(
                 [sys.executable, os.path.join(root, "chip_mutants.py"),
                  "--child", name], cwd=root, capture_output=True, text=True,
-                timeout=900)
+                timeout=1200)
         finally:
             shutil.rmtree(root, ignore_errors=True)
         lines = proc.stdout.strip().splitlines()
@@ -167,8 +254,11 @@ def main(argv=None) -> int:
         print(json.dumps(results[name]), flush=True)
     summary = {n: {"kernel_check": r.get("caught_by_kernel_check"),
                    "train_parity": r.get("caught_by_train_parity"),
-                   "parity_failures": r.get("train_parity", {})
-                   .get("failures")} for n, r in results.items()}
+                   "parity_failures": {
+                       k: v.get("failures") for k, v in r.items()
+                       if isinstance(v, dict) and
+                       k.endswith("_train_parity")}}
+               for n, r in results.items()}
     print(json.dumps({"caught": summary}), flush=True)
     ok = (summary["control"]["kernel_check"] is False
           and summary["control"]["train_parity"] is False

@@ -10,12 +10,14 @@ Phases; any failure ends the run with a traceback and a non-zero exit:
    source, all started together;
 3. kernel vs plain — each kernel against its plain PyTorch version in
    bf16 at its path's shapes (RMSNorm and paged decode at the serving
-   shapes; flash forward, dQ and dK/dV at the training shape, plus
-   ragged shapes), with its time (CUDA events over many launches, inputs
+   shapes; flash forward, dQ and dK/dV at the Llama training shape, plus
+   ragged shapes; MoE routing and the grouped-GEMM forward, dX and dW at
+   the Qwen2-MoE training shapes, each launched twice for a bitwise
+   repeat), with its time (CUDA events over many launches, inputs
    rotated through more than the 50 MB L2), the plain version's time,
    the least time the card could take (the bound) and, as a yardstick
-   only, one PyTorch call computing the same function;
-4. train — the JAX package's one-chip training configuration
+   only, PyTorch calls computing the same products;
+4. train — the JAX package's one-chip Llama training configuration
    (``bench.py::_llama_flagship``: 8 layers at full width, bf16, AdamW at
    lr 1e-4, batch 4 x seq 2048) with seeded random weights made on the
    card: 10 ``TrainStep``s on a fixed batch, step time, tokens/s, MFU,
@@ -25,22 +27,27 @@ Phases; any failure ends the run with a traceback and a non-zero exit:
    again inside ``plain_reference()``: per-step |loss difference|, the
    first step's gradients, and the parameters after step 3;
 6. train profile — one training step under ``torch.profiler``;
-7. slice parity — one decode step on one serving engine state, kernels
+7. train_moe, train_moe_parity, train_moe_profile — phases 4-6 for the
+   JAX package's ``qwen2_moe_fused`` configuration (8 sparse layers of 16
+   experts, top-2, full width, bf16, batch 8 x seq 1024), with
+   ``mfu_active``, the aux losses and the dropped copies per layer;
+8. slice parity — one decode step on one serving engine state, kernels
    vs plain versions;
-8. serve — Llama-3-8B widths in bf16 with seeded random weights made on
+9. serve — Llama-3-8B widths in bf16 with seeded random weights made on
    the card, 8 requests x 32 greedy tokens through ``ServingEngine``
    (including a prefix hit and a copy-on-write), the launch counters
    read around this phase alone;
-9. profile — one mixed and three decode steps under ``torch.profiler``:
-   host wall, device time, idle share and the top kernels per step;
-10. a ``{"kernels": [...]}`` line for every ported kernel.
+10. profile — one mixed and three decode steps under ``torch.profiler``:
+    host wall, device time, idle share and the top kernels per step;
+11. a ``{"kernels": [...]}`` line for every ported kernel.
 
 The card's name and power limit are printed again on the line before
 the last; the last line is ``{"ok": true, "device": {...}}``. Without a
 CUDA device, or without the repository around this file, it exits
 non-zero before printing any result. ``--layers`` cuts the serving
 model's depth (never width) and the cut is printed; the training phases
-always run the full configuration.
+always run their full configurations. Each model is freed before the
+next is built.
 """
 
 from __future__ import annotations
@@ -115,6 +122,13 @@ def _timings(torch, fns, arg_sets, own_sets=None) -> dict:
         sets = (own_sets or {}).get(key, arg_sets)
         out[prefix + "ms"] = _time_ms(torch, fn, sets)
         out[prefix + "device_ms"] = _device_ms(torch, fn, sets)
+    return out
+
+
+def _counts(K, **nonzero) -> dict:
+    """Every kernel's launch count: 0 but for ``nonzero``."""
+    out = dict.fromkeys(K.launch_counts(), 0)
+    out.update(nonzero)
     return out
 
 
@@ -520,9 +534,9 @@ def phase_train(torch, K, model, TrainStep, AdamW, batch, smi) -> tuple:
     if not losses[-1] < losses[0]:
         raise AssertionError(f"the loss did not fall on a fixed batch: "
                              f"{losses}")
-    want = {"rms_norm": (2 * L + 1) * TRAIN_STEPS, "paged_attention": 0,
-            "flash_fwd": L * TRAIN_STEPS, "flash_dq": L * TRAIN_STEPS,
-            "flash_dkv": L * TRAIN_STEPS}
+    want = _counts(K, rms_norm=(2 * L + 1) * TRAIN_STEPS,
+                   flash_fwd=L * TRAIN_STEPS, flash_dq=L * TRAIN_STEPS,
+                   flash_dkv=L * TRAIN_STEPS)
     if launches != want:
         raise AssertionError(f"launch counters {launches} != expected "
                              f"{want} over {TRAIN_STEPS} steps")
@@ -539,7 +553,13 @@ def _clone_state(state):
 PARITY_DLOSS, PARITY_GRAD_REL, PARITY_DPARAM = 2e-3, 0.05, 1.5e-4
 
 
-def train_parity_run(torch, K, model, opt, TrainStep, batch) -> dict:
+FLASH_KERNELS = ("flash_fwd", "flash_dq", "flash_dkv")
+
+
+def train_parity_run(torch, K, model, opt, TrainStep, batch,
+                     kernels=FLASH_KERNELS,
+                     limits=(PARITY_DLOSS, PARITY_GRAD_REL, PARITY_DPARAM),
+                     reseed=None, probes=(), probe_limits=None) -> dict:
     """Three steps from one state (weights and optimizer state cloned)
     through the kernels, then the same three inside plain_reference().
 
@@ -555,16 +575,37 @@ def train_parity_run(torch, K, model, opt, TrainStep, batch) -> dict:
     (a quarter of the 6.1e-4 that three Adam steps at lr 1e-4 can put
     between two runs). ``chip_mutants.py`` plants faults in the kernels
     and shows which of these limits each one breaks. Returns the
-    measurements and ``failures``, a list of the limits broken."""
+    measurements and ``failures``, a list of the limits broken.
+
+    ``kernels`` must launch in the kernel run; ``limits`` are the three
+    limits above; ``reseed``, when given, is called before each run (a
+    model that draws random numbers starts both runs from one state).
+    ``probes`` names modules whose output and input gradient in the first
+    step are compared too (relative L2, the worst module against
+    ``probe_limits = (output, input gradient)``)."""
     params = dict(model.named_parameters())
     snap_p = {k: p.detach().clone() for k, p in params.items()}
     snap_s = _clone_state(opt.state)
-    runs = {}
+    runs, seen = {}, {}
+
+    def record(mod_name, kind, value):      # the first step's only
+        if value is not None and kind not in seen[mod_name]:
+            seen[mod_name][kind] = value.detach().float().clone()
+
+    hooks = []
+    for mod_name, mod in probes:
+        hooks.append(mod.register_forward_hook(
+            lambda m, i, o, n=mod_name: record(n, "out", o)))
+        hooks.append(mod.register_full_backward_hook(
+            lambda m, gi, go, n=mod_name: record(n, "dx", gi[0])))
     for name in ("kernels", "plain"):
+        seen = {mod_name: {} for mod_name, _ in probes}
         with torch.no_grad():
             for k, p in params.items():
                 p.copy_(snap_p[k])
         opt.state = _clone_state(snap_s)
+        if reseed is not None:
+            reseed()
         step = TrainStep(model, opt, lambda logits, y: model.loss(logits, y))
         K.reset_launch_counts()
         scope = (K.plain_reference() if name == "plain"
@@ -580,8 +621,11 @@ def train_parity_run(torch, K, model, opt, TrainStep, batch) -> dict:
         master = {k: (opt.state["master"][k] if opt.state["master"][k]
                       is not None else params[k]).detach().clone()
                   for k in params}
-        runs[name] = (losses, grads, master, K.launch_counts())
-    (lk, gk, mk, ck), (lp, gp, mp, cp) = runs["kernels"], runs["plain"]
+        runs[name] = (losses, grads, master, K.launch_counts(), seen)
+    for h in hooks:
+        h.remove()
+    (lk, gk, mk, ck, pk), (lp, gp, mp, cp, pp) = (runs["kernels"],
+                                                  runs["plain"])
     dloss = [abs(a - b) for a, b in zip(lk, lp)]
     grad_rel = {k: ((gk[k].float() - gp[k].float()).norm()
                     / gp[k].float().norm().clamp(min=1e-30)).item()
@@ -589,22 +633,30 @@ def train_parity_run(torch, K, model, opt, TrainStep, batch) -> dict:
     dparam = max((mk[k] - mp[k]).abs().max().item() for k in mk)
     worst = max(grad_rel, key=grad_rel.get)
     failures = []
-    if any(cp.values()) or not all(ck[n] for n in
-                                   ("flash_fwd", "flash_dq", "flash_dkv")):
-        failures.append(f"the kernel run must launch the flash kernels "
-                        f"and the plain run none: {ck} {cp}")
-    if not max(dloss) <= PARITY_DLOSS:
-        failures.append(f"|loss difference| {max(dloss)} > {PARITY_DLOSS}")
-    if not grad_rel[worst] <= PARITY_GRAD_REL:
+    lim_loss, lim_grad, lim_param = limits
+    if any(cp.values()) or not all(ck[n] for n in kernels):
+        failures.append(f"the kernel run must launch {kernels} and the "
+                        f"plain run none: {ck} {cp}")
+    if not max(dloss) <= lim_loss:
+        failures.append(f"|loss difference| {max(dloss)} > {lim_loss}")
+    if not grad_rel[worst] <= lim_grad:
         failures.append(f"gradient {worst} {grad_rel[worst]} > "
-                        f"{PARITY_GRAD_REL} in relative L2")
-    if not dparam <= PARITY_DPARAM:
-        failures.append(f"master weights {dparam} > {PARITY_DPARAM} apart")
+                        f"{lim_grad} in relative L2")
+    if not dparam <= lim_param:
+        failures.append(f"master weights {dparam} > {lim_param} apart")
+    probe_rel = {kind: {n: ((pk[n][kind] - pp[n][kind]).norm()
+                            / pp[n][kind].norm().clamp(min=1e-30)).item()
+                        for n in pk} for kind in ("out", "dx")}
+    for kind, lim in zip(("out", "dx"), probe_limits or ()):
+        worst_n = max(probe_rel[kind], key=probe_rel[kind].get)
+        if not probe_rel[kind][worst_n] <= lim:
+            failures.append(f"{worst_n} {kind} {probe_rel[kind][worst_n]} "
+                            f"> {lim} in relative L2")
     return {"losses_kernels": lk, "losses_plain": lp, "abs_dloss": dloss,
             "max_grad_rel_l2": grad_rel[worst], "worst_grad": worst,
             "grad_rel_l2": grad_rel, "max_abs_dparam_step3": dparam,
             "launches_kernels": ck, "launches_plain": cp,
-            "failures": failures}
+            "probe_rel_l2": probe_rel, "failures": failures}
 
 
 def phase_train_parity(torch, K, model, opt, TrainStep, batch) -> dict:
@@ -677,6 +729,467 @@ def phase_train_profile(torch, model, opt, TrainStep, batch) -> dict:
     torch.cuda.synchronize()
     out["optimizer_update_ms"] = start.elapsed_time(end)
     _emit("train_profile", out)
+    return out
+
+
+# ---------------- the Qwen2-MoE training path ----------------
+
+def moe_config(Qwen2MoeConfig, seq: int):
+    """The JAX package's ``qwen2_moe_fused`` configuration
+    (``bench.py::bench_qwen2_moe``, bench.py:451-457, with
+    ``ep_dispatch="fused"`` as bench.py:2883 calls it): full width and
+    depth, bf16, every layer sparse."""
+    return Qwen2MoeConfig(vocab_size=32000, hidden_size=1024,
+                          intermediate_size=2816, moe_intermediate_size=704,
+                          shared_expert_intermediate_size=2816,
+                          num_hidden_layers=8, num_attention_heads=16,
+                          num_key_value_heads=8, num_experts=16,
+                          num_experts_per_tok=2, max_position_embeddings=seq,
+                          dtype="bfloat16", ep_dispatch="fused")
+
+
+MOE_BATCH, MOE_SEQ, MOE_STEPS = 8, 1024, 10
+MOE_KERNELS = ("moe_routing", "moe_fwd", "moe_dx", "moe_dw")
+# Routing kernel vs plain: a row's decisions (experts, keep2) may differ
+# only where its top-2 or keep2 margin is below ROUTE_MARGIN (two fp32
+# softmaxes whose sums run in another order); g1, g2 within ROUTE_ATOL;
+# me_sum within ROUTE_ME_RTOL (8192 fp32 terms summed in another order).
+ROUTE_MARGIN, ROUTE_ATOL, ROUTE_ME_RTOL = 1e-6, 1e-6, 1e-5
+
+
+def _row_errors(torch, got, want) -> dict:
+    """``got`` against fp32 ``want`` by rows of the last axis: the worst
+    row's error over ``2**-7`` of that row's largest magnitude + 1e-3
+    (``row``), the relative Frobenius error (``fro``), and the largest
+    absolute error."""
+    diff = got.float() - want
+    row_tol = FLASH_ROW_RTOL * want.abs().amax(-1) + FLASH_ROW_ATOL
+    return {"max_abs": diff.abs().max().item(),
+            "row": (diff.abs().amax(-1) / row_tol).max().item(),
+            "fro": (diff.norm() / want.norm().clamp(min=1e-30)).item()}
+
+
+def _fails(name, err) -> list[str]:
+    out = []
+    if not err["row"] <= 1.0:
+        out.append(f"{name}: a row beyond its tolerance ({err['row']:.3g}x)")
+    if not err["fro"] <= FLASH_FRO:
+        out.append(f"{name}: relative Frobenius error {err['fro']:.3g} > "
+                   f"{FLASH_FRO}")
+    return out
+
+
+def _positions(torch, g1i, g2i, keep2, E):
+    """p1, c2 and count1 from routing decisions: the plain scan."""
+    iota = torch.arange(E, device=g1i.device)
+    m1 = (g1i.long()[:, None] == iota).int()
+    m2 = (g2i.long()[:, None] == iota).int() * keep2.int()[:, None]
+    p1 = ((torch.cumsum(m1, 0) - 1) * m1).sum(1).int()
+    c2 = ((torch.cumsum(m2, 0) - 1) * m2).sum(1).int()
+    return p1, c2, m1.sum(0).float()
+
+
+def _route_margin(torch, logits, u):
+    """Per row: the smallest gap among its three largest probabilities
+    and between u and its keep threshold."""
+    p = torch.softmax(logits.float(), dim=-1).topk(3, dim=-1).values
+    thr = 2 * p[:, 1] / torch.clamp(p[:, 0] + p[:, 1], min=1e-9)
+    return torch.stack([p[:, 0] - p[:, 1], p[:, 1] - p[:, 2],
+                        (u - thr).abs()]).amin(0)
+
+
+def routing_errors(torch, MR, logits, u) -> dict:
+    """The routing kernel against its plain version on the same logits
+    and uniforms (see ROUTE_MARGIN); a second launch must be bitwise
+    equal to the first. Returns the measurements and ``failures``."""
+    got = MR.moe_routing_cuda(logits, u, True)
+    again = MR.moe_routing_cuda(logits, u, True)
+    torch.cuda.synchronize()
+    want = MR.routing_plain(logits, u, True)
+    g1i, g2i, g1, g2, p1, c2, keep2, count1, me_sum = got
+    E = logits.shape[1]
+    failures = []
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        failures.append("routing: a second launch differs")
+    differ = ((g1i != want[0]) | (g2i != want[1]) | (keep2 != want[6]))
+    margin = _route_margin(torch, logits, u)
+    n_differ = int(differ.sum())
+    worst_margin = margin[differ].max().item() if n_differ else 0.0
+    if n_differ and not worst_margin < ROUTE_MARGIN:
+        failures.append(f"routing: {n_differ} rows decide otherwise, one "
+                        f"with margin {worst_margin} >= {ROUTE_MARGIN}")
+    # the positions are a function of the decisions: exact, from the
+    # kernel's own decisions
+    wp1, wc2, wcount = _positions(torch, g1i, g2i, keep2, E)
+    if not (torch.equal(p1, wp1) and torch.equal(c2, wc2)
+            and torch.equal(count1, wcount)):
+        failures.append("routing: positions or counts differ from the scan "
+                        "of the kernel's own decisions")
+    same = ~differ
+    errs = {"g1": (g1 - want[2])[same].abs().max().item(),
+            "g2": (g2 - want[3])[same].abs().max().item(),
+            "me_sum": ((me_sum - want[8]).abs()
+                       / want[8].abs().clamp(min=1e-30)).max().item()}
+    if not max(errs["g1"], errs["g2"]) <= ROUTE_ATOL:
+        failures.append(f"routing: g1/g2 differ by {errs} > {ROUTE_ATOL}")
+    if not errs["me_sum"] <= ROUTE_ME_RTOL:
+        failures.append(f"routing: me_sum differs by {errs['me_sum']} > "
+                        f"{ROUTE_ME_RTOL} relative")
+    if n_differ == 0 and not all(torch.equal(a, b) for a, b in
+                                 zip(got[:2] + got[4:7], want[:2] + want[4:7])):
+        failures.append("routing: integer outputs differ")
+    return {"rows_deciding_otherwise": n_differ,
+            "their_largest_margin": worst_margin,
+            "max_abs_err": max(errs["g1"], errs["g2"]),
+            "errors": errs, "failures": failures}
+
+
+def moe_errors(torch, GG, x, row_id, gate_w, wi, wg, wo, g) -> dict:
+    """Each grouped-GEMM kernel against its plain version on the same
+    inputs (dW from the kernel's own dX intermediates, so each kernel is
+    held alone), by ``_row_errors`` with the flash rule; each kernel
+    launched twice must give bitwise equal results. The dgw and h of an
+    empty slot are not compared: the Pallas kernels compute them from
+    row T - 1, the CUDA kernels leave 0."""
+    out = GG.moe_fwd_cuda(x, row_id, gate_w, wi, wg, wo, "silu")
+    out2 = GG.moe_fwd_cuda(x, row_id, gate_w, wi, wg, wo, "silu")
+    dx, dgw, inter = GG.moe_dx_cuda(x, row_id, gate_w, wi, wg, wo, g, "silu")
+    dx2, dgw2, inter2 = GG.moe_dx_cuda(x, row_id, gate_w, wi, wg, wo, g,
+                                       "silu")
+    dws = GG.moe_dw_cuda(x, row_id, gate_w, g, inter)
+    dws2 = GG.moe_dw_cuda(x, row_id, gate_w, g, inter)
+    torch.cuda.synchronize()
+    occupied = (row_id < x.shape[0]).float()
+    failures = []
+    repeat = {"fwd": torch.equal(out, out2),
+              "dx": torch.equal(dx, dx2) and torch.equal(dgw * occupied,
+                                                         dgw2 * occupied),
+              "dw": all(torch.equal(a, b) for a, b in zip(dws, dws2))}
+    failures += [f"{k}: a second launch differs" for k, v in repeat.items()
+                 if not v]
+    errs = {}
+    want = GG.moe_fwd_plain(x, row_id, gate_w, wi, wg, wo, "silu")
+    errs["out"] = _row_errors(torch, out, want)
+    del want
+    wdx, wdgw, winter = GG.moe_dx_plain(x, row_id, gate_w, wi, wg, wo, g,
+                                        "silu")   # winter: h rounded
+    errs["dx"] = _row_errors(torch, dx, wdx)
+    errs["dgw"] = _row_errors(torch, dgw * occupied, wdgw * occupied)
+    del winter
+    want_h = GG._forward_parts(x, row_id, wi, wg, "silu")[3]   # fp32
+    errs["h"] = _row_errors(torch, inter[0] * occupied[..., None],
+                            want_h * occupied[..., None])
+    del wdx, wdgw, want_h
+    for name, got, want in zip(("dw_in", "dw_gate", "dw_out"), dws,
+                               GG.moe_dw_plain(x, row_id, gate_w, g, inter)):
+        errs[name] = _row_errors(torch, got, want)
+    for name, err in errs.items():
+        failures += _fails(name, err)
+    return {"errors": errs, "bitwise_repeat": repeat, "failures": failures}
+
+
+def moe_inputs(torch, GG, MR, gen, T=MOE_BATCH * MOE_SEQ, E=16, D=1024,
+               H=704):
+    """Inputs of the MoE kernels at the training path's shapes: fp32
+    logits ~ N(0, 1.5^2) (the router's scale at init) plus a per-expert
+    offset rising from 0 to 1.5, so that, as in training, some experts
+    fill their capacity (at T 8192: 4 of 16 full, 3410 of 16384 copies
+    dropped) and every slot block is exercised; uniforms; the slot maps
+    they route to (the plain routing and the fused dispatch's own
+    packing, capacity 1280); x and g ~ N(0, 1) and weights ~ N(0, 1/K)
+    for a product over K, so every product is O(1) and the tolerances'
+    1e-3 absolute term is small beside it; all bf16 but the logits."""
+    from paddle_tpu_torch.distributed import moe as M
+    logits = (torch.randn((T, E), generator=gen, device="cuda") * 1.5
+              + torch.linspace(0.0, 1.5, E, device="cuda"))
+    u = torch.rand((T,), generator=gen, device="cuda")
+    cap = int(1.25 * T * 2 / E)
+    with torch.no_grad():
+        parts = M._top2_parts(logits, cap, u=u)
+        idx = torch.stack(parts[:2], 1)
+        w = torch.stack(parts[2:4], 1)
+        keep = torch.stack(parts[4:6], 1)
+        pos = torch.stack(parts[6:8], 1)
+        cpad = GG.padded_capacity(cap)
+        slot, _, fill, occ = M._slot_structures(idx, pos, keep, E, cpad)
+        row_id, gate_w = GG.slot_maps(slot, fill, occ, w.reshape(-1), T, E,
+                                      cpad, 2)
+
+    def rand(*shape, std=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda")
+                * std).bfloat16()
+
+    return {"logits": logits, "u": u, "row_id": row_id.contiguous(),
+            "gate_w": gate_w.contiguous(), "x": rand(T, D),
+            "g": rand(T, D), "wi": rand(E, D, H, std=D ** -0.5),
+            "wg": rand(E, D, H, std=D ** -0.5),
+            "wo": rand(E, H, D, std=H ** -0.5), "capacity": cap,
+            "cpad": cpad, "occupied": int((row_id < T).sum())}
+
+
+def phase_moe_kernels(torch, MR, GG) -> dict:
+    """The routing kernel and the three grouped-GEMM kernels at the
+    Qwen2-MoE training shapes (T 8192, E 16, D 1024, H 704, cpad 1280),
+    bf16 (fp32 logits): each against its plain version (routing by
+    ROUTE_*; the grouped kernels by the flash rule, each row within
+    2**-7 of its largest magnitude + 1e-3 and 4e-3 in relative Frobenius
+    norm) and launched twice for a bitwise repeat; then the time of each
+    (CUDA events and profiler device time), of its plain version, its
+    bound from this run's occupied slots, and as a yardstick only the
+    ``torch.bmm`` calls of its products over packed [16, 1280, *]
+    buffers, without the gathers (none for routing)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    inp = moe_inputs(torch, GG, MR, gen)
+    T, E = inp["logits"].shape
+    D, H = inp["wi"].shape[1:]
+    cpad, n = inp["cpad"], inp["occupied"]
+    route = routing_errors(torch, MR, inp["logits"], inp["u"])
+    args = (inp["x"], inp["row_id"], inp["gate_w"], inp["wi"], inp["wg"],
+            inp["wo"])
+    grouped = moe_errors(torch, GG, *args, inp["g"])
+    failures = route.pop("failures") + grouped.pop("failures")
+    _emit("moe_kernel_check", {"routing": route, "grouped": grouped,
+                               "occupied_slots": n, "slots": E * cpad})
+    if failures:
+        raise AssertionError(f"MoE kernels differ from their plain "
+                             f"versions: {failures}")
+    # yardsticks: packed operands, no gathers
+    xp = torch.randn((E, cpad, D), device="cuda").bfloat16()
+    hp = torch.randn((E, cpad, H), device="cuda").bfloat16()
+    wi, wg, wo = inp["wi"], inp["wg"], inp["wo"]
+    wit, wgt, wot = (w.transpose(1, 2) for w in (wi, wg, wo))
+    xpt, hpt = xp.transpose(1, 2), hp.transpose(1, 2)
+
+    def lib_fwd():
+        return torch.bmm(xp, wi), torch.bmm(xp, wg), torch.bmm(hp, wo)
+
+    def lib_dx():
+        return (torch.bmm(xp, wi), torch.bmm(xp, wg), torch.bmm(xp, wot),
+                torch.bmm(hp, wo), torch.bmm(hp, wit), torch.bmm(hp, wgt))
+
+    def lib_dw():
+        return torch.bmm(xpt, hp), torch.bmm(xpt, hp), torch.bmm(hpt, xp)
+
+    _, _, inter = GG.moe_dx_cuda(*args, inp["g"], "silu")
+    route_args = [(inp["logits"], inp["u"], True)]
+    fwd_args, dx_args = [args + ("silu",)], [args + (inp["g"], "silu")]
+    dw_args = [(inp["x"], inp["row_id"], inp["gate_w"], inp["g"], inter)]
+    maps = E * cpad * 8
+    xb, wb = T * D * 2, 3 * E * D * H * 2
+    work = {   # name: (flops, bytes) for this run's occupied slots
+        "moe_routing": (0.0, T * E * 4 + T * 4 + 7 * T * 4 + 2 * E * 4),
+        "moe_fwd": (3 * 2.0 * n * D * H, xb + wb + maps + T * D * 4),
+        "moe_dx": (6 * 2.0 * n * D * H,
+                   2 * xb + wb + maps + T * D * 4 + E * cpad * 4
+                   + 3 * E * cpad * H * 2),
+        "moe_dw": (3 * 2.0 * n * D * H,
+                   2 * xb + maps + 3 * E * cpad * H * 2 + wb)}
+    fns = {
+        "moe_routing": ({"kernel": MR.moe_routing_cuda,
+                         "plain": MR.routing_plain}, route_args),
+        "moe_fwd": ({"kernel": GG.moe_fwd_cuda, "plain": GG.moe_fwd_plain,
+                     "library": lambda *a: lib_fwd()}, fwd_args),
+        "moe_dx": ({"kernel": GG.moe_dx_cuda, "plain": GG.moe_dx_plain,
+                    "library": lambda *a: lib_dx()}, dx_args),
+        "moe_dw": ({"kernel": GG.moe_dw_cuda, "plain": GG.moe_dw_plain,
+                    "library": lambda *a: lib_dw()}, dw_args)}
+    err_of = {"moe_fwd": ("out",), "moe_dx": ("dx", "dgw", "h"),
+              "moe_dw": ("dw_in", "dw_gate", "dw_out")}
+    rows = {}
+    for name, (fn, sets) in fns.items():
+        flops, nbytes = work[name]
+        bound, bound_by = _bound(flops, nbytes)
+        t = _timings(torch, fn, sets)
+        if name == "moe_routing":
+            err = {"max_abs_err": route["max_abs_err"],
+                   "tolerance": f"decisions equal but where the margin < "
+                                f"{ROUTE_MARGIN}; positions exact; g1, g2 "
+                                f"{ROUTE_ATOL} absolute; me_sum "
+                                f"{ROUTE_ME_RTOL} relative",
+                   "library_ms": None, "library_device_ms": None}
+        else:
+            e = grouped["errors"]
+            err = {"max_abs_err": max(e[o]["max_abs"] for o in err_of[name]),
+                   "max_row_ratio": max(e[o]["row"] for o in err_of[name]),
+                   "max_rel_fro": max(e[o]["fro"] for o in err_of[name]),
+                   "tolerance": "each row within 2**-7 of its largest "
+                                "magnitude + 1e-3; relative Frobenius "
+                                "<= 4e-3; bitwise repeatable"}
+        rows[name] = {"shape": {"T": T, "E": E, "D": D, "H": H, "cpad": cpad,
+                                "occupied_slots": n, "dtype": "bfloat16"},
+                      **err, **t, "flops": flops, "bytes": nbytes,
+                      "bound_ms": bound, "bound_by": bound_by}
+        _emit("kernel_vs_plain", {"name": name, **rows[name]})
+    return rows
+
+
+def _moe_active_params(cfg, n_params: int) -> int:
+    """bench.py:464-466: all parameters but the routed experts a token
+    does not use."""
+    return n_params - cfg.num_hidden_layers * (
+        cfg.num_experts - cfg.num_experts_per_tok) * (
+        3 * cfg.hidden_size * cfg.moe_intermediate_size)
+
+
+def _count_drops(port_moe):
+    """Wrap ``moe_fused_compute`` to keep each call's dropped-copy count
+    (a device tensor, read after the step); returns the list and an undo
+    function."""
+    calls, orig = [], port_moe.moe_fused_compute
+
+    def counting(x, idx, w, pos, keep, *rest):
+        calls.append((~keep).sum())
+        return orig(x, idx, w, pos, keep, *rest)
+    port_moe.moe_fused_compute = counting
+    return calls, lambda: setattr(port_moe, "moe_fused_compute", orig)
+
+
+def phase_train_moe(torch, K, model, TrainStep, AdamW, batch, smi) -> tuple:
+    """10 TrainSteps of the ``qwen2_moe_fused`` configuration on one fixed
+    batch (labels = inputs, as bench.py:488): step wall times, the median
+    of steps 3-10, tokens/s, ``mfu_active`` (``6 * n_active * tokens/s``
+    over the 989 TFLOP/s bf16 peak, bench.py:496), peak memory, every
+    loss and aux loss, the dropped copies per layer in each step, and the
+    launch counters of this phase alone (one routing, forward, dX and dW
+    launch per layer and step)."""
+    from paddle_tpu_torch.distributed import moe as port_moe
+    cfg = model.config
+    L = cfg.num_hidden_layers
+    opt = AdamW(learning_rate=TRAIN_LR, parameters=model)
+    step = TrainStep(model, opt, lambda logits, y: model.loss(logits, y))
+    drops, undo = _count_drops(port_moe)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    losses, auxes, times, dropped = [], [], [], []
+    try:
+        for _ in range(MOE_STEPS):
+            drops.clear()
+            t0 = time.perf_counter()
+            loss = step(batch, batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses.append(loss.item())
+            auxes.append(model.aux_loss().item())
+            dropped.append([int(d) for d in drops])
+    finally:
+        undo()
+    launches = K.launch_counts()
+    n_params = model.num_params()
+    n_active = _moe_active_params(cfg, n_params)
+    step_s = statistics.median(times[2:])
+    tokens = MOE_BATCH * MOE_SEQ
+    out = {"config": cfg.__dict__, "params": n_params,
+           "params_active": n_active, "batch": MOE_BATCH, "seq": MOE_SEQ,
+           "lr": TRAIN_LR, "step_ms": [t * 1e3 for t in times],
+           "median_step_ms": step_s * 1e3, "tokens_per_s": tokens / step_s,
+           "mfu_active": 6.0 * n_active * tokens / step_s
+           / BF16_TENSOR_FLOPS,
+           "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "losses": losses, "aux_losses": auxes,
+           "dropped_copies_per_layer": dropped, "launches": launches,
+           "card": smi}
+    _emit("train_moe", out)
+    if not all(math.isfinite(x) for x in losses + auxes):
+        raise AssertionError(f"non-finite training loss: {losses} {auxes}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"the loss did not fall on a fixed batch: "
+                             f"{losses}")
+    n = L * MOE_STEPS
+    want = _counts(K, rms_norm=(2 * L + 1) * MOE_STEPS, flash_fwd=n,
+                   flash_dq=n, flash_dkv=n, moe_routing=n, moe_fwd=n,
+                   moe_dx=n, moe_dw=n)
+    if launches != want or any(len(d) != L for d in dropped):
+        raise AssertionError(f"launch counters {launches} != expected "
+                             f"{want} over {MOE_STEPS} steps (fused "
+                             f"dispatch calls per step: "
+                             f"{[len(d) for d in dropped]})")
+    return out, opt
+
+
+# MoE train parity limits (see phase_train_moe_parity)
+MOE_PARITY = (2e-3, 0.25, 3e-4)
+MOE_PROBE_LIMITS = (0.2, 0.2)     # routed output, its input gradient
+
+
+def moe_probes(model) -> list:
+    """Each sparse layer's ``MoELayer``: (name, module)."""
+    return [(f"layers.{i}.mlp.moe", layer.mlp.moe)
+            for i, layer in enumerate(model.layers) if layer.is_sparse]
+
+
+def phase_train_moe_parity(torch, K, model, opt, TrainStep, batch) -> dict:
+    """``train_parity_run`` on the MoE model, the routers' generator
+    reseeded before each run. Limits (``MOE_PARITY``): per-step |loss
+    difference| 2e-3, every first-step gradient 0.25 in relative L2, the
+    fp32 master weights 3e-4 apart after step 3. The correct kernels
+    (control, NVIDIA H100 80GB HBM3, 700 W) gave 2.0e-4, 0.082
+    (``layers.7.mlp.moe.experts.w_out``) and 1.28e-4: wider than the
+    Llama step's because the two runs' bf16 activations differ by an ulp
+    here and there, which flips the routing of tokens near a tie; a
+    flipped token moves its gradient to another expert and shifts the
+    FCFS slots after it, and at this capacity (15-27% of the copies
+    dropped) a shifted slot changes which copies are dropped. Adam turns
+    a gradient that changes sign into a 2 lr step, so the master weights
+    can part by up to 6e-4 in 3 steps wherever that happens.
+
+    Two more limits (``MOE_PROBE_LIMITS``) watch each ``MoELayer``
+    itself in the first step: its output and the gradient at its input,
+    0.3 in relative L2. At init the routed experts add ~1e-3 of the
+    residual stream (the JAX package's XavierNormal over a 3-D weight:
+    std ~0.0017), so a wrong routed output or dX moves the loss and the
+    weight gradients by less than the noise above; only the layer's own
+    tensors show it. ``chip_mutants.py`` shows which MoE kernel faults
+    these limits catch."""
+    out = train_parity_run(
+        torch, K, model, opt, TrainStep, batch,
+        kernels=FLASH_KERNELS + MOE_KERNELS, limits=MOE_PARITY,
+        reseed=lambda: model.generator.manual_seed(SEED + 6),
+        probes=moe_probes(model), probe_limits=MOE_PROBE_LIMITS)
+    _emit("train_moe_parity", {k: v for k, v in out.items()
+                               if k != "grad_rel_l2"})
+    if out["failures"]:
+        raise AssertionError(f"MoE train parity beyond tolerance: "
+                             f"{out['failures']}")
+    return out
+
+
+_MOE_CATEGORIES = (
+    ("moe_expert", ("expert_h_kernel", "fwd_out_kernel", "dx_out_kernel",
+                    "dgw_reduce_kernel", "dw_kernel")),
+    ("moe_routing", ("routing_kernel",)),) + _CATEGORIES
+
+
+def phase_train_moe_profile(torch, model, opt, TrainStep, batch) -> dict:
+    """One MoE training step under the profiler: device time by category
+    (the MoE expert kernels, the routing kernel, flash, RMSNorm, GEMMs,
+    everything else), the idle share, and the AdamW update alone (its
+    device time under the profiler and its CUDA-event time on this
+    step's gradients); ``other_without_adamw`` takes the update out of
+    "other"."""
+    step = TrainStep(model, opt, lambda logits, y: model.loss(logits, y))
+    out = _profile_steps(torch, lambda: step(batch, batch), 1, top=None)
+    cats = {name: 0.0 for name, _ in _MOE_CATEGORIES}
+    cats["other"] = 0.0
+    for kname, ms in out.pop("all_kernels_ms"):
+        cat = next((name for name, keys in _MOE_CATEGORIES
+                    if any(k_ in kname for k_ in keys)), "other")
+        cats[cat] += ms
+    params = dict(model.named_parameters())
+    grads = {k: p.grad for k, p in params.items()}
+    upd = _profile_steps(torch, lambda: opt.update(params, grads, opt.state,
+                                                   lr=opt.get_lr()), 1)
+    cats["adamw"] = upd["device_ms"] or 0.0
+    cats["other_without_adamw"] = cats["other"] - cats["adamw"]
+    out["device_ms_by_category"] = cats
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    opt.update(params, grads, opt.state, lr=opt.get_lr())
+    end.record()
+    torch.cuda.synchronize()
+    out["optimizer_update_ms"] = start.elapsed_time(end)
+    _emit("train_moe_profile", out)
     return out
 
 
@@ -770,9 +1283,8 @@ def phase_serve(torch, np, model, ServingEngine, K, smi: str) -> dict:
         raise AssertionError(f"requests did not all finish with "
                              f"{new_tokens} tokens: {bad}")
     dispatches = steps["decode"] + steps["mixed"]
-    want = {"rms_norm": (2 * L + 1) * dispatches,
-            "paged_attention": L * steps["decode"],
-            "flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
+    want = _counts(K, rms_norm=(2 * L + 1) * dispatches,
+                   paged_attention=L * steps["decode"])
     if launches != want or not (launches["rms_norm"]
                                 and launches["paged_attention"]):
         raise AssertionError(f"launch counters {launches} != expected "
@@ -816,10 +1328,13 @@ def main(argv=None) -> int:
     try:
         from paddle_tpu_torch.jit import TrainStep
         from paddle_tpu_torch.models import (LlamaConfig, LlamaForCausalLM,
-                                             llama_3_8b)
+                                             Qwen2MoeConfig,
+                                             Qwen2MoeForCausalLM, llama_3_8b)
         from paddle_tpu_torch.ops import kernels as K
         from paddle_tpu_torch.ops.kernels import build
         from paddle_tpu_torch.ops.kernels import flash_attention as F
+        from paddle_tpu_torch.ops.kernels import moe_grouped_gemm as GG
+        from paddle_tpu_torch.ops.kernels import moe_routing as MR
         from paddle_tpu_torch.optimizer import AdamW
         from paddle_tpu_torch.serving import ServingEngine
     except ImportError as e:
@@ -856,6 +1371,8 @@ def main(argv=None) -> int:
     paged = phase_paged(torch, K)
     flash = phase_flash(torch, F)
     torch.cuda.empty_cache()
+    moe_k = phase_moe_kernels(torch, MR, GG)
+    torch.cuda.empty_cache()
 
     # 4-6 on the training configuration, freed before the serving model
     cfg = flagship_config(LlamaConfig, TRAIN_SEQ)
@@ -870,6 +1387,25 @@ def main(argv=None) -> int:
     train, opt = phase_train(torch, K, model, TrainStep, AdamW, batch, smi)
     phase_train_parity(torch, K, model, opt, TrainStep, batch)
     phase_train_profile(torch, model, opt, TrainStep, batch)
+    for p in model.parameters():
+        p.grad = None
+    del model, opt
+    torch.cuda.empty_cache()
+
+    # the Qwen2-MoE training configuration, freed before the serving model
+    cfg = moe_config(Qwen2MoeConfig, MOE_SEQ)
+    t0 = time.perf_counter()
+    model = Qwen2MoeForCausalLM(cfg, device="cuda", seed=SEED)
+    torch.cuda.synchronize()
+    _emit("train_moe_model", {"init_s": time.perf_counter() - t0,
+                              "params": model.num_params()})
+    batch = torch.tensor(np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (MOE_BATCH, MOE_SEQ)), dtype=torch.int32,
+        device="cuda")
+    train_moe, opt = phase_train_moe(torch, K, model, TrainStep, AdamW,
+                                     batch, smi)
+    phase_train_moe_parity(torch, K, model, opt, TrainStep, batch)
+    phase_train_moe_profile(torch, model, opt, TrainStep, batch)
     for p in model.parameters():
         p.grad = None
     del model, opt
@@ -926,6 +1462,21 @@ def main(argv=None) -> int:
             "name": name, "route": "cuda", "source": src + source,
             "replaces": f"paddle_tpu/ops/pallas/flash_attention.py:{line}",
             "launches": train["launches"][name],
+            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "shape": row["shape"]})
+    for name, line in (("moe_routing", "moe_routing.py:147"),
+                       ("moe_fwd", "moe_grouped_gemm.py:263"),
+                       ("moe_dx", "moe_grouped_gemm.py:371"),
+                       ("moe_dw", "moe_grouped_gemm.py:485")):
+        row = moe_k[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": src + ("moe_routing.cu" if name == "moe_routing"
+                             else "moe_grouped_gemm.cu"),
+            "replaces": f"paddle_tpu/ops/pallas/{line}",
+            "launches": train_moe["launches"][name],
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],

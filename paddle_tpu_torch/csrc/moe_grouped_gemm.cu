@@ -1,0 +1,509 @@
+// The fused grouped-GEMM MoE dispatch: the port of
+// paddle_tpu/ops/pallas/moe_grouped_gemm.py, forward (_fwd_call, its
+// pallas_call at :263), dX (_dx_call, :371) and dW (_dw_call, :485).
+//
+// Slot (e, s) of the [E, cpad] maps names its token row_id (T: empty) and
+// its combine weight gate_w (0 when empty). With x [T, D] bf16, W_in and
+// W_gate [E, D, H], W_out [E, H, D] (bf16), per slot:
+//   h1 = x[row] W_in[e], hg = x[row] W_gate[e]   (fp32 sums)
+//   h  = act(hg) * h1 (gated) or act(h1), rounded to bf16
+//   y  = h W_out[e] (fp32), out[row] += gate_w * y (fp32 scatter-add)
+//   dX: dgw = <g[row], y>; dy = bf16(g[row] * gate_w); dh = dy W_out[e]^T;
+//       dh1 = bf16(dh * act(hg)), dhg = bf16(dh * h1 * act'(hg)) (gated) or
+//       dh1 = bf16(dh * act'(h1)); dx[row] += dh1 W_in[e]^T + dhg W_gate[e]^T
+//   dW: per expert, over its slots, dW_in = x^T dh1, dW_gate = x^T dhg,
+//       dW_out = h^T dy, fp32 sums rounded once to bf16.
+// These are the Pallas kernels' rounding points. An empty slot adds 0: the
+// kernels zero its x and g rows (the Pallas kernels gather row T - 1 and
+// multiply by its gate weight 0) and skip slot blocks that hold no token.
+//
+// What bounds them on the H100: the tensor cores. At the Qwen2-MoE shapes
+// (T 8192, D 1024, H 704, E 16, cpad 1280) the forward is 3 products of
+// 2 x 20480 x 1024 x 704 (88.6 GFLOP if every slot were full, 0.09 ms at
+// 989 TFLOP/s), dX and dW 6 each. What differs from the TPU:
+// - The TPU grid is sequential, so its read-modify-write scatter-add is
+//   race-free. Hopper blocks run in parallel: the scatter-add is an fp32
+//   atomicAdd into a zeroed [T, D] buffer. A token row gets at most two
+//   contributions (its top-2 copies) onto 0, and 0 + a + b == 0 + b + a
+//   exactly in IEEE fp32, so the result does not depend on the schedule.
+// - The TPU kept h in VMEM between its two products. Here each pass is a
+//   few simple launches over 64 x 64 output tiles (4 warps, mma.sync
+//   m16n8k16 bf16 with fp32 accumulators, cp.async tile loads): the
+//   forward writes h (bf16, [E * cpad, H]) between a gather-LHS launch and
+//   a W_out launch with the scatter epilogue; dX writes h, dh1 and dhg for
+//   the dW launch to read (the values the Pallas dW pass recomputes) and
+//   reduces <g, y> over the D tiles in a fixed order; dW gives each block
+//   one output tile of one expert's dW and loops over that expert's slots:
+//   no atomics there.
+// - H = 704 is 11 x 64: tiles past H are zero-filled on load and not
+//   stored, so H need only be a multiple of 32 (the loads move 8 columns).
+// wgmma, TMA and deeper pipelines are later work (PERF.md).
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "flash_common.cuh"
+
+namespace {
+
+using flash::bf16;
+
+constexpr int kT = 64;            // tile edge (slots, D or H)
+constexpr int kLD = kT + 8;       // shared row: 16-byte rows, no conflicts
+constexpr int kTile = kT * kLD;   // bf16 elements of one shared tile
+constexpr int kThreads = 128;     // 4 warps, 16 output rows each
+
+struct Dims {
+  int T, D, H, E, cpad, act, gated;
+};
+
+__device__ __forceinline__ float act_f(int act, float v) {
+  return act == 0 ? v * (1.f / (1.f + expf(-v))) : fmaxf(v, 0.f);
+}
+
+__device__ __forceinline__ float dact_f(int act, float v) {
+  if (act == 0) {
+    const float s = 1.f / (1.f + expf(-v));
+    return s * (1.f + v * (1.f - s));
+  }
+  return v > 0.f ? 1.f : 0.f;
+}
+
+// The 64 slots of block sb of expert e: their token rows (-1 for an empty
+// slot or one past cpad) and combine weights, in shared memory. Returns
+// whether any slot holds a token (the same answer for every thread).
+__device__ __forceinline__ bool slot_rows(const int* row_id,
+                                          const float* gate_w, int e, int sb,
+                                          const Dims& d, int* rows,
+                                          float* gw) {
+  const int tid = threadIdx.x;
+  bool live = false;
+  if (tid < kT) {
+    const int s = sb * kT + tid;
+    int row = -1;
+    float w = 0.f;
+    if (s < d.cpad) {
+      const int64_t i = (int64_t)e * d.cpad + s;
+      const int r = row_id[i];
+      if (r >= 0 && r < d.T) {
+        row = r;
+        w = gate_w[i];
+      }
+    }
+    rows[tid] = row;
+    gw[tid] = w;
+    live = row >= 0;
+  }
+  return __syncthreads_or(live) != 0;
+}
+
+// A 64 x 64 tile from 64 gathered global rows (rows[r] < 0: zeros),
+// columns col0.., columns >= ncol zero-filled.
+__device__ __forceinline__ void load_gather(bf16* dst, const bf16* src,
+                                            int ld, const int* rows,
+                                            int col0, int ncol) {
+  for (int i = threadIdx.x; i < kT * 8; i += kThreads) {
+    const int r = i >> 3, c = (i & 7) * 8;
+    const int row = rows[r];
+    const bool ok = row >= 0 && col0 + c < ncol;
+    flash::cp_async16(dst + r * kLD + c,
+                      ok ? src + (int64_t)row * ld + col0 + c : src,
+                      ok ? 16 : 0);
+  }
+}
+
+// A 64 x 64 tile of global rows row0.. (rows >= nrow and columns >= ncol
+// zero-filled).
+__device__ __forceinline__ void load_dense(bf16* dst, const bf16* src,
+                                           int64_t ld, int row0, int nrow,
+                                           int col0, int ncol) {
+  for (int i = threadIdx.x; i < kT * 8; i += kThreads) {
+    const int r = i >> 3, c = (i & 7) * 8;
+    const bool ok = row0 + r < nrow && col0 + c < ncol;
+    flash::cp_async16(dst + r * kLD + c,
+                      ok ? src + (row0 + r) * ld + col0 + c : src,
+                      ok ? 16 : 0);
+  }
+}
+
+// dy = bf16(g[row] * gate_w) for the 64 slots, columns col0..col0+63 of
+// [T, D] g; zeros for an empty slot. Synchronous (it converts).
+__device__ __forceinline__ void load_dy(bf16* dst, const bf16* g, int D,
+                                        const int* rows, const float* gw,
+                                        int col0) {
+  for (int i = threadIdx.x; i < kT * 8; i += kThreads) {
+    const int r = i >> 3, c = (i & 7) * 8;
+    const int row = rows[r];
+    uint4 v = make_uint4(0, 0, 0, 0);
+    if (row >= 0) {
+      const uint4 raw = *reinterpret_cast<const uint4*>(
+          g + (int64_t)row * D + col0 + c);
+      const bf16* in = reinterpret_cast<const bf16*>(&raw);
+      bf16* out = reinterpret_cast<bf16*>(&v);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        out[j] = __float2bfloat16(__bfloat162float(in[j]) * gw[r]);
+    }
+    *reinterpret_cast<uint4*>(dst + r * kLD + c) = v;
+  }
+}
+
+__device__ __forceinline__ void wait_tiles() {
+  flash::cp_async_commit();
+  flash::cp_async_wait<0>();
+  __syncthreads();
+}
+
+// acc[64 x 64 warp slice] += A[64 x 64] B[64 x 64] over one 64-deep chunk.
+// Warp w owns output rows 16w..16w+15 and all 64 columns (8 n-tiles).
+// A_T: A is stored [k][m] (else [m][k]); B_T: B is stored [k][n] (else
+// [n][k]). The transposed layouts come from ldmatrix.trans.
+template <bool A_T, bool B_T>
+__device__ __forceinline__ void mma_chunk(float (&acc)[8][4], const bf16* As,
+                                          const bf16* Bs, int warp,
+                                          int lane) {
+#pragma unroll
+  for (int kk = 0; kk < kT; kk += 16) {
+    uint32_t a[4];
+    if (A_T)
+      flash::ldsm_x4_t(a, flash::b_addr<kLD>(As, kk, warp * 16, lane));
+    else
+      flash::ldsm_x4(a, flash::a_addr<kLD>(As, warp * 16, kk, lane));
+#pragma unroll
+    for (int np = 0; np < 4; ++np) {
+      uint32_t b[4];
+      if (B_T)
+        flash::ldsm_x4_t(b, flash::a_addr<kLD>(Bs, kk, np * 16, lane));
+      else
+        flash::ldsm_x4(b, flash::b_addr<kLD>(Bs, np * 16, kk, lane));
+      flash::mma(acc[2 * np], a, b[0], b[1]);
+      flash::mma(acc[2 * np + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+__device__ __forceinline__ void zero(float (&acc)[8][4]) {
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[n][i] = 0.f;
+}
+
+// Accumulator element i of n-tile n of the calling lane: its row and
+// column in the 64 x 64 tile (mma.m16n8k16's C layout).
+__device__ __forceinline__ int acc_row(int warp, int lane, int i) {
+  return warp * 16 + (lane >> 2) + (i >> 1) * 8;
+}
+__device__ __forceinline__ int acc_col(int lane, int n, int i) {
+  return n * 8 + (lane & 3) * 2 + (i & 1);
+}
+
+// ---- pass 1 of the forward and of dX: the expert's H-side products ----
+// Block (jt, sb, e): slots sb*64.., H columns jt*64... K runs over D.
+// Forward: h. Backward: h, dh1, dhg (and dh from dy W_out^T).
+template <bool BWD>
+__global__ void __launch_bounds__(kThreads) expert_h_kernel(
+    const bf16* __restrict__ x, const int* __restrict__ row_id,
+    const float* __restrict__ gate_w, const bf16* __restrict__ w_in,
+    const bf16* __restrict__ w_gate, const bf16* __restrict__ w_out,
+    const bf16* __restrict__ g, bf16* __restrict__ h_out,
+    bf16* __restrict__ dh1_out, bf16* __restrict__ dhg_out, Dims d) {
+  __shared__ __align__(16) bf16 sx[kTile], swi[kTile], swg[kTile];
+  __shared__ __align__(16) bf16 sdy[BWD ? kTile : 8], swo[BWD ? kTile : 8];
+  __shared__ int rows[kT];
+  __shared__ float gw[kT];
+  const int jt = blockIdx.x, sb = blockIdx.y, e = blockIdx.z;
+  if (!slot_rows(row_id, gate_w, e, sb, d, rows, gw)) return;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int64_t DH = (int64_t)d.D * d.H;
+  const bf16* wi = w_in + e * DH;
+  const bf16* wg = d.gated ? w_gate + e * DH : nullptr;
+  const bf16* wo = w_out + e * DH;
+  float a1[8][4], ag[8][4], adh[8][4];
+  zero(a1);
+  zero(ag);
+  zero(adh);
+  for (int k0 = 0; k0 < d.D; k0 += kT) {
+    load_gather(sx, x, d.D, rows, k0, d.D);
+    load_dense(swi, wi, d.H, k0, d.D, jt * kT, d.H);          // [k][n]
+    if (d.gated) load_dense(swg, wg, d.H, k0, d.D, jt * kT, d.H);
+    if (BWD) {
+      load_dense(swo, wo, d.D, jt * kT, d.H, k0, d.D);        // [n][k]
+      load_dy(sdy, g, d.D, rows, gw, k0);
+    }
+    wait_tiles();
+    mma_chunk<false, true>(a1, sx, swi, warp, lane);
+    if (d.gated) mma_chunk<false, true>(ag, sx, swg, warp, lane);
+    if (BWD) mma_chunk<false, false>(adh, sdy, swo, warp, lane);
+    __syncthreads();
+  }
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; i += 2) {
+      const int r = acc_row(warp, lane, i), c = jt * kT + acc_col(lane, n, i);
+      const int s = sb * kT + r;
+      if (s >= d.cpad || c >= d.H) continue;
+      const int64_t o = ((int64_t)e * d.cpad + s) * d.H + c;
+      float hv[2], d1[2], dg[2];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const float h1 = a1[n][i + j], hg = ag[n][i + j];
+        const float act = act_f(d.act, d.gated ? hg : h1);
+        hv[j] = d.gated ? act * h1 : act;
+        if (BWD) {
+          const float dh = adh[n][i + j];
+          d1[j] = d.gated ? dh * act : dh * dact_f(d.act, h1);
+          dg[j] = d.gated ? dh * h1 * dact_f(d.act, hg) : 0.f;
+        }
+      }
+      flash::store2(h_out + o, hv[0], hv[1]);
+      if (BWD) {
+        flash::store2(dh1_out + o, d1[0], d1[1]);
+        if (d.gated) flash::store2(dhg_out + o, dg[0], dg[1]);
+      }
+    }
+}
+
+// ---- pass 2 of the forward: y = h W_out, out[row] += gate_w * y ----
+// Block (dt, sb, e): slots sb*64.., D columns dt*64... K runs over H.
+__global__ void __launch_bounds__(kThreads) fwd_out_kernel(
+    const int* __restrict__ row_id, const float* __restrict__ gate_w,
+    const bf16* __restrict__ w_out, const bf16* __restrict__ h,
+    float* __restrict__ out, Dims d) {
+  __shared__ __align__(16) bf16 sh[kTile], swo[kTile];
+  __shared__ int rows[kT];
+  __shared__ float gw[kT];
+  const int dt = blockIdx.x, sb = blockIdx.y, e = blockIdx.z;
+  if (!slot_rows(row_id, gate_w, e, sb, d, rows, gw)) return;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const bf16* wo = w_out + (int64_t)e * d.H * d.D;
+  const bf16* hb = h + (int64_t)e * d.cpad * d.H;
+  float acc[8][4];
+  zero(acc);
+  for (int k0 = 0; k0 < d.H; k0 += kT) {
+    load_dense(sh, hb, d.H, sb * kT, d.cpad, k0, d.H);        // [m][k]
+    load_dense(swo, wo, d.D, k0, d.H, dt * kT, d.D);          // [k][n]
+    wait_tiles();
+    mma_chunk<false, true>(acc, sh, swo, warp, lane);
+    __syncthreads();
+  }
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = acc_row(warp, lane, i);
+      if (rows[r] < 0) continue;
+      atomicAdd(out + (int64_t)rows[r] * d.D + dt * kT + acc_col(lane, n, i),
+                acc[n][i] * gw[r]);
+    }
+}
+
+// ---- pass 2 of dX: dx[row] += dh1 W_in^T + dhg W_gate^T, and y = h W_out
+// for this D tile's share of dgw = <g[row], y> (written per tile, summed
+// in a fixed order by dgw_reduce_kernel). Block (dt, sb, e); K over H.
+__global__ void __launch_bounds__(kThreads) dx_out_kernel(
+    const int* __restrict__ row_id, const float* __restrict__ gate_w,
+    const bf16* __restrict__ w_in, const bf16* __restrict__ w_gate,
+    const bf16* __restrict__ w_out, const bf16* __restrict__ g,
+    const bf16* __restrict__ h, const bf16* __restrict__ dh1,
+    const bf16* __restrict__ dhg, float* __restrict__ dx,
+    float* __restrict__ part, Dims d) {
+  __shared__ __align__(16) bf16 sa[kTile], sbt[kTile];
+  __shared__ int rows[kT];
+  __shared__ float gw[kT];
+  const int dt = blockIdx.x, sb = blockIdx.y, e = blockIdx.z;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float* prow = part + (int64_t)dt * d.E * d.cpad + (int64_t)e * d.cpad;
+  if (!slot_rows(row_id, gate_w, e, sb, d, rows, gw)) {
+    const int s = sb * kT + threadIdx.x;
+    if (threadIdx.x < kT && s < d.cpad) prow[s] = 0.f;
+    return;
+  }
+  const int64_t DH = (int64_t)d.D * d.H, CH = (int64_t)d.cpad * d.H;
+  float adx[8][4], ay[8][4];
+  zero(adx);
+  zero(ay);
+  for (int k0 = 0; k0 < d.H; k0 += kT) {
+    // dh1 W_in^T: W_in[e] rows d (n), columns j (k): stored [n][k]
+    load_dense(sa, dh1 + e * CH, d.H, sb * kT, d.cpad, k0, d.H);
+    load_dense(sbt, w_in + e * DH, d.H, dt * kT, d.D, k0, d.H);
+    wait_tiles();
+    mma_chunk<false, false>(adx, sa, sbt, warp, lane);
+    __syncthreads();
+    if (d.gated) {
+      load_dense(sa, dhg + e * CH, d.H, sb * kT, d.cpad, k0, d.H);
+      load_dense(sbt, w_gate + e * DH, d.H, dt * kT, d.D, k0, d.H);
+      wait_tiles();
+      mma_chunk<false, false>(adx, sa, sbt, warp, lane);
+      __syncthreads();
+    }
+    // h W_out: W_out[e] rows j (k), columns d (n): stored [k][n]
+    load_dense(sa, h + e * CH, d.H, sb * kT, d.cpad, k0, d.H);
+    load_dense(sbt, w_out + e * DH, d.D, k0, d.H, dt * kT, d.D);
+    wait_tiles();
+    mma_chunk<false, true>(ay, sa, sbt, warp, lane);
+    __syncthreads();
+  }
+  float dot[2] = {0.f, 0.f};        // rows g and g + 8 of this warp
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = acc_row(warp, lane, i);
+      if (rows[r] < 0) continue;
+      const int64_t o = (int64_t)rows[r] * d.D + dt * kT + acc_col(lane, n, i);
+      atomicAdd(dx + o, adx[n][i]);
+      dot[i >> 1] += __bfloat162float(g[o]) * ay[n][i];
+    }
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const float v = flash::quad_sum(dot[j]);
+    const int r = warp * 16 + (lane >> 2) + j * 8, s = sb * kT + r;
+    if ((lane & 3) == 0 && s < d.cpad) prow[s] = v;
+  }
+}
+
+__global__ void dgw_reduce_kernel(const float* __restrict__ part,
+                                  float* __restrict__ dgw, int n_slots,
+                                  int n_tiles) {
+  const int s = blockIdx.x * blockDim.x + threadIdx.x;
+  if (s >= n_slots) return;
+  float v = 0.f;
+  for (int t = 0; t < n_tiles; ++t) v += part[(int64_t)t * n_slots + s];
+  dgw[s] = v;
+}
+
+// ---- dW: one output tile of one expert's dW per block, K over its slots.
+// Blocks [0, nd * nj): dW_in and dW_gate tile (dt, jt) = x^T [dh1 | dhg];
+// blocks [nd * nj, 2 nd * nj): dW_out tile (jt, dt) = h^T dy.
+__global__ void __launch_bounds__(kThreads) dw_kernel(
+    const bf16* __restrict__ x, const int* __restrict__ row_id,
+    const float* __restrict__ gate_w, const bf16* __restrict__ g,
+    const bf16* __restrict__ h, const bf16* __restrict__ dh1,
+    const bf16* __restrict__ dhg, bf16* __restrict__ dwi,
+    bf16* __restrict__ dwg, bf16* __restrict__ dwo, Dims d) {
+  __shared__ __align__(16) bf16 sa[kTile], sb1[kTile], sb2[kTile];
+  __shared__ int rows[kT];
+  __shared__ float gw[kT];
+  const int e = blockIdx.y;
+  const int nd = d.D / kT, nj = (d.H + kT - 1) / kT;
+  const bool w_out_tile = (int)blockIdx.x >= nd * nj;
+  const int t = w_out_tile ? blockIdx.x - nd * nj : blockIdx.x;
+  // dW_in / dW_gate tiles: rows d (m) dt*64.., columns j (n) jt*64..
+  // dW_out tiles: rows j (m) jt*64.., columns d (n) dt*64..
+  const int dt = w_out_tile ? t % nd : t / nj;
+  const int jt = w_out_tile ? t / nd : t % nj;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int64_t CH = (int64_t)d.cpad * d.H;
+  const bool gated = d.gated && !w_out_tile;
+  float a1[8][4], a2[8][4];
+  zero(a1);
+  zero(a2);
+  const int n_sb = (d.cpad + kT - 1) / kT;
+  for (int sb = 0; sb < n_sb; ++sb) {
+    if (!slot_rows(row_id, gate_w, e, sb, d, rows, gw)) continue;
+    if (!w_out_tile) {
+      load_gather(sa, x, d.D, rows, dt * kT, d.D);              // [k][m]
+      load_dense(sb1, dh1 + e * CH, d.H, sb * kT, d.cpad, jt * kT, d.H);
+      if (gated)
+        load_dense(sb2, dhg + e * CH, d.H, sb * kT, d.cpad, jt * kT, d.H);
+      wait_tiles();
+      mma_chunk<true, true>(a1, sa, sb1, warp, lane);
+      if (gated) mma_chunk<true, true>(a2, sa, sb2, warp, lane);
+    } else {
+      load_dense(sa, h + e * CH, d.H, sb * kT, d.cpad, jt * kT, d.H);
+      load_dy(sb1, g, d.D, rows, gw, dt * kT);
+      wait_tiles();
+      mma_chunk<true, true>(a1, sa, sb1, warp, lane);
+    }
+    __syncthreads();
+  }
+  const int64_t DH = (int64_t)d.D * d.H;
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; i += 2) {
+      const int r = acc_row(warp, lane, i), c = acc_col(lane, n, i);
+      if (!w_out_tile) {
+        const int dd = dt * kT + r, j = jt * kT + c;
+        if (j >= d.H) continue;
+        const int64_t o = e * DH + (int64_t)dd * d.H + j;
+        flash::store2(dwi + o, a1[n][i], a1[n][i + 1]);
+        if (gated) flash::store2(dwg + o, a2[n][i], a2[n][i + 1]);
+      } else {
+        const int j = jt * kT + r, dd = dt * kT + c;
+        if (j >= d.H) continue;
+        flash::store2(dwo + e * DH + (int64_t)j * d.D + dd, a1[n][i],
+                      a1[n][i + 1]);
+      }
+    }
+}
+
+bool dims_ok(const Dims& d) {
+  return d.T > 0 && d.D > 0 && d.H > 0 && d.E > 0 && d.cpad > 0 &&
+         d.D % kT == 0 && d.H % 32 == 0 && d.E <= 65535 &&
+         (d.cpad + kT - 1) / kT <= 65535 && (d.act == 0 || d.act == 1);
+}
+
+}  // namespace
+
+extern "C" int moe_fwd_launch(const bf16* x, const int* row_id,
+                              const float* gate_w, const bf16* w_in,
+                              const bf16* w_gate, const bf16* w_out, bf16* h,
+                              float* out, int T, int D, int H, int E,
+                              int cpad, int act, int gated,
+                              cudaStream_t stream) {
+  const Dims d{T, D, H, E, cpad, act, gated};
+  if (!dims_ok(d) || (gated && !w_gate)) return cudaErrorInvalidValue;
+  const int n_sb = (cpad + kT - 1) / kT;
+  expert_h_kernel<false><<<dim3((H + kT - 1) / kT, n_sb, E), kThreads, 0,
+                           stream>>>(x, row_id, gate_w, w_in, w_gate, w_out,
+                                     nullptr, h, nullptr, nullptr, d);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  fwd_out_kernel<<<dim3(D / kT, n_sb, E), kThreads, 0, stream>>>(
+      row_id, gate_w, w_out, h, out, d);
+  return cudaGetLastError();
+}
+
+extern "C" int moe_dx_launch(const bf16* x, const int* row_id,
+                             const float* gate_w, const bf16* w_in,
+                             const bf16* w_gate, const bf16* w_out,
+                             const bf16* g, bf16* h, bf16* dh1, bf16* dhg,
+                             float* dx, float* dgw, float* part, int T, int D,
+                             int H, int E, int cpad, int act, int gated,
+                             cudaStream_t stream) {
+  const Dims d{T, D, H, E, cpad, act, gated};
+  if (!dims_ok(d) || (gated && (!w_gate || !dhg)))
+    return cudaErrorInvalidValue;
+  const int n_sb = (cpad + kT - 1) / kT;
+  expert_h_kernel<true><<<dim3((H + kT - 1) / kT, n_sb, E), kThreads, 0,
+                          stream>>>(x, row_id, gate_w, w_in, w_gate, w_out,
+                                    g, h, dh1, dhg, d);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  dx_out_kernel<<<dim3(D / kT, n_sb, E), kThreads, 0, stream>>>(
+      row_id, gate_w, w_in, w_gate, w_out, g, h, dh1, dhg, dx, part, d);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int n_slots = E * cpad;
+  dgw_reduce_kernel<<<(n_slots + 255) / 256, 256, 0, stream>>>(
+      part, dgw, n_slots, D / kT);
+  return cudaGetLastError();
+}
+
+extern "C" int moe_dw_launch(const bf16* x, const int* row_id,
+                             const float* gate_w, const bf16* g,
+                             const bf16* h, const bf16* dh1, const bf16* dhg,
+                             bf16* dwi, bf16* dwg, bf16* dwo, int T, int D,
+                             int H, int E, int cpad, cudaStream_t stream) {
+  const int gated = dhg != nullptr;
+  const Dims d{T, D, H, E, cpad, 0, gated};
+  if (!dims_ok(d) || (gated && !dwg)) return cudaErrorInvalidValue;
+  const int tiles = 2 * (D / kT) * ((H + kT - 1) / kT);
+  dw_kernel<<<dim3(tiles, E), kThreads, 0, stream>>>(
+      x, row_id, gate_w, g, h, dh1, dhg, dwi, dwg, dwo, d);
+  return cudaGetLastError();
+}

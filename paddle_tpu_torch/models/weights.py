@@ -4,9 +4,11 @@
   ``state_dict(include_non_persistable_buffer=True)``, converted to
   ``{name: numpy array}``, into the port's model. Names and layouts are
   the same in both packages, so the only conversion is a dtype cast to
-  the port parameter's dtype. The non-persistent rope tables
-  (``model.rope_cos``/``model.rope_sin``) are loaded when present, so a
-  test compares like with like; they are never required. Missing and
+  the port parameter's dtype (an fp32 parameter, such as a MoE router's
+  weight in a bf16 model, stays fp32). The non-persistent rope tables
+  (``[model.]rope_cos``/``[model.]rope_sin``) are loaded when present, so a
+  test compares like with like; they are never required, and the MoE
+  layers' ``*.moe.aux_loss`` buffers are skipped. Missing and
   extra keys and shape mismatches raise, naming the key.
 - :func:`export_numpy_state` is its inverse: the model's parameters as
   ``{name: numpy array}`` (bf16 values as exact fp32 arrays).
@@ -16,8 +18,9 @@
   mid-training state.
 - :func:`init_random` draws every parameter on the model's own device
   from one ``torch.Generator`` seeded with ``seed``, using the JAX
-  package's initialisers (XavierNormal for Linear, N(0, 1) for
-  Embedding, ones for RMSNorm). The draws differ from ``jax.random``'s
+  package's initialisers (XavierNormal for Linear and the MoE expert
+  weights, XavierUniform for the fp32 MoE router, N(0, 1) for Embedding,
+  ones for RMSNorm), each in its parameter's own dtype. The draws differ from ``jax.random``'s
   for the same seed; tests that compare the two packages load the JAX
   weights instead.
 """
@@ -31,7 +34,10 @@ from torch import nn
 __all__ = ["load_numpy_state", "export_numpy_state", "load_optimizer_state",
            "init_random"]
 
-_OPTIONAL = ("model.rope_cos", "model.rope_sin")
+_OPTIONAL = ("model.rope_cos", "model.rope_sin", "rope_cos", "rope_sin")
+# the JAX MoE layers' non-persistent buffer: the last forward's router
+# loss, state of no weight; skipped when present
+_SKIPPED_SUFFIX = ".moe.aux_loss"
 
 
 def _to_tensor(arr) -> torch.Tensor:
@@ -47,6 +53,8 @@ def load_numpy_state(model: nn.Module, state: dict) -> None:
     ValueError on a shape mismatch, naming the key."""
     params = dict(model.named_parameters())
     buffers = {k: v for k, v in model.named_buffers() if k in _OPTIONAL}
+    state = {k: v for k, v in state.items()
+             if not k.endswith(_SKIPPED_SUFFIX)}
     missing = sorted(k for k in params if k not in state)
     extra = sorted(k for k in state if k not in params and k not in buffers)
     if missing:

@@ -29,6 +29,8 @@ SOURCES = {
     "paged_attention": _PKG / "csrc" / "paged_attention.cu",
     "flash_attention_fwd": _PKG / "csrc" / "flash_attention_fwd.cu",
     "flash_attention_bwd": _PKG / "csrc" / "flash_attention_bwd.cu",
+    "moe_routing": _PKG / "csrc" / "moe_routing.cu",
+    "moe_grouped_gemm": _PKG / "csrc" / "moe_grouped_gemm.cu",
 }
 # headers the sources include; a change to one rebuilds every source
 HEADERS = sorted((_PKG / "csrc").glob("*.cuh"))

@@ -53,6 +53,13 @@ pytestmark = pytest.mark.cuda
 DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
+def _counts(**nonzero):
+    """Every kernel's launch count: 0 but for ``nonzero``."""
+    out = dict.fromkeys(launch_counts(), 0)
+    out.update(nonzero)
+    return out
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -161,8 +168,7 @@ def test_uncached_forward_launches_flash_at_256_rows(cuda):
         logits = model(ids)
     torch.cuda.synchronize()
     L = model.config.num_hidden_layers
-    assert launch_counts() == {"rms_norm": 2 * L + 1, "paged_attention": 0,
-                               "flash_fwd": L, "flash_dq": 0, "flash_dkv": 0}
+    assert launch_counts() == _counts(rms_norm=2 * L + 1, flash_fwd=L)
     assert torch.isfinite(logits.float()).all()
     with torch.no_grad():
         short = model(ids[:, :255])
@@ -211,8 +217,7 @@ def test_flash_kernels_match_plain(cuda, b, sq, sk, h, d, causal):
              *FA.flash_bwd_dkv_cuda(q, k, v, do, want_l, delta, scale,
                                     causal))
     torch.cuda.synchronize()
-    assert launch_counts() == {"rms_norm": 0, "paged_attention": 0,
-                               "flash_fwd": 1, "flash_dq": 1, "flash_dkv": 1}
+    assert launch_counts() == _counts(flash_fwd=1, flash_dq=1, flash_dkv=1)
     want_g = FA.flash_block_grads_plain(q32, k32, v32, do32, want_l, delta,
                                         scale, causal)
     for got, want in zip((out,) + grads, (want_o,) + want_g):
@@ -333,8 +338,8 @@ def test_train_step_kernels_vs_plain(cuda):
                          model.named_parameters()}))
     (lk, ck, gk), (lp, cp, gp) = results
     L = 2
-    assert ck == {"rms_norm": 2 * L + 1, "paged_attention": 0,
-                  "flash_fwd": L, "flash_dq": L, "flash_dkv": L}
+    assert ck == _counts(rms_norm=2 * L + 1, flash_fwd=L, flash_dq=L,
+                         flash_dkv=L)
     assert not any(cp.values())
     assert abs(lk - lp) <= 1e-2
     for k in gk:
@@ -366,8 +371,7 @@ def test_engine_decode_step_kernels_vs_plain(cuda):
         want = eng.decode_logits()
     assert launch_counts() == counts   # the plain run launched nothing
     L = model.config.num_hidden_layers
-    assert counts == {"rms_norm": 2 * L + 1, "paged_attention": L,
-                      "flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
+    assert counts == _counts(rms_norm=2 * L + 1, paged_attention=L)
     err = (got - want).abs().max().item()
     assert err < 0.05, err
     top2 = want.topk(2, dim=-1).values
@@ -378,3 +382,193 @@ def test_engine_decode_step_kernels_vs_plain(cuda):
     res = eng.run_to_completion(max_steps=50)
     assert all(len(t) == 4 for t in res.values())
     eng.audit_pool()
+
+
+# ---------------- the MoE kernels ----------------
+
+def _moe_inputs(cuda, T, E, D, H, seed=0, capfac=1.25):
+    """Routing (the plain chain, random keep) and grouped-GEMM inputs:
+    x, g ~ N(0, 1), weights ~ N(0, 1/K) for a product over K (so every
+    product is O(1)), bf16; fp32 logits and uniforms."""
+    from paddle_tpu_torch.distributed.moe import _slot_structures, _top2_parts
+    from paddle_tpu_torch.ops.kernels import moe_grouped_gemm as GG
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    logits = torch.randn((T, E), generator=g, device=cuda) * 1.5
+    u = torch.rand((T,), generator=g, device=cuda)
+    cap = max(4, int(capfac * T * 2 / E))
+    parts = _top2_parts(logits, cap, u=u)
+    cpad = GG.padded_capacity(cap)
+    slot, _, fill, occ = _slot_structures(
+        torch.stack(parts[:2], 1), torch.stack(parts[6:8], 1),
+        torch.stack(parts[4:6], 1), E, cpad)
+    row_id, gate_w = GG.slot_maps(slot, fill, occ,
+                                  torch.stack(parts[2:4], 1).reshape(-1),
+                                  T, E, cpad, 2)
+
+    def rand(*shape, std=1.0):
+        return (torch.randn(shape, generator=g, device=cuda)
+                * std).bfloat16()
+    return dict(logits=logits, u=u, row_id=row_id, gate_w=gate_w.detach(),
+                x=rand(T, D), g=rand(T, D), wi=rand(E, D, H, std=D ** -0.5),
+                wg=rand(E, D, H, std=D ** -0.5),
+                wo=rand(E, H, D, std=H ** -0.5))
+
+
+@pytest.mark.parametrize("random_keep2", [True, False])
+@pytest.mark.parametrize("T,E", [(1024, 16), (8192, 16), (2048, 8),
+                                 (1024, 128)])
+def test_moe_routing_kernel_matches_plain(cuda, T, E, random_keep2):
+    """Decisions equal wherever the row's top-2 / keep2 margin is at least
+    1e-6 (two fp32 softmaxes, sums in another order); positions exactly
+    the scan of the kernel's own decisions; g1, g2 to 1e-6; me_sum to
+    1e-5 relative; a second launch bitwise equal."""
+    from paddle_tpu_torch.ops.kernels import moe_routing as MR
+    inp = _moe_inputs(cuda, T, E, 64, 64)
+    logits, u = inp["logits"], inp["u"]
+    reset_launch_counts()
+    got = MR.moe_routing_cuda(logits, u, random_keep2)
+    again = MR.moe_routing_cuda(logits, u, random_keep2)
+    torch.cuda.synchronize()
+    assert launch_counts() == _counts(moe_routing=2)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    want = MR.routing_plain(logits, u, random_keep2)
+    differ = ((got[0] != want[0]) | (got[1] != want[1])
+              | (got[6] != want[6]))
+    p = torch.softmax(logits, -1).topk(3, -1).values
+    thr = 2 * p[:, 1] / (p[:, 0] + p[:, 1])
+    margin = torch.stack([p[:, 0] - p[:, 1], p[:, 1] - p[:, 2],
+                          (u - thr).abs() if random_keep2
+                          else torch.ones_like(u)]).amin(0)
+    assert bool((margin[differ] < 1e-6).all()), margin[differ]
+    iota = torch.arange(E, device=cuda)
+    m1 = (got[0].long()[:, None] == iota).int()
+    m2 = (got[1].long()[:, None] == iota).int() * got[6][:, None]
+    assert torch.equal(got[4], ((m1.cumsum(0) - 1) * m1).sum(1).int())
+    assert torch.equal(got[5], ((m2.cumsum(0) - 1) * m2).sum(1).int())
+    assert torch.equal(got[7], m1.sum(0).float())
+    same = ~differ
+    for i in (2, 3):
+        assert (got[i] - want[i])[same].abs().max().item() <= 1e-6
+    torch.testing.assert_close(got[8], want[8], rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("T,E,D,H,capfac,act", [
+    (1024, 4, 128, 64, 1.25, "silu"), (1024, 4, 128, 96, 1.0, "silu"),
+    (2048, 8, 256, 704, 1.25, "silu"), (1024, 4, 128, 64, 0.3, "silu"),
+    (1024, 4, 128, 64, 1.25, "relu"), (1024, 16, 128, 32, 0.1, "silu")])
+def test_moe_grouped_kernels_match_plain(cuda, T, E, D, H, capfac, act):
+    """Forward, dX and dW (dW from the kernel's own dX intermediates)
+    against the plain versions: each row within 2**-7 of its largest
+    magnitude + 1e-3 and 4e-3 in relative Frobenius norm (the flash rule;
+    the dW outputs are rounded to bf16, the plain ones are fp32); the
+    dgw of empty slots is not compared; each launch repeated bitwise.
+    ``relu`` runs the ungated FFN."""
+    from paddle_tpu_torch.ops.kernels import moe_grouped_gemm as GG
+    inp = _moe_inputs(cuda, T, E, D, H, seed=H, capfac=capfac)
+    wg = inp["wg"] if act == "silu" else None
+    args = (inp["x"], inp["row_id"], inp["gate_w"], inp["wi"], wg, inp["wo"])
+    reset_launch_counts()
+    outs = [GG.moe_fwd_cuda(*args, act) for _ in range(2)]
+    dxs = [GG.moe_dx_cuda(*args, inp["g"], act) for _ in range(2)]
+    dws = [GG.moe_dw_cuda(inp["x"], inp["row_id"], inp["gate_w"], inp["g"],
+                          dxs[0][2]) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert launch_counts() == _counts(moe_fwd=2, moe_dx=2, moe_dw=2)
+    occ = (inp["row_id"] < T).float()
+    assert torch.equal(outs[0], outs[1]) and torch.equal(dxs[0][0],
+                                                         dxs[1][0])
+    assert torch.equal(dxs[0][1] * occ, dxs[1][1] * occ)
+    assert all(a is None and b is None or torch.equal(a, b)
+               for a, b in zip(dws[0], dws[1]))
+    want_out = GG.moe_fwd_plain(*args, act)
+    wdx, wdgw, _ = GG.moe_dx_plain(*args, inp["g"], act)
+    wdw = GG.moe_dw_plain(inp["x"], inp["row_id"], inp["gate_w"], inp["g"],
+                          dxs[0][2])
+    pairs = [(outs[0], want_out), (dxs[0][0], wdx),
+             (dxs[0][1] * occ, wdgw * occ)]
+    pairs += [(a, b) for a, b in zip(dws[0], wdw) if b is not None]
+    for got, want in pairs:
+        assert got.shape == want.shape
+        _assert_flash_close(got, want)
+    if capfac < 0.5:       # a token whose copies were all dropped: 0
+        dead = ~torch.isin(torch.arange(T, device=cuda), inp["row_id"])
+        assert dead.any() and (outs[0][dead] == 0).all()
+
+
+def test_moe_kernels_raise_outside_their_gate(cuda):
+    from paddle_tpu_torch.ops.kernels import moe_grouped_gemm as GG
+    from paddle_tpu_torch.ops.kernels import moe_routing as MR
+    inp = _moe_inputs(cuda, 1024, 4, 128, 64)
+    args = [inp["x"], inp["row_id"], inp["gate_w"], inp["wi"], inp["wg"],
+            inp["wo"]]
+    with pytest.raises(ValueError, match="bfloat16"):
+        GG.moe_fwd_cuda(args[0].float(), *args[1:], "silu")
+    with pytest.raises(ValueError, match="bfloat16"):
+        GG.moe_fwd_cuda(*args[:3], *(w.float() for w in args[3:]), "silu")
+    with pytest.raises(ValueError, match="H of 32"):
+        GG.moe_fwd_cuda(*args[:3], args[3][..., :48].contiguous(),
+                        args[4][..., :48].contiguous(),
+                        args[5][:, :48].contiguous(), "silu")
+    with pytest.raises(ValueError, match="activation"):
+        GG.moe_fwd_cuda(*args, "gelu")
+    with pytest.raises(ValueError, match="int32"):
+        GG.moe_dx_cuda(args[0], args[1].long(), *args[2:], inp["g"], "silu")
+    with pytest.raises(ValueError, match="T a multiple"):
+        MR.moe_routing_cuda(inp["logits"][:1000].contiguous(), None, False)
+    with pytest.raises(ValueError, match="float32"):
+        MR.moe_routing_cuda(inp["logits"].bfloat16(), None, False)
+
+
+def _small_moe(cuda, seed=3):
+    """Two sparse layers at D 128 (the fused gate needs D % 128 == 0),
+    head_dim 64, E 4 x H 64, bf16; at b 2 x s 512 (T 1024) both MoE
+    kernels, flash and RMSNorm run."""
+    from paddle_tpu_torch.models import Qwen2MoeConfig, Qwen2MoeForCausalLM
+    cfg = Qwen2MoeConfig(vocab_size=512, hidden_size=128,
+                         intermediate_size=256, moe_intermediate_size=64,
+                         shared_expert_intermediate_size=128,
+                         num_hidden_layers=2, num_attention_heads=2,
+                         num_key_value_heads=1, num_experts=4,
+                         num_experts_per_tok=2, max_position_embeddings=512,
+                         dtype="bfloat16", ep_dispatch="fused")
+    return Qwen2MoeForCausalLM(cfg, device=cuda, seed=seed)
+
+
+def test_moe_train_step_kernels_vs_plain(cuda):
+    """One TrainStep from one state (the routers' generator reseeded)
+    through the kernels and inside plain_reference(): loss 1e-2 and each
+    gradient 0.15 in relative L2. Looser than the Llama step above: the
+    bf16 activations of the two runs differ by an ulp here and there,
+    which flips the routing of tokens near a tie (top-2 gap or keep2
+    threshold within ~1e-3); a flipped token sends its gradient to other
+    experts and shifts the FCFS slots after it, so the router and expert
+    gradients differ by a few percent (measured on the H100: 0.067 for
+    ``layers.0.mlp.moe.gate.weight``)."""
+    ids = torch.tensor(np.random.default_rng(2).integers(0, 512, (2, 512)),
+                       device=cuda)
+    results = []
+    for plain in (False, True):
+        model = _small_moe(cuda)
+        step = TrainStep(model, AdamW(learning_rate=1e-3, parameters=model),
+                         lambda logits, y: model.loss(logits, y))
+        reset_launch_counts()
+        if plain:
+            with plain_reference():
+                loss = step(ids, ids)
+        else:
+            loss = step(ids, ids)
+        torch.cuda.synchronize()
+        results.append((loss.item(), launch_counts(),
+                        {k: p.grad.float() for k, p in
+                         model.named_parameters()}))
+    (lk, ck, gk), (lp, cp, gp) = results
+    L = 2
+    assert ck == _counts(rms_norm=2 * L + 1, flash_fwd=L, flash_dq=L,
+                         flash_dkv=L, moe_routing=L, moe_fwd=L, moe_dx=L,
+                         moe_dw=L)
+    assert not any(cp.values())
+    assert abs(lk - lp) <= 1e-2
+    for k in gk:
+        rel = ((gk[k] - gp[k]).norm() / gp[k].norm()).item()
+        assert rel <= 0.15, (k, rel)
+    assert gk["layers.0.mlp.moe.gate.weight"].dtype == torch.float32

@@ -29,13 +29,18 @@ def _banned(name: str) -> bool:
 _PROBE = r"""
 import sys
 import paddle_tpu_torch
-from paddle_tpu_torch.models import LlamaForCausalLM, llama_tiny
+import torch
+from paddle_tpu_torch.models import (LlamaForCausalLM, Qwen2MoeForCausalLM,
+                                     llama_tiny, qwen2_moe_tiny)
 from paddle_tpu_torch.serving import ServingEngine
 m = LlamaForCausalLM(llama_tiny(), device="cpu", seed=0)
 e = ServingEngine(m, num_pages=16, page_size=4, max_slots=2,
                   prefill_chunk=4, device="cpu")
 rid = e.add_request([1, 2, 3, 4, 5, 6], 3)
 assert len(e.run_to_completion()[rid]) == 3
+q = Qwen2MoeForCausalLM(qwen2_moe_tiny(ep_dispatch="fused"), device="cpu")
+ids = torch.arange(32).reshape(2, 16)
+q.loss(q(ids), ids).backward()
 print("\n".join(sorted(sys.modules)))
 """
 
@@ -48,6 +53,7 @@ def test_port_imports_no_jax_in_a_fresh_interpreter():
     assert out.returncode == 0, out.stderr[-3000:]
     mods = out.stdout.split()
     assert "paddle_tpu_torch.serving.engine" in mods
+    assert "paddle_tpu_torch.ops.kernels.moe_grouped_gemm" in mods
     bad = [m for m in mods if _banned(m)]
     assert not bad, bad
 
@@ -71,10 +77,14 @@ def test_no_source_file_imports_jax_or_the_jax_package():
 def test_entry_points_raise_without_a_device_argument_or_gpu():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: device=None is valid")
-    from paddle_tpu_torch.models import LlamaForCausalLM, llama_tiny
+    from paddle_tpu_torch.models import (LlamaForCausalLM,
+                                         Qwen2MoeForCausalLM, llama_tiny,
+                                         qwen2_moe_tiny)
     from paddle_tpu_torch.serving import ServingEngine
     with pytest.raises(RuntimeError, match="device='cpu'"):
         LlamaForCausalLM(llama_tiny())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Qwen2MoeForCausalLM(qwen2_moe_tiny())
     model = LlamaForCausalLM(llama_tiny(), device="cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ServingEngine(model, num_pages=8, page_size=4)
