@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Plant known faults in the flash attention and MoE kernels and show
-which of ``chip_smoke.py``'s checks catch each one (a mutation check, on
-one GPU).
+"""Plant known faults in the flash attention, MoE and int8 paged
+kernels and show which of ``chip_smoke.py``'s checks catch each one (a
+mutation check, on one GPU).
 
     python3 chip_mutants.py [--only NAME ...]
 
@@ -9,7 +9,7 @@ For the unchanged kernels (``control``) and for each fault below, the
 script copies ``paddle_tpu_torch/`` and ``chip_smoke.py`` into a fresh
 temporary directory, edits one kernel source there (the repository is
 never touched), and runs, in a child process on that copy, the checks
-of the fault's kind (the control runs both kinds):
+of the fault's kind (the control runs every kind of the faults chosen):
 
 - flash: the flash kernel check of ``chip_smoke.py`` (``_flash_errors``)
   at the training path's shape, q/k/v [4, 2048, 16, 128] bf16 causal,
@@ -24,13 +24,18 @@ of the fault's kind (the control runs both kinds):
 - moe: the MoE kernel checks (``routing_errors``, ``moe_errors``) at the
   Qwen2-MoE training shapes, and the MoE train parity of
   ``phase_train_moe_parity`` (``MOE_PARITY``) after 10 steps of the
-  ``qwen2_moe_fused`` configuration.
+  ``qwen2_moe_fused`` configuration;
+- int8: the int8 paged kernel check (``paged_int8_errors``) at the
+  serving shapes, and slice parity over the int8 pool
+  (``parity_run(kv_quant=True)``): one decode step through the kernels
+  and inside ``plain_reference()`` on a model of Llama-3-8B widths with
+  int8 weights, cut to ``INT8_LAYERS`` layers.
 
 It prints one JSON line per run and then a summary line. It exits 0
 when the control passes both checks and every fault fails the kernel
-check; which train-parity limits each fault breaks is reported, not
-required (a fault of random rounding can stay inside end-to-end
-limits that a kernel-level check resolves).
+check; which parity limits each fault breaks is reported, not required
+(a fault of random rounding can stay inside end-to-end limits that a
+kernel-level check resolves).
 """
 
 from __future__ import annotations
@@ -47,6 +52,8 @@ import numpy as np
 
 BWD, FWD = "flash_attention_bwd.cu", "flash_attention_fwd.cu"
 ROUTE, GG = "moe_routing.cu", "moe_grouped_gemm.cu"
+PAGED = "paged_attention.cu"
+INT8_LAYERS = 4
 FP8 = ('#include "flash_common.cuh"',
        '#include "flash_common.cuh"\n#include <cuda_fp8.h>')
 
@@ -105,6 +112,13 @@ MUTANTS = {
         "from position 0, on top of the top-1 claims instead of after them",
         [(ROUTE, "count1_out[tid] = (float)run1[tid];",
           "count1_out[tid] = 0.f;")], "moe"),
+    "int8_v_scale_dropped": (
+        "int8 paged: V codes read as if their row scale were 1",
+        [(PAGED, "vv[e] *= sv;", "vv[e] *= 1.f;")], "int8"),
+    "int8_k_scale_wrong_row": (
+        "int8 paged: each K row takes the scale of the next row of its page",
+        [(PAGED, "k_scale[(page * ps + t % ps) * kvh + n]",
+          "k_scale[(page * ps + (t + 1) % ps) * kvh + n]")], "int8"),
 }
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -191,9 +205,26 @@ def _moe_checks(torch, S, K, TrainStep, AdamW) -> tuple:
     return check, parity
 
 
-def child(name: str) -> dict:
+def _int8_checks(torch, S, K, TrainStep, AdamW) -> tuple:
+    from paddle_tpu_torch import quantization as QZ
+    from paddle_tpu_torch.models import LlamaForCausalLM, llama_3_8b
+    from paddle_tpu_torch.serving import ServingEngine
+    gen = torch.Generator(device="cuda").manual_seed(S.SEED + 7)
+    check = S.paged_int8_errors(torch, K,
+                                S.paged_int8_inputs(torch, QZ, gen, 1)[0])
+    cfg = llama_3_8b(dtype="bfloat16")
+    cfg.num_hidden_layers = INT8_LAYERS
+    model = QZ.quantize_for_serving(
+        LlamaForCausalLM(cfg, device="cuda", seed=S.SEED), inplace=True)
+    parity = S.parity_run(torch, np, model, ServingEngine, K, kv_quant=True)
+    del model
+    torch.cuda.empty_cache()
+    return check, parity
+
+
+def child(name: str, kinds=None) -> dict:
     """The checks of the mutant's kind on the tree this file sits in (a
-    mutated copy); the control runs both kinds."""
+    mutated copy); the control runs ``kinds``."""
     import torch
     sys.path.insert(0, HERE)
     import chip_smoke as S
@@ -203,22 +234,25 @@ def child(name: str) -> dict:
     from paddle_tpu_torch.optimizer import AdamW
     torch.backends.cuda.matmul.allow_tf32 = False
     build.build_all()
-    kinds = ("flash", "moe") if name == "control" else (_kind(name),)
+    kinds = kinds if name == "control" else (_kind(name),)
     out = {"mutant": name, "fault": MUTANTS.get(
         name, ("none (the kernels as they are)",))[0]}
     caught_k, caught_p = False, False
+    checks = {"flash": _flash_checks, "moe": _moe_checks,
+              "int8": _int8_checks}
     for kind in kinds:
-        check, parity = (_flash_checks if kind == "flash" else _moe_checks)(
-            torch, S, K, TrainStep, AdamW)
-        grads = parity.pop("grad_rel_l2")
-        parity["top_grad_rel_l2"] = sorted(grads.items(),
-                                           key=lambda kv: -kv[1])[:5]
+        check, parity = checks[kind](torch, S, K, TrainStep, AdamW)
+        grads = parity.pop("grad_rel_l2", None)
+        if grads is not None:
+            parity["top_grad_rel_l2"] = sorted(grads.items(),
+                                               key=lambda kv: -kv[1])[:5]
         out[kind] = check
-        out[kind + "_train_parity"] = parity
+        out[kind + ("_slice_parity" if kind == "int8"
+                    else "_train_parity")] = parity
         caught_k |= bool(check["failures"])
         caught_p |= bool(parity["failures"])
     out["caught_by_kernel_check"] = caught_k
-    out["caught_by_train_parity"] = caught_p
+    out["caught_by_parity"] = caught_p
     return out
 
 
@@ -226,23 +260,26 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", nargs="*", help="run these mutants only")
     ap.add_argument("--child", help=argparse.SUPPRESS)
+    ap.add_argument("--kinds", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.child:
-        print(json.dumps(child(args.child)), flush=True)
+        kinds = tuple(args.kinds.split(",")) if args.kinds else None
+        print(json.dumps(child(args.child, kinds)), flush=True)
         return 0
     import torch
     if not torch.cuda.is_available():
         print("chip_mutants: no CUDA device; nothing to run", file=sys.stderr)
         return 2
     names = ["control"] + (args.only or list(MUTANTS))
+    kinds = sorted({_kind(n) for n in names[1:]})
     results = {}
     for name in names:
         root = _copy(name)
         try:
             proc = subprocess.run(
                 [sys.executable, os.path.join(root, "chip_mutants.py"),
-                 "--child", name], cwd=root, capture_output=True, text=True,
-                timeout=1200)
+                 "--child", name, "--kinds", ",".join(kinds)], cwd=root,
+                capture_output=True, text=True, timeout=1200)
         finally:
             shutil.rmtree(root, ignore_errors=True)
         lines = proc.stdout.strip().splitlines()
@@ -253,15 +290,14 @@ def main(argv=None) -> int:
             results[name] = json.loads(lines[-1])
         print(json.dumps(results[name]), flush=True)
     summary = {n: {"kernel_check": r.get("caught_by_kernel_check"),
-                   "train_parity": r.get("caught_by_train_parity"),
+                   "parity": r.get("caught_by_parity"),
                    "parity_failures": {
                        k: v.get("failures") for k, v in r.items()
-                       if isinstance(v, dict) and
-                       k.endswith("_train_parity")}}
+                       if isinstance(v, dict) and k.endswith("_parity")}}
                for n, r in results.items()}
     print(json.dumps({"caught": summary}), flush=True)
     ok = (summary["control"]["kernel_check"] is False
-          and summary["control"]["train_parity"] is False
+          and summary["control"]["parity"] is False
           and all(summary[n]["kernel_check"] is True for n in names[1:]))
     return 0 if ok else 1
 

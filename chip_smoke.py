@@ -9,10 +9,11 @@ Phases; any failure ends the run with a traceback and a non-zero exit:
 2. build — every kernel from ``paddle_tpu_torch/csrc``, one ``nvcc`` per
    source, all started together;
 3. kernel vs plain — each kernel against its plain PyTorch version in
-   bf16 at its path's shapes (RMSNorm and paged decode at the serving
-   shapes; flash forward, dQ and dK/dV at the Llama training shape, plus
-   ragged shapes; MoE routing and the grouped-GEMM forward, dX and dW at
-   the Qwen2-MoE training shapes, each launched twice for a bitwise
+   bf16 at its path's shapes (RMSNorm and paged decode, fp and int8
+   modes, at the serving shapes; flash forward, dQ and dK/dV at the
+   Llama training shape, plus ragged shapes; MoE routing and the
+   grouped-GEMM forward, dX and dW at the Qwen2-MoE training shapes;
+   the int8 paged mode and the MoE kernels launched twice for a bitwise
    repeat), with its time (CUDA events over many launches, inputs
    rotated through more than the 50 MB L2), the plain version's time,
    the least time the card could take (the bound) and, as a yardstick
@@ -32,14 +33,23 @@ Phases; any failure ends the run with a traceback and a non-zero exit:
    experts, top-2, full width, bf16, batch 8 x seq 1024), with
    ``mfu_active``, the aux losses and the dropped copies per layer;
 8. slice parity — one decode step on one serving engine state, kernels
-   vs plain versions;
+   vs plain versions (logits within ``SLICE_DLOGIT_LIMIT``, decisive
+   rows equal, the kernels' launch counts);
 9. serve — Llama-3-8B widths in bf16 with seeded random weights made on
    the card, 8 requests x 32 greedy tokens through ``ServingEngine``
    (including a prefix hit and a copy-on-write), the launch counters
    read around this phase alone;
 10. profile — one mixed and three decode steps under ``torch.profiler``:
     host wall, device time, idle share and the top kernels per step;
-11. a ``{"kernels": [...]}`` line for every ported kernel.
+11. serve_int8 — the same model after ``quantize_for_serving(inplace=
+    True)`` (int8 weights) replays the serve trace over the int8 KV pool
+    (``kv_quant=True``), after a slice-parity decode step of its own
+    (``slice_parity_int8``): the int8 mode of the paged kernel must take
+    every decode step and the fp mode none; then ``profile_int8`` (phase
+    10 over the int8 model, with the ``Int8ServingLinear`` share of each
+    step's device time) and, for information only, how many leading
+    tokens of each int8 stream equal the bf16 stream of its request;
+12. a ``{"kernels": [...]}`` line for every ported kernel.
 
 The card's name and power limit are printed again on the line before
 the last; the last line is ``{"ok": true, "device": {...}}``. Without a
@@ -193,19 +203,38 @@ def phase_rms_norm(torch, K) -> list[dict]:
     return rows
 
 
+def _sdpa_over(torch, q, kg, vg, seq_lens):
+    """PyTorch's scaled_dot_product_attention over gathered
+    ``[b, S, kvh, d]`` K and V, positions past ``seq_lens`` masked."""
+    S = kg.shape[1]
+    mask = (torch.arange(S, device=q.device)[None, :]
+            <= seq_lens.long()[:, None])[:, None, None, :]
+    out = torch.nn.functional.scaled_dot_product_attention(
+        q.transpose(1, 2), kg.transpose(1, 2), vg.transpose(1, 2),
+        attn_mask=mask, enable_gqa=True)
+    return out.transpose(1, 2)
+
+
 def _sdpa_yardstick(torch, q, pk, pv, tables, seq_lens):
     """Gather + PyTorch's scaled_dot_product_attention over the same
     pages: the yardstick only (the port never calls it)."""
     b, _, h, d = q.shape
     kvh = pk.shape[2]
-    kg = pk[tables.long()].reshape(b, -1, kvh, d).transpose(1, 2)
-    vg = pv[tables.long()].reshape(b, -1, kvh, d).transpose(1, 2)
-    S = kg.shape[2]
-    mask = (torch.arange(S, device=q.device)[None, :]
-            <= seq_lens.long()[:, None])[:, None, None, :]
-    out = torch.nn.functional.scaled_dot_product_attention(
-        q.transpose(1, 2), kg, vg, attn_mask=mask, enable_gqa=True)
-    return out.transpose(1, 2)
+    kg = pk[tables.long()].reshape(b, -1, kvh, d)
+    vg = pv[tables.long()].reshape(b, -1, kvh, d)
+    return _sdpa_over(torch, q, kg, vg, seq_lens)
+
+
+def _sdpa_int8_yardstick(torch, q, kq, vq, tables, seq_lens, ks, vs):
+    """Gather codes and scales, dequantize to q's dtype, then PyTorch's
+    scaled_dot_product_attention: the int8 mode's yardstick only."""
+    b, _, h, d = q.shape
+    kvh = kq.shape[2]
+    idx = tables.long()
+    kg = (kq[idx].float() * ks[idx][..., None]).to(q.dtype)
+    vg = (vq[idx].float() * vs[idx][..., None]).to(q.dtype)
+    return _sdpa_over(torch, q, kg.reshape(b, -1, kvh, d),
+                      vg.reshape(b, -1, kvh, d), seq_lens)
 
 
 def phase_paged(torch, K) -> dict:
@@ -266,6 +295,129 @@ def phase_paged(torch, K) -> dict:
                      >= flops / BF16_TENSOR_FLOPS else "operations")}
     _emit("kernel_vs_plain", {"name": "paged_attention", **row})
     return row
+
+# decode contexts of the serve trace half way through its 32 tokens: the
+# seven first prompts (default_rng(0), 64..255 tokens) and the follow-up
+# turn (275 tokens), each + 16
+SERVE_CONTEXTS = (243, 202, 178, 131, 139, 87, 94, 291)
+
+
+# outputs below this magnitude are held to one bf16 ulp of it: near zero
+# an output is a cancelling sum, and the fp32 rounding of its terms
+# (7e-7 between fp32 and fp64 at the serve shapes, measured on the CPU)
+# is many ulps of the output itself; one ulp here is 2**-16, ~10x that
+INT8_ULP_FLOOR = 2.0 ** -8
+
+
+def _bf16_half_ulps(torch, got, want, floor=INT8_ULP_FLOOR) -> float:
+    """The largest |got - want| in units of half a bf16 ulp of
+    max(|want|, floor) (bf16 keeps 8 significant bits: for |v| in
+    [2**k, 2**(k+1)) an ulp is 2**(k-7))."""
+    ref = want.float().abs().clamp(min=floor)
+    _, e = torch.frexp(ref)
+    half = torch.ldexp(torch.ones_like(ref), e - 9)
+    return ((got.float() - want.float()).abs() / half).max().item()
+
+
+def paged_int8_inputs(torch, QZ, gen, n_sets=24) -> list:
+    """Argument sets of the int8 paged kernel at the serving shapes: b=8
+    slots, h=32, kvh=8, d=128, page 16, 32-page tables, bf16 q, int8
+    pools made by ``kv_quantize`` from normal values, the serve trace's
+    decode contexts (``SERVE_CONTEXTS``), each slot on its own random
+    pages. 24 sets of ~2.9 MB of live codes and scales cycle through
+    more than the 50 MB L2."""
+    b, h, kvh, d, ps, M = 8, 32, 8, 128, 16, 32
+    n_pages = b * M + 1
+    sets = []
+    for _ in range(n_sets):
+        perm = torch.randperm(n_pages - 1, generator=gen,
+                              device="cuda") + 1
+        tables = torch.zeros((b, M), dtype=torch.int32, device="cuda")
+        for s, n in enumerate(SERVE_CONTEXTS):
+            live = -(-(n + 1) // ps)
+            tables[s, :live] = perm[s * M:s * M + live].int()
+        seq = torch.tensor(SERVE_CONTEXTS, dtype=torch.int32, device="cuda")
+        shape = (n_pages, ps, kvh, d)
+        ck = QZ.kv_quantize(torch.randn(shape, generator=gen, device="cuda"))
+        cv = QZ.kv_quantize(torch.randn(shape, generator=gen, device="cuda"))
+        sets.append((torch.randn((b, 1, h, d), generator=gen,
+                                 device="cuda").bfloat16(),
+                     ck.q, cv.q, tables, seq, ck.scale, cv.scale))
+    return sets
+
+
+def _paged_int8(K, q, kq, vq, tables, seq, ks, vs):
+    return K.paged_attention_cuda(q, kq, vq, tables, seq, k_scale=ks,
+                                  v_scale=vs)
+
+
+def _paged_int8_plain(K, q, kq, vq, tables, seq, ks, vs):
+    return K.paged_attention_plain(q, kq, vq, tables, seq, k_scale=ks,
+                                   v_scale=vs)
+
+
+def paged_int8_errors(torch, K, args) -> dict:
+    """The int8 kernel against its plain version on one argument set.
+    Tolerance: one bf16 ulp (2 half-ulps) of the plain output, or of
+    ``INT8_ULP_FLOOR`` below it: both dequantize each element in fp32
+    and keep q and the probabilities in fp32, so their fp32 outputs
+    differ only by the order of the sums, and each is rounded to bf16
+    once. Two launches on the same inputs must agree bitwise. Returns
+    the errors and a list of failures."""
+    got = _paged_int8(K, *args)
+    again = _paged_int8(K, *args)
+    torch.cuda.synchronize()
+    want = _paged_int8_plain(K, *args)
+    out = {"max_abs_err": (got.float() - want.float()).abs().max().item(),
+           "max_err_half_ulps": _bf16_half_ulps(torch, got, want),
+           "bitwise_repeat": bool(torch.equal(got, again))}
+    out["failures"] = (
+        ([] if out["max_err_half_ulps"] <= 2.0 else
+         [f"{out['max_err_half_ulps']:.3g} half-ulps > 2"])
+        + ([] if out["bitwise_repeat"] else ["two launches differ"]))
+    return out
+
+
+def phase_paged_int8(torch, K, QZ) -> dict:
+    """The paged kernel's int8 mode against its plain version at the
+    serving shapes (``paged_int8_inputs``, ``paged_int8_errors``), with
+    its times, its byte bound and, as a yardstick only, gather +
+    dequantize to bf16 + PyTorch's SDPA."""
+    sets = paged_int8_inputs(
+        torch, QZ, torch.Generator(device="cuda").manual_seed(SEED + 7))
+    errs = paged_int8_errors(torch, K, sets[0])
+    if errs["failures"]:
+        raise AssertionError(f"int8 paged kernel differs from its plain "
+                             f"version: {errs}")
+    q, kq = sets[0][:2]
+    b, _, h, d = q.shape
+    M, kvh = sets[0][3].shape[1], kq.shape[2]
+    lib_err = (_sdpa_int8_yardstick(torch, *sets[0]).float()
+               - _paged_int8_plain(K, *sets[0]).float()).abs().max().item()
+    positions = sum(n + 1 for n in SERVE_CONTEXTS)
+    nbytes = (2 * b * h * d * 2                    # q in, out
+              + 2 * positions * kvh * (d + 4)      # live codes and scales
+              + b * M * 4 + b * 4)                 # tables, seq_lens
+    flops = 4 * positions * h * d + 2 * positions * kvh * d   # + dequant
+    bound = max(nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS) * 1e3
+    row = {
+        "shape": {"b": b, "h": h, "kvh": kvh, "d": d,
+                  "page_size": kq.shape[1], "max_pages": M,
+                  "seq_lens": list(SERVE_CONTEXTS), "q": "bfloat16",
+                  "pools": "int8 + fp32 row scales"},
+        **{k: v for k, v in errs.items() if k != "failures"},
+        "tolerance": "2 half-ulps (one bf16 ulp) of max(|plain|, 2**-8)",
+        "library_max_abs_err": lib_err,
+        **_timings(torch, {
+            "kernel": lambda *a: _paged_int8(K, *a),
+            "plain": lambda *a: _paged_int8_plain(K, *a),
+            "library": lambda *a: _sdpa_int8_yardstick(torch, *a)}, sets),
+        "bound_ms": bound, "bound_bytes": nbytes,
+        "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
+                     >= flops / FP32_FLOPS else "operations")}
+    _emit("kernel_vs_plain", {"name": "paged_attention_int8", **row})
+    return row
+
 
 def _flash_work(b, sq, sk, h, d, causal, kind):
     """(flops, bytes) one flash call needs: 2 * d flops per product
@@ -1193,11 +1345,29 @@ def phase_train_moe_profile(torch, model, opt, TrainStep, batch) -> dict:
     return out
 
 
-def phase_parity(torch, np, model, ServingEngine, K) -> dict:
-    """One decode step on one engine state, kernels vs plain versions."""
+# Slice parity's bound on the largest logit difference between the
+# kernels and the plain versions over one decode step. Each layer's
+# attention output moves by at most a bf16 ulp between the two; at 32
+# layers of Llama-3-8B widths the logits moved by 0.012-0.014 (bf16 and
+# int8 pools, PR 4's chip runs), so 0.1 leaves ~7x room. Without it the
+# decisive-row rule alone passes any large error: it leaves no decisive
+# row.
+SLICE_DLOGIT_LIMIT = 0.1
+
+
+def parity_run(torch, np, model, ServingEngine, K,
+               kv_quant: bool = False) -> dict:
+    """One decode step on one engine state, kernels vs plain versions
+    (with ``kv_quant``, the int8 pool: the paged kernel's int8 mode).
+    The largest logit difference must stay within SLICE_DLOGIT_LIMIT,
+    greedy tokens must agree on every decisive row (top-2 margin over
+    twice that difference), and the kernel run must launch RMSNorm
+    2L + 1 times and the paged kernel, in its pool's mode, L times.
+    Returns the numbers and a list of failures."""
     cfg = model.config
     eng = ServingEngine(model, num_pages=128, page_size=16, max_slots=8,
-                        prefill_chunk=64, max_pages_per_slot=16)
+                        prefill_chunk=64, max_pages_per_slot=16,
+                        kv_quant=kv_quant)
     rng = np.random.default_rng(SEED + 2)
     for n in rng.integers(16, 128, size=8):
         eng.add_request(rng.integers(0, cfg.vocab_size, n).tolist(), 8)
@@ -1205,7 +1375,9 @@ def phase_parity(torch, np, model, ServingEngine, K) -> dict:
             r.prefilling or not r.tokens
             for r in eng.scheduler.running.values()):
         eng.step()
+    K.reset_launch_counts()
     got = eng.decode_logits().float()
+    launches = K.launch_counts()
     with K.plain_reference():
         want = eng.decode_logits().float()
     torch.cuda.synchronize()
@@ -1216,22 +1388,41 @@ def phase_parity(torch, np, model, ServingEngine, K) -> dict:
     out = {"max_abs_dlogit": delta, "rows": int(got.shape[0]),
            "decisive_rows": int(decisive.sum()),
            "decisive_agree": int((agree & decisive).sum()),
-           "all_rows_agree": int(agree.sum())}
-    _emit("slice_parity", out)
-    if not math.isfinite(delta) or not bool(agree[decisive].all()):
-        raise AssertionError(f"kernel and plain decode steps disagree on a "
-                             f"decisive row: {out}")
+           "all_rows_agree": int(agree.sum()), "launches": launches,
+           "failures": []}
+    if not delta <= SLICE_DLOGIT_LIMIT:
+        out["failures"].append(f"max |dlogit| {delta} > "
+                               f"{SLICE_DLOGIT_LIMIT}")
+    if not bool(agree[decisive].all()):
+        out["failures"].append("a decisive row disagrees")
+    L = cfg.num_hidden_layers
+    paged = "paged_attention_int8" if kv_quant else "paged_attention"
+    if launches != _counts(K, rms_norm=2 * L + 1, **{paged: L}):
+        out["failures"].append(f"the decode step launched {launches}")
     return out
 
 
-def phase_serve(torch, np, model, ServingEngine, K, smi: str) -> dict:
+def phase_parity(torch, np, model, ServingEngine, K,
+                 kv_quant: bool = False) -> dict:
+    out = parity_run(torch, np, model, ServingEngine, K, kv_quant)
+    _emit("slice_parity_int8" if kv_quant else "slice_parity", out)
+    if out["failures"]:
+        raise AssertionError(f"kernel and plain decode steps differ: {out}")
+    return out
+
+
+def phase_serve(torch, np, model, ServingEngine, K, smi: str,
+                kv_quant: bool = False) -> dict:
     """8 requests x 32 greedy tokens at the model's widths. Requests 0
     and 2-6 arrive first (prompt lengths from default_rng(0), 64..255);
     request 1 repeats request 0's first 64 tokens and arrives once
     request 0's prompt is cached (a full-page prefix hit); request 7 is
     a follow-up turn of request 0 — its prompt, its reply and 16 new
     tokens — arriving after request 0 finished, so it maps request 0's
-    pages including the partial last one through a copy-on-write."""
+    pages including the partial last one through a copy-on-write. With
+    ``kv_quant`` the same trace runs over the int8 pool (``serve_int8``);
+    the decode steps must then take the paged kernel's int8 mode only."""
+    from paddle_tpu_torch.quantization import serving_state_bytes
     cfg = model.config
     L = cfg.num_hidden_layers
     new_tokens = 32
@@ -1242,7 +1433,8 @@ def phase_serve(torch, np, model, ServingEngine, K, smi: str) -> dict:
         prompts[0] = prompts[0][:-1]   # keep request 0's last page partial
     prompts[1][:64] = prompts[0][:64]
     eng = ServingEngine(model, num_pages=256, page_size=16, max_slots=8,
-                        prefill_chunk=64, max_pages_per_slot=32)
+                        prefill_chunk=64, max_pages_per_slot=32,
+                        kv_quant=kv_quant)
     torch.cuda.synchronize()
     K.reset_launch_counts()
     t0 = time.perf_counter()
@@ -1275,18 +1467,24 @@ def phase_serve(torch, np, model, ServingEngine, K, smi: str) -> dict:
            "prefix_hits": summary["prefix_hits"],
            "prefix_cow_copies": summary["prefix_cow_copies"],
            "preemptions": summary["preemptions"],
+           "serving_state_bytes": serving_state_bytes(model),
+           "kv_bytes_per_token": eng.pool.kv_bytes_per_token(),
+           "kv_quant": eng.stats()["kv_quant"],
+           "kv_quant_scale_max": summary["kv_quant_scale_max"],
+           "kv_quant_err_bound": summary["kv_quant_err_bound"],
            "prompt_lens": [len(p) for p in prompts] + [len(follow)],
            "audit": audit, "card": smi}
-    _emit("serve", out)
+    _emit("serve_int8" if kv_quant else "serve", out)
+    out["streams"] = res
     bad = {r: len(t) for r, t in res.items() if len(t) != new_tokens}
     if len(res) != 8 or bad:
         raise AssertionError(f"requests did not all finish with "
                              f"{new_tokens} tokens: {bad}")
     dispatches = steps["decode"] + steps["mixed"]
+    paged = "paged_attention_int8" if kv_quant else "paged_attention"
     want = _counts(K, rms_norm=(2 * L + 1) * dispatches,
-                   paged_attention=L * steps["decode"])
-    if launches != want or not (launches["rms_norm"]
-                                and launches["paged_attention"]):
+                   **{paged: L * steps["decode"]})
+    if launches != want or not (launches["rms_norm"] and launches[paged]):
         raise AssertionError(f"launch counters {launches} != expected "
                              f"{want} for step counts {steps}")
     if summary["prefix_hits"] < 2 or summary["prefix_cow_copies"] < 1:
@@ -1295,13 +1493,35 @@ def phase_serve(torch, np, model, ServingEngine, K, smi: str) -> dict:
     return out
 
 
-def phase_profile(torch, np, model, ServingEngine) -> dict:
+def _int8_linears_device_ms(torch, model, rows: int):
+    """Device time of every ``Int8ServingLinear`` of ``model`` called
+    once on ``[rows, in]`` bf16 activations (the profiler's summed GPU
+    activity): the int8 weight products of one step of ``rows`` tokens."""
+    from paddle_tpu_torch.quantization import Int8ServingLinear
+    layers = [m for m in model.modules() if isinstance(m, Int8ServingLinear)]
+    xs = {m.in_features: torch.randn((rows, m.in_features), device="cuda")
+          .bfloat16() for m in layers}
+
+    def run():
+        for m in layers:
+            m(xs[m.in_features])
+    with torch.no_grad():
+        run()
+        return _profile_steps(torch, run, 1)["device_ms"]
+
+
+def phase_profile(torch, np, model, ServingEngine,
+                  kv_quant: bool = False) -> dict:
     """Where a step's time goes at this depth: one mixed step (8 slots,
     each a 64-token prefill chunk) and then three decode steps, each
-    under ``torch.profiler`` (see ``_profile_steps``)."""
+    under ``torch.profiler`` (see ``_profile_steps``). With ``kv_quant``
+    (``profile_int8``, over the int8-weight model) also the device time
+    of the ``Int8ServingLinear`` products of one step of each shape, and
+    its share of that step's device time."""
     cfg = model.config
     eng = ServingEngine(model, num_pages=64, page_size=16, max_slots=8,
-                        prefill_chunk=64, max_pages_per_slot=8)
+                        prefill_chunk=64, max_pages_per_slot=8,
+                        kv_quant=kv_quant)
     rng = np.random.default_rng(SEED + 3)
     for _ in range(8):
         eng.add_request(rng.integers(0, cfg.vocab_size, 64).tolist(), 8)
@@ -1309,7 +1529,15 @@ def phase_profile(torch, np, model, ServingEngine) -> dict:
            for name, n_steps in (("mixed", 1), ("decode", 3))}
     if eng.step_counts != {"decode": 3, "mixed": 1}:
         raise AssertionError(f"profile phase ran {eng.step_counts}")
-    _emit("profile", {"layers": cfg.num_hidden_layers, **out})
+    if kv_quant:
+        for name, rows in (("mixed", 8 * 64), ("decode", 8)):
+            ms = _int8_linears_device_ms(torch, model, rows)
+            step_ms = out[name]["device_ms"]
+            out[name]["int8_linear_device_ms"] = ms
+            out[name]["int8_linear_share"] = (ms / step_ms if ms and step_ms
+                                              else None)
+    _emit("profile_int8" if kv_quant else "profile",
+          {"layers": cfg.num_hidden_layers, **out})
     return out
 
 
@@ -1336,6 +1564,7 @@ def main(argv=None) -> int:
         from paddle_tpu_torch.ops.kernels import moe_grouped_gemm as GG
         from paddle_tpu_torch.ops.kernels import moe_routing as MR
         from paddle_tpu_torch.optimizer import AdamW
+        from paddle_tpu_torch import quantization as QZ
         from paddle_tpu_torch.serving import ServingEngine
     except ImportError as e:
         print(f"chip_smoke: the paddle_tpu_torch package is missing beside "
@@ -1369,6 +1598,7 @@ def main(argv=None) -> int:
     # 3. kernel vs plain
     rms = phase_rms_norm(torch, K)
     paged = phase_paged(torch, K)
+    paged_int8 = phase_paged_int8(torch, K, QZ)
     flash = phase_flash(torch, F)
     torch.cuda.empty_cache()
     moe_k = phase_moe_kernels(torch, MR, GG)
@@ -1433,6 +1663,31 @@ def main(argv=None) -> int:
     serve = phase_serve(torch, np, model, ServingEngine, K, smi)
     phase_profile(torch, np, model, ServingEngine)
 
+    # the same model with int8 weights, over the int8 pool
+    t0 = time.perf_counter()
+    QZ.quantize_for_serving(model, inplace=True)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    _emit("model_int8", {"quantize_s": time.perf_counter() - t0,
+                         "serving_state_bytes":
+                         QZ.serving_state_bytes(model),
+                         "memory_allocated_gb":
+                         torch.cuda.memory_allocated() / 1e9})
+    phase_parity(torch, np, model, ServingEngine, K, kv_quant=True)
+    torch.cuda.empty_cache()
+    serve_int8 = phase_serve(torch, np, model, ServingEngine, K, smi,
+                             kv_quant=True)
+    phase_profile(torch, np, model, ServingEngine, kv_quant=True)
+    # information only: the int8 model is another model, so its greedy
+    # streams may part from the bf16 ones
+    agree = {}
+    for rid, ref in serve["streams"].items():
+        got = serve_int8["streams"][rid]
+        agree[rid] = next((i for i, (a, b_) in enumerate(zip(ref, got))
+                           if a != b_), min(len(ref), len(got)))
+    _emit("int8_vs_bf16_streams", {"divergence_free_prefix": agree,
+                                   "tokens_per_request": 32})
+
     # 10. the kernels line
     src = "paddle_tpu_torch/csrc/"
     kernels = [
@@ -1452,6 +1707,16 @@ def main(argv=None) -> int:
          "plain_ms": paged["plain_ms"], "bound_ms": paged["bound_ms"],
          "bound_by": paged["bound_by"], "library_ms": paged["library_ms"],
          "shape": paged["shape"]},
+        {"name": "paged_attention_int8", "route": "cuda",
+         "source": src + "paged_attention.cu",
+         "replaces": "paddle_tpu/ops/pallas/paged_attention.py:181",
+         "launches": serve_int8["launches"]["paged_attention_int8"],
+         "max_abs_err": paged_int8["max_abs_err"], "ms": paged_int8["ms"],
+         "plain_ms": paged_int8["plain_ms"],
+         "bound_ms": paged_int8["bound_ms"],
+         "bound_by": paged_int8["bound_by"],
+         "library_ms": paged_int8["library_ms"],
+         "shape": paged_int8["shape"]},
     ]
     for name, source, line in (
             ("flash_fwd", "flash_attention_fwd.cu", 242),

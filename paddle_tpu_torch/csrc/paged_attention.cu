@@ -2,11 +2,15 @@
 // KV cache through a block table of fixed-size pages.
 //
 // Replaces paddle_tpu/ops/pallas/paged_attention.py::_decode_kernel /
-// paged_attention_tpu (fp mode; the int8 mode is not ported yet).
+// paged_attention_tpu in both its modes: fp pools (fp32 or bf16), and
+// int8 pools (quant mode: codes [P, ps, kvh, d] with one fp32 absmax
+// scale per row in [P, ps, kvh], dequantized inside the page loop).
 //
 // Bound on the H100: bytes. Each slot's live K and V rows are read once
-// (2 * (seq_len + 1) * kvh * d elements); the arithmetic is 4 operations
-// per KV element pair, far below what the card can do per byte moved.
+// (2 * (seq_len + 1) * kvh * d elements, plus 4 bytes of scale per row
+// in int8 mode: (d + 4) / (2 d) of the bf16 bytes, 52% at d = 128); the
+// arithmetic is 4 operations per KV element pair, far below what the
+// card can do per byte moved.
 //
 // Design: one block of 512 threads (16 warps) per (kv head, slot); the
 // g = h / kvh query heads of that kv head share the block, so each K/V
@@ -21,21 +25,31 @@
 // the g warp-shuffle reductions), so the block spreads positions over as
 // many warps as its registers allow: warp w takes positions w, w + 16,
 // ...; a lane loads d/32 consecutive elements of a row in one vector
-// load, so a warp reads whole rows, coalesced. (On an H100, 512 threads
-// ran the serving shapes in about half the time of 256, and taking
-// several positions per warp at once was slower; see PERF.md.)
+// load, so a warp reads whole rows, coalesced (int8 at d = 128: 4 codes
+// in one 32-bit load, a whole 128-byte row per warp; the row's scale is
+// one fp32 that every lane of the warp reads at once, a broadcast). (On
+// an H100, 512 threads ran the serving shapes in about half the time of
+// 256, and taking several positions per warp at once was slower; see
+// PERF.md.)
 //
 // Arithmetic: the grouped GQA core of nn/functional/attention.py
 // (_grouped_decode_attn), not the TPU kernel's. q is rounded to the
-// cache dtype, scores accumulate in fp32, the softmax is exp(s - max) /
-// sum in fp32, and the probabilities are rounded to the cache dtype
+// core's dtype, scores accumulate in fp32, the softmax is exp(s - max) /
+// sum in fp32, and the probabilities are rounded to the core's dtype
 // before the PV product, which accumulates in fp32; the output is
-// rounded once to q's dtype. The engine runs a request's decode rows
-// through this kernel on pure-decode steps and through the plain core on
-// mixed steps, so matching the core up to summation order keeps the two
-// step shapes as close as they can be. Matching its rounding of the
-// NORMALISED probabilities needs the softmax's max and sum before the
-// first PV product, so the block makes two passes:
+// rounded once to q's dtype. The core's dtype is the cache dtype for fp
+// pools and fp32 for int8 pools: the core dequantizes an int8 cache to
+// fp32 (code * scale, one fp32 rounding per element), so q and the
+// probabilities are not rounded at all. The kernel dequantizes each
+// element the same way before its product rather than factoring the
+// scale out of the dot product, so it keeps the core's roundings and
+// differs only in the order of the sums (4 multiplies per lane and row,
+// free at this arithmetic intensity). The engine runs a request's decode
+// rows through this kernel on pure-decode steps and through the plain
+// core on mixed steps, so matching the core up to summation order keeps
+// the two step shapes as close as they can be. Matching its rounding of
+// the NORMALISED probabilities needs the softmax's max and sum before
+// the first PV product, so the block makes two passes:
 //   1. scores: per position, the g dot products reduce by warp shuffles
 //      and lane 0 writes the scaled score to a global fp32 scratch
 //      [b, kvh, g, M*ps] (live positions only); the block then reduces
@@ -46,7 +60,7 @@
 //      are added in shared memory, warp 0 first, in a fixed order.
 // K is read in pass 1 and V in pass 2, each once; the scratch adds
 // 8 * g bytes per position (written once, read twice), ~6% of the KV
-// bytes at d = 128, g = 4.
+// bytes at d = 128, g = 4 in bf16 (~12% in int8).
 //
 // C interface (bound with ctypes): paged_decode_launch returns the CUDA
 // launch error (0 on success); it never synchronises.
@@ -55,6 +69,8 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -67,6 +83,7 @@ __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
+__device__ __forceinline__ float to_f(int8_t v) { return (float)v; }
 
 template <typename T>
 __device__ __forceinline__ T from_f(float v);
@@ -83,7 +100,12 @@ __device__ __forceinline__ float round_to(float v) {
   return to_f(from_f<T>(v));
 }
 
+// the dtype the attention core runs in: the cache's, fp32 for int8 codes
+template <typename CT> struct Core { using T = CT; };
+template <> struct Core<int8_t> { using T = float; };
+
 template <int BYTES> struct VecOf;
+template <> struct VecOf<1> { using T = unsigned char; };
 template <> struct VecOf<2> { using T = unsigned short; };
 template <> struct VecOf<4> { using T = unsigned int; };
 template <> struct VecOf<8> { using T = uint2; };
@@ -105,6 +127,8 @@ __global__ void __launch_bounds__(kThreads)
 paged_decode_kernel(const QT* __restrict__ q,          // [b, h, D]
                     const CT* __restrict__ pool_k,     // [P, ps, kvh, D]
                     const CT* __restrict__ pool_v,     // [P, ps, kvh, D]
+                    const float* __restrict__ k_scale,  // [P, ps, kvh] (int8)
+                    const float* __restrict__ v_scale,  // [P, ps, kvh] (int8)
                     const int32_t* __restrict__ tables,    // [b, M]
                     const int32_t* __restrict__ seq_lens,  // [b]
                     QT* __restrict__ out,              // [b, h, D]
@@ -112,6 +136,8 @@ paged_decode_kernel(const QT* __restrict__ q,          // [b, h, D]
                     int kvh, int G, int ps, int M, float scale) {
   static_assert(D == 32 || D == 64 || D == 128, "unsupported head dim");
   constexpr int kPer = D / 32;              // row elements per lane
+  constexpr bool kInt8 = std::is_same<CT, int8_t>::value;
+  using RT = typename Core<CT>::T;          // q and p are rounded to RT
 
   const int n = blockIdx.x;                 // kv head
   const int s = blockIdx.y;                 // slot
@@ -131,7 +157,7 @@ paged_decode_kernel(const QT* __restrict__ q,          // [b, h, D]
 
   for (int i = tid; i < G * D; i += kThreads) {
     const int gi = i / D, dd = i % D;
-    q_s[i] = round_to<CT>(to_f(q[((int64_t)s * h + n * G + gi) * D + dd]));
+    q_s[i] = round_to<RT>(to_f(q[((int64_t)s * h + n * G + gi) * D + dd]));
   }
   __syncthreads();
 
@@ -150,6 +176,11 @@ paged_decode_kernel(const QT* __restrict__ q,          // [b, h, D]
     const int64_t page = tab[t / ps];
     load_row<CT, kPer>(pool_k + page * page_stride + (t % ps) * row_stride
                        + head_off, kv);
+    if constexpr (kInt8) {
+      const float sk = k_scale[(page * ps + t % ps) * kvh + n];
+#pragma unroll
+      for (int e = 0; e < kPer; ++e) kv[e] *= sk;
+    }
 #pragma unroll
     for (int gi = 0; gi < kMaxG; ++gi) {
       if (gi < G) {
@@ -203,7 +234,7 @@ paged_decode_kernel(const QT* __restrict__ q,          // [b, h, D]
     stat[kMaxG + tid] = l;
   }
 
-  // ---- pass 2: probabilities (rounded to the cache dtype) times V ----
+  // ---- pass 2: probabilities (rounded to the core's dtype) times V ----
   float acc[kMaxG][kPer];
 #pragma unroll
   for (int gi = 0; gi < kMaxG; ++gi)
@@ -216,7 +247,7 @@ paged_decode_kernel(const QT* __restrict__ q,          // [b, h, D]
       const int gi = i / kTile, j = i % kTile;
       float p = 0.f;
       if (j < nt) {
-        p = round_to<CT>(expf(sc[gi * S + t0 + j] - stat[gi])
+        p = round_to<RT>(expf(sc[gi * S + t0 + j] - stat[gi])
                          / stat[kMaxG + gi]);
       }
       p_s[i] = p;
@@ -228,6 +259,11 @@ paged_decode_kernel(const QT* __restrict__ q,          // [b, h, D]
       const int64_t page = tab[t / ps];
       load_row<CT, kPer>(pool_v + page * page_stride + (t % ps) * row_stride
                          + head_off, vv);
+      if constexpr (kInt8) {
+        const float sv = v_scale[(page * ps + t % ps) * kvh + n];
+#pragma unroll
+        for (int e = 0; e < kPer; ++e) vv[e] *= sv;
+      }
 #pragma unroll
       for (int gi = 0; gi < kMaxG; ++gi) {
         if (gi < G) {
@@ -262,15 +298,17 @@ paged_decode_kernel(const QT* __restrict__ q,          // [b, h, D]
 }
 
 template <typename QT, typename CT, int D>
-int launch(const void* q, const void* pk, const void* pv, const void* tables,
-           const void* seq_lens, void* out, void* scores, int b, int kvh,
-           int G, int ps, int M, float scale, cudaStream_t stream) {
+int launch(const void* q, const void* pk, const void* pv, const void* ks,
+           const void* vs, const void* tables, const void* seq_lens,
+           void* out, void* scores, int b, int kvh, int G, int ps, int M,
+           float scale, cudaStream_t stream) {
   const dim3 grid(kvh, b);
   const size_t smem =
       sizeof(float) * (G * D + G * kTile + kWarps * kMaxG + 2 * kMaxG);
   paged_decode_kernel<QT, CT, D><<<grid, kThreads, smem, stream>>>(
       static_cast<const QT*>(q), static_cast<const CT*>(pk),
-      static_cast<const CT*>(pv), static_cast<const int32_t*>(tables),
+      static_cast<const CT*>(pv), static_cast<const float*>(ks),
+      static_cast<const float*>(vs), static_cast<const int32_t*>(tables),
       static_cast<const int32_t*>(seq_lens), static_cast<QT*>(out),
       static_cast<float*>(scores), kvh, G, ps, M, scale);
   return (int)cudaGetLastError();
@@ -278,27 +316,30 @@ int launch(const void* q, const void* pk, const void* pv, const void* tables,
 
 template <typename QT, typename CT>
 int launch_d(int D, const void* q, const void* pk, const void* pv,
-             const void* tables, const void* seq_lens, void* out,
-             void* scores, int b, int kvh, int G, int ps, int M, float scale,
-             cudaStream_t stream) {
+             const void* ks, const void* vs, const void* tables,
+             const void* seq_lens, void* out, void* scores, int b, int kvh,
+             int G, int ps, int M, float scale, cudaStream_t stream) {
   if (D == 128)
-    return launch<QT, CT, 128>(q, pk, pv, tables, seq_lens, out, scores, b,
-                               kvh, G, ps, M, scale, stream);
+    return launch<QT, CT, 128>(q, pk, pv, ks, vs, tables, seq_lens, out,
+                               scores, b, kvh, G, ps, M, scale, stream);
   if (D == 64)
-    return launch<QT, CT, 64>(q, pk, pv, tables, seq_lens, out, scores, b,
-                              kvh, G, ps, M, scale, stream);
+    return launch<QT, CT, 64>(q, pk, pv, ks, vs, tables, seq_lens, out,
+                              scores, b, kvh, G, ps, M, scale, stream);
   if (D == 32)
-    return launch<QT, CT, 32>(q, pk, pv, tables, seq_lens, out, scores, b,
-                              kvh, G, ps, M, scale, stream);
+    return launch<QT, CT, 32>(q, pk, pv, ks, vs, tables, seq_lens, out,
+                              scores, b, kvh, G, ps, M, scale, stream);
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dtype codes: 0 = float32, 1 = bfloat16. q/out share q_dtype; the two
-// pools share c_dtype (16-byte aligned). D in {32, 64, 128}; 1 <= G <= 16.
+// dtype codes: 0 = float32, 1 = bfloat16, 2 = int8 (pools only). q/out
+// share q_dtype; the two pools share c_dtype (16-byte aligned). c_dtype 2
+// needs the fp32 row scales k_scale/v_scale [P, ps, kvh]; the fp modes
+// ignore them. D in {32, 64, 128}; 1 <= G <= 16.
 extern "C" int paged_decode_launch(const void* q, const void* pool_k,
-                                   const void* pool_v, const void* tables,
+                                   const void* pool_v, const void* k_scale,
+                                   const void* v_scale, const void* tables,
                                    const void* seq_lens, void* out,
                                    void* scores, int b, int kvh, int G,
                                    int D, int ps, int M, float scale,
@@ -306,15 +347,20 @@ extern "C" int paged_decode_launch(const void* q, const void* pool_k,
   if (b <= 0) return 0;
   if (G < 1 || G > kMaxG || kvh < 1 || ps < 1 || M < 1 || b > 65535)
     return (int)cudaErrorInvalidValue;
+  if (c_dtype == 2 && (k_scale == nullptr || v_scale == nullptr))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define PAGED_CASE(QC, CC, QT, CT)                                          \
   if (q_dtype == QC && c_dtype == CC)                                       \
-    return launch_d<QT, CT>(D, q, pool_k, pool_v, tables, seq_lens, out,    \
-                            scores, b, kvh, G, ps, M, scale, st);
+    return launch_d<QT, CT>(D, q, pool_k, pool_v, k_scale, v_scale,        \
+                            tables, seq_lens, out, scores, b, kvh, G, ps, M, \
+                            scale, st);
   PAGED_CASE(0, 0, float, float)
   PAGED_CASE(0, 1, float, __nv_bfloat16)
   PAGED_CASE(1, 0, __nv_bfloat16, float)
   PAGED_CASE(1, 1, __nv_bfloat16, __nv_bfloat16)
+  PAGED_CASE(0, 2, float, int8_t)
+  PAGED_CASE(1, 2, __nv_bfloat16, int8_t)
 #undef PAGED_CASE
   return (int)cudaErrorInvalidValue;
 }

@@ -6,7 +6,8 @@ the JAX model, so a JAX ``state_dict`` loads unchanged
 
 - the PAGED branch (llama.py:226-268), the serving engine's: the step's
   K/V rows are scattered into the layer's ``(pool_k, pool_v)`` first —
-  inactive slots and padded rows write scratch page 0 — and then
+  inactive slots and padded rows write scratch page 0; an int8 pool
+  (two ``QuantizedKV``) takes the rows' codes and scales — and then
   attended through ``paged_attention_decode``. The JAX model replaces
   the pool arrays functionally; the port writes them in place and
   returns the same tensors.
@@ -33,6 +34,7 @@ from torch import nn
 from ..core import resolve_device, resolve_dtype
 from ..nn import functional as F
 from ..nn.layer import Embedding, Linear, RMSNorm
+from ..quantization.serving import QuantizedKV, kv_quantize
 
 __all__ = ["LlamaConfig", "LlamaForCausalLM", "LlamaModel",
            "LlamaDecoderLayer", "llama_tiny", "llama_3_8b",
@@ -156,8 +158,16 @@ class LlamaAttention(nn.Module):
                 1, (pos // ps).clamp(max=tables.shape[1] - 1))
             page = torch.where(live, page, 0)
             off = torch.where(live, pos % ps, 0)
-            pk[page, off] = k.to(pk.dtype)
-            pv[page, off] = v.to(pv.dtype)
+            if isinstance(pk, QuantizedKV):
+                # int8 pool: quantize the step's rows as they are written
+                # (llama.py:254-263), codes and scales at one (page, off)
+                for pool, new in ((pk, k), (pv, v)):
+                    c = kv_quantize(new)
+                    pool.q[page, off] = c.q
+                    pool.scale[page, off] = c.scale
+            else:
+                pk[page, off] = k.to(pk.dtype)
+                pv[page, off] = v.to(pv.dtype)
             out = F.paged_attention_decode(q, pk, pv, tables, seq_lens)
             return self.o_proj(out.reshape(b, s, h * d)), (pk, pv)
         if kv_cache is not None:

@@ -5,13 +5,16 @@
   ``{name: numpy array}``, into the port's model. Names and layouts are
   the same in both packages, so the only conversion is a dtype cast to
   the port parameter's dtype (an fp32 parameter, such as a MoE router's
-  weight in a bf16 model, stays fp32). The non-persistent rope tables
-  (``[model.]rope_cos``/``[model.]rope_sin``) are loaded when present, so a
-  test compares like with like; they are never required, and the MoE
-  layers' ``*.moe.aux_loss`` buffers are skipped. Missing and
-  extra keys and shape mismatches raise, naming the key.
-- :func:`export_numpy_state` is its inverse: the model's parameters as
-  ``{name: numpy array}`` (bf16 values as exact fp32 arrays).
+  weight in a bf16 model, stays fp32). The persistent buffers of an
+  ``Int8ServingLinear`` (``weight_q`` int8, ``weight_scale`` fp32) load
+  too, never cast: a source of another dtype raises. The non-persistent
+  rope tables (``[model.]rope_cos``/``[model.]rope_sin``) are loaded when
+  present, so a test compares like with like; they are never required,
+  and the MoE layers' ``*.moe.aux_loss`` buffers are skipped. Missing
+  and extra keys and shape mismatches raise, naming the key.
+- :func:`export_numpy_state` is its inverse: the model's parameters and
+  persistent buffers as ``{name: numpy array}`` (bf16 values as exact
+  fp32 arrays; int8 codes and fp32 scales as they are).
 - :func:`load_optimizer_state` carries a JAX optimizer state, converted
   to numpy (``{"step", "moment1", "moment2", "master"}``), into the
   port's optimizer, so that both packages can continue from one
@@ -48,11 +51,13 @@ def _to_tensor(arr) -> torch.Tensor:
 
 
 def load_numpy_state(model: nn.Module, state: dict) -> None:
-    """Copy ``state`` into ``model``'s parameters (and the optional rope
-    buffers) in place. Raises KeyError on missing or extra keys and
-    ValueError on a shape mismatch, naming the key."""
-    params = dict(model.named_parameters())
+    """Copy ``state`` into ``model``'s parameters and persistent buffers
+    (and the optional rope buffers) in place. Raises KeyError on missing
+    or extra keys and ValueError on a shape mismatch or on a buffer whose
+    dtype the source does not have, naming the key."""
+    params = model.state_dict(keep_vars=True)      # parameters, buffers
     buffers = {k: v for k, v in model.named_buffers() if k in _OPTIONAL}
+    exact = {k for k, v in params.items() if not isinstance(v, nn.Parameter)}
     state = {k: v for k, v in state.items()
              if not k.endswith(_SKIPPED_SUFFIX)}
     missing = sorted(k for k in params if k not in state)
@@ -69,6 +74,9 @@ def load_numpy_state(model: nn.Module, state: dict) -> None:
             raise ValueError(f"shape mismatch for {name}: state has "
                              f"{tuple(src.shape)}, model has "
                              f"{tuple(dst.shape)}")
+        if name in exact and src.dtype != dst.dtype:
+            raise ValueError(f"dtype mismatch for buffer {name}: state has "
+                             f"{src.dtype}, model has {dst.dtype}")
     with torch.no_grad():
         for name, arr in state.items():
             dst = targets[name]
@@ -76,9 +84,10 @@ def load_numpy_state(model: nn.Module, state: dict) -> None:
 
 
 def export_numpy_state(model: nn.Module) -> dict:
-    """``{name: numpy array}`` of the parameters; bf16 becomes fp32."""
+    """``{name: numpy array}`` of the parameters and persistent buffers;
+    bf16 becomes fp32."""
     out = {}
-    for name, p in model.named_parameters():
+    for name, p in model.state_dict().items():
         t = p.detach().cpu()
         if t.dtype == torch.bfloat16:
             t = t.float()

@@ -32,6 +32,7 @@ from ...ops.kernels.flash_attention import flash_attention
 from ...ops.kernels.paged_attention import (paged_attention_cuda,
                                             paged_attention_plain)
 from ...ops.kernels.routing import use_kernel
+from ...quantization.serving import QuantizedKV, kv_dequantize
 
 __all__ = ["scaled_dot_product_attention", "cached_prefill_attention",
            "paged_attention_decode", "FLASH_MIN_SEQ"]
@@ -75,7 +76,11 @@ def _grouped_decode_attn(q, kc, vc, seq_lens, scale):
     ``[b, S, kvh, d]``; row j attends positions ``<= seq_lens + j``.
     q is cast to the cache dtype, scores accumulate in fp32, masked
     scores take -1e30 (a padded tail contributes exactly 0), and the
-    probabilities are cast to the cache dtype for the PV product."""
+    probabilities are cast to the cache dtype for the PV product. A
+    ``QuantizedKV`` cache is dequantized to fp32 first, so q and the
+    probabilities stay fp32 (attention.py:399-402)."""
+    if isinstance(kc, QuantizedKV):
+        kc, vc = kv_dequantize(kc), kv_dequantize(vc)
     b, t, h, d = q.shape
     S, kvh = kc.shape[1], kc.shape[2]
     g = h // kvh
@@ -105,15 +110,22 @@ def paged_attention_decode(q, pool_k, pool_v, block_tables, seq_lens,
                            scale=None):
     """Attention over the paged KV pool (counterpart: attention.py:458).
 
-    q ``[b, t, h, d]``; pools ``[num_pages, page_size, kvh, d]``;
-    block_tables int32 ``[b, max_pages]``; seq_lens int32 ``[b]`` — row j
-    attends pool positions ``<= seq_lens + j``. A CUDA ``t == 1`` call
-    launches kernel 2 (raising on a shape it does not take); every other
-    call gathers the pages and runs the grouped core."""
+    q ``[b, t, h, d]``; pools ``[num_pages, page_size, kvh, d]``, or two
+    ``QuantizedKV`` (int8 codes and fp32 ``[num_pages, page_size, kvh]``
+    scales); block_tables int32 ``[b, max_pages]``; seq_lens int32
+    ``[b]`` — row j attends pool positions ``<= seq_lens + j``. A CUDA
+    ``t == 1`` call launches kernel 2, in its int8 mode for a quantized
+    pool (raising on a shape it does not take); every other call gathers
+    the pages (codes and scales by the same table) and runs the grouped
+    core (attention.py:497-516)."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
+    scales = {}
+    if isinstance(pool_k, QuantizedKV):
+        scales = {"k_scale": pool_k.scale, "v_scale": pool_v.scale}
+        pool_k, pool_v = pool_k.q, pool_v.q
     if q.shape[1] == 1 and use_kernel(q):
         return paged_attention_cuda(q, pool_k, pool_v, block_tables,
-                                    seq_lens, scale)
+                                    seq_lens, scale, **scales)
     return paged_attention_plain(q, pool_k, pool_v, block_tables, seq_lens,
-                                 scale)
+                                 scale, **scales)

@@ -3,7 +3,8 @@
 | kernel | wrapper | replaces (JAX package) |
 | --- | --- | --- |
 | RMSNorm | ``rms_norm.rms_norm_cuda`` | ``ops/pallas/fused_norm.py::_rms_fwd_pallas`` |
-| paged decode | ``paged_attention.paged_attention_cuda`` | ``ops/pallas/paged_attention.py::paged_attention_tpu`` |
+| paged decode | ``paged_attention.paged_attention_cuda`` | ``ops/pallas/paged_attention.py::paged_attention_tpu`` (fp mode) |
+| paged decode, int8 | ``paged_attention.paged_attention_cuda`` with scales | ``ops/pallas/paged_attention.py::paged_attention_tpu`` (``k_scale``/``v_scale``) |
 | flash forward | ``flash_attention.flash_fwd_cuda`` | ``ops/pallas/flash_attention.py::_fwd`` |
 | flash dQ | ``flash_attention.flash_bwd_dq_cuda`` | ``ops/pallas/flash_attention.py::flash_block_grads`` (dQ pass) |
 | flash dK/dV | ``flash_attention.flash_bwd_dkv_cuda`` | ``ops/pallas/flash_attention.py::flash_block_grads`` (dK/dV pass) |
@@ -15,7 +16,10 @@
 The public flash functions (``flash_attention``, ``flash_attention_with_lse``,
 ``flash_block_grads``) live in the ``flash_attention`` module; the
 differentiable MoE functions (``fused_top2_routing``,
-``fused_grouped_moe``) in their modules.
+``fused_grouped_moe``) in their modules. :func:`launch_counts` reports
+each kernel by name; the paged kernel's two modes count apart
+(``paged_attention``, ``paged_attention_int8``), so a run shows which
+mode its path took.
 """
 
 from .flash_attention import (flash_block_grads_plain, flash_bwd_dkv_cuda,
@@ -37,17 +41,24 @@ __all__ = ["rms_norm", "rms_norm_cuda", "rms_norm_plain",
            "moe_dx_plain", "moe_dw_plain", "plain_reference", "use_kernel",
            "launch_counts", "reset_launch_counts"]
 
-_WRAPPERS = {"rms_norm": rms_norm_cuda, "paged_attention": paged_attention_cuda,
-             "flash_fwd": flash_fwd_cuda, "flash_dq": flash_bwd_dq_cuda,
-             "flash_dkv": flash_bwd_dkv_cuda, "moe_routing": moe_routing_cuda,
-             "moe_fwd": moe_fwd_cuda, "moe_dx": moe_dx_cuda,
-             "moe_dw": moe_dw_cuda}
+# kernel name -> (wrapper, the wrapper's attribute that counts it)
+_COUNTERS = {
+    "rms_norm": (rms_norm_cuda, "launches"),
+    "paged_attention": (paged_attention_cuda, "launches"),
+    "paged_attention_int8": (paged_attention_cuda, "int8_launches"),
+    "flash_fwd": (flash_fwd_cuda, "launches"),
+    "flash_dq": (flash_bwd_dq_cuda, "launches"),
+    "flash_dkv": (flash_bwd_dkv_cuda, "launches"),
+    "moe_routing": (moe_routing_cuda, "launches"),
+    "moe_fwd": (moe_fwd_cuda, "launches"),
+    "moe_dx": (moe_dx_cuda, "launches"),
+    "moe_dw": (moe_dw_cuda, "launches")}
 
 
 def launch_counts() -> dict[str, int]:
-    return {name: fn.launches for name, fn in _WRAPPERS.items()}
+    return {name: getattr(fn, attr) for name, (fn, attr) in _COUNTERS.items()}
 
 
 def reset_launch_counts() -> None:
-    for fn in _WRAPPERS.values():
-        fn.launches = 0
+    for fn, attr in _COUNTERS.values():
+        setattr(fn, attr, 0)

@@ -20,12 +20,19 @@ shape, copied to the device once per step; tokens and the per-slot
 finite flag come back in one copy. Shapes never change with the traffic,
 so a later change can capture each step shape in a CUDA graph.
 
+``kv_quant=True`` (or ``kv_dtype="int8"``) makes the pool int8: the
+model quantizes each row as it writes it, the decode step's kernel runs
+in its int8 mode, the mixed step's core dequantizes to fp32, and the
+metrics carry the largest scale the prefills wrote (engine.py:188-205,
+1742-1748, 2030-2034). A model from ``quantize_for_serving`` streams
+int8 weights through the same engine unchanged.
+
 Greedy decoding only: a request with ``SamplingParams(do_sample=True)``
 raises NotImplementedError (the JAX engine's sampled streams need its
 threefry key stream, not ported yet). Not ported: LoRA, tensor and
-pipeline parallelism, speculative decoding, the int8 pool, the host
-tier, snapshots, brownout, fair scheduling, deadlines, drain, fault
-injection and the watchdog.
+pipeline parallelism, speculative decoding, the unchunked prefill path,
+the host tier, snapshots, brownout, fair scheduling, deadlines, drain,
+fault injection and the watchdog.
 
 Every model call runs under ``torch.no_grad()``; the pool tensors are
 updated in place.
@@ -57,10 +64,20 @@ class ServingEngine:
     def __init__(self, model, num_pages: int, page_size: int,
                  max_slots: int = 4, max_pages_per_slot: int | None = None,
                  max_queue_depth: int | None = None, prefill_chunk: int = 64,
-                 device=None):
+                 kv_quant: bool = False, kv_dtype=None, device=None):
         """``device=None`` means the GPU (RuntimeError without one); the
         model must already live on the engine's device. The KV pool is
-        bf16 with prefix caching on, the JAX engine's defaults."""
+        bf16 with prefix caching on, the JAX engine's defaults, or int8
+        with ``kv_quant=True``; ``kv_dtype="int8"`` (or ``torch.int8``)
+        is an alias for it, and ``kv_dtype`` takes no other value but
+        bf16 (the port's only fp pool)."""
+        if kv_dtype is not None:
+            name = str(kv_dtype).replace("torch.", "")
+            if name == "int8":
+                kv_quant = True
+            elif name != "bfloat16":
+                raise ValueError(f"kv_dtype must be None, 'bfloat16' or "
+                                 f"'int8'; got {kv_dtype!r}")
         dev = resolve_device(device)
         if dev.type != model.device.type or (dev.index is not None
                                              and dev != model.device):
@@ -78,13 +95,16 @@ class ServingEngine:
                                    if max_pages_per_slot is not None
                                    else num_pages - 1)
         self.prefill_chunk = int(prefill_chunk)
+        self.kv_quant = bool(kv_quant)
         self.pool = KVCachePool.from_config(cfg, num_pages, page_size,
-                                            device=self.device)
+                                            device=self.device,
+                                            quantized=self.kv_quant)
         # every (re-)admission must fit the slot's table and the rope table
         self._ctx_pages = min(self.max_pages_per_slot,
                               self.pool.pages_for(cfg.max_position_embeddings))
         self.scheduler = Scheduler(max_slots, max_queue_depth)
         self.metrics = ServingMetrics()
+        self.metrics.set_kv_quant(self.kv_quant)
         self._requests: dict[str, Request] = {}
         self._rid_counter = itertools.count()
         self._steps = 0
@@ -203,6 +223,16 @@ class ServingEngine:
             if max_steps is not None and steps >= max_steps:
                 raise RuntimeError(f"engine did not drain in {steps} steps")
         return {rid: list(r.tokens) for rid, r in self._requests.items()}
+
+    def stats(self) -> dict:
+        """Engine state (a subset of engine.py:1227's keys)."""
+        return {"steps": self._steps, "pool": self.pool.stats(),
+                "queue_depth": self.scheduler.queue_depth,
+                "running": len(self.scheduler.running),
+                "preemptions": self.scheduler.num_preemptions,
+                "step_counts": dict(self.step_counts),
+                "kv_quant": self.kv_quant,
+                "prefill_chunk": self.prefill_chunk}
 
     def audit_pool(self) -> dict:
         """The pool's invariant audit against the live block tables."""
@@ -344,6 +374,9 @@ class ServingEngine:
                 seq = req.prompt + req.tokens[:-1]
                 self.pool.register_prefix(seq[:req.prefill_target],
                                           req.pages, include_partial=False)
+                if self.kv_quant:
+                    self.metrics.on_kv_quant_scale(
+                        self._qscale_max(req.pages))
                 if req.tokens:
                     continue  # recompute after preemption: no new token
                 self._emit(req, int(samp[slot, n - 1]), events)
@@ -404,6 +437,15 @@ class ServingEngine:
         out = torch.cat([samp, m[:, None], ok.long()[:, None]], dim=1)
         out = out.int().cpu().numpy()
         return out[:, :K], out[:, K], out[:, K + 1]
+
+    def _qscale_max(self, pages: list[int]) -> float:
+        """The largest absmax scale over ``pages`` in every layer's K and
+        V (engine.py:1780): per-element dequantization error is at most
+        half of it. One device-to-host copy."""
+        idx = torch.tensor(pages, dtype=torch.long, device=self.device)
+        return torch.stack([arr.scale[idx].amax()
+                            for pair in self.pool.pools
+                            for arr in pair]).amax().item()
 
     def _finish_abnormal(self, req: Request, reason: str,
                          events: list[dict]) -> None:

@@ -2,7 +2,10 @@
 
 One bf16 ``[num_pages, page_size, kv_heads, head_dim]`` tensor pair per
 layer on the device — the JAX engine's pool is bf16 even for an fp32
-model (engine.py:201-208). Requests own pages through int32
+model (engine.py:201-208) — or, with ``quantized=True``, one
+``QuantizedKV`` pair per layer: int8 codes ``[num_pages, page_size,
+kv_heads, head_dim]`` and fp32 absmax scales ``[num_pages, page_size,
+kv_heads]`` (kv_cache.py:150-215). Requests own pages through int32
 block tables. On top of the allocator sits automatic prefix caching:
 pages are reference counted, full pages are indexed by a chained
 blake2b content hash, released pages stay resident as refcount-0
@@ -19,10 +22,11 @@ Invariants (as in the JAX pool):
 
 The JAX pool replaces its arrays functionally; this one updates the
 tensors in place (``cow_into``, ``scrub``, ``rewind`` and the engine's
-steps), so ``pools`` always names the live tensors.
+steps), so ``pools`` always names the live tensors. Every operation on
+page content touches a quantized page's codes and its scales together.
 
-Not ported: the int8 (quantized) pool, the host spill tier, the stacked
-and sharded layouts, export/inject for snapshots, and fault sites.
+Not ported: the host spill tier, the stacked and sharded layouts,
+export/inject for snapshots, and fault sites.
 """
 
 from __future__ import annotations
@@ -36,11 +40,23 @@ from dataclasses import dataclass, field
 import torch
 
 from ..core import resolve_device
+from ..quantization.serving import QuantizedKV
 from .errors import PoolExhaustedError
 
 __all__ = ["KVCachePool", "PoolExhaustedError", "PrefixMatch"]
 
+# chain roots of the page-content hash (kv_cache.py:66-70): an int8 pool
+# chains from another root, so the same tokens in the two storage
+# formats never share a key
 _HASH_ROOT = b"\x00" * 16
+_HASH_ROOT_INT8 = hashlib.blake2b(b"paddle_tpu.kv.int8",
+                                  digest_size=16).digest()
+
+
+def _parts(arr) -> tuple:
+    """The tensors that hold a pool's content: codes and scales of a
+    QuantizedKV, else the one tensor."""
+    return tuple(arr) if isinstance(arr, QuantizedKV) else (arr,)
 
 
 def _page_hash(parent: bytes, tokens) -> bytes:
@@ -68,7 +84,8 @@ class PrefixMatch:
 
 class KVCachePool:
     def __init__(self, num_layers: int, num_pages: int, page_size: int,
-                 num_kv_heads: int, head_dim: int, device=None):
+                 num_kv_heads: int, head_dim: int, device=None,
+                 quantized: bool = False):
         if num_pages < 2:
             raise ValueError("num_pages must be >= 2 (page 0 is the "
                              "reserved scratch page)")
@@ -78,12 +95,20 @@ class KVCachePool:
         self.page_size = page_size
         self.num_kv_heads = num_kv_heads
         self.head_dim = head_dim
+        self.quantized = quantized
+        self.dtype = torch.int8 if quantized else torch.bfloat16
         shape = (num_pages, page_size, num_kv_heads, head_dim)
-        self.pools = [(torch.zeros(shape, dtype=torch.bfloat16,
-                                   device=self.device),
-                       torch.zeros(shape, dtype=torch.bfloat16,
-                                   device=self.device))
-                      for _ in range(num_layers)]
+
+        def _zeros():
+            if quantized:
+                return QuantizedKV(
+                    torch.zeros(shape, dtype=torch.int8, device=self.device),
+                    torch.zeros(shape[:-1], dtype=torch.float32,
+                                device=self.device))
+            return torch.zeros(shape, dtype=torch.bfloat16,
+                               device=self.device)
+        self.pools = [(_zeros(), _zeros()) for _ in range(num_layers)]
+        self._hash_root = _HASH_ROOT_INT8 if quantized else _HASH_ROOT
         self._free = list(range(num_pages - 1, 0, -1))  # LIFO, page 0 kept
         # pages known to hold zeros (audit's scrubbed-means-zero check)
         self._scrubbed: set[int] = set(range(1, num_pages))
@@ -102,11 +127,11 @@ class KVCachePool:
 
     @classmethod
     def from_config(cls, config, num_pages: int, page_size: int,
-                    device=None) -> "KVCachePool":
+                    device=None, quantized: bool = False) -> "KVCachePool":
         """Build from a LlamaConfig-shaped config (kv_cache.py:253)."""
         return cls(config.num_hidden_layers, num_pages, page_size,
                    config.num_key_value_heads, config.head_dim,
-                   device=device)
+                   device=device, quantized=quantized)
 
     # ---- accounting ----
 
@@ -131,6 +156,24 @@ class KVCachePool:
 
     def pages_for(self, n_tokens: int) -> int:
         return max(1, math.ceil(n_tokens / self.page_size))
+
+    def kv_bytes_per_token(self) -> int:
+        """Device bytes one cached token position costs across all
+        layers, K and V (kv_cache.py:300): int8 codes plus one fp32
+        scale per kv-head row when quantized, else bf16 elements."""
+        kvh, d = self.num_kv_heads, self.head_dim
+        per = kvh * d + kvh * 4 if self.quantized else kvh * d * 2
+        return 2 * self.num_layers * per
+
+    def stats(self) -> dict:
+        """Occupancy and format (a subset of kv_cache.py:323's keys)."""
+        return {"num_pages": self.num_pages, "page_size": self.page_size,
+                "capacity": self.capacity, "in_use": self.num_in_use,
+                "cached": len(self._lru), "free": self.num_free,
+                "utilization": self.utilization(),
+                "indexed_pages": len(self._page_key),
+                "kv_quant": int(self.quantized),
+                "kv_bytes_per_token": self.kv_bytes_per_token()}
 
     # ---- alloc / free ----
 
@@ -220,7 +263,7 @@ class KVCachePool:
         if limit <= 0:
             return m
         ps = self.page_size
-        parent = _HASH_ROOT
+        parent = self._hash_root
         pos = 0
         while pos + ps <= limit:
             key = _page_hash(parent, tokens[pos:pos + ps])
@@ -256,7 +299,7 @@ class KVCachePool:
         wins. Returns the number of newly registered pages."""
         ps = self.page_size
         n_full = min(len(tokens) // ps, len(pages))
-        parent = _HASH_ROOT
+        parent = self._hash_root
         registered = 0
         for i in range(n_full):
             key = _page_hash(parent, tokens[i * ps:(i + 1) * ps])
@@ -293,23 +336,26 @@ class KVCachePool:
 
     @torch.no_grad()
     def cow_into(self, src: int, dst: int) -> None:
-        """Copy page ``src`` into the fresh page ``dst`` (kv_cache.py:926);
-        the cached source is never written."""
-        for pk, pv in self.pools:
-            pk[dst].copy_(pk[src])
-            pv[dst].copy_(pv[src])
+        """Copy page ``src`` into the fresh page ``dst`` (kv_cache.py:926),
+        codes with their scales; the cached source is never written."""
+        for pair in self.pools:
+            for arr in pair:
+                for t in _parts(arr):
+                    t[dst].copy_(t[src])
         self.counters["prefix_cow_copies"] += 1
 
     @torch.no_grad()
     def scrub(self, pages: list[int]) -> None:
-        """Zero whole pages (eviction, quarantine)."""
+        """Zero whole pages (eviction, quarantine), codes and scales: a
+        NaN scale left behind would poison the page's next tenant."""
         if not pages:
             return
         idx = torch.tensor(sorted(set(pages)), dtype=torch.long,
                            device=self.device)
-        for pk, pv in self.pools:
-            pk[idx] = 0
-            pv[idx] = 0
+        for pair in self.pools:
+            for arr in pair:
+                for t in _parts(arr):
+                    t[idx] = 0
         self._scrubbed.update(int(p) for p in pages)
 
     @torch.no_grad()
@@ -329,10 +375,11 @@ class KVCachePool:
         self.counters["rewound_tokens"] += stop - start
 
     @staticmethod
-    def _pos_zero(arr: torch.Tensor, pages: torch.Tensor,
-                  offs: torch.Tensor) -> None:
-        """Zero individual (page, offset) rows in place (kv_cache.py:972)."""
-        arr[pages, offs] = 0
+    def _pos_zero(arr, pages: torch.Tensor, offs: torch.Tensor) -> None:
+        """Zero individual (page, offset) rows in place (kv_cache.py:972),
+        codes and scales of a QuantizedKV."""
+        for t in _parts(arr):
+            t[pages, offs] = 0
 
     # ---- invariant audit ----
 
@@ -405,8 +452,10 @@ class KVCachePool:
         if zeroed:
             idx = torch.tensor(zeroed, dtype=torch.long, device=self.device)
             for li, (pk, pv) in enumerate(self.pools):
+                # codes and scales alike (a NaN is != 0 too)
                 bad = [name for name, arr in (("k", pk), ("v", pv))
-                       if bool((arr[idx] != 0).any())]
+                       if any(bool((t[idx] != 0).any())
+                              for t in _parts(arr))]
                 if bad:
                     problems.append(f"scrubbed free page holds nonzero "
                                     f"{'/'.join(bad)} content in layer {li}")

@@ -3,7 +3,10 @@
 TTFT, inter-token latency (ITL) and time per output token (TPOT) are
 taken on the host clock (``time.perf_counter``) when a token is
 emitted, which in this engine is after the step's device-to-host copy,
-so they include the device work.
+so they include the device work. With the int8 KV pool the engine
+also reports the largest absmax scale its prefills wrote
+(``kv_quant_scale_max``); half of it bounds every cached element's
+dequantization error (``kv_quant_err_bound``, metrics.py:734-738).
 """
 
 from __future__ import annotations
@@ -47,6 +50,8 @@ class ServingMetrics:
         self.counters: dict[str, int] = {
             "rejected_queue_full": 0, "rejected_too_large": 0,
             "quarantined": 0}
+        self.kv_quant_enabled = 0
+        self.kv_quant_scale_max = 0.0
 
     def now(self) -> float:
         return time.perf_counter()
@@ -100,6 +105,15 @@ class ServingMetrics:
     def on_prefix_counters(self, counters: dict) -> None:
         self._prefix_counters = dict(counters)
 
+    def set_kv_quant(self, enabled: bool) -> None:
+        """Arm the ``kv_quant_enabled`` gauge (metrics.py:544)."""
+        self.kv_quant_enabled = int(bool(enabled))
+
+    def on_kv_quant_scale(self, scale_max: float) -> None:
+        """Fold one prefill's largest absmax scale into the running max."""
+        self.kv_quant_scale_max = max(self.kv_quant_scale_max,
+                                      float(scale_max))
+
     def on_step(self, queue_depth: int, pool_utilization: float) -> None:
         self._queue_depth.append(queue_depth)
         self._pool_util.append(pool_utilization)
@@ -147,4 +161,7 @@ class ServingMetrics:
             **{(k if k.startswith("prefix_") else "prefix_" + k): v
                for k, v in self._prefix_counters.items()},
             **self.counters,
+            "kv_quant_enabled": self.kv_quant_enabled,
+            "kv_quant_scale_max": self.kv_quant_scale_max,
+            "kv_quant_err_bound": self.kv_quant_scale_max / 2.0,
         }

@@ -26,6 +26,15 @@ Tolerances, each with its reason:
   one from the whole output's largest value: in causal attention the
   first rows are far larger than the rest. lse 1e-4 absolute (exact
   bf16 products, sums in another order).
+- int8 paged attention (int8 codes with fp32 row scales), against the
+  plain version on the same pools: fp32 q 2e-5 absolute (the core's
+  arithmetic: K and V dequantized per element in fp32, q and the
+  probabilities not rounded; sums in another order); bf16 q one bf16
+  ulp of max(|out|, 2**-8) (``rtol = 2**-7``, ``atol = 2**-15``): both
+  round the same fp32 output once, and near zero a cancelling sum's
+  fp32 rounding (~1e-6) is many ulps of the output itself.
+- ``Int8ServingLinear`` on the card (bf16 x: one ``torch.mm`` with fp32
+  sums) against its CPU form (fp32 product): one bf16 ulp.
 - a training step, kernels vs plain versions, bf16 model: loss 1e-2
   absolute and each gradient 5e-2 in relative L2 — bf16 gradients carry
   2**-8 relative rounding per element through every layer's products.
@@ -46,6 +55,9 @@ from paddle_tpu_torch.ops.kernels import (launch_counts,
                                           reset_launch_counts, rms_norm_cuda,
                                           rms_norm_plain)
 from paddle_tpu_torch.optimizer import AdamW
+from paddle_tpu_torch.quantization import (Int8ServingLinear, kv_quantize,
+                                           quantize_for_serving,
+                                           quantize_weight)
 from paddle_tpu_torch.serving import ServingEngine
 
 pytestmark = pytest.mark.cuda
@@ -381,6 +393,108 @@ def test_engine_decode_step_kernels_vs_plain(cuda):
     assert bool(agree[live][decisive[live]].all())
     res = eng.run_to_completion(max_steps=50)
     assert all(len(t) == 4 for t in res.values())
+    eng.audit_pool()
+
+
+# ---------------- the int8 paged mode and int8 weights ----------------
+
+def _int8_paged_inputs(rng, b, h, kvh, d, ps, lens, qdt, device):
+    q, pk, pv, tables, seq = _paged_inputs(rng, b, h, kvh, d, ps, lens, qdt,
+                                           torch.float32, device)
+    ck, cv = kv_quantize(pk), kv_quantize(pv)
+    return q, ck.q, cv.q, tables, seq, ck.scale, cv.scale
+
+
+@pytest.mark.parametrize("qdt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("g,d,ps", [(1, 128, 16), (2, 64, 8), (4, 128, 16),
+                                    (4, 32, 16), (8, 128, 5)])
+def test_paged_int8_kernel_matches_plain(cuda, qdt, g, d, ps):
+    rng = np.random.default_rng(g * 2000 + d + ps)
+    lens = [ps - 1, ps, 2 * ps, None, 300, 0, 3 * ps + 1]
+    q, kq, vq, tables, seq, ks, vs = _int8_paged_inputs(
+        rng, len(lens), g * 2, 2, d, ps, lens, DT[qdt], cuda)
+    reset_launch_counts()
+    got = paged_attention_cuda(q, kq, vq, tables, seq, k_scale=ks,
+                               v_scale=vs)
+    again = paged_attention_cuda(q, kq, vq, tables, seq, k_scale=ks,
+                                 v_scale=vs)
+    torch.cuda.synchronize()
+    assert launch_counts() == _counts(paged_attention_int8=2)
+    assert torch.equal(got, again)          # no atomics: bitwise repeat
+    want = paged_attention_plain(q, kq, vq, tables, seq, k_scale=ks,
+                                 v_scale=vs)
+    assert got.dtype == want.dtype == DT[qdt]
+    if qdt == "float32":
+        torch.testing.assert_close(got, want, atol=2e-5, rtol=0)
+    else:
+        torch.testing.assert_close(got.float(), want.float(),
+                                   atol=2 ** -15, rtol=2 ** -7)
+
+
+def test_paged_int8_kernel_raises_outside_its_gate(cuda):
+    rng = np.random.default_rng(1)
+    q, kq, vq, tables, seq, ks, vs = _int8_paged_inputs(
+        rng, 2, 4, 2, 128, 16, [5, 40], torch.bfloat16, cuda)
+    with pytest.raises(ValueError, match="need k_scale"):
+        paged_attention_cuda(q, kq, vq, tables, seq)
+    with pytest.raises(ValueError, match="come together"):
+        paged_attention_cuda(q, kq, vq, tables, seq, k_scale=ks)
+    with pytest.raises(ValueError, match="scales must be"):
+        paged_attention_cuda(q, kq, vq, tables, seq, k_scale=ks.double(),
+                             v_scale=vs)
+    with pytest.raises(ValueError, match="scales must be"):
+        paged_attention_cuda(q, kq, vq, tables, seq, k_scale=ks[..., :1],
+                             v_scale=vs)
+    with pytest.raises(ValueError, match="go with int8"):
+        paged_attention_cuda(q, kq.bfloat16(), vq.bfloat16(), tables, seq,
+                             k_scale=ks, v_scale=vs)
+    with pytest.raises(ValueError, match="q must be"):
+        paged_attention_cuda(q.half(), kq, vq, tables, seq, k_scale=ks,
+                             v_scale=vs)
+
+
+def test_int8_linear_on_the_card_matches_its_cpu_form(cuda):
+    rng = np.random.default_rng(2)
+    w = torch.tensor(rng.standard_normal((512, 384)), dtype=torch.float32)
+    x = torch.tensor(rng.standard_normal((3, 5, 512)), dtype=torch.bfloat16)
+    layer = Int8ServingLinear(*quantize_weight(w))
+    want = layer(x)
+    got = layer.to(cuda)(x.to(cuda))
+    assert got.dtype == torch.bfloat16 and got.shape == (3, 5, 384)
+    torch.testing.assert_close(got.float().cpu(), want.float(), atol=1e-6,
+                               rtol=2 ** -7)
+
+
+def test_int8_engine_decode_step_kernels_vs_plain(cuda):
+    """The int8 pool over an int8-weight fp32 model: one decode step
+    through the kernels, in the int8 mode only, and through the plain
+    versions. The int8 cores differ only in the order of the sums; the
+    bound is the one of the bf16-pool test above."""
+    model = quantize_for_serving(
+        LlamaForCausalLM(llama_tiny(), device=cuda, seed=3), inplace=True)
+    eng = ServingEngine(model, num_pages=64, page_size=16, max_slots=4,
+                        prefill_chunk=16, max_pages_per_slot=8,
+                        kv_quant=True)
+    rng = np.random.default_rng(6)
+    for n in (20, 33, 47):
+        eng.add_request(rng.integers(0, 512, n), 4)
+    while any(r.prefilling or not r.tokens
+              for r in eng.scheduler.running.values()) \
+            or eng.scheduler.waiting:
+        eng.step()
+    reset_launch_counts()
+    got = eng.decode_logits()
+    counts = launch_counts()
+    with plain_reference():
+        want = eng.decode_logits()
+    assert launch_counts() == counts
+    L = model.config.num_hidden_layers
+    assert counts == _counts(rms_norm=2 * L + 1, paged_attention_int8=L)
+    err = (got.float() - want.float()).abs().max().item()
+    assert err < 0.05, err
+    res = eng.run_to_completion(max_steps=50)
+    assert all(len(t) == 4 for t in res.values())
+    assert eng.metrics.summary()["kv_quant_scale_max"] > 0
     eng.audit_pool()
 
 

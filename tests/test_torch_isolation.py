@@ -32,10 +32,15 @@ import paddle_tpu_torch
 import torch
 from paddle_tpu_torch.models import (LlamaForCausalLM, Qwen2MoeForCausalLM,
                                      llama_tiny, qwen2_moe_tiny)
+from paddle_tpu_torch.quantization import quantize_for_serving
 from paddle_tpu_torch.serving import ServingEngine
 m = LlamaForCausalLM(llama_tiny(), device="cpu", seed=0)
 e = ServingEngine(m, num_pages=16, page_size=4, max_slots=2,
                   prefill_chunk=4, device="cpu")
+rid = e.add_request([1, 2, 3, 4, 5, 6], 3)
+assert len(e.run_to_completion()[rid]) == 3
+e = ServingEngine(quantize_for_serving(m), num_pages=16, page_size=4,
+                  max_slots=2, prefill_chunk=4, kv_quant=True, device="cpu")
 rid = e.add_request([1, 2, 3, 4, 5, 6], 3)
 assert len(e.run_to_completion()[rid]) == 3
 q = Qwen2MoeForCausalLM(qwen2_moe_tiny(ep_dispatch="fused"), device="cpu")
@@ -53,6 +58,7 @@ def test_port_imports_no_jax_in_a_fresh_interpreter():
     assert out.returncode == 0, out.stderr[-3000:]
     mods = out.stdout.split()
     assert "paddle_tpu_torch.serving.engine" in mods
+    assert "paddle_tpu_torch.quantization.serving" in mods
     assert "paddle_tpu_torch.ops.kernels.moe_grouped_gemm" in mods
     bad = [m for m in mods if _banned(m)]
     assert not bad, bad
