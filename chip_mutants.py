@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Plant known faults in the flash attention, MoE and int8 paged
-kernels and show which of ``chip_smoke.py``'s checks catch each one (a
-mutation check, on one GPU).
+"""Plant known faults in the flash attention, MoE, int8 paged and
+LayerNorm kernels and in the flash bias mode, and show which of
+``chip_smoke.py``'s checks catch each one (a mutation check, on one
+GPU).
 
     python3 chip_mutants.py [--only NAME ...]
 
@@ -29,7 +30,15 @@ of the fault's kind (the control runs every kind of the faults chosen):
   serving shapes, and slice parity over the int8 pool
   (``parity_run(kv_quant=True)``): one decode step through the kernels
   and inside ``plain_reference()`` on a model of Llama-3-8B widths with
-  int8 weights, cut to ``INT8_LAYERS`` layers.
+  int8 weights, cut to ``INT8_LAYERS`` layers;
+- bert: the LayerNorm kernel check (``layer_norm_errors``) at the BERT
+  training shape [16384, 768] bf16 with a random weight and bias, the
+  flash kernel check in the bias mode (``_flash_errors(bias=)``) with
+  ``train_bert_padded``'s key-padding mask at [32, 512, 12, 64] and with
+  a dense random [4, 8, 512, 512] bias, and BERT train parity
+  (``bert_parity_run``: ``BERT_PARITY`` and the fp32 reference for the
+  gradients bf16 cannot resolve) after 10 padded steps
+  of ``bench_bert``'s configuration, as ``train_bert_padded`` leaves it.
 
 It prints one JSON line per run and then a summary line. It exits 0
 when the control passes both checks and every fault fails the kernel
@@ -53,6 +62,7 @@ import numpy as np
 BWD, FWD = "flash_attention_bwd.cu", "flash_attention_fwd.cu"
 ROUTE, GG = "moe_routing.cu", "moe_grouped_gemm.cu"
 PAGED = "paged_attention.cu"
+LN = "layer_norm.cu"
 INT8_LAYERS = 4
 FP8 = ('#include "flash_common.cuh"',
        '#include "flash_common.cuh"\n#include <cuda_fp8.h>')
@@ -119,6 +129,20 @@ MUTANTS = {
         "int8 paged: each K row takes the scale of the next row of its page",
         [(PAGED, "k_scale[(page * ps + t % ps) * kvh + n]",
           "k_scale[(page * ps + (t + 1) % ps) * kvh + n]")], "int8"),
+    "ln_drops_shift": (
+        "LayerNorm: the shift (bias) is not added",
+        [(LN, "v[j][e] = v[j][e] * inv * wf[e] + bf[e];",
+          "v[j][e] = v[j][e] * inv * wf[e];")], "bert"),
+    "fwd_bias_ignores_query_stride": (
+        "flash forward, bias mode: every query row reads the bias of "
+        "query row 0",
+        [(FWD, "(int64_t)row[r] * b_sq;", "(int64_t)0 * b_sq;")], "bert"),
+    "dkv_ignores_bias": (
+        "flash dK/dV, bias mode: P recomputed without the bias, while the "
+        "forward and dQ apply it",
+        [(BWD, "__ldg(bkey[i >> 1] + (int64_t)(qs0 + c) * b_sq)\n"
+               "                                   * kLog2e", "0.f")],
+        "bert"),
 }
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -168,7 +192,8 @@ def _flash_checks(torch, S, K, TrainStep, AdamW) -> tuple:
     step = TrainStep(model, opt, lambda logits, y: model.loss(logits, y))
     for _ in range(S.TRAIN_STEPS):
         step(batch, batch)
-    parity = S.train_parity_run(torch, K, model, opt, TrainStep, batch)
+    parity = S.train_parity_run(torch, K, model, opt, TrainStep,
+                                *S.causal_lm_args(model, batch))
     del model, opt, step
     torch.cuda.empty_cache()
     return flash, parity
@@ -198,7 +223,7 @@ def _moe_checks(torch, S, K, TrainStep, AdamW) -> tuple:
     for _ in range(S.MOE_STEPS):
         step(batch, batch)
     parity = S.train_parity_run(
-        torch, K, model, opt, TrainStep, batch,
+        torch, K, model, opt, TrainStep, *S.causal_lm_args(model, batch),
         kernels=S.FLASH_KERNELS + S.MOE_KERNELS, limits=S.MOE_PARITY,
         reseed=lambda: model.generator.manual_seed(S.SEED + 6),
         probes=S.moe_probes(model), probe_limits=S.MOE_PROBE_LIMITS)
@@ -222,6 +247,49 @@ def _int8_checks(torch, S, K, TrainStep, AdamW) -> tuple:
     return check, parity
 
 
+def _bert_checks(torch, S, K, TrainStep, AdamW) -> tuple:
+    from paddle_tpu_torch.models import BertConfig, BertForPreTraining
+    from paddle_tpu_torch.ops.kernels import flash_attention as F
+    gen = torch.Generator(device="cuda").manual_seed(S.SEED + 9)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").bfloat16()
+
+    x = (torch.randn((S.BERT_BATCH * S.BERT_SEQ, 768), generator=gen,
+                     device="cuda") * 3 + 1).bfloat16()
+    ln = S.layer_norm_errors(torch, K, x, rand(768), rand(768), 1e-12)
+    b, s, h, d = S.BERT_BATCH, S.BERT_SEQ, 12, 64
+    q, k, v, do = (rand(b, s, h, d) for _ in range(4))
+    lens = torch.tensor(S.bert_lengths(np), device="cuda")
+    keep = (torch.arange(s, device="cuda")[None, :] < lens[:, None])
+    keypad = S._flash_errors(
+        torch, F, q, k, v, do, d ** -0.5, False,
+        bias=F.attn_bias(keep[:, None, None, :].expand(b, 1, s, s), q, k))
+    q, k, v, do = (rand(4, 512, 8, d) for _ in range(4))
+    dense = torch.randn((4, 8, 512, 512), generator=gen, device="cuda") * 2
+    dense = S._flash_errors(torch, F, q, k, v, do, d ** -0.5, False,
+                            bias=F.pad_bias(dense, 4, 8, 512, 512))
+    check = {"layer_norm": ln, "flash_keypad": keypad,
+             "flash_dense": dense,
+             "failures": ln["failures"] + keypad["failures"]
+             + dense["failures"]}
+    del q, k, v, do, x
+    torch.cuda.empty_cache()
+    cfg = S.bert_config(BertConfig)
+    model = BertForPreTraining(cfg, device="cuda", seed=S.SEED)
+    args, n_inputs = S.bert_batch(torch, np, cfg, padded=True)
+    opt = AdamW(learning_rate=S.TRAIN_LR, parameters=model)
+    step = TrainStep(model, opt, S._bert_loss(model), n_inputs=n_inputs)
+    for _ in range(S.BERT_STEPS):
+        step(*args)
+    parity = S.bert_parity_run(torch, K, model, opt, TrainStep,
+                               BertForPreTraining, args, n_inputs)
+    parity.pop("bf16_noise")
+    del model, opt, step
+    torch.cuda.empty_cache()
+    return check, parity
+
+
 def child(name: str, kinds=None) -> dict:
     """The checks of the mutant's kind on the tree this file sits in (a
     mutated copy); the control runs ``kinds``."""
@@ -239,7 +307,7 @@ def child(name: str, kinds=None) -> dict:
         name, ("none (the kernels as they are)",))[0]}
     caught_k, caught_p = False, False
     checks = {"flash": _flash_checks, "moe": _moe_checks,
-              "int8": _int8_checks}
+              "int8": _int8_checks, "bert": _bert_checks}
     for kind in kinds:
         check, parity = checks[kind](torch, S, K, TrainStep, AdamW)
         grads = parity.pop("grad_rel_l2", None)

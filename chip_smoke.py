@@ -11,8 +11,13 @@ Phases; any failure ends the run with a traceback and a non-zero exit:
 3. kernel vs plain — each kernel against its plain PyTorch version in
    bf16 at its path's shapes (RMSNorm and paged decode, fp and int8
    modes, at the serving shapes; flash forward, dQ and dK/dV at the
-   Llama training shape, plus ragged shapes; MoE routing and the
-   grouped-GEMM forward, dX and dW at the Qwen2-MoE training shapes;
+   Llama training shape, plus ragged shapes; LayerNorm at the BERT
+   training shape and a ragged one; the bias mode of the three flash
+   kernels at the padded BERT shape with its key-padding mask, plus a
+   dense [b, h, sq, sk] bias and a causal [sq, sk] one at a ragged
+   length, and their no-bias mode at the unpadded BERT shape; MoE
+   routing and the grouped-GEMM forward, dX and dW at the Qwen2-MoE
+   training shapes;
    the int8 paged mode and the MoE kernels launched twice for a bitwise
    repeat), with its time (CUDA events over many launches, inputs
    rotated through more than the 50 MB L2), the plain version's time,
@@ -32,24 +37,34 @@ Phases; any failure ends the run with a traceback and a non-zero exit:
    JAX package's ``qwen2_moe_fused`` configuration (8 sparse layers of 16
    experts, top-2, full width, bf16, batch 8 x seq 1024), with
    ``mfu_active``, the aux losses and the dropped copies per layer;
-8. slice parity — one decode step on one serving engine state, kernels
+8. train_bert, train_bert_padded, train_bert_parity, train_bert_profile
+   — ``bench.py::bench_bert``'s configuration (BERT-Base at full width
+   and depth, bf16, AdamW lr 1e-4, batch 32 x seq 512): 10 steps of
+   exactly its step (input ids only; the LayerNorm kernel and the
+   no-bias flash kernels), then from the same weights 10 steps on a
+   padded batch (seeded lengths 128-512, token types, an attention mask,
+   MLM labels -100 on padding: the bias mode of the flash kernels), each
+   with the report of phase 4 and its own launch counts; train parity
+   (with an fp32 copy's gradients telling which gradients bf16 cannot
+   resolve) and one profiled step on the padded arm;
+9. slice parity — one decode step on one serving engine state, kernels
    vs plain versions (logits within ``SLICE_DLOGIT_LIMIT``, decisive
    rows equal, the kernels' launch counts);
-9. serve — Llama-3-8B widths in bf16 with seeded random weights made on
+10. serve — Llama-3-8B widths in bf16 with seeded random weights made on
    the card, 8 requests x 32 greedy tokens through ``ServingEngine``
    (including a prefix hit and a copy-on-write), the launch counters
    read around this phase alone;
-10. profile — one mixed and three decode steps under ``torch.profiler``:
+11. profile — one mixed and three decode steps under ``torch.profiler``:
     host wall, device time, idle share and the top kernels per step;
-11. serve_int8 — the same model after ``quantize_for_serving(inplace=
+12. serve_int8 — the same model after ``quantize_for_serving(inplace=
     True)`` (int8 weights) replays the serve trace over the int8 KV pool
     (``kv_quant=True``), after a slice-parity decode step of its own
     (``slice_parity_int8``): the int8 mode of the paged kernel must take
     every decode step and the fp mode none; then ``profile_int8`` (phase
-    10 over the int8 model, with the ``Int8ServingLinear`` share of each
+    11 over the int8 model, with the ``Int8ServingLinear`` share of each
     step's device time) and, for information only, how many leading
     tokens of each int8 stream equal the bf16 stream of its request;
-12. a ``{"kernels": [...]}`` line for every ported kernel.
+13. a ``{"kernels": [...]}`` line for every ported kernel and mode.
 
 The card's name and power limit are printed again on the line before
 the last; the last line is ``{"ok": true, "device": {...}}``. Without a
@@ -64,6 +79,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -419,22 +435,27 @@ def phase_paged_int8(torch, K, QZ) -> dict:
     return row
 
 
-def _flash_work(b, sq, sk, h, d, causal, kind):
+def _flash_work(b, sq, sk, h, d, causal, kind, bias_bytes=0, kept=None):
     """(flops, bytes) one flash call needs: 2 * d flops per product
     (2 in the forward, 3 in dQ, 4 in dK/dV) for each (query row, key)
-    pair the mask keeps — this run's causal shape, not the dense one —
-    and each input read once and each output written once (bf16
-    [b, s, h, d] tensors, fp32 [b, h, sq] lse and delta)."""
+    pair the mask keeps — this run's causal shape, not the dense one, and
+    with a key-padding mask (``kept``: the valid keys of each batch row)
+    only its valid keys — and each input read once and each output
+    written once (bf16 [b, s, h, d] tensors, fp32 [b, h, sq] lse and
+    delta, and in the bias mode the bias's distinct fp32 values,
+    ``bias_bytes``)."""
     off = sk - sq
     pairs = (sum(min(sk, max(0, r + off + 1)) for r in range(sq))
              if causal else sq * sk)
     n_products = {"fwd": 2, "dq": 3, "dkv": 4}[kind]
     flops = 2.0 * d * b * h * pairs * n_products
+    if kept is not None:              # pairs summed over the batch rows
+        flops = 2.0 * d * h * sq * sum(kept) * n_products
     qb, kb, stat = 2 * b * sq * h * d, 2 * b * sk * h * d, 4 * b * h * sq
     nbytes = {"fwd": 2 * qb + 2 * kb + stat,       # q k v in; out, lse
               "dq": 3 * qb + 2 * kb + 2 * stat,    # q k v dO lse delta; dq
               "dkv": 2 * qb + 4 * kb + 2 * stat,   # same in; dk, dv
-              }[kind]
+              }[kind] + bias_bytes
     return flops, nbytes
 
 
@@ -451,9 +472,11 @@ def _bound(flops, nbytes):
 FLASH_ROW_RTOL, FLASH_ROW_ATOL, FLASH_FRO = 2 ** -7, 1e-3, 4e-3
 
 
-def _flash_errors(torch, F, q, k, v, do, scale, causal) -> dict:
+def _flash_errors(torch, F, q, k, v, do, scale, causal, bias=None) -> dict:
     """Each flash kernel against its plain version on the same inputs
-    (the backward kernels from the plain forward's lse and delta).
+    (the backward kernels from the plain forward's lse and delta); with
+    ``bias`` (fp32 ``[b|1, h|1, sq, sk]``) the kernels' bias mode, both
+    versions given the same bias.
 
     The plain versions run on fp32 copies of the bf16 inputs: the same
     arithmetic (they upcast first), with outputs that are not rounded to
@@ -474,15 +497,16 @@ def _flash_errors(torch, F, q, k, v, do, scale, causal) -> dict:
     row's error over its tolerance), ``lse`` and ``failures``, a list
     of what broke its tolerance."""
     q32, k32, v32, do32 = (x.float() for x in (q, k, v, do))
-    want_o, want_l = F.flash_fwd_plain(q32, k32, v32, scale, causal)
+    want_o, want_l = F.flash_fwd_plain(q32, k32, v32, scale, causal, bias)
     delta = F.flash_delta(do, want_o.to(q.dtype))
-    got_o, got_l = F.flash_fwd_cuda(q, k, v, scale, causal)
-    got_dq = F.flash_bwd_dq_cuda(q, k, v, do, want_l, delta, scale, causal)
+    got_o, got_l = F.flash_fwd_cuda(q, k, v, scale, causal, bias)
+    got_dq = F.flash_bwd_dq_cuda(q, k, v, do, want_l, delta, scale, causal,
+                                 bias)
     got_dk, got_dv = F.flash_bwd_dkv_cuda(q, k, v, do, want_l, delta,
-                                          scale, causal)
+                                          scale, causal, bias)
     torch.cuda.synchronize()
     want_g = F.flash_block_grads_plain(q32, k32, v32, do32, want_l, delta,
-                                       scale, causal)
+                                       scale, causal, bias)
     errs, failures = {}, []
     for name, got, want in zip(("out", "dq", "dk", "dv"),
                                (got_o, got_dq, got_dk, got_dv),
@@ -513,8 +537,8 @@ def _flash_errors(torch, F, q, k, v, do, scale, causal) -> dict:
     return errs
 
 
-def _flash_check(torch, F, *args) -> dict:
-    errs = _flash_errors(torch, F, *args)
+def _flash_check(torch, F, *args, bias=None) -> dict:
+    errs = _flash_errors(torch, F, *args, bias=bias)
     if errs["failures"]:
         raise AssertionError(f"flash kernels differ from their plain "
                              f"versions: {errs}")
@@ -631,6 +655,211 @@ def phase_flash(torch, F, shape=(4, 2048, 16, 128)) -> dict:
     return rows
 
 
+def layer_norm_errors(torch, K, x, w, b, eps) -> dict:
+    """The LayerNorm kernel against its plain version on the same inputs:
+    each output within one bf16 ulp of its plain value (``rtol 2**-7``,
+    ``atol 1e-6``). Returns the largest error, the worst ratio to the
+    tolerance and ``failures``."""
+    got = K.layer_norm_cuda(x, w, b, eps)
+    torch.cuda.synchronize()
+    want = K.layer_norm_plain(x, w, b, eps).float()
+    diff = (got.float() - want).abs()
+    ratio = (diff / (2 ** -7 * want.abs() + 1e-6)).max().item()
+    return {"max_abs": diff.max().item(), "ulp_ratio": ratio,
+            "failures": [] if ratio <= 1.0 else
+            [f"layer_norm: an output {ratio:.3g}x one bf16 ulp away"]}
+
+
+def phase_layer_norm(torch, K) -> list[dict]:
+    """LayerNorm at the BERT training step's [16384, 768] rows (eps 1e-12,
+    the encoder's) and a ragged [16383, 768] (eps 1e-5, ``mlm_norm``'s),
+    bf16, with a random weight and bias (the path's start at ones and
+    zeros, which would hide a lost scale or shift). bf16 tolerance: one
+    bf16 ulp (rtol 2**-7) — kernel and plain round the same fp32 value,
+    whose last bits depend on the order of the sums. Yardstick:
+    ``torch.nn.functional.layer_norm``."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    rows = []
+    for n, d, eps in ((BERT_BATCH * BERT_SEQ, 768, 1e-12),
+                      (BERT_BATCH * BERT_SEQ - 1, 768, 1e-5)):
+        sets = [(torch.randn((n, d), generator=gen, device="cuda")
+                 .mul_(3).add_(1).bfloat16(),
+                 torch.randn((d,), generator=gen, device="cuda").bfloat16(),
+                 torch.randn((d,), generator=gen, device="cuda").bfloat16())
+                for _ in range(4)]
+        errs = layer_norm_errors(torch, K, *sets[0], eps)
+        if errs["failures"]:
+            raise AssertionError(f"the LayerNorm kernel differs from its "
+                                 f"plain version: {errs}")
+        nbytes = (2 * n * d + 2 * d) * 2
+        flops = 8 * n * d
+        bound, bound_by = (max(nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS)
+                           * 1e3, "bytes" if nbytes / HBM_BYTES_PER_S
+                           >= flops / FP32_FLOPS else "operations")
+        rows.append({
+            "shape": [n, d], "eps": eps, "max_abs_err": errs["max_abs"],
+            "ulp_ratio": errs["ulp_ratio"],
+            "tolerance": "rtol 2**-7 (one bf16 ulp)",
+            **_timings(torch, {
+                "kernel": lambda a, w_, b_: K.layer_norm_cuda(a, w_, b_, eps),
+                "plain": lambda a, w_, b_: K.layer_norm_plain(a, w_, b_, eps),
+                "library": lambda a, w_, b_: torch.nn.functional.layer_norm(
+                    a, (d,), w_, b_, eps)}, sets),
+            "bytes": nbytes, "bound_ms": bound, "bound_by": bound_by})
+        _emit("kernel_vs_plain", {"name": "layer_norm", **rows[-1]})
+    return rows
+
+
+def bert_lengths(np):
+    """The valid lengths of ``train_bert_padded``'s rows: uniform in
+    128-512, seeded (a corpus of variable-length documents padded to
+    512)."""
+    return np.random.default_rng(SEED + 10).integers(128, BERT_SEQ + 1,
+                                                     BERT_BATCH)
+
+
+def phase_flash_bias(torch, np, F) -> dict:
+    """The bias mode of flash forward, dQ and dK/dV: at the
+    ``train_bert_padded`` shape, q/k/v [32, 512, 12, 64] bf16
+    non-causal with that arm's key-padding mask (bool [b, 1, 1, sk] as
+    ``attn_bias`` converts it: fp32, a stride-0 view over the queries),
+    then a dense random fp32 bias [4, 8, 512, 512] with one query row
+    that sees no key (a bias that varies over queries and heads: BERT's
+    mask would pass a kernel that applied those strides wrongly), and a
+    causal fp32 [sq, sk] bias at s 1000 (not a multiple of the 64-key
+    tile) and d 128; each held by the per-output rule of
+    ``_flash_errors``. Times at the path's shape: the kernels, their
+    plain versions (the backward's plain version computes dq, dk and dv
+    together), and as a yardstick PyTorch's
+    ``scaled_dot_product_attention`` with the same bool mask, forward and
+    backward through autograd; ``no_bias_ms`` is the same kernel's
+    no-bias mode on the same q, k, v (the cost of the bias mode). That
+    mode is ``train_bert``'s path at this shape, so it is held to its
+    plain version on these inputs too (``flash_bert_no_bias``)."""
+    b, s, h, d = BERT_BATCH, BERT_SEQ, 12, 64
+    scale = d ** -0.5
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").bfloat16()
+
+    lens = torch.tensor(bert_lengths(np), device="cuda")
+    keep = (torch.arange(s, device="cuda")[None, :]
+            < lens[:, None])[:, None, None, :]              # [b, 1, 1, s]
+    sets, lib_fwd, lib_bwd = [], [], []
+    for _ in range(3):
+        q, k, v, do = (rand(b, s, h, d) for _ in range(4))
+        bias = F.attn_bias(keep.expand(b, 1, s, s), q, k)
+        out, lse = F.flash_fwd_plain(q, k, v, scale, False, bias)
+        sets.append((q, k, v, do, lse, F.flash_delta(do, out), bias))
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
+                      for x in (q, k, v))
+        lib_fwd.append((qt, kt, vt))
+        og = torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=keep)
+        lib_bwd.append((og, qt, kt, vt, do.transpose(1, 2)))
+    bias0 = sets[0][6]
+    assert bias0.stride(2) == 0     # converted once, never materialised
+    errs = [_flash_check(torch, F, *sets[0][:4], scale, False, bias=bias0)]
+    no_bias = _flash_check(torch, F, *sets[0][:4], scale, False)
+    _emit("kernel_vs_plain", {
+        "name": "flash_bert_no_bias",
+        "shape": {"b": b, "s": s, "h": h, "d": d, "causal": False,
+                  "dtype": "bfloat16"},
+        "errors": no_bias, "max_abs_err": max(
+            no_bias[o]["max_abs"] for o in ("out", "dq", "dk", "dv"))})
+    torch.cuda.empty_cache()
+    dense = torch.randn((4, 8, 512, 512), generator=gen,
+                        device="cuda") * 2
+    dense[0, 3, 7] = -1e30                     # a row that sees no key
+    sq_sk = torch.randn((1000, 1000), generator=gen, device="cuda") * 2
+    extra = [((4, 512, 8, 64, False), "dense [b, h, sq, sk]", dense),
+             ((2, 1000, 4, 128, True), "[sq, sk]", sq_sk)]
+    for (rb, rs, rh, rd, rc), kind, raw in extra:
+        errs.append(_flash_check(
+            torch, F, rand(rb, rs, rh, rd), rand(rb, rs, rh, rd),
+            rand(rb, rs, rh, rd), rand(rb, rs, rh, rd), rd ** -0.5, rc,
+            bias=F.pad_bias(raw, rb, rh, rs, rs)))
+    _emit("flash_bias_extra", [{"shape": list(r), "bias": kind, "errors": e}
+                               for (r, kind, _), e in zip(extra, errs[1:])])
+    del dense, sq_sk
+    torch.cuda.empty_cache()
+
+    def sdpa_fwd(qt, kt, vt):
+        with torch.no_grad():
+            return torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=keep)
+
+    def sdpa_bwd(og, qt, kt, vt, dot):
+        return torch.autograd.grad(og, (qt, kt, vt), dot, retain_graph=True)
+
+    def plain_bwd(q, k, v, do, lse, delta, bias):
+        return F.flash_block_grads_plain(q, k, v, do, lse, delta, scale,
+                                         False, bias)
+
+    fns = {
+        "flash_fwd_bias": {
+            "kernel": lambda q, k, v, _do, _l, _dl, bias: F.flash_fwd_cuda(
+                q, k, v, scale, False, bias),
+            "no_bias": lambda q, k, v, *_: F.flash_fwd_cuda(q, k, v, scale,
+                                                            False),
+            "plain": lambda q, k, v, _do, _l, _dl, bias: F.flash_fwd_plain(
+                q, k, v, scale, False, bias),
+            "library": sdpa_fwd},
+        "flash_dq_bias": {
+            "kernel": lambda *a: F.flash_bwd_dq_cuda(*a[:6], scale, False,
+                                                     a[6]),
+            "no_bias": lambda *a: F.flash_bwd_dq_cuda(*a[:6], scale, False),
+            "plain": plain_bwd, "library": sdpa_bwd},
+        "flash_dkv_bias": {
+            "kernel": lambda *a: F.flash_bwd_dkv_cuda(*a[:6], scale, False,
+                                                      a[6]),
+            "no_bias": lambda *a: F.flash_bwd_dkv_cuda(*a[:6], scale,
+                                                       False),
+            "plain": plain_bwd, "library": sdpa_bwd},
+    }
+    err_of = {"fwd": ("out",), "dq": ("dq",), "dkv": ("dk", "dv")}
+    tolerance = ("against the fp32 plain version with the same bias: each "
+                 "row within 2**-7 of its largest magnitude + 1e-3, "
+                 "relative Frobenius error <= 4e-3; lse 1e-4 absolute; "
+                 "fully masked rows exact")
+    bias_bytes = 4 * b * s          # the mask's distinct fp32 values
+    rows, plain_bwd_times = {}, None
+    for name, kind in (("flash_fwd_bias", "fwd"), ("flash_dq_bias", "dq"),
+                       ("flash_dkv_bias", "dkv")):
+        flops, nbytes = _flash_work(b, s, s, h, d, False, kind, bias_bytes,
+                                    kept=[int(x) for x in lens])
+        bound, bound_by = _bound(flops, nbytes)
+        fn = fns[name]
+        if plain_bwd_times is not None:   # timed once for both passes
+            fn = {k_: f for k_, f in fn.items()
+                  if k_ in ("kernel", "no_bias")}
+        t = _timings(torch, fn, sets,
+                     {"library": lib_fwd if kind == "fwd" else lib_bwd})
+        if kind != "fwd":
+            plain_bwd_times = plain_bwd_times or {
+                k_: t[k_] for k_ in ("plain_ms", "plain_device_ms",
+                                     "library_ms", "library_device_ms")}
+            t.update(plain_bwd_times)
+        rows[name] = {
+            "shape": {"b": b, "s": s, "h": h, "d": d, "causal": False,
+                      "dtype": "bfloat16",
+                      "bias": "key padding [b, 1, 1, sk] (stride 0 on q)",
+                      "valid_keys": int(lens.sum())},
+            "max_abs_err": max(e[o]["max_abs"] for e in errs
+                               for o in err_of[kind]),
+            "max_row_ratio": max(e[o]["row"] for e in errs
+                                 for o in err_of[kind]),
+            "max_rel_fro": max(e[o]["fro"] for e in errs
+                               for o in err_of[kind]),
+            "errors_at_shape": {o: errs[0][o] for o in err_of[kind]},
+            "max_abs_err_lse": max(e["lse"] for e in errs),
+            "tolerance": tolerance, **t, "flops": flops, "bytes": nbytes,
+            "bound_ms": bound, "bound_by": bound_by}
+        _emit("kernel_vs_plain", {"name": name, **rows[name]})
+    return rows
+
+
 def flagship_config(LlamaConfig, seq: int):
     """The JAX package's one-chip training configuration,
     ``bench.py::_llama_flagship`` (bench.py:245-263): full width and
@@ -703,15 +932,23 @@ def _clone_state(state):
 
 # Train parity limits (see train_parity_run)
 PARITY_DLOSS, PARITY_GRAD_REL, PARITY_DPARAM = 2e-3, 0.05, 1.5e-4
+UNRESOLVED_RATIO = 2.0
 
 
 FLASH_KERNELS = ("flash_fwd", "flash_dq", "flash_dkv")
 
 
-def train_parity_run(torch, K, model, opt, TrainStep, batch,
-                     kernels=FLASH_KERNELS,
+def causal_lm_args(model, batch) -> tuple:
+    """A causal LM's ``train_parity_run`` step: ``model.loss`` on
+    ``(batch, batch)`` (labels = inputs, shifted by the loss)."""
+    return (lambda logits, y: model.loss(logits, y)), (batch, batch)
+
+
+def train_parity_run(torch, K, model, opt, TrainStep, loss_fn, args,
+                     n_inputs=1, kernels=FLASH_KERNELS,
                      limits=(PARITY_DLOSS, PARITY_GRAD_REL, PARITY_DPARAM),
-                     reseed=None, probes=(), probe_limits=None) -> dict:
+                     reseed=None, probes=(), probe_limits=None,
+                     grad_ref=None) -> dict:
     """Three steps from one state (weights and optimizer state cloned)
     through the kernels, then the same three inside plain_reference().
 
@@ -729,12 +966,26 @@ def train_parity_run(torch, K, model, opt, TrainStep, batch,
     and shows which of these limits each one breaks. Returns the
     measurements and ``failures``, a list of the limits broken.
 
-    ``kernels`` must launch in the kernel run; ``limits`` are the three
-    limits above; ``reseed``, when given, is called before each run (a
-    model that draws random numbers starts both runs from one state).
-    ``probes`` names modules whose output and input gradient in the first
-    step are compared too (relative L2, the worst module against
-    ``probe_limits = (output, input gradient)``)."""
+    The step is ``TrainStep(model, opt, loss_fn, n_inputs)`` called on
+    ``args`` (``causal_lm_args`` gives a causal LM's). ``kernels`` must
+    launch in the kernel run; ``limits`` are the three limits above;
+    ``reseed``, when given, is called before each run (a model that
+    draws random numbers starts both runs from one state). ``probes``
+    names modules whose output and input gradient in the first step are
+    compared too (relative L2, the worst module against ``probe_limits =
+    (output, input gradient)``).
+
+    ``grad_ref``, when given, holds the first step's gradients of an fp32
+    copy of the model, through the plain versions, from the same
+    weights. A parameter whose plain bf16 gradient lies more than half
+    the gradient limit from it in relative L2 (``bf16_noise``) is one
+    that bf16 cannot resolve to that limit, so two bf16 runs cannot be
+    held to it either: such a parameter (``unresolved``) is held instead
+    to lie no more than ``UNRESOLVED_RATIO`` times as far from the fp32
+    gradient as the plain version's gradient does, and is left out of
+    the master-weight limit, since Adam turns a gradient of rounding
+    noise into steps of +-lr whatever its size. Every other parameter
+    stays under all three limits."""
     params = dict(model.named_parameters())
     snap_p = {k: p.detach().clone() for k, p in params.items()}
     snap_s = _clone_state(opt.state)
@@ -758,14 +1009,14 @@ def train_parity_run(torch, K, model, opt, TrainStep, batch,
         opt.state = _clone_state(snap_s)
         if reseed is not None:
             reseed()
-        step = TrainStep(model, opt, lambda logits, y: model.loss(logits, y))
+        step = TrainStep(model, opt, loss_fn, n_inputs=n_inputs)
         K.reset_launch_counts()
         scope = (K.plain_reference() if name == "plain"
                  else contextlib.nullcontext())
         losses, grads = [], None
         with scope:
             for i in range(3):
-                losses.append(step(batch, batch).item())
+                losses.append(step(*args).item())
                 if i == 0:
                     grads = {k: p.grad.detach().clone()
                              for k, p in params.items()}
@@ -778,14 +1029,22 @@ def train_parity_run(torch, K, model, opt, TrainStep, batch,
         h.remove()
     (lk, gk, mk, ck, pk), (lp, gp, mp, cp, pp) = (runs["kernels"],
                                                   runs["plain"])
+    lim_loss, lim_grad, lim_param = limits
     dloss = [abs(a - b) for a, b in zip(lk, lp)]
-    grad_rel = {k: ((gk[k].float() - gp[k].float()).norm()
-                    / gp[k].float().norm().clamp(min=1e-30)).item()
-                for k in gk}
-    dparam = max((mk[k] - mp[k]).abs().max().item() for k in mk)
+    noise, unresolved = {}, {}
+    for k, ref in (grad_ref or {}).items():
+        ref_norm = max(ref.norm().item(), 1e-30)
+        noise[k] = (gp[k].float() - ref).norm().item() / ref_norm
+        if noise[k] > lim_grad / 2:
+            unresolved[k] = ((gk[k].float() - ref).norm().item() / ref_norm
+                             / noise[k])
+    grad_rel = {k: (gk[k].float() - gp[k].float()).norm().item()
+                / max(gp[k].float().norm().item(), 1e-30)
+                for k in gk if k not in unresolved}
+    dparam = max((mk[k] - mp[k]).abs().max().item() for k in mk
+                 if k not in unresolved)
     worst = max(grad_rel, key=grad_rel.get)
     failures = []
-    lim_loss, lim_grad, lim_param = limits
     if any(cp.values()) or not all(ck[n] for n in kernels):
         failures.append(f"the kernel run must launch {kernels} and the "
                         f"plain run none: {ck} {cp}")
@@ -796,6 +1055,12 @@ def train_parity_run(torch, K, model, opt, TrainStep, batch,
                         f"{lim_grad} in relative L2")
     if not dparam <= lim_param:
         failures.append(f"master weights {dparam} > {lim_param} apart")
+    if unresolved:
+        worst_u = max(unresolved, key=unresolved.get)
+        if not unresolved[worst_u] <= UNRESOLVED_RATIO:
+            failures.append(f"gradient {worst_u} lies {unresolved[worst_u]}"
+                            f" times as far from fp32 as the plain "
+                            f"version's > {UNRESOLVED_RATIO}")
     probe_rel = {kind: {n: ((pk[n][kind] - pp[n][kind]).norm()
                             / pp[n][kind].norm().clamp(min=1e-30)).item()
                         for n in pk} for kind in ("out", "dx")}
@@ -806,13 +1071,17 @@ def train_parity_run(torch, K, model, opt, TrainStep, batch,
                             f"> {lim} in relative L2")
     return {"losses_kernels": lk, "losses_plain": lp, "abs_dloss": dloss,
             "max_grad_rel_l2": grad_rel[worst], "worst_grad": worst,
+            "top_grad_rel_l2": sorted(grad_rel.items(),
+                                      key=lambda kv: -kv[1])[:8],
+            "unresolved": unresolved, "bf16_noise": noise,
             "grad_rel_l2": grad_rel, "max_abs_dparam_step3": dparam,
             "launches_kernels": ck, "launches_plain": cp,
             "probe_rel_l2": probe_rel, "failures": failures}
 
 
 def phase_train_parity(torch, K, model, opt, TrainStep, batch) -> dict:
-    out = train_parity_run(torch, K, model, opt, TrainStep, batch)
+    out = train_parity_run(torch, K, model, opt, TrainStep,
+                           *causal_lm_args(model, batch))
     _emit("train_parity", {k: v for k, v in out.items()
                            if k != "grad_rel_l2"})
     if out["failures"]:
@@ -1294,7 +1563,7 @@ def phase_train_moe_parity(torch, K, model, opt, TrainStep, batch) -> dict:
     tensors show it. ``chip_mutants.py`` shows which MoE kernel faults
     these limits catch."""
     out = train_parity_run(
-        torch, K, model, opt, TrainStep, batch,
+        torch, K, model, opt, TrainStep, *causal_lm_args(model, batch),
         kernels=FLASH_KERNELS + MOE_KERNELS, limits=MOE_PARITY,
         reseed=lambda: model.generator.manual_seed(SEED + 6),
         probes=moe_probes(model), probe_limits=MOE_PROBE_LIMITS)
@@ -1312,19 +1581,17 @@ _MOE_CATEGORIES = (
     ("moe_routing", ("routing_kernel",)),) + _CATEGORIES
 
 
-def phase_train_moe_profile(torch, model, opt, TrainStep, batch) -> dict:
-    """One MoE training step under the profiler: device time by category
-    (the MoE expert kernels, the routing kernel, flash, RMSNorm, GEMMs,
-    everything else), the idle share, and the AdamW update alone (its
-    device time under the profiler and its CUDA-event time on this
-    step's gradients); ``other_without_adamw`` takes the update out of
-    "other"."""
-    step = TrainStep(model, opt, lambda logits, y: model.loss(logits, y))
-    out = _profile_steps(torch, lambda: step(batch, batch), 1, top=None)
-    cats = {name: 0.0 for name, _ in _MOE_CATEGORIES}
+def _step_profile(torch, step_fn, model, opt, categories) -> dict:
+    """One training step (``step_fn``) under the profiler: device time by
+    kernel category (``categories``, then "other"), the idle share, and
+    the AdamW update alone (its device time under the profiler and its
+    CUDA-event time on this step's gradients); ``other_without_adamw``
+    takes the update out of "other"."""
+    out = _profile_steps(torch, step_fn, 1, top=None)
+    cats = {name: 0.0 for name, _ in categories}
     cats["other"] = 0.0
     for kname, ms in out.pop("all_kernels_ms"):
-        cat = next((name for name, keys in _MOE_CATEGORIES
+        cat = next((name for name, keys in categories
                     if any(k_ in kname for k_ in keys)), "other")
         cats[cat] += ms
     params = dict(model.named_parameters())
@@ -1341,7 +1608,234 @@ def phase_train_moe_profile(torch, model, opt, TrainStep, batch) -> dict:
     end.record()
     torch.cuda.synchronize()
     out["optimizer_update_ms"] = start.elapsed_time(end)
+    return out
+
+
+def phase_train_moe_profile(torch, model, opt, TrainStep, batch) -> dict:
+    """``_step_profile`` of one MoE training step, by category: the MoE
+    expert kernels, the routing kernel, flash, RMSNorm, GEMMs, AdamW,
+    everything else."""
+    step = TrainStep(model, opt, lambda logits, y: model.loss(logits, y))
+    out = _step_profile(torch, lambda: step(batch, batch), model, opt,
+                        _MOE_CATEGORIES)
     _emit("train_moe_profile", out)
+    return out
+
+
+# ---------------- the BERT pretraining path ----------------
+
+BERT_BATCH, BERT_SEQ, BERT_STEPS = 32, 512, 10
+BERT_PADDED_KERNELS = ("layer_norm", "flash_fwd_bias", "flash_dq_bias",
+                       "flash_dkv_bias")
+
+
+def bert_config(BertConfig):
+    """``bench.py::bench_bert``'s configuration (bench.py:372-439):
+    BERT-Base at its published widths (vocab 30522, hidden 768, 12
+    layers, 12 heads, FFN 3072, exact-erf GELU, 512 positions), bf16,
+    both dropouts 0. Full width and depth."""
+    return BertConfig(dtype="bfloat16", hidden_dropout_prob=0.0,
+                      attention_probs_dropout_prob=0.0)
+
+
+def bert_batch(torch, np, cfg, padded: bool, seed: int = SEED + 11):
+    """One fixed batch of 32 x 512 and its ``TrainStep`` arguments.
+
+    Unpadded (``train_bert``, exactly ``bench_bert``'s step): input ids
+    only and random MLM labels over the whole vocabulary, ``(ids, (mlm,
+    nsp))``. Padded (``train_bert_padded``): the valid lengths of
+    :func:`bert_lengths`, ids 0 on padding, an ``attention_mask`` 1 on
+    valid tokens, token types 0 up to a seeded split inside each row and
+    1 after it (0 on padding), MLM labels -100 on padding: ``(ids,
+    token types, mask, (mlm, nsp))``. ``seed`` draws the ids, labels
+    and splits. Returns (arguments, n_inputs)."""
+    rng = np.random.default_rng(seed)
+    b, s = BERT_BATCH, BERT_SEQ
+    ids = rng.integers(0, cfg.vocab_size, (b, s))
+    mlm = rng.integers(0, cfg.vocab_size, (b, s))
+    nsp = rng.integers(0, 2, (b,))
+
+    def dev(a):
+        return torch.tensor(a, dtype=torch.int64, device="cuda")
+
+    if not padded:
+        return (dev(ids), (dev(mlm), dev(nsp))), 1
+    lens = bert_lengths(np)
+    split = rng.integers(1, lens - 1)
+    pos = np.arange(s)[None, :]
+    mask = pos < lens[:, None]
+    tt = (pos >= split[:, None]) & mask
+    return (dev(np.where(mask, ids, 0)), dev(tt), dev(mask),
+            (dev(np.where(mask, mlm, -100)), dev(nsp))), 3
+
+
+def _bert_loss(model):
+    return lambda out, labels: model.loss(*out, *labels)
+
+
+def phase_train_bert(torch, K, model, TrainStep, AdamW, args, n_inputs,
+                     smi, padded: bool) -> tuple:
+    """10 TrainSteps of ``bench_bert``'s configuration on one fixed batch
+    (``bert_batch``): step wall times, the median of steps 3-10,
+    tokens/s (32 x 512 positions a step; the padded arm also reports its
+    valid tokens), ``mfu`` = 6 N tokens/s over the 989 TFLOP/s bf16 peak
+    (bench.py:429), peak memory, every loss, and the launch counters of
+    this phase alone: per step 26 LayerNorm launches (the embeddings',
+    two in each of 12 layers, ``mlm_norm``) and 12 of each flash kernel,
+    in the no-bias mode unpadded and in the bias mode padded (and none
+    of the other mode)."""
+    cfg = model.config
+    L = cfg.num_hidden_layers
+    opt = AdamW(learning_rate=TRAIN_LR, parameters=model)
+    step = TrainStep(model, opt, _bert_loss(model), n_inputs=n_inputs)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    losses, times = [], []
+    for _ in range(BERT_STEPS):
+        t0 = time.perf_counter()
+        loss = step(*args)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(loss.item())
+    launches = K.launch_counts()
+    n_params = model.num_params()
+    step_s = statistics.median(times[2:])
+    tokens = BERT_BATCH * BERT_SEQ
+    out = {"config": cfg.__dict__, "params": n_params,
+           "batch": BERT_BATCH, "seq": BERT_SEQ, "lr": TRAIN_LR,
+           "padded": padded, "step_ms": [t * 1e3 for t in times],
+           "median_step_ms": step_s * 1e3, "tokens_per_s": tokens / step_s,
+           "mfu": 6.0 * n_params * tokens / step_s / BF16_TENSOR_FLOPS,
+           "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "losses": losses, "launches": launches, "card": smi}
+    if padded:
+        valid = int(args[2].sum())
+        out["valid_tokens"] = valid
+        out["valid_tokens_per_s"] = valid / step_s
+    _emit("train_bert_padded" if padded else "train_bert", out)
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite training loss: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"the loss did not fall on a fixed batch: "
+                             f"{losses}")
+    n = L * BERT_STEPS
+    flash = ({"flash_fwd_bias": n, "flash_dq_bias": n, "flash_dkv_bias": n}
+             if padded else {"flash_fwd": n, "flash_dq": n, "flash_dkv": n})
+    want = _counts(K, layer_norm=(2 * L + 2) * BERT_STEPS, **flash)
+    if launches != want:
+        raise AssertionError(f"launch counters {launches} != expected "
+                             f"{want} over {BERT_STEPS} steps")
+    return out, opt
+
+
+# BERT train parity limits (see phase_train_bert_parity)
+BERT_PARITY = (0.1, 0.15, PARITY_DPARAM)
+
+
+def bert_fp32_grads(torch, K, model, BertForPreTraining, args,
+                    n_inputs) -> dict:
+    """One step's gradients of an fp32 copy of ``model`` (its current
+    weights, exact in fp32) on ``args``, through the plain versions: the
+    reference ``train_parity_run`` measures bf16's own error against."""
+    cfg = dataclasses.replace(model.config, dtype="float32")
+    ref = BertForPreTraining(cfg, device="cuda", seed=None)
+    with torch.no_grad():
+        for (k, p), (k32, p32) in zip(model.named_parameters(),
+                                      ref.named_parameters()):
+            assert k == k32
+            p32.copy_(p.float())
+    with K.plain_reference():
+        out = ref(*args[:n_inputs])
+        _bert_loss(ref)(out, *args[n_inputs:]).backward()
+    grads = {k: p.grad.detach().clone() for k, p in ref.named_parameters()}
+    del ref, out
+    torch.cuda.empty_cache()
+    return grads
+
+
+def bert_noise_by_layer(noise: dict, n_layers: int) -> dict:
+    """``bf16_noise`` of each layer's attention projections, by layer."""
+    return {i: {side: noise[f"bert.encoder.layers.{i}.self_attn.{side}"
+                            f".weight"]
+                for side in ("q_proj", "k_proj", "v_proj", "out_proj")}
+            for i in range(n_layers)}
+
+
+def bert_parity_run(torch, K, model, opt, TrainStep, BertForPreTraining,
+                    args, n_inputs) -> dict:
+    """``train_parity_run`` on a BERT batch with ``BERT_PARITY`` and the
+    fp32 gradients of ``bert_fp32_grads`` as ``grad_ref``; see
+    ``phase_train_bert_parity``."""
+    ref = bert_fp32_grads(torch, K, model, BertForPreTraining, args,
+                          n_inputs)
+    out = train_parity_run(
+        torch, K, model, opt, TrainStep, _bert_loss(model), args, n_inputs,
+        kernels=BERT_PADDED_KERNELS, limits=BERT_PARITY, grad_ref=ref)
+    out["bf16_noise_by_layer"] = bert_noise_by_layer(
+        out["bf16_noise"], model.config.num_hidden_layers)
+    out["bf16_noise_max_resolved"] = max(
+        (v, k) for k, v in out["bf16_noise"].items()
+        if k not in out["unresolved"])
+    return out
+
+
+def phase_train_bert_parity(torch, K, model, opt, TrainStep,
+                            BertForPreTraining, args, n_inputs) -> dict:
+    """``bert_parity_run`` on the padded BERT batch, from the state the
+    padded phase leaves: three steps through the kernels (LayerNorm and
+    the bias mode of the three flash kernels must launch) and inside
+    ``plain_reference()``, and one step of an fp32 copy of the same
+    weights through the plain versions.
+
+    Limits (``BERT_PARITY``), derived as the Llama step's: a few times
+    the differences of the correct kernels (PERF.md), and the master
+    weights a quarter of the 6 lr that three Adam steps can put between
+    two runs. The correct kernels gave (NVIDIA H100 80GB HBM3, 700 W)
+    |loss difference| 0.032 at a loss of ~97, whose MLM logits (|logit|
+    up to ~100 through the N(0, 1) tied embedding) round at 2**-3 to
+    2**-1 in bf16; gradients 0.046 in relative L2 at most
+    (``bert.pooler_dense.weight``: the NSP path's gradients average over
+    the 32 [CLS] rows only; bf16 alone moves it by more than 0.075, and
+    among the gradients it resolves the worst is 0.021); master weights
+    4.9e-5 apart. Limits: |loss difference| <= 0.1 a step, every
+    gradient <= 0.15, the master weights <= 1.5e-4 (as for Llama).
+
+    Some gradients lie below bf16's resolution: in BERT-Base at this
+    initialisation those of ``self_attn.q_proj`` and ``k_proj`` fall to
+    1e-4 to 1e-2 of the value projection's in the deeper layers, and
+    each key bias's exact gradient is 0 (the softmax cancels a bias
+    added to a whole row of scores). Which ones is measured, not named:
+    the fp32 copy's gradient tells, leaf by leaf, how far bf16 alone
+    moves it (``bf16_noise``), and a leaf moved by more than half the
+    gradient limit is held to the fp32 gradient instead
+    (``train_parity_run``'s ``grad_ref`` rule). ``bf16_noise_by_layer``
+    reports the attention projections' readings."""
+    out = bert_parity_run(torch, K, model, opt, TrainStep,
+                          BertForPreTraining, args, n_inputs)
+    _emit("train_bert_parity", {k: v for k, v in out.items()
+                                if k not in ("grad_rel_l2", "bf16_noise")})
+    if out["failures"]:
+        raise AssertionError(f"BERT train parity beyond tolerance: "
+                             f"{out['failures']}")
+    return out
+
+
+_BERT_CATEGORIES = (("layer_norm", ("layer_norm_fwd_kernel",)),
+                    ("flash", ("flash_",)),
+                    ("gemm", ("nvjet", "gemm", "xmma", "cutlass", "cublas")))
+
+
+def phase_train_bert_profile(torch, model, opt, TrainStep, args,
+                             n_inputs, tag="train_bert_profile") -> dict:
+    """``_step_profile`` of one BERT training step (the padded arm; with
+    ``tag`` ``train_bert_profile_unpadded`` the unpadded one), by
+    category: the LayerNorm kernel, the flash kernels, GEMMs, AdamW,
+    everything else."""
+    step = TrainStep(model, opt, _bert_loss(model), n_inputs=n_inputs)
+    out = _step_profile(torch, lambda: step(*args), model, opt,
+                        _BERT_CATEGORIES)
+    _emit(tag, out)
     return out
 
 
@@ -1555,7 +2049,8 @@ def main(argv=None) -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     try:
         from paddle_tpu_torch.jit import TrainStep
-        from paddle_tpu_torch.models import (LlamaConfig, LlamaForCausalLM,
+        from paddle_tpu_torch.models import (BertConfig, BertForPreTraining,
+                                             LlamaConfig, LlamaForCausalLM,
                                              Qwen2MoeConfig,
                                              Qwen2MoeForCausalLM, llama_3_8b)
         from paddle_tpu_torch.ops import kernels as K
@@ -1601,6 +2096,9 @@ def main(argv=None) -> int:
     paged_int8 = phase_paged_int8(torch, K, QZ)
     flash = phase_flash(torch, F)
     torch.cuda.empty_cache()
+    ln = phase_layer_norm(torch, K)
+    flash_bias = phase_flash_bias(torch, np, F)
+    torch.cuda.empty_cache()
     moe_k = phase_moe_kernels(torch, MR, GG)
     torch.cuda.empty_cache()
 
@@ -1639,6 +2137,37 @@ def main(argv=None) -> int:
     for p in model.parameters():
         p.grad = None
     del model, opt
+    torch.cuda.empty_cache()
+
+    # bench_bert's configuration: the unpadded and the padded arm
+    cfg = bert_config(BertConfig)
+    t0 = time.perf_counter()
+    model = BertForPreTraining(cfg, device="cuda", seed=SEED)
+    torch.cuda.synchronize()
+    _emit("train_bert_model", {"init_s": time.perf_counter() - t0,
+                               "params": model.num_params()})
+    init = {k: p.detach().clone() for k, p in model.named_parameters()}
+    bert_args, n_inputs = bert_batch(torch, np, cfg, padded=False)
+    train_bert, opt = phase_train_bert(torch, K, model, TrainStep, AdamW,
+                                       bert_args, n_inputs, smi,
+                                       padded=False)
+    phase_train_bert_profile(torch, model, opt, TrainStep, bert_args,
+                             n_inputs, "train_bert_profile_unpadded")
+    with torch.no_grad():   # the padded arm starts from the same weights
+        for k, p in model.named_parameters():
+            p.copy_(init[k])
+    del init, opt
+    bert_args, n_inputs = bert_batch(torch, np, cfg, padded=True)
+    train_bert_padded, opt = phase_train_bert(
+        torch, K, model, TrainStep, AdamW, bert_args, n_inputs, smi,
+        padded=True)
+    phase_train_bert_parity(torch, K, model, opt, TrainStep,
+                            BertForPreTraining, bert_args, n_inputs)
+    phase_train_bert_profile(torch, model, opt, TrainStep, bert_args,
+                             n_inputs)
+    for p in model.parameters():
+        p.grad = None
+    del model, opt, bert_args
     torch.cuda.empty_cache()
 
     # 7-9 on one model at Llama-3-8B widths
@@ -1727,6 +2256,29 @@ def main(argv=None) -> int:
             "name": name, "route": "cuda", "source": src + source,
             "replaces": f"paddle_tpu/ops/pallas/flash_attention.py:{line}",
             "launches": train["launches"][name],
+            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "shape": row["shape"]})
+    kernels.append({
+        "name": "layer_norm", "route": "cuda",
+        "source": src + "layer_norm.cu",
+        "replaces": "paddle_tpu/ops/pallas/fused_norm.py:127",
+        "launches": train_bert["launches"]["layer_norm"],
+        "padded_launches": train_bert_padded["launches"]["layer_norm"],
+        "max_abs_err": max(r["max_abs_err"] for r in ln), "ms": ln[0]["ms"],
+        "plain_ms": ln[0]["plain_ms"], "bound_ms": ln[0]["bound_ms"],
+        "bound_by": ln[0]["bound_by"], "library_ms": ln[0]["library_ms"],
+        "shape": ln[0]["shape"]})
+    for name, source, line in (
+            ("flash_fwd_bias", "flash_attention_fwd.cu", 242),
+            ("flash_dq_bias", "flash_attention_bwd.cu", 558),
+            ("flash_dkv_bias", "flash_attention_bwd.cu", 590)):
+        row = flash_bias[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": src + source,
+            "replaces": f"paddle_tpu/ops/pallas/flash_attention.py:{line}",
+            "launches": train_bert_padded["launches"][name],
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],

@@ -4,8 +4,8 @@
 // Replaces the two pallas_calls of
 // paddle_tpu/ops/pallas/flash_attention.py::flash_block_grads: the dQ pass
 // (_bwd_dq_kernel, :329-389, called at :558) and the dK/dV pass
-// (_bwd_dkv_kernel, :392-463, called at :590), without the bias,
-// segment-id and dropout modes.
+// (_bwd_dkv_kernel, :392-463, called at :590), with their additive bias
+// mode (has_bias) and without the segment-id and dropout modes.
 //
 // Bound on the H100: operations. At the training path's shape (b 4, s 2048,
 // h 16, d 128, causal, bf16) dQ is 3 products (103 GFLOP, 104 us at the
@@ -33,6 +33,12 @@
 // (K in dS K, dO in P^T dO, Q in dS^T Q) come from ldmatrix.trans on the
 // same row-major tiles, so nothing is transposed in memory. lse and delta
 // are read once per row.
+// Bias mode (HAS_BIAS, a template flag; the no-bias instantiations are the
+// kernels they were): as in the forward, an fp32 bias read through four
+// element strides and added to the fp32 score before P is recomputed, at
+// the point where _bwd_dq_kernel (:373) and _bwd_dkv_kernel (:437) add it
+// to (q k) * scale. dK/dV reads it in its transposed frame, bias[q, key]
+// for its (key row, q column) elements.
 //
 // Arithmetic against the Pallas kernels (and flash_block_grads_plain):
 // S = Q K^T and dP = dO V^T are bf16 products, exact in fp32, in another
@@ -57,7 +63,7 @@ constexpr int kThreads = 128;   // 4 warps x 16 rows
 constexpr int kBQ = 64;         // dQ: q rows per block
 constexpr int kBK = 64;         // keys per tile (both kernels)
 
-template <int D>
+template <int D, bool HAS_BIAS>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, const bf16* __restrict__ dout,
@@ -66,7 +72,9 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     int H, int sq, int sk, int64_t q_sb, int64_t q_ss,
                     int64_t q_sh, int64_t k_sb, int64_t k_ss, int64_t k_sh,
                     int64_t v_sb, int64_t v_ss, int64_t v_sh, int64_t o_sb,
-                    int64_t o_ss, int64_t o_sh, float scale, bool causal) {
+                    int64_t o_ss, int64_t o_sh, float scale, bool causal,
+                    const float* __restrict__ bias, int64_t b_sb,
+                    int64_t b_sh, int64_t b_sq, int64_t b_sk) {
   constexpr int LD = D + 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
@@ -102,6 +110,12 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   if (n_tiles > 0) issue(0);
 
   const int row[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
+  const float* brow[2] = {nullptr, nullptr};   // this lane's bias rows
+  if constexpr (HAS_BIAS) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      brow[r] = bias + bi * b_sb + hi * b_sh + (int64_t)row[r] * b_sq;
+  }
   float lse2[2], dlt[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -157,8 +171,17 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       for (int i = 0; i < 4; ++i) {
         const int r = i >> 1;
         const int col = k0 + nt * 8 + 2 * t + (i & 1);
-        const float p = visible(row[r], col, sq, sk, off, causal)
-                            ? exp2f(s[nt][i] * scale_log2 - lse2[r]) : 0.f;
+        float p;
+        if constexpr (HAS_BIAS) {
+          p = visible(row[r], col, sq, sk, off, causal)
+                  ? exp2f(fmaf(s[nt][i], scale_log2,
+                               __ldg(brow[r] + col * b_sk) * kLog2e)
+                          - lse2[r])
+                  : 0.f;
+        } else {
+          p = visible(row[r], col, sq, sk, off, causal)
+                  ? exp2f(s[nt][i] * scale_log2 - lse2[r]) : 0.f;
+        }
         s[nt][i] = p * (dp[nt][i] - dlt[r]) * scale;   // dS
       }
     }
@@ -189,7 +212,7 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-template <int D, int BQ>
+template <int D, int BQ, bool HAS_BIAS>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v,
@@ -200,7 +223,8 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      int64_t q_sb, int64_t q_ss, int64_t q_sh, int64_t k_sb,
                      int64_t k_ss, int64_t k_sh, int64_t v_sb, int64_t v_ss, int64_t v_sh,
                      int64_t o_sb, int64_t o_ss, int64_t o_sh, float scale,
-                     bool causal) {
+                     bool causal, const float* __restrict__ bias,
+                     int64_t b_sb, int64_t b_sh, int64_t b_sq, int64_t b_sk) {
   constexpr int LD = D + 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   // K, V, then two stages of (Q, dO, lse in base 2, delta)
@@ -231,6 +255,12 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   cp_async_commit();
 
   const int krow[2] = {k0 + warp * 16 + g, k0 + warp * 16 + g + 8};
+  const float* bkey[2] = {nullptr, nullptr};   // this lane's bias columns
+  if constexpr (HAS_BIAS) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      bkey[r] = bias + bi * b_sb + hi * b_sh + (int64_t)krow[r] * b_sk;
+  }
   float dka[D / 8][4], dva[D / 8][4];
 #pragma unroll
   for (int i = 0; i < D / 8; ++i) {
@@ -298,8 +328,18 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int c = nt * 8 + 2 * t + (i & 1);   // q row within the tile
-        const float p = visible(qs0 + c, krow[i >> 1], sq, sk, off, causal)
-                            ? exp2f(s[nt][i] * scale_log2 - cL[c]) : 0.f;
+        float p;
+        if constexpr (HAS_BIAS) {
+          p = visible(qs0 + c, krow[i >> 1], sq, sk, off, causal)
+                  ? exp2f(fmaf(s[nt][i], scale_log2,
+                               __ldg(bkey[i >> 1] + (int64_t)(qs0 + c) * b_sq)
+                                   * kLog2e)
+                          - cL[c])
+                  : 0.f;
+        } else {
+          p = visible(qs0 + c, krow[i >> 1], sq, sk, off, causal)
+                  ? exp2f(s[nt][i] * scale_log2 - cL[c]) : 0.f;
+        }
         s[nt][i] = p;                                   // P^T
         dp[nt][i] = p * (dp[nt][i] - cD[c]) * scale;    // dS^T
       }
@@ -345,11 +385,12 @@ template <int D> struct DkvTile { static constexpr int BQ = D == 128 ? 32 : 64; 
 
 template <int D>
 int launch_dq(const void* q, const void* k, const void* v, const void* o,
-              const void* lse, const void* delta, void* dq, int b, int h,
-              int sq, int sk, const int64_t* st, float scale, int causal,
-              cudaStream_t stream) {
+              const void* lse, const void* delta, void* dq, const void* bias,
+              int b, int h, int sq, int sk, const int64_t* st, float scale,
+              int causal, cudaStream_t stream) {
   const size_t smem = sizeof(bf16) * (2 * kBQ + 4 * kBK) * (D + 8);
-  auto kern = flash_bwd_dq_kernel<D>;
+  auto kern = bias ? flash_bwd_dq_kernel<D, true>
+                   : flash_bwd_dq_kernel<D, false>;
   cudaError_t err = allow_smem(kern, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((sq + kBQ - 1) / kBQ, b * h);
@@ -358,19 +399,22 @@ int launch_dq(const void* q, const void* k, const void* v, const void* o,
       static_cast<const bf16*>(v), static_cast<const bf16*>(o),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
       static_cast<bf16*>(dq), h, sq, sk, st[0], st[1], st[2], st[3], st[4],
-      st[5], st[6], st[7], st[8], st[9], st[10], st[11], scale, causal != 0);
+      st[5], st[6], st[7], st[8], st[9], st[10], st[11], scale, causal != 0,
+      static_cast<const float*>(bias), st[12], st[13], st[14], st[15]);
   return (int)cudaGetLastError();
 }
 
 template <int D>
 int launch_dkv(const void* q, const void* k, const void* v, const void* o,
-               const void* lse, const void* delta, void* dk, void* dv, int b,
-               int h, int sq, int sk, const int64_t* st, float scale,
-               int causal, cudaStream_t stream) {
+               const void* lse, const void* delta, void* dk, void* dv,
+               const void* bias, int b, int h, int sq, int sk,
+               const int64_t* st, float scale, int causal,
+               cudaStream_t stream) {
   constexpr int BQ = DkvTile<D>::BQ;
   const size_t smem = sizeof(bf16) * (4 * BQ + 2 * kBK) * (D + 8)
                       + sizeof(float) * 4 * BQ;
-  auto kern = flash_bwd_dkv_kernel<D, BQ>;
+  auto kern = bias ? flash_bwd_dkv_kernel<D, BQ, true>
+                   : flash_bwd_dkv_kernel<D, BQ, false>;
   cudaError_t err = allow_smem(kern, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((sk + kBK - 1) / kBK, b * h);
@@ -380,7 +424,8 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* o,
       static_cast<const float*>(lse), static_cast<const float*>(delta),
       static_cast<bf16*>(dk), static_cast<bf16*>(dv), h, sq, sk, st[0],
       st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10],
-      st[11], scale, causal != 0);
+      st[11], scale, causal != 0, static_cast<const float*>(bias), st[12],
+      st[13], st[14], st[15]);
   return (int)cudaGetLastError();
 }
 
@@ -393,45 +438,51 @@ bool shape_ok(int64_t b, int64_t h, int64_t sq, int64_t sk) {
 // q, k, v, dO and the gradients are bfloat16. Strides are in elements,
 // (batch, seq, head) for each of q, k, v and dO; head_dim is contiguous.
 // lse and delta are fp32 [b, h, sq]; dq is contiguous [b, sq, h, d].
+// bias is null (no bias) or fp32, element (b, h, q, k) at bias_sb * b +
+// bias_sh * h + bias_sq * q + bias_sk * k (a broadcast dimension: stride 0).
 extern "C" int flash_bwd_dq_launch(
     const void* q, const void* k, const void* v, const void* dout,
-    const void* lse, const void* delta, void* dq, int64_t b, int64_t h,
-    int64_t sq, int64_t sk, int64_t d, int64_t q_sb, int64_t q_ss,
-    int64_t q_sh, int64_t k_sb, int64_t k_ss, int64_t k_sh, int64_t v_sb,
-    int64_t v_ss, int64_t v_sh, int64_t o_sb, int64_t o_ss, int64_t o_sh,
-    float scale, int causal, void* stream) {
+    const void* lse, const void* delta, void* dq, const void* bias,
+    int64_t b, int64_t h, int64_t sq, int64_t sk, int64_t d, int64_t q_sb,
+    int64_t q_ss, int64_t q_sh, int64_t k_sb, int64_t k_ss, int64_t k_sh,
+    int64_t v_sb, int64_t v_ss, int64_t v_sh, int64_t o_sb, int64_t o_ss,
+    int64_t o_sh, int64_t bias_sb, int64_t bias_sh, int64_t bias_sq,
+    int64_t bias_sk, float scale, int causal, void* stream) {
   if (b * h <= 0 || sq <= 0 || sk <= 0) return 0;
   if (!shape_ok(b, h, sq, sk)) return (int)cudaErrorInvalidValue;
-  const int64_t st[12] = {q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
-                          v_sb, v_ss, v_sh, o_sb, o_ss, o_sh};
+  const int64_t st[16] = {q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
+                          v_sb, v_ss, v_sh, o_sb, o_ss, o_sh,
+                          bias_sb, bias_sh, bias_sq, bias_sk};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (d == 64)
-    return launch_dq<64>(q, k, v, dout, lse, delta, dq, (int)b, (int)h,
-                         (int)sq, (int)sk, st, scale, causal, s);
+    return launch_dq<64>(q, k, v, dout, lse, delta, dq, bias, (int)b,
+                         (int)h, (int)sq, (int)sk, st, scale, causal, s);
   if (d == 128)
-    return launch_dq<128>(q, k, v, dout, lse, delta, dq, (int)b, (int)h,
-                          (int)sq, (int)sk, st, scale, causal, s);
+    return launch_dq<128>(q, k, v, dout, lse, delta, dq, bias, (int)b,
+                          (int)h, (int)sq, (int)sk, st, scale, causal, s);
   return (int)cudaErrorInvalidValue;
 }
 
 // As flash_bwd_dq_launch; dk and dv are contiguous [b, sk, h, d].
 extern "C" int flash_bwd_dkv_launch(
     const void* q, const void* k, const void* v, const void* dout,
-    const void* lse, const void* delta, void* dk, void* dv, int64_t b,
-    int64_t h, int64_t sq, int64_t sk, int64_t d, int64_t q_sb, int64_t q_ss,
-    int64_t q_sh, int64_t k_sb, int64_t k_ss, int64_t k_sh, int64_t v_sb,
-    int64_t v_ss, int64_t v_sh, int64_t o_sb, int64_t o_ss, int64_t o_sh,
-    float scale, int causal, void* stream) {
+    const void* lse, const void* delta, void* dk, void* dv, const void* bias,
+    int64_t b, int64_t h, int64_t sq, int64_t sk, int64_t d, int64_t q_sb,
+    int64_t q_ss, int64_t q_sh, int64_t k_sb, int64_t k_ss, int64_t k_sh,
+    int64_t v_sb, int64_t v_ss, int64_t v_sh, int64_t o_sb, int64_t o_ss,
+    int64_t o_sh, int64_t bias_sb, int64_t bias_sh, int64_t bias_sq,
+    int64_t bias_sk, float scale, int causal, void* stream) {
   if (b * h <= 0 || sq <= 0 || sk <= 0) return 0;
   if (!shape_ok(b, h, sq, sk)) return (int)cudaErrorInvalidValue;
-  const int64_t st[12] = {q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
-                          v_sb, v_ss, v_sh, o_sb, o_ss, o_sh};
+  const int64_t st[16] = {q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
+                          v_sb, v_ss, v_sh, o_sb, o_ss, o_sh,
+                          bias_sb, bias_sh, bias_sq, bias_sk};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (d == 64)
-    return launch_dkv<64>(q, k, v, dout, lse, delta, dk, dv, (int)b, (int)h,
-                          (int)sq, (int)sk, st, scale, causal, s);
+    return launch_dkv<64>(q, k, v, dout, lse, delta, dk, dv, bias, (int)b,
+                          (int)h, (int)sq, (int)sk, st, scale, causal, s);
   if (d == 128)
-    return launch_dkv<128>(q, k, v, dout, lse, delta, dk, dv, (int)b,
+    return launch_dkv<128>(q, k, v, dout, lse, delta, dk, dv, bias, (int)b,
                            (int)h, (int)sq, (int)sk, st, scale, causal, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -2,7 +2,8 @@
 // over [b, s, h, d] tensors, causal or not.
 //
 // Replaces paddle_tpu/ops/pallas/flash_attention.py::_fwd_kernel / _fwd
-// (its pallas_call at :242), without the bias, segment-id and dropout modes.
+// (its pallas_call at :242), with its additive bias mode (has_bias) and
+// without the segment-id and dropout modes.
 //
 // Bound on the H100: operations. At the training path's shape (b 4, s 2048,
 // h 16, d 128, causal, bf16) the two products are 68.7 GFLOP against
@@ -29,6 +30,16 @@
 //     are launched heaviest (last q tile) first.
 //   - a ragged s is masked in the kernel (rows and keys past the end are
 //     zero-filled and masked), where the JAX code pads to whole blocks.
+//   - bias mode (HAS_BIAS, a template flag, so the no-bias instantiations
+//     are the kernels they were): an fp32 additive bias read through four
+//     element strides (batch, head, query, key), so a broadcast dimension
+//     is a stride of 0 and BERT's [b, 1, 1, sk] key-padding mask is never
+//     materialised at [b, 1, sq, sk]. Each lane reads the bias of the
+//     score elements it holds (a quad's 8 consecutive keys of one row:
+//     whole 32-byte sectors) and adds it to the fp32 score before the
+//     running max, as _fwd_kernel adds it after (q * scale) k (:146-148).
+//     Keys past sk are masked, never read: the JAX code pads them with
+//     -1e30 (_pad_bias :268), which gives them the same p = 0.
 //
 // Arithmetic against the Pallas kernel (and flash_fwd_plain): QK^T of bf16
 // inputs is exact in fp32, only the order of the sums differs; the Pallas
@@ -53,14 +64,16 @@ constexpr int kThreads = 128;   // 4 warps x 16 q rows
 constexpr int kBQ = 64;
 constexpr int kBK = 64;
 
-template <int D>
+template <int D, bool HAS_BIAS>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, bf16* __restrict__ out,
                  float* __restrict__ lse, int H, int sq, int sk,
                  int64_t q_sb, int64_t q_ss, int64_t q_sh, int64_t k_sb,
                  int64_t k_ss, int64_t k_sh, int64_t v_sb, int64_t v_ss,
-                 int64_t v_sh, float scale, bool causal) {
+                 int64_t v_sh, float scale, bool causal,
+                 const float* __restrict__ bias, int64_t b_sb, int64_t b_sh,
+                 int64_t b_sq, int64_t b_sk) {
   constexpr int LD = D + 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   // two stages of (K, V); the Q tile is staged in stage 1's K first
@@ -108,6 +121,12 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   float m_r[2] = {kNeg, kNeg};   // running max (base-2 scaled scores)
   float l_r[2] = {0.f, 0.f};     // this lane's partial row sums
   const int row[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
+  const float* brow[2] = {nullptr, nullptr};   // this lane's bias rows
+  if constexpr (HAS_BIAS) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      brow[r] = bias + bi * b_sb + hi * b_sh + (int64_t)row[r] * b_sq;
+  }
 
   for (int jt = 0; jt < n_tiles; ++jt) {
     const int k0 = jt * kBK;
@@ -142,8 +161,16 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int col = k0 + nt * 8 + 2 * t + (i & 1);
-        const float x = visible(row[i >> 1], col, sq, sk, off, causal)
-                            ? s[nt][i] * scale_log2 : kNeg;
+        float x;
+        if constexpr (HAS_BIAS) {
+          x = visible(row[i >> 1], col, sq, sk, off, causal)
+                  ? fmaf(s[nt][i], scale_log2,
+                         __ldg(brow[i >> 1] + col * b_sk) * kLog2e)
+                  : kNeg;
+        } else {
+          x = visible(row[i >> 1], col, sq, sk, off, causal)
+                  ? s[nt][i] * scale_log2 : kNeg;
+        }
         s[nt][i] = x;
         mx[i >> 1] = fmaxf(mx[i >> 1], x);
       }
@@ -210,10 +237,10 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* out, void* lse,
-           int b, int h, int sq, int sk, const int64_t* st, float scale,
-           int causal, cudaStream_t stream) {
+           const void* bias, int b, int h, int sq, int sk, const int64_t* st,
+           float scale, int causal, cudaStream_t stream) {
   const size_t smem = sizeof(bf16) * 4 * kBK * (D + 8);
-  auto kern = flash_fwd_kernel<D>;
+  auto kern = bias ? flash_fwd_kernel<D, true> : flash_fwd_kernel<D, false>;
   const cudaError_t err = allow_smem(kern, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((sq + kBQ - 1) / kBQ, b * h);
@@ -221,7 +248,8 @@ int launch(const void* q, const void* k, const void* v, void* out, void* lse,
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(out),
       static_cast<float*>(lse), h, sq, sk, st[0], st[1], st[2], st[3], st[4],
-      st[5], st[6], st[7], st[8], scale, causal != 0);
+      st[5], st[6], st[7], st[8], scale, causal != 0,
+      static_cast<const float*>(bias), st[9], st[10], st[11], st[12]);
   return (int)cudaGetLastError();
 }
 
@@ -229,23 +257,29 @@ int launch(const void* q, const void* k, const void* v, void* out, void* lse,
 
 // q, k, v and out are bfloat16. Strides are in elements, (batch, seq,
 // head) for each of q, k, v; head_dim is contiguous. out is contiguous [b, sq, h, d]; lse fp32 [b, h, sq].
+// bias is null (no bias) or fp32, element (b, h, q, k) at bias_sb * b +
+// bias_sh * h + bias_sq * q + bias_sk * k (a broadcast dimension: stride 0).
 extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v,
-                                void* out, void* lse, int64_t b, int64_t h,
+                                void* out, void* lse, const void* bias,
+                                int64_t b, int64_t h,
                                 int64_t sq, int64_t sk, int64_t d,
                                 int64_t q_sb, int64_t q_ss, int64_t q_sh,
                                 int64_t k_sb, int64_t k_ss, int64_t k_sh,
                                 int64_t v_sb, int64_t v_ss, int64_t v_sh,
+                                int64_t bias_sb, int64_t bias_sh,
+                                int64_t bias_sq, int64_t bias_sk,
                                 float scale, int causal, void* stream) {
   if (b * h <= 0 || sq <= 0) return 0;
   if (b * h > 65535 || sq > (1 << 30) || sk < 0 || sk > (1 << 30))
     return (int)cudaErrorInvalidValue;
-  const int64_t st[9] = {q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh};
+  const int64_t st[13] = {q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss,
+                          v_sh, bias_sb, bias_sh, bias_sq, bias_sk};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (d == 64)
-    return launch<64>(q, k, v, out, lse, (int)b, (int)h, (int)sq, (int)sk,
-                      st, scale, causal, s);
+    return launch<64>(q, k, v, out, lse, bias, (int)b, (int)h, (int)sq,
+                      (int)sk, st, scale, causal, s);
   if (d == 128)
-    return launch<128>(q, k, v, out, lse, (int)b, (int)h, (int)sq, (int)sk,
-                       st, scale, causal, s);
+    return launch<128>(q, k, v, out, lse, bias, (int)b, (int)h, (int)sq,
+                       (int)sk, st, scale, causal, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -22,8 +22,12 @@ class TrainStep:
     runs ``loss_fn(model(*batch[:n_inputs]), *batch[n_inputs:])``, its
     backward and ``opt.update`` at ``lr = opt.get_lr(host_step + 1)``,
     advances ``host_step`` and returns the detached loss. Numpy arrays in
-    the batch are moved to the model's device. The gradients of the last
-    step stay in each parameter's ``.grad`` until the next call.
+    the batch, also inside (nested) tuples and lists, are moved to the
+    model's device. A trainable parameter that the loss does not reach
+    gets a zero gradient, as ``jax.value_and_grad`` gives it in the JAX
+    package, so AdamW still applies its decoupled decay to it. The
+    gradients of the last step stay in each parameter's ``.grad`` until
+    the next call.
 
     Not ported: ``has_aux``, grad hooks, fault-injection sites and
     ``PipelineTrainStep``; no PRNG key is drawn, as nothing on this path
@@ -41,6 +45,8 @@ class TrainStep:
         self._device = next(model.parameters()).device
 
     def _as_tensor(self, x):
+        if isinstance(x, (tuple, list)):
+            return type(x)(self._as_tensor(v) for v in x)
         if isinstance(x, (np.ndarray, np.number, int, float)):
             return torch.as_tensor(np.asarray(x), device=self._device)
         return x
@@ -55,6 +61,9 @@ class TrainStep:
             p.grad = None
         loss = self.loss_fn(self.model(*inputs), *labels)
         loss.backward()
+        for p in self._params.values():
+            if p.grad is None:          # unused by this loss: a zero grad
+                p.grad = torch.zeros_like(p)
         grads = {k: p.grad for k, p in self._params.items()}
         opt.update(self._params, grads, opt.state,
                    lr=opt.get_lr(self.host_step + 1))

@@ -125,10 +125,12 @@ class LlamaAttention(nn.Module):
         h, kvh, d = (config.num_attention_heads, config.num_key_value_heads,
                      config.head_dim)
         kw = dict(device=device, dtype=dtype)
-        self.q_proj = Linear(config.hidden_size, h * d, **kw)
-        self.k_proj = Linear(config.hidden_size, kvh * d, **kw)
-        self.v_proj = Linear(config.hidden_size, kvh * d, **kw)
-        self.o_proj = Linear(h * d, config.hidden_size, **kw)
+        self.q_proj = Linear(config.hidden_size, h * d, bias_attr=False, **kw)
+        self.k_proj = Linear(config.hidden_size, kvh * d, bias_attr=False,
+                             **kw)
+        self.v_proj = Linear(config.hidden_size, kvh * d, bias_attr=False,
+                             **kw)
+        self.o_proj = Linear(h * d, config.hidden_size, bias_attr=False, **kw)
 
     def forward(self, x, cos, sin, kv_cache=None, paged=None):
         b, s, _ = x.shape
@@ -188,11 +190,11 @@ class LlamaMLP(nn.Module):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         self.gate_proj = Linear(config.hidden_size, config.intermediate_size,
-                                **kw)
+                                bias_attr=False, **kw)
         self.up_proj = Linear(config.hidden_size, config.intermediate_size,
-                              **kw)
+                              bias_attr=False, **kw)
         self.down_proj = Linear(config.intermediate_size, config.hidden_size,
-                                **kw)
+                                bias_attr=False, **kw)
 
     def forward(self, x):
         # SwiGLU (llama.py:387)
@@ -271,7 +273,8 @@ class LlamaForCausalLM(nn.Module):
         self.model = LlamaModel(config, device, dtype)
         if not config.tie_word_embeddings:
             self.lm_head = Linear(config.hidden_size, config.vocab_size,
-                                  device=device, dtype=dtype)
+                                  bias_attr=False, device=device,
+                                  dtype=dtype)
         if seed is not None:
             from .weights import init_random
             init_random(self, seed)

@@ -107,7 +107,8 @@ class Qwen2MoeSparseMLP(nn.Module):
         shared_cfg.intermediate_size = config.shared_expert_intermediate_size
         self.shared_expert = LlamaMLP(shared_cfg, device, dtype)
         self.shared_expert_gate = Linear(config.hidden_size, 1,
-                                         device=device, dtype=dtype)
+                                         bias_attr=False, device=device,
+                                         dtype=dtype)
 
     @property
     def aux_loss(self):
@@ -162,7 +163,7 @@ class Qwen2MoeForCausalLM(nn.Module):
         self.norm = RMSNorm(config.hidden_size, config.rms_norm_eps,
                             device=device, dtype=dtype)
         self.lm_head = Linear(config.hidden_size, config.vocab_size,
-                              device=device, dtype=dtype)
+                              bias_attr=False, device=device, dtype=dtype)
         cos, sin = _rope_cache(config._attn_cfg(), device)
         self.register_buffer("rope_cos", cos, persistent=False)
         self.register_buffer("rope_sin", sin, persistent=False)

@@ -21,9 +21,11 @@
   mid-training state.
 - :func:`init_random` draws every parameter on the model's own device
   from one ``torch.Generator`` seeded with ``seed``, using the JAX
-  package's initialisers (XavierNormal for Linear and the MoE expert
-  weights, XavierUniform for the fp32 MoE router, N(0, 1) for Embedding,
-  ones for RMSNorm), each in its parameter's own dtype. The draws differ from ``jax.random``'s
+  package's initialisers (XavierNormal for Linear weights and the MoE
+  expert weights, zeros for Linear biases, XavierUniform for the fp32
+  MoE router, N(0, 1) for Embedding, ones for RMSNorm, ones and zeros
+  for LayerNorm), each in its parameter's own dtype. A tied weight (the
+  BERT MLM decoder is the word embedding) is one parameter, drawn once. The draws differ from ``jax.random``'s
   for the same seed; tests that compare the two packages load the JAX
   weights instead.
 """

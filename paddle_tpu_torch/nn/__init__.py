@@ -1,7 +1,11 @@
-"""The nn subset the Llama decoder needs (counterpart: paddle_tpu/nn)."""
+"""The nn subset the Llama, Qwen2-MoE and BERT models need (counterpart:
+paddle_tpu/nn)."""
 
 from . import functional
 from .functional import silu
-from .layer import Embedding, Linear, RMSNorm
+from .layer import (Dropout, Embedding, LayerNorm, Linear, MultiHeadAttention,
+                    RMSNorm, TransformerEncoder, TransformerEncoderLayer)
 
-__all__ = ["functional", "silu", "Embedding", "Linear", "RMSNorm"]
+__all__ = ["functional", "silu", "Dropout", "Embedding", "LayerNorm",
+           "Linear", "MultiHeadAttention", "RMSNorm", "TransformerEncoder",
+           "TransformerEncoderLayer"]

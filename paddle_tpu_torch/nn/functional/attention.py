@@ -10,11 +10,12 @@ entry points carry the serving path:
   (its ``kernel_applicable`` gates on ``t == 1``).
 - :func:`cached_prefill_attention` — the contiguous-cache twin sharing
   the same grouped core.
-- :func:`scaled_dot_product_attention` — uncached attention: from
-  ``FLASH_MIN_SEQ`` query rows on it takes flash attention
-  (``ops/kernels/flash_attention.py``; the CUDA kernels on the card, their
-  plain versions on the CPU), below that the plain core, as the JAX
-  package routes it on its accelerator.
+- :func:`scaled_dot_product_attention` — uncached attention, with an
+  optional mask: from ``FLASH_MIN_SEQ`` query rows on it takes flash
+  attention (``ops/kernels/flash_attention.py``; the CUDA kernels on the
+  card, their plain versions on the CPU; a mask rides in the kernels'
+  bias mode), below that the plain core, as the JAX package routes it on
+  its accelerator.
 
 bf16 note: a bf16 product in PyTorch returns bf16, while the JAX code
 asks XLA for the fp32 sum (``preferred_element_type``). The plain cores
@@ -28,7 +29,7 @@ import math
 
 import torch
 
-from ...ops.kernels.flash_attention import flash_attention
+from ...ops.kernels.flash_attention import NEG, flash_attention
 from ...ops.kernels.paged_attention import (paged_attention_cuda,
                                             paged_attention_plain)
 from ...ops.kernels.routing import use_kernel
@@ -42,10 +43,24 @@ __all__ = ["scaled_dot_product_attention", "cached_prefill_attention",
 FLASH_MIN_SEQ = 256
 
 
-def _plain_attention(q, k, v, is_causal=False):
-    """Counterpart of ``_xla_attention`` (attention.py:37) without mask
-    or dropout: fp32 scores and softmax, probabilities cast to the input
-    dtype for the PV product, fp32 accumulation, one cast back."""
+def _rank4(m):
+    """The paddle rank convention of the masks (attention.py:54-60):
+    ``[sq, sk]`` -> ``[1, 1, sq, sk]``, ``[b, sq, sk]`` -> ``[b, 1, sq,
+    sk]`` (per batch, not per head)."""
+    if m.dim() == 2:
+        return m[None, None]
+    if m.dim() == 3:
+        return m[:, None]
+    return m
+
+
+def _plain_attention(q, k, v, is_causal=False, attn_mask=None):
+    """Counterpart of ``_xla_attention`` (attention.py:37-81) without
+    dropout: fp32 scores and softmax, probabilities cast to the input
+    dtype for the PV product, fp32 accumulation, one cast back. A bool
+    mask keeps where True and puts -1e30 elsewhere (a fully masked row
+    comes out uniform, not NaN); a float mask is added, and its gradient
+    flows."""
     b, sq, h, d = q.shape
     sk = k.shape[1]
     scale = 1.0 / math.sqrt(d)
@@ -54,20 +69,61 @@ def _plain_attention(q, k, v, is_causal=False):
         causal = torch.ones((sq, sk), dtype=torch.bool,
                             device=q.device).tril(diagonal=sk - sq)
         scores = scores.masked_fill(~causal, float("-inf"))
+    if attn_mask is not None:
+        m = _rank4(attn_mask)
+        if m.dtype == torch.bool:
+            scores = scores.masked_fill(~m, NEG)
+        else:
+            scores = scores + m.float()
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhqk,bkhd->bqhd", probs.to(q.dtype).float(),
                        v.float())
     return out.to(q.dtype)
 
 
-def scaled_dot_product_attention(query, key, value, is_causal=False):
+def _normalize_kernel_mask(mask, b, h, sq, sk):
+    """Counterpart of ``_normalize_kernel_mask`` (attention.py:306): the
+    mask broadcast to ``[b|1, h|1, sq, sk]`` (a stride-0 view, nothing
+    copied), or None when it does not broadcast so (then the caller
+    takes the plain core, as the JAX package takes its XLA path)."""
+    m = _rank4(mask)
+    if m.dim() != 4 or m.shape[0] not in (1, b) or m.shape[1] not in (1, h):
+        return None
+    try:
+        return m.expand(m.shape[0], m.shape[1], sq, sk)
+    except RuntimeError:
+        return None
+
+
+def scaled_dot_product_attention(query, key, value, attn_mask=None,
+                                 dropout_p=0.0, is_causal=False,
+                                 training=True):
     """Uncached attention (counterpart: attention.py:325), q/k/v with the
-    same head count, differentiable. A query of FLASH_MIN_SEQ rows or
-    more takes :func:`flash_attention` on every device; a shorter one the
-    plain core (the counterpart of ``_xla_attention``)."""
-    if query.shape[1] >= FLASH_MIN_SEQ:
-        return flash_attention(query, key, value, causal=is_causal)
-    return _plain_attention(query, key, value, is_causal=is_causal)
+    same head count, differentiable in q, k and v. A query of
+    FLASH_MIN_SEQ rows or more takes :func:`flash_attention` on every
+    device, its mask normalised as ``_normalize_kernel_mask`` does; a
+    shorter one, a float mask that wants a gradient (the JAX package
+    sends such a mask, a tracer, to its differentiable XLA path, :210)
+    or a mask that does not broadcast to the kernels' shape take the
+    plain core (the counterpart of ``_xla_attention``), with the same
+    rank convention. Dropout in training raises: ``jax.random``'s bits
+    are not ported (ROADMAP.md A1)."""
+    if dropout_p and training:
+        raise NotImplementedError(
+            "attention dropout in training is not ported yet: the JAX "
+            "package draws its keep mask from jax.random (ROADMAP.md A1)")
+    q, k = query, key
+    if q.shape[1] >= FLASH_MIN_SEQ:
+        if attn_mask is None:
+            return flash_attention(q, k, value, causal=is_causal)
+        if attn_mask.dtype == torch.bool or not attn_mask.requires_grad:
+            m = _normalize_kernel_mask(attn_mask, q.shape[0], q.shape[2],
+                                       q.shape[1], k.shape[1])
+            if m is not None:
+                return flash_attention(q, k, value, causal=is_causal,
+                                       attn_mask=m)
+    return _plain_attention(q, k, value, is_causal=is_causal,
+                            attn_mask=attn_mask)
 
 
 def _grouped_decode_attn(q, kc, vc, seq_lens, scale):

@@ -1,4 +1,8 @@
-from .common import Embedding, Linear
-from .norm import RMSNorm
+from .common import Dropout, Embedding, Linear
+from .norm import LayerNorm, RMSNorm
+from .transformer import (MultiHeadAttention, TransformerEncoder,
+                          TransformerEncoderLayer)
 
-__all__ = ["Embedding", "Linear", "RMSNorm"]
+__all__ = ["Dropout", "Embedding", "Linear", "LayerNorm", "RMSNorm",
+           "MultiHeadAttention", "TransformerEncoder",
+           "TransformerEncoderLayer"]

@@ -1,4 +1,5 @@
-"""Linear and Embedding (counterpart: paddle_tpu/nn/layer/common.py)."""
+"""Linear, Embedding and Dropout (counterpart:
+paddle_tpu/nn/layer/common.py)."""
 
 from __future__ import annotations
 
@@ -9,29 +10,40 @@ from torch import nn
 
 from .. import functional as F
 
-__all__ = ["Linear", "Embedding"]
+__all__ = ["Linear", "Embedding", "Dropout"]
 
 
 class Linear(nn.Module):
-    """y = x @ W, no bias; ``weight`` is ``[in_features, out_features]``,
-    the Paddle layout (counterpart: common.py:25). Initialised by
-    :meth:`reset_parameters` with the JAX package's XavierNormal."""
+    """y = x @ W + b; ``weight`` is ``[in_features, out_features]``, the
+    Paddle layout (counterpart: common.py:25-45). ``bias_attr=None``
+    gives a ``[out_features]`` bias, initialised to zeros; ``False`` gives
+    none (the Llama and Qwen2-MoE models pass it, as the JAX models do).
+    Initialised by :meth:`reset_parameters` with the JAX package's
+    XavierNormal. Initialiser objects (a callable ``bias_attr``) are not
+    ported and raise."""
 
     def __init__(self, in_features: int, out_features: int, *,
-                 device=None, dtype=None):
+                 bias_attr=None, device=None, dtype=None):
         super().__init__()
+        if bias_attr not in (None, False):
+            raise NotImplementedError("Linear takes bias_attr None or "
+                                      "False only")
         self.in_features = in_features
         self.out_features = out_features
         self.weight = nn.Parameter(torch.empty(
             (in_features, out_features), device=device, dtype=dtype))
+        self.bias = (None if bias_attr is False else nn.Parameter(
+            torch.empty((out_features,), device=device, dtype=dtype)))
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         std = math.sqrt(2.0 / (self.in_features + self.out_features))
         with torch.no_grad():
             self.weight.normal_(0.0, std, generator=generator)
+            if self.bias is not None:
+                self.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x, self.weight)
+        return F.linear(x, self.weight, self.bias)
 
 
 class Embedding(nn.Module):
@@ -52,3 +64,15 @@ class Embedding(nn.Module):
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
         return F.embedding(ids, self.weight)
+
+
+class Dropout(nn.Module):
+    """Counterpart of common.py:85: the identity when ``p == 0`` or in
+    eval mode; ``F.dropout`` raises otherwise (not ported yet)."""
+
+    def __init__(self, p: float = 0.5):
+        super().__init__()
+        self.p = p
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.dropout(x, p=self.p, training=self.training)

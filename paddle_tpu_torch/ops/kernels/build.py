@@ -31,6 +31,7 @@ SOURCES = {
     "flash_attention_bwd": _PKG / "csrc" / "flash_attention_bwd.cu",
     "moe_routing": _PKG / "csrc" / "moe_routing.cu",
     "moe_grouped_gemm": _PKG / "csrc" / "moe_grouped_gemm.cu",
+    "layer_norm": _PKG / "csrc" / "layer_norm.cu",
 }
 # headers the sources include; a change to one rebuilds every source
 HEADERS = sorted((_PKG / "csrc").glob("*.cuh"))

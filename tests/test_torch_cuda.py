@@ -38,17 +38,32 @@ Tolerances, each with its reason:
 - a training step, kernels vs plain versions, bf16 model: loss 1e-2
   absolute and each gradient 5e-2 in relative L2 — bf16 gradients carry
   2**-8 relative rounding per element through every layer's products.
+- bf16 LayerNorm: one bf16 ulp (``rtol = 2**-7``) as RMSNorm; fp32
+  2e-5. Its autograd (the same closed-form backward on both paths, from
+  outputs that may differ by an ulp): as RMSNorm's.
+- the flash bias mode: the flash rule above, against the plain versions
+  given the same fp32 bias; fully masked rows exact (out 0, lse -1e30).
+- a BERT training step, kernels vs plain versions, bf16: the training
+  step's rule above, the loss's 1e-2 scaled by the loss over 10 (its
+  MLM logits, ~16 in magnitude through the N(0, 1) tied embedding,
+  round at 2**-4 in bf16); a key projection's bias, whose exact
+  gradient is 0, against the norm of its weight's gradient.
 """
+
+import contextlib
 
 import numpy as np
 import pytest
 import torch
 
 from paddle_tpu_torch.jit import TrainStep
-from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM, llama_tiny
+from paddle_tpu_torch.models import (BertConfig, BertForPreTraining,
+                                     LlamaConfig, LlamaForCausalLM,
+                                     llama_tiny)
 from paddle_tpu_torch.nn.functional import rms_norm
 from paddle_tpu_torch.ops.kernels import flash_attention as FA
-from paddle_tpu_torch.ops.kernels import (launch_counts,
+from paddle_tpu_torch.ops.kernels import (launch_counts, layer_norm,
+                                          layer_norm_cuda, layer_norm_plain,
                                           paged_attention_cuda,
                                           paged_attention_plain,
                                           plain_reference,
@@ -257,9 +272,21 @@ def test_flash_kernels_take_strided_views(cuda):
 
 def test_flash_raises_outside_its_gate(cuda):
     q, k, v, do = _flash_inputs(1, 256, 256, 2, 64, "bfloat16", cuda)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="B1"):
         FA.flash_attention(q, k, v, attn_mask=torch.zeros(256, 256,
-                                                          device=cuda))
+                                                          device=cuda),
+                           dropout_p=0.1)
+    with pytest.raises(ValueError, match="float32"):
+        FA.flash_fwd_cuda(q, k, v, 0.125, False,
+                          torch.zeros((1, 1, 256, 256), device=cuda).half())
+    with pytest.raises(ValueError, match=r"\[b\|1, h\|1, sq, sk\]"):
+        FA.flash_fwd_cuda(q, k, v, 0.125, False,
+                          torch.zeros((1, 3, 256, 256), device=cuda))
+    with pytest.raises(ValueError, match="device"):
+        FA.flash_bwd_dq_cuda(q, k, v, do, torch.zeros((1, 2, 256),
+                                                      device=cuda),
+                             torch.zeros((1, 2, 256), device=cuda), 0.125,
+                             False, torch.zeros((1, 1, 256, 256)))
     with pytest.raises(ValueError, match="head dim"):
         FA.flash_fwd_cuda(*(torch.zeros((1, 256, 2, 96), device=cuda)
                             .bfloat16() for _ in range(3)), 0.1, True)
@@ -326,6 +353,143 @@ def test_rms_norm_without_grad_launches_the_kernel_directly(cuda):
     assert launch_counts()["rms_norm"] == 1 and y.grad_fn is None
     torch.testing.assert_close(y, rms_norm_cuda(x, w.detach(), 1e-6),
                                rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n,d,eps", [(16384, 768, 1e-12), (1001, 768, 1e-5),
+                                     (7, 96, 1e-5), (5, 4096, 1e-12),
+                                     (33, 1024, 1e-5), (3, 8, 1e-5)])
+def test_layer_norm_kernel_matches_plain(cuda, n, d, eps, dtype):
+    rng = np.random.default_rng(n + d)
+    x = torch.tensor(rng.standard_normal((n, d)) * 3 + 1, dtype=DT[dtype],
+                     device=cuda)
+    w = torch.tensor(rng.standard_normal(d), dtype=DT[dtype], device=cuda)
+    b = torch.tensor(rng.standard_normal(d), dtype=DT[dtype], device=cuda)
+    reset_launch_counts()
+    got = layer_norm_cuda(x, w, b, eps)
+    torch.cuda.synchronize()
+    assert launch_counts() == _counts(layer_norm=1)
+    want = layer_norm_plain(x, w, b, eps)
+    if dtype == "float32":
+        torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+    else:
+        torch.testing.assert_close(got.float(), want.float(), atol=1e-6,
+                                   rtol=2 ** -7)
+
+
+def test_layer_norm_autograd_on_the_card(cuda):
+    """The kernel's forward keeps the graph: x, weight and bias get the
+    plain path's gradients."""
+    rng = np.random.default_rng(9)
+    x0 = torch.tensor(rng.standard_normal((4, 65, 768)),
+                      device=cuda).bfloat16()
+    w0 = torch.tensor(rng.standard_normal(768), device=cuda).bfloat16()
+    b0 = torch.tensor(rng.standard_normal(768), device=cuda).bfloat16()
+    c = torch.tensor(rng.standard_normal((4, 65, 768)), dtype=torch.float32,
+                     device=cuda)
+    grads = []
+    for plain in (False, True):
+        leaves = [t.clone().requires_grad_(True) for t in (x0, w0, b0)]
+        reset_launch_counts()
+        with plain_reference() if plain else contextlib.nullcontext():
+            y = layer_norm(*leaves, 1e-12)
+        assert launch_counts()["layer_norm"] == (0 if plain else 1)
+        (y.float() * c).sum().backward()
+        grads.append([t.grad.float() for t in leaves])
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got, want, rtol=2 ** -7, atol=1e-4)
+
+
+def test_layer_norm_raises_outside_its_gate(cuda):
+    x = torch.zeros((4, 768), device=cuda).bfloat16()
+    w = torch.ones(768, device=cuda).bfloat16()
+    with pytest.raises(ValueError, match="dtype"):
+        layer_norm_cuda(x, w.float(), w, 1e-5)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        layer_norm_cuda(x[:, :100], w[:100], w[:100], 1e-5)
+    with pytest.raises(ValueError, match="4096"):
+        layer_norm_cuda(torch.zeros((2, 8192), device=cuda),
+                        torch.ones(8192, device=cuda),
+                        torch.ones(8192, device=cuda), 1e-5)
+    with pytest.raises(ValueError, match="aligned"):
+        layer_norm_cuda(x, w, torch.ones(772, device=cuda).bfloat16()[4:],
+                        1e-5)
+    with pytest.raises(ValueError, match="CUDA"):
+        layer_norm_cuda(x, w.cpu(), w, 1e-5)
+
+
+def _bias(kind, b, h, sq, sk, device, seed=0):
+    """A key-padding mask as BERT's (bool [b, 1, 1, sk] converted by
+    ``attn_bias``: a stride-0 view), a dense fp32 [b, h, sq, sk] bias with
+    one query row that sees no key, or an fp32 [sq, sk] bias."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    if kind == "keypad":
+        lens = torch.randint(sq // 4, sk + 1, (b,), generator=g,
+                             device=device)
+        keep = torch.arange(sk, device=device)[None, :] < lens[:, None]
+        return FA.attn_bias(keep[:, None, None, :].expand(b, 1, sq, sk),
+                            torch.empty((b, sq, h, 1)),
+                            torch.empty((b, sk, h, 1)))
+    shape = (b, h, sq, sk) if kind == "dense" else (sq, sk)
+    m = torch.randn(shape, generator=g, device=device) * 2
+    if kind == "dense":
+        m[0, -1, 7] = -1e30
+    return FA.pad_bias(m, b, h, sq, sk)
+
+
+@pytest.mark.parametrize("b,sq,sk,h,d,causal,kind", [
+    (2, 512, 512, 12, 64, False, "keypad"),
+    (2, 384, 384, 4, 64, False, "dense"),
+    (2, 300, 300, 2, 128, True, "dense"),
+    (1, 333, 517, 2, 64, False, "dense"),
+    (1, 1000, 1000, 2, 128, True, "2d"),
+    (2, 700, 1000, 2, 64, True, "2d"),
+])
+def test_flash_bias_kernels_match_plain(cuda, b, sq, sk, h, d, causal, kind):
+    q, k, v, do = _flash_inputs(b, sq, sk, h, d, "bfloat16", cuda, seed=1)
+    bias = _bias(kind, b, h, sq, sk, cuda)
+    scale = d ** -0.5
+    reset_launch_counts()
+    out, lse = FA.flash_fwd_cuda(q, k, v, scale, causal, bias)
+    q32, k32, v32, do32 = (x.float() for x in (q, k, v, do))
+    want_o, want_l = FA.flash_fwd_plain(q32, k32, v32, scale, causal, bias)
+    delta = FA.flash_delta(do, want_o.bfloat16())
+    grads = (FA.flash_bwd_dq_cuda(q, k, v, do, want_l, delta, scale, causal,
+                                  bias),
+             *FA.flash_bwd_dkv_cuda(q, k, v, do, want_l, delta, scale,
+                                    causal, bias))
+    torch.cuda.synchronize()
+    assert launch_counts() == _counts(flash_fwd_bias=1, flash_dq_bias=1,
+                                      flash_dkv_bias=1)
+    want_g = FA.flash_block_grads_plain(q32, k32, v32, do32, want_l, delta,
+                                        scale, causal, bias)
+    for got, want in zip((out,) + grads, (want_o,) + want_g):
+        assert got.dtype == torch.bfloat16 and got.shape == want.shape
+        _assert_flash_close(got, want)
+    dead = want_l <= -1e29
+    assert torch.equal(lse <= -1e29, dead)
+    assert (out.transpose(1, 2)[dead] == 0).all()
+    if kind == "dense":
+        assert dead[0, -1, 7]
+    live_err = (lse - want_l)[~dead].abs().max().item()
+    assert live_err <= 1e-4, live_err
+
+
+def test_flash_attention_mask_routes_to_the_bias_mode(cuda):
+    """``flash_attention(attn_mask=bool)`` launches the bias mode of all
+    three kernels once each and no no-bias mode; the mask gets no
+    gradient."""
+    q, k, v, _ = _flash_inputs(2, 256, 256, 2, 64, "bfloat16", cuda)
+    keep = torch.ones((2, 1, 256, 256), dtype=torch.bool, device=cuda)
+    keep[1, ..., 200:] = False
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    reset_launch_counts()
+    out = FA.flash_attention(*leaves, attn_mask=keep)
+    out.float().sum().backward()
+    torch.cuda.synchronize()
+    assert launch_counts() == _counts(flash_fwd_bias=1, flash_dq_bias=1,
+                                      flash_dkv_bias=1)
+    assert all(t.grad is not None for t in leaves)
 
 
 def test_train_step_kernels_vs_plain(cuda):
@@ -686,3 +850,48 @@ def test_moe_train_step_kernels_vs_plain(cuda):
         rel = ((gk[k] - gp[k]).norm() / gp[k].norm()).item()
         assert rel <= 0.15, (k, rel)
     assert gk["layers.0.mlp.moe.gate.weight"].dtype == torch.float32
+
+
+def test_bert_train_step_kernels_vs_plain(cuda):
+    """One padded BERT TrainStep (bf16, hidden 256, 4 heads of 64, 2
+    layers, b 2 x s 256) through the kernels and inside
+    plain_reference(): the LayerNorm kernel and the bias mode of the
+    three flash kernels launch, the no-bias modes do not; the loss and
+    gradients within the training step's rule."""
+    cfg = BertConfig(vocab_size=512, hidden_size=256, num_hidden_layers=2,
+                     num_attention_heads=4, intermediate_size=512,
+                     hidden_dropout_prob=0.0,
+                     attention_probs_dropout_prob=0.0, dtype="bfloat16")
+    rng = np.random.default_rng(4)
+    ids = torch.tensor(rng.integers(0, 512, (2, 256)), device=cuda)
+    mask = torch.ones((2, 256), dtype=torch.long, device=cuda)
+    mask[1, 150:] = 0
+    mlm = torch.where(mask > 0, ids, -100)
+    nsp = torch.tensor([0, 1], device=cuda)
+    results = []
+    for plain in (False, True):
+        model = BertForPreTraining(cfg, device=cuda, seed=3)
+        step = TrainStep(model, AdamW(learning_rate=1e-3, parameters=model),
+                         lambda out, lab: model.loss(*out, *lab), n_inputs=3)
+        reset_launch_counts()
+        with plain_reference() if plain else contextlib.nullcontext():
+            loss = step(ids, torch.zeros_like(ids), mask, (mlm, nsp))
+        torch.cuda.synchronize()
+        results.append((loss.item(), launch_counts(),
+                        {k: p.grad.float() for k, p in
+                         model.named_parameters()}))
+    (lk, ck, gk), (lp, cp, gp) = results
+    L = 2
+    assert ck == _counts(layer_norm=2 * L + 2, flash_fwd_bias=L,
+                         flash_dq_bias=L, flash_dkv_bias=L)
+    assert not any(cp.values())
+    assert abs(lk - lp) <= 1e-2 * max(1.0, abs(lp) / 10)
+    for k in gk:
+        # a key bias's exact gradient is 0 (the softmax cancels a bias
+        # added to a whole score row): both runs hold rounding noise, so
+        # it is held to the scale of its weight's gradient (same dK terms)
+        ref = (k.replace(".bias", ".weight")
+               if k.endswith("self_attn.k_proj.bias") else k)
+        rel = ((gk[k] - gp[k]).norm() / gp[ref].norm().clamp(min=1e-30)
+               ).item()
+        assert rel <= 5e-2, (k, rel)

@@ -10,8 +10,19 @@ CPU (as tests/test_flash_attention.py runs them).
   with fully masked rows when ``sq > sk``);
 - autograd through the port's ``flash_attention`` against ``jax.grad`` of
   the JAX one;
-- the routing of ``scaled_dot_product_attention`` and the modes that are
-  not ported.
+- the bias mode: ``flash_fwd_plain(bias=)`` against ``_fwd(bias=)`` and
+  ``flash_block_grads_plain(bias=)`` against ``flash_block_grads(bias=)``
+  for a bool key-padding mask ``[b, 1, 1, sk]`` broadcast (as BERT's),
+  float ``[sq, sk]``, ``[b, sq, sk]`` (per batch) and ``[b, h, sq, sk]``
+  masks (the last with a fully masked query row: out 0, lse -1e30), at s
+  256 and 320, fp32 and bf16, causal and not; ``flash_attention(
+  attn_mask=)`` autograd against ``jax.grad``, the mask getting no
+  gradient;
+- the routing of ``scaled_dot_product_attention``, with and without a
+  mask, below and above ``FLASH_MIN_SEQ`` (an all-masked row: uniform on
+  the plain core, zero on flash, both as in the JAX package), and a float
+  mask that wants a gradient taking the plain core;
+- the modes that are not ported.
 
 Tolerances: fp32 2e-5 absolute and relative — the same fp32 arithmetic
 in one block instead of the online softmax over Pallas blocks, so only
@@ -27,6 +38,7 @@ import numpy as np
 import pytest
 import torch
 
+from paddle_tpu.nn.functional import attention as jattn
 from paddle_tpu.ops.pallas import flash_attention as J
 from paddle_tpu_torch.nn.functional import scaled_dot_product_attention
 from paddle_tpu_torch.nn.functional.attention import (FLASH_MIN_SEQ,
@@ -145,20 +157,205 @@ def test_sdpa_routes_to_flash_from_256_rows():
         torch.testing.assert_close(flash, plain, rtol=2e-5, atol=2e-5)
 
 
+def _masks(kind, b, h, sq, sk, seed):
+    """(raw mask for the JAX side, raw mask for the port) of one kind;
+    bool masks keep where True."""
+    rng = np.random.default_rng(seed)
+    if kind == "bool_keypad":            # BERT's, broadcast over q
+        keep = np.ones((b, 1, 1, sk), bool)
+        keep[0, ..., sk - 100:] = False
+        keep[-1, ..., 37:90] = False
+        full = np.broadcast_to(keep, (b, 1, sq, sk))
+        return full, torch.tensor(keep).expand(b, 1, sq, sk)
+    shape = {"float_2d": (sq, sk), "float_3d": (b, sq, sk),
+             "float_4d": (b, h, sq, sk)}[kind]
+    m = (rng.standard_normal(shape) * 2).astype(np.float32)
+    if kind == "float_4d":
+        m[0, 1, 7, :] = -1e30            # a query row that sees no key
+    return m, torch.tensor(m)
+
+
+BIAS_CASES = [(s, kind, dtype, causal)
+              for s in (256, 320)
+              for kind in ("bool_keypad", "float_2d", "float_3d", "float_4d")
+              for dtype, causal in (("float32", False), ("bfloat16", True))]
+BIAS_CASES += [(320, "float_4d", "float32", True),
+               (256, "bool_keypad", "bfloat16", False)]
+
+
+@pytest.mark.parametrize("s,kind,dtype,causal", BIAS_CASES)
+def test_flash_bias_plain_versions_match_pallas(s, kind, dtype, causal):
+    b, h, d = 2, 2, 64
+    scale = d ** -0.5
+    (jq, tq), (jk, tk), (jv, tv), (jdo, tdo) = _inputs(
+        s + len(kind), [(b, s, h, d)] * 4, dtype)
+    jm, tm = _masks(kind, b, h, s, s, s)
+    if jm.dtype == bool:     # flash_attention's conversion (:731-736)
+        jm = np.where(jm, np.float32(0), np.float32(-1e30))
+    tbias = T.attn_bias(tm, tq, tk)
+    assert tbias.dtype == torch.float32 and tbias.dim() == 4
+    if kind == "bool_keypad":   # converted once, still a broadcast view
+        assert tbias.stride(2) == 0
+    before = launch_counts()
+    to, tl = T.flash_fwd_plain(tq, tk, tv, scale, causal, tbias)
+    delta = flash_delta(tdo, to)
+
+    def run(q, k, v, do, delta, m):
+        o, lse = J._fwd(q, k, v, scale, causal, bias=m)
+        return (o, lse) + tuple(J.flash_block_grads(
+            q, k, v, do, lse, delta, scale=scale, causal=causal, bias=m))
+
+    jo, jl, *jg = jax.jit(run)(jq, jk, jv, jdo, jnp.asarray(delta.numpy()),
+                               jnp.asarray(jm))
+    _close(to, jo, dtype)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=2e-5,
+                               atol=2e-5)
+    if kind == "float_4d":    # the masked row: out 0, lse -1e30, no grads
+        assert (tl[0, 1, 7] == T.NEG).all() and (to[0, 7, 1] == 0).all()
+    lse = torch.tensor(np.asarray(jl))
+    tg = T.flash_block_grads(tq, tk, tv, tdo, lse, delta, scale=scale,
+                             causal=causal, bias=tbias)
+    for got, want, ref in zip(tg, jg, (tq, tk, tv)):
+        assert got.dtype == ref.dtype and got.shape == ref.shape
+        _close(got, want, dtype)
+    if kind == "float_4d":
+        assert (tg[0][0, 7, 1] == 0).all()
+    assert launch_counts() == before   # CPU tensors launch nothing
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_bias_autograd_matches_jax_grad(causal):
+    """d(sum(out * c)) through ``flash_attention(attn_mask=)`` and the
+    JAX custom_vjp, fp32, s 320, a bool key-padding mask (passed to the
+    port as a stride-0 view) and a float [b, h, sq, sk] one; the mask
+    gets no gradient in either."""
+    b, s, h, d = 2, 320, 2, 64
+    (jq, tq), (jk, tk), (jv, tv), (jc, tc) = _inputs(
+        11 + causal, [(b, s, h, d)] * 4, "float32")
+    for kind in ("bool_keypad", "float_4d"):
+        jm, tm = _masks(kind, b, h, s, s, 5)
+
+        def jloss(q, k, v, m):
+            return jnp.sum(J.flash_attention(q, k, v, causal=causal,
+                                             attn_mask=m) * jc)
+
+        jm = jnp.asarray(jm)
+        argnums = (0, 1, 2) if kind == "bool_keypad" else (0, 1, 2, 3)
+        jval, jgrads = jax.value_and_grad(jloss, argnums=argnums)(
+            jq, jk, jv, jm)
+        leaves = [t.clone().requires_grad_(True) for t in (tq, tk, tv)]
+        if tm.dtype != torch.bool:
+            tm = tm.clone().requires_grad_(True)
+        out = T.flash_attention(*leaves, causal=causal, attn_mask=tm)
+        tval = (out * tc).sum()
+        tval.backward()
+        np.testing.assert_allclose(tval.item(), float(jval), rtol=2e-5)
+        for leaf, want in zip(leaves, jgrads):
+            _close(leaf.grad, want, "float32")
+        if tm.dtype != torch.bool:   # non-differentiable in both
+            assert tm.grad is None
+            assert not np.asarray(jgrads[3]).any()
+
+
+@pytest.fixture
+def jax_flash_route(monkeypatch):
+    """JAX's attention with its flash route switched on (Pallas in
+    interpret mode); the list counts the calls that took it."""
+    monkeypatch.setattr(jattn, "_flash_backend_ok", lambda: True)
+    calls, orig = [], jattn._flash_sharded
+    monkeypatch.setattr(jattn, "_flash_sharded",
+                        lambda *a, **kw: calls.append(1) or orig(*a, **kw))
+    return calls
+
+
+@pytest.mark.parametrize("s", [FLASH_MIN_SEQ - 128, FLASH_MIN_SEQ])
+def test_sdpa_masks_route_as_jax(jax_flash_route, s):
+    """A bool key-padding mask whose last batch row masks every key: the
+    plain core (s < 256) gives that row the uniform average of v, flash
+    (s >= 256) gives 0, in both packages; the other rows agree with JAX
+    at 2e-5. A float [sq, sk] mask too."""
+    b, h, d = 2, 2, 64
+    (jq, tq), (jk, tk), (jv, tv) = _inputs(s, [(b, s, h, d)] * 3, "float32")
+    keep = np.ones((b, 1, 1, s), bool)
+    keep[0, ..., s // 2:] = False
+    keep[1] = False
+    got = scaled_dot_product_attention(tq, tk, tv, attn_mask=torch.tensor(
+        keep))
+    want = jattn.scaled_dot_product_attention(jq, jk, jv,
+                                              attn_mask=jnp.asarray(keep))
+    _close(got, want, "float32")
+    assert len(jax_flash_route) == (s >= FLASH_MIN_SEQ)
+    if s >= FLASH_MIN_SEQ:
+        assert (got[1] == 0).all()
+    else:
+        torch.testing.assert_close(got[1], tv[1].mean(0, keepdim=True)
+                                   .expand_as(got[1]), rtol=1e-5,
+                                   atol=1e-5)
+    m = np.random.default_rng(2).standard_normal((s, s)).astype(np.float32)
+    _close(scaled_dot_product_attention(tq, tk, tv, attn_mask=torch.tensor(
+        m), is_causal=True), jattn.scaled_dot_product_attention(
+            jq, jk, jv, attn_mask=jnp.asarray(m), is_causal=True), "float32")
+
+
+def test_sdpa_float_mask_with_grad_takes_the_plain_core():
+    """A float mask that wants a gradient (a learned bias) takes the
+    differentiable plain core at any length, as a traced float mask takes
+    JAX's XLA path: the values equal the plain core's, and the mask's
+    gradient equals ``jax.grad`` of ``_xla_attention``."""
+    b, s, h, d = 1, FLASH_MIN_SEQ, 2, 64
+    (jq, tq), (jk, tk), (jv, tv), (jc, tc) = _inputs(
+        9, [(b, s, h, d)] * 4, "float32")
+    m0 = np.random.default_rng(3).standard_normal((b, h, s, s)) \
+        .astype(np.float32)
+    m = torch.tensor(m0, requires_grad=True)
+    out = scaled_dot_product_attention(tq, tk, tv, attn_mask=m)
+    torch.testing.assert_close(out, _plain_attention(tq, tk, tv,
+                                                     attn_mask=m),
+                               rtol=0, atol=0)
+    (out * tc).sum().backward()
+    jgrad = jax.grad(lambda mm: jnp.sum(jattn._xla_attention(
+        jq, jk, jv, mm) * jc))(jnp.asarray(m0))
+    _close(m.grad, jgrad, "float32")
+
+
+def test_sdpa_dropout_in_training_raises():
+    q = torch.zeros((1, 16, 2, 64))
+    with pytest.raises(NotImplementedError, match="A1"):
+        scaled_dot_product_attention(q, q, q, dropout_p=0.1)
+    out = scaled_dot_product_attention(q, q, q, dropout_p=0.1,
+                                       training=False)
+    assert out.shape == q.shape
+
+
 def test_unported_modes_and_cpu_tensors_raise():
+    """Segment ids and in-kernel dropout still raise, naming ROADMAP B1;
+    the wrappers launch on CUDA tensors or raise, in both modes."""
     q = torch.zeros((1, 256, 2, 64))
     lse = torch.zeros((1, 2, 256))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.flash_attention(q, q, q, attn_mask=torch.zeros(256, 256))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    bias = torch.zeros((1, 1, 256, 256))
+    with pytest.raises(NotImplementedError, match="B1"):
+        T.flash_attention(q, q, q, attn_mask=torch.zeros(256, 256),
+                          dropout_p=0.1)
+    with pytest.raises(NotImplementedError, match="B1"):
         T.flash_attention(q, q, q, dropout_p=0.1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="B1"):
         T.flash_block_grads(q, q, q, q, lse, lse, scale=0.125,
                             causal=True, seg=(np.zeros(256), np.zeros(256)))
+    with pytest.raises(NotImplementedError, match="B1"):
+        T.flash_block_grads(q, q, q, q, lse, lse, scale=0.125,
+                            causal=False, bias=bias, dropout_p=0.1)
+    with pytest.raises(ValueError, match="broadcast"):
+        T.flash_attention(q, q, q, attn_mask=torch.zeros(3, 256, 256))
     # the wrappers launch on CUDA tensors or raise: never a CPU fallback
     with pytest.raises(ValueError, match="CUDA"):
         flash_fwd_cuda(q, q, q, 0.125, True)
     with pytest.raises(ValueError, match="CUDA"):
+        flash_fwd_cuda(q, q, q, 0.125, False, bias)
+    with pytest.raises(ValueError, match="CUDA"):
         flash_bwd_dq_cuda(q, q, q, q, lse, lse, 0.125, True)
     with pytest.raises(ValueError, match="CUDA"):
+        flash_bwd_dq_cuda(q, q, q, q, lse, lse, 0.125, False, bias)
+    with pytest.raises(ValueError, match="CUDA"):
         flash_bwd_dkv_cuda(q, q, q, q, lse, lse, 0.125, True)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_bwd_dkv_cuda(q, q, q, q, lse, lse, 0.125, False, bias)

@@ -30,7 +30,8 @@ _PROBE = r"""
 import sys
 import paddle_tpu_torch
 import torch
-from paddle_tpu_torch.models import (LlamaForCausalLM, Qwen2MoeForCausalLM,
+from paddle_tpu_torch.models import (BertConfig, BertForPreTraining,
+                                     LlamaForCausalLM, Qwen2MoeForCausalLM,
                                      llama_tiny, qwen2_moe_tiny)
 from paddle_tpu_torch.quantization import quantize_for_serving
 from paddle_tpu_torch.serving import ServingEngine
@@ -46,6 +47,15 @@ assert len(e.run_to_completion()[rid]) == 3
 q = Qwen2MoeForCausalLM(qwen2_moe_tiny(ep_dispatch="fused"), device="cpu")
 ids = torch.arange(32).reshape(2, 16)
 q.loss(q(ids), ids).backward()
+bert = BertForPreTraining(BertConfig(
+    vocab_size=64, hidden_size=128, num_hidden_layers=1,
+    num_attention_heads=2, intermediate_size=256, hidden_dropout_prob=0.0,
+    attention_probs_dropout_prob=0.0), device="cpu")
+ids = torch.arange(512).reshape(2, 256) % 64
+mask = torch.ones((2, 256), dtype=torch.long)
+mask[1, 200:] = 0
+mlm, nsp = bert(ids, torch.zeros_like(ids), mask)
+bert.loss(mlm, nsp, ids, torch.tensor([0, 1])).backward()
 print("\n".join(sorted(sys.modules)))
 """
 
@@ -60,12 +70,16 @@ def test_port_imports_no_jax_in_a_fresh_interpreter():
     assert "paddle_tpu_torch.serving.engine" in mods
     assert "paddle_tpu_torch.quantization.serving" in mods
     assert "paddle_tpu_torch.ops.kernels.moe_grouped_gemm" in mods
+    assert "paddle_tpu_torch.models.bert" in mods
+    assert "paddle_tpu_torch.nn.layer.transformer" in mods
+    assert "paddle_tpu_torch.ops.kernels.layer_norm" in mods
     bad = [m for m in mods if _banned(m)]
     assert not bad, bad
 
 
 def test_no_source_file_imports_jax_or_the_jax_package():
-    files = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    files = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py",
+                                         REPO / "chip_grad_noise.py"]
     assert len(files) > 10
     for path in files:
         tree = ast.parse(path.read_text(), str(path))
@@ -83,7 +97,8 @@ def test_no_source_file_imports_jax_or_the_jax_package():
 def test_entry_points_raise_without_a_device_argument_or_gpu():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: device=None is valid")
-    from paddle_tpu_torch.models import (LlamaForCausalLM,
+    from paddle_tpu_torch.models import (BertConfig, BertForPreTraining,
+                                         LlamaForCausalLM,
                                          Qwen2MoeForCausalLM, llama_tiny,
                                          qwen2_moe_tiny)
     from paddle_tpu_torch.serving import ServingEngine
@@ -91,6 +106,8 @@ def test_entry_points_raise_without_a_device_argument_or_gpu():
         LlamaForCausalLM(llama_tiny())
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Qwen2MoeForCausalLM(qwen2_moe_tiny())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        BertForPreTraining(BertConfig())
     model = LlamaForCausalLM(llama_tiny(), device="cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ServingEngine(model, num_pages=8, page_size=4)

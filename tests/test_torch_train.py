@@ -10,7 +10,13 @@
 - the slice as a whole: ``llama_tiny`` in fp32 at b 2 x s 256 (so both
   packages take flash attention: the JAX Pallas kernels in interpret
   mode, the port's plain versions), 3 ``TrainStep``s each from one JAX
-  ``state_dict``: the three losses and every parameter after step 3.
+  ``state_dict``: the three losses and every parameter after step 3;
+- a parameter the loss does not use: ``jax.value_and_grad`` gives it a
+  zero gradient and AdamW decays it by ``1 - lr * weight_decay`` a step;
+  the port's ``TrainStep`` does the same (it once left such a
+  parameter's ``.grad`` None, which the optimizer skips), and takes the
+  labels as a nested tuple of numpy arrays, as ``bench_bert`` passes
+  them.
 
 Inputs, weights and gradients come from numpy, seeded.
 
@@ -34,6 +40,7 @@ import pytest
 import torch
 
 import paddle_tpu as pt
+import paddle_tpu.nn as jnn
 import paddle_tpu.nn.functional as JF
 from paddle_tpu.jit import TrainStep as JTrainStep
 from paddle_tpu.models.llama import LlamaForCausalLM as JaxLlama
@@ -46,6 +53,7 @@ from paddle_tpu_torch.jit import TrainStep
 from paddle_tpu_torch.models import (LlamaConfig, LlamaForCausalLM,
                                      export_numpy_state, llama_tiny,
                                      load_numpy_state, load_optimizer_state)
+from paddle_tpu_torch.nn import Linear
 from paddle_tpu_torch.nn.functional import cross_entropy, rms_norm
 from paddle_tpu_torch.ops.kernels import launch_counts
 from paddle_tpu_torch.optimizer import Adam, AdamW
@@ -255,3 +263,66 @@ def test_train_step_grads_reach_every_parameter(jax_run):
     for name, p in tm.named_parameters():
         assert p.grad is not None, name
         assert torch.isfinite(p.grad).all() and p.grad.abs().sum() > 0, name
+
+
+class _JaxTwo(jnn.Layer):
+    """Two linears; the forward uses only the first."""
+
+    def __init__(self):
+        super().__init__()
+        self.used = jnn.Linear(4, 3)
+        self.unused = jnn.Linear(4, 3)
+
+    def forward(self, x):
+        return self.used(x)
+
+
+class _PortTwo(torch.nn.Module):
+    def __init__(self):
+        super().__init__()
+        self.used = Linear(4, 3, device="cpu", dtype=torch.float32)
+        self.unused = Linear(4, 3, device="cpu", dtype=torch.float32)
+
+    def forward(self, x):
+        return self.used(x)
+
+
+def test_train_step_decays_an_unused_parameter_as_jax():
+    """2 AdamW steps (lr 1e-3, weight decay 0.01) in both packages from
+    one state: the unused linear ends at ``(1 - lr * wd)**2`` times its
+    start in both, exactly as JAX has it; the used one agrees to 1e-6.
+    The labels come as a nested tuple of numpy arrays."""
+    lr, wd = 1e-3, 0.01
+    pt.seed(3)
+    jm = _JaxTwo()
+    state0 = {k: np.asarray(v) for k, v in jm.state_dict().items()}
+    rng = np.random.default_rng(8)
+    x = rng.standard_normal((6, 4)).astype(np.float32)
+    y = rng.standard_normal((6, 3)).astype(np.float32)
+
+    def jloss(out, labels):
+        (target,) = labels
+        return jnp.mean((out - target) ** 2)
+
+    jstep = JTrainStep(jm, JAdamW(learning_rate=lr, weight_decay=wd,
+                                  parameters=jm), jloss)
+    for _ in range(2):
+        jstep(x, (y,))
+    jparams = {k: np.asarray(v) for k, v in jm.state_dict().items()}
+    tm = _PortTwo()
+    load_numpy_state(tm, state0)
+    step = TrainStep(tm, AdamW(learning_rate=lr, weight_decay=wd,
+                               parameters=tm),
+                     lambda out, labels: ((out - labels[0]) ** 2).mean())
+    for _ in range(2):
+        step(x, (y,))
+    got = export_numpy_state(tm)
+    for k in ("unused.weight", "unused.bias"):
+        np.testing.assert_allclose(jparams[k], state0[k] * (1 - lr * wd) ** 2,
+                                   rtol=1e-6, err_msg=k)
+        np.testing.assert_allclose(got[k], jparams[k], rtol=1e-7, atol=0,
+                                   err_msg=k)
+    for k in ("used.weight", "used.bias"):
+        np.testing.assert_allclose(got[k], jparams[k], rtol=1e-6, atol=1e-7,
+                                   err_msg=k)
+    assert (tm.unused.weight.grad == 0).all()
