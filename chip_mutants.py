@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Plant known faults in the flash attention, MoE, int8 paged and
-LayerNorm kernels and in the flash bias mode, and show which of
-``chip_smoke.py``'s checks catch each one (a mutation check, on one
-GPU).
+LayerNorm kernels and in the flash bias, fp32 and dropout modes, and
+show which of ``chip_smoke.py``'s checks catch each one (a mutation
+check, on one GPU).
 
     python3 chip_mutants.py [--only NAME ...]
 
@@ -38,7 +38,16 @@ of the fault's kind (the control runs every kind of the faults chosen):
   a dense random [4, 8, 512, 512] bias, and BERT train parity
   (``bert_parity_run``: ``BERT_PARITY`` and the fp32 reference for the
   gradients bf16 cannot resolve) after 10 padded steps
-  of ``bench_bert``'s configuration, as ``train_bert_padded`` leaves it.
+  of ``bench_bert``'s configuration, as ``train_bert_padded`` leaves it;
+- fp32: the fp32 flash kernel check (``flash_fp32_errors``: against fp64,
+  within 2x the plain fp32 version's error plus the floor) at GPT-2
+  small's shape [8, 1024, 12, 64] causal, and ``entry()``'s fp32 train
+  parity (``phase_entry_fp32``'s three steps at ``FP32_PARITY``);
+- dropout: the dropout kernel check at p 0.1 (``flash_fp32_errors`` at
+  GPT-2's shape in fp32, ``_flash_errors`` at the padded BERT shape in
+  bf16 with its key-padding mask, both given one key) and the GPT-2 train
+  parity of ``phase_train_gpt2_parity`` (fp32, dropout 0.1, the masks
+  drawn from one generator state) after 10 steps of ``train_gpt2``.
 
 It prints one JSON line per run and then a summary line. It exits 0
 when the control passes both checks and every fault fails the kernel
@@ -63,6 +72,7 @@ BWD, FWD = "flash_attention_bwd.cu", "flash_attention_fwd.cu"
 ROUTE, GG = "moe_routing.cu", "moe_grouped_gemm.cu"
 PAGED = "paged_attention.cu"
 LN = "layer_norm.cu"
+COMMON = "flash_common.cuh"
 INT8_LAYERS = 4
 FP8 = ('#include "flash_common.cuh"',
        '#include "flash_common.cuh"\n#include <cuda_fp8.h>')
@@ -93,8 +103,8 @@ MUTANTS = {
     "dkv_p_fp8": (
         "dK/dV: P rounded to fp8 e4m3 (not bf16) for dV += P^T dO",
         [(BWD, *FP8),
-         (BWD, "        s[nt][i] = p;                                   // P^T",
-          "        s[nt][i] = float(__nv_fp8_e4m3(p));             // P^T")]),
+         (BWD, "          s[nt][i] = p;                                   // P^T",
+          "          s[nt][i] = float(__nv_fp8_e4m3(p));             // P^T")]),
     "moe_scatter_keeps_one_copy": (
         "grouped forward: the scatter stores instead of adding, so a token "
         "row keeps one of its two experts' contributions",
@@ -143,6 +153,19 @@ MUTANTS = {
         [(BWD, "__ldg(bkey[i >> 1] + (int64_t)(qs0 + c) * b_sq)\n"
                "                                   * kLog2e", "0.f")],
         "bert"),
+    "fp32_operands_bf16": (
+        "fp32 flash mode: every operand of the 3xTF32 products rounded to "
+        "bf16 first",
+        [(COMMON, "                                           uint32_t& lo) "
+                  "{\n",
+          "                                           uint32_t& lo) {\n"
+          "  x = __bfloat162float(__float2bfloat16(x));\n")], "fp32"),
+    "dkv_mask_col_shift": (
+        "dropout mode, dK/dV: the keep mask drawn with its key (column) "
+        "shifted by one, while the forward and dQ draw it right",
+        [(BWD, "drop_keep(bh, qs0 + c, krow[i >> 1], key0, key1,",
+          "drop_keep(bh, qs0 + c, krow[i >> 1] + 1, key0, key1,")],
+        "dropout"),
 }
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -290,6 +313,61 @@ def _bert_checks(torch, S, K, TrainStep, AdamW) -> tuple:
     return check, parity
 
 
+def _fp32_checks(torch, S, K, TrainStep, AdamW) -> tuple:
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.ops.kernels import flash_attention as F
+    gen = torch.Generator(device="cuda").manual_seed(S.SEED + 12)
+    q, k, v, do = S._flash_inputs(torch, gen, S.GPT2_SHAPE, torch.float32)
+    check = S.flash_fp32_errors(torch, F, q, k, v, do, 0.125, True)
+    del q, k, v, do
+    torch.cuda.empty_cache()
+    try:
+        entry = S.phase_entry_fp32(torch, np, K, LlamaConfig,
+                                   LlamaForCausalLM, TrainStep, AdamW)
+        parity = dict(entry["parity"], failures=[])
+    except AssertionError as e:    # the phase's own failures, reported
+        parity = {"failures": [str(e)[:2000]]}
+    return check, parity
+
+
+def _dropout_checks(torch, S, K, TrainStep, AdamW) -> tuple:
+    from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+    from paddle_tpu_torch.ops.kernels import flash_attention as F
+    gen = torch.Generator(device="cuda").manual_seed(S.SEED + 13)
+    seed = torch.tensor([S.SEED + 13, (1 << 31) + 5], dtype=torch.int64,
+                        device="cuda")
+    q, k, v, do = S._flash_inputs(torch, gen, S.GPT2_SHAPE, torch.float32)
+    fp32 = S.flash_fp32_errors(torch, F, q, k, v, do, 0.125, True, None,
+                               S.DROP_P, seed)
+    b, s = S.BERT_BATCH, S.BERT_SEQ
+    q, k, v, do = S._flash_inputs(torch, gen, (b, s, 12, 64),
+                                  torch.bfloat16)
+    keep, _ = S._keypad(torch, np, s)
+    bf16 = S._flash_errors(torch, F, q, k, v, do, 0.125, False,
+                           F.attn_bias(keep.expand(b, 1, s, s), q, k),
+                           S.DROP_P, seed)
+    check = {"fp32_gpt2": fp32, "bf16_bert_keypad": bf16,
+             "failures": fp32["failures"] + bf16["failures"]}
+    del q, k, v, do
+    torch.cuda.empty_cache()
+    cfg = S.gpt2_config(GPTConfig)
+    model = GPTForCausalLM(cfg, device="cuda", seed=S.SEED)
+    batch = torch.tensor(np.random.default_rng(S.SEED).integers(
+        0, cfg.vocab_size, (S.GPT2_BATCH, S.GPT2_SEQ)), device="cuda")
+    opt = AdamW(learning_rate=S.TRAIN_LR, parameters=model)
+    step = TrainStep(model, opt, lambda logits, y: model.loss(logits, y))
+    for _ in range(S.GPT2_STEPS):
+        step(batch, batch)
+    state = model.generator.get_state()
+    parity = S.train_parity_run(
+        torch, K, model, opt, TrainStep, *S.causal_lm_args(model, batch),
+        kernels=S.GPT2_KERNELS, limits=S.FP32_PARITY,
+        reseed=lambda: model.generator.set_state(state))
+    del model, opt, step
+    torch.cuda.empty_cache()
+    return check, parity
+
+
 def child(name: str, kinds=None) -> dict:
     """The checks of the mutant's kind on the tree this file sits in (a
     mutated copy); the control runs ``kinds``."""
@@ -307,7 +385,8 @@ def child(name: str, kinds=None) -> dict:
         name, ("none (the kernels as they are)",))[0]}
     caught_k, caught_p = False, False
     checks = {"flash": _flash_checks, "moe": _moe_checks,
-              "int8": _int8_checks, "bert": _bert_checks}
+              "int8": _int8_checks, "bert": _bert_checks,
+              "fp32": _fp32_checks, "dropout": _dropout_checks}
     for kind in kinds:
         check, parity = checks[kind](torch, S, K, TrainStep, AdamW)
         grads = parity.pop("grad_rel_l2", None)

@@ -19,7 +19,13 @@ Phases; any failure ends the run with a traceback and a non-zero exit:
    routing and the grouped-GEMM forward, dX and dW at the Qwen2-MoE
    training shapes;
    the int8 paged mode and the MoE kernels launched twice for a bitwise
-   repeat), with its time (CUDA events over many launches, inputs
+   repeat; ``flash_fp32``: the fp32 mode of the three flash kernels
+   (3xTF32 products) against fp64 at GPT-2 small's, ``entry()``'s and
+   BERT-Base's shapes, with and without a bias, causal and not, d 64 and
+   128, each output within 2x the plain fp32 version's error plus a
+   stated floor; ``flash_dropout``: the dropout mode (p 0.1), bf16 and
+   fp32, with and without a bias, on one Philox key with its plain
+   version, two launches bitwise equal), with its time (CUDA events over many launches, inputs
    rotated through more than the 50 MB L2), the plain version's time,
    the least time the card could take (the bound) and, as a yardstick
    only, PyTorch calls computing the same products;
@@ -47,6 +53,22 @@ Phases; any failure ends the run with a traceback and a non-zero exit:
    with the report of phase 4 and its own launch counts; train parity
    (with an fp32 copy's gradients telling which gradients bf16 cannot
    resolve) and one profiled step on the padded arm;
+8b. entry_fp32 — ``__graft_entry__.py::entry()``'s fp32 Llama (4
+   layers, hidden 512, 8 / 4 heads of 64, [2, 256] ids from
+   ``default_rng(0)``): its eval forward on the card (4 fp32 flash
+   launches) against ``plain_reference()``, then 3 fp32 training steps
+   of train parity;
+8c. train_gpt2, train_gpt2_parity, train_gpt2_profile — GPT-2 small at
+   its published defaults (``paddle_tpu/models/gpt.py``: fp32, dropout
+   0.1, 12 layers of 12 heads of 64, 124,475,904 parameters), b 8 x s
+   1024, AdamW lr 1e-4: phase 4's report for 10 steps (the fp32 dropout
+   flash kernels 12 a step, LayerNorm 25), 3 steps of parity at dropout
+   0.1 from one generator state, one profiled step;
+8d. train_bert_defaults — BERT-Base at its own defaults (fp32, dropout
+   0.1) on the padded batch: 3 steps (the fp32 bias + dropout mode, 12 a
+   step), an eval forward and 2 steps at dropout 0 (the fp32 bias mode);
+   train_dropout_bf16 — 2 steps each of GPT-2 small and BERT-Base in
+   bf16 at dropout 0.1 (the bf16 dropout modes);
 9. slice parity — one decode step on one serving engine state, kernels
    vs plain versions (logits within ``SLICE_DLOGIT_LIMIT``, decisive
    rows equal, the kernels' launch counts);
@@ -91,6 +113,10 @@ import time
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 BF16_TENSOR_FLOPS = 989e12     # dense bf16 tensor-core peak
 FP32_FLOPS = 67e12             # fp32 outside the tensor cores
+# The fastest fp32-accurate product rate: 3xTF32 (hi*hi + hi*lo + lo*hi,
+# three passes) on the 494.7 TFLOP/s dense TF32 tensor-core peak; plain
+# fp32 FMA peaks at FP32_FLOPS. The fp32 flash kernels' bound uses it.
+FP32_ACCURATE_FLOPS = 494.7e12 / 3
 SEED = 0
 
 
@@ -435,15 +461,18 @@ def phase_paged_int8(torch, K, QZ) -> dict:
     return row
 
 
-def _flash_work(b, sq, sk, h, d, causal, kind, bias_bytes=0, kept=None):
+def _flash_work(b, sq, sk, h, d, causal, kind, bias_bytes=0, kept=None,
+                elt=2):
     """(flops, bytes) one flash call needs: 2 * d flops per product
     (2 in the forward, 3 in dQ, 4 in dK/dV) for each (query row, key)
     pair the mask keeps — this run's causal shape, not the dense one, and
     with a key-padding mask (``kept``: the valid keys of each batch row)
     only its valid keys — and each input read once and each output
-    written once (bf16 [b, s, h, d] tensors, fp32 [b, h, sq] lse and
-    delta, and in the bias mode the bias's distinct fp32 values,
-    ``bias_bytes``)."""
+    written once ([b, s, h, d] tensors of ``elt`` bytes an element: 2
+    bf16, 4 fp32; fp32 [b, h, sq] lse and delta, and in the bias mode the
+    bias's distinct fp32 values, ``bias_bytes``). Dropout adds no bytes
+    (its mask is drawn, never stored) and its Philox draws are integer
+    work outside these products, not counted."""
     off = sk - sq
     pairs = (sum(min(sk, max(0, r + off + 1)) for r in range(sq))
              if causal else sq * sk)
@@ -451,7 +480,7 @@ def _flash_work(b, sq, sk, h, d, causal, kind, bias_bytes=0, kept=None):
     flops = 2.0 * d * b * h * pairs * n_products
     if kept is not None:              # pairs summed over the batch rows
         flops = 2.0 * d * h * sq * sum(kept) * n_products
-    qb, kb, stat = 2 * b * sq * h * d, 2 * b * sk * h * d, 4 * b * h * sq
+    qb, kb, stat = elt * b * sq * h * d, elt * b * sk * h * d, 4 * b * h * sq
     nbytes = {"fwd": 2 * qb + 2 * kb + stat,       # q k v in; out, lse
               "dq": 3 * qb + 2 * kb + 2 * stat,    # q k v dO lse delta; dq
               "dkv": 2 * qb + 4 * kb + 2 * stat,   # same in; dk, dv
@@ -459,8 +488,8 @@ def _flash_work(b, sq, sk, h, d, causal, kind, bias_bytes=0, kept=None):
     return flops, nbytes
 
 
-def _bound(flops, nbytes):
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_TENSOR_FLOPS
+def _bound(flops, nbytes, peak=BF16_TENSOR_FLOPS):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -472,11 +501,14 @@ def _bound(flops, nbytes):
 FLASH_ROW_RTOL, FLASH_ROW_ATOL, FLASH_FRO = 2 ** -7, 1e-3, 4e-3
 
 
-def _flash_errors(torch, F, q, k, v, do, scale, causal, bias=None) -> dict:
+def _flash_errors(torch, F, q, k, v, do, scale, causal, bias=None,
+                  dropout_p=0.0, seed_arr=None) -> dict:
     """Each flash kernel against its plain version on the same inputs
     (the backward kernels from the plain forward's lse and delta); with
     ``bias`` (fp32 ``[b|1, h|1, sq, sk]``) the kernels' bias mode, both
-    versions given the same bias.
+    versions given the same bias; with ``dropout_p`` their dropout mode,
+    both given the same key ``seed_arr`` (so the same mask: a kernel that
+    drew another mask would miss these tolerances by far).
 
     The plain versions run on fp32 copies of the bf16 inputs: the same
     arithmetic (they upcast first), with outputs that are not rounded to
@@ -497,16 +529,17 @@ def _flash_errors(torch, F, q, k, v, do, scale, causal, bias=None) -> dict:
     row's error over its tolerance), ``lse`` and ``failures``, a list
     of what broke its tolerance."""
     q32, k32, v32, do32 = (x.float() for x in (q, k, v, do))
-    want_o, want_l = F.flash_fwd_plain(q32, k32, v32, scale, causal, bias)
+    mode = (bias, dropout_p, seed_arr)
+    want_o, want_l = F.flash_fwd_plain(q32, k32, v32, scale, causal, *mode)
     delta = F.flash_delta(do, want_o.to(q.dtype))
-    got_o, got_l = F.flash_fwd_cuda(q, k, v, scale, causal, bias)
+    got_o, got_l = F.flash_fwd_cuda(q, k, v, scale, causal, *mode)
     got_dq = F.flash_bwd_dq_cuda(q, k, v, do, want_l, delta, scale, causal,
-                                 bias)
+                                 *mode)
     got_dk, got_dv = F.flash_bwd_dkv_cuda(q, k, v, do, want_l, delta,
-                                          scale, causal, bias)
+                                          scale, causal, *mode)
     torch.cuda.synchronize()
     want_g = F.flash_block_grads_plain(q32, k32, v32, do32, want_l, delta,
-                                       scale, causal, bias)
+                                       scale, causal, *mode)
     errs, failures = {}, []
     for name, got, want in zip(("out", "dq", "dk", "dv"),
                                (got_o, got_dq, got_dk, got_dv),
@@ -860,6 +893,383 @@ def phase_flash_bias(torch, np, F) -> dict:
     return rows
 
 
+# ---------------- the fp32 and dropout modes of the flash kernels --------
+
+# fp32 flash kernels against an fp64 reference on the card (the plain
+# versions run in fp64): each output's error may be at most FP32_RATIO
+# times the plain fp32 version's own error plus a floor, in two measures
+# (``_rel_errors``): the worst row and the relative Frobenius norm. The
+# floor is 3xTF32's own rounding: it keeps 22 of an fp32 operand's 24
+# significant bits (two 11-bit TF32 parts), so its products round about 4x
+# coarser than fp32 FMA's, and the tensor cores' sums round in their own
+# order; 2**-16 of a row (2**-18 in Frobenius norm) is ~60x (~16x) that
+# operand rounding. Operands rounded to bf16 (2**-9) miss it ~100x.
+FP32_RATIO, FP32_ROW_FLOOR, FP32_FRO_FLOOR = 2.0, 2 ** -16, 2 ** -18
+FP32_LSE_FLOOR = 1e-5           # lse (~1-10): a few fp32 ulps of it
+DROP_P = 0.1                    # GPT-2's and BERT's attention dropout
+GPT2_SHAPE = (8, 1024, 12, 64)  # train_gpt2's attention: b 8, s 1024
+ENTRY_SHAPE = (2, 256, 8, 64)   # entry()'s: 8 heads of 64, KV repeated
+
+
+def _rel_errors(torch, got, ref) -> dict:
+    """``got`` against the fp64 ``ref``: the largest error, the worst row
+    (its largest error over its largest magnitude plus 2**-6 of the whole
+    output's: the dq rows of the first causal queries are differences of
+    nearly equal terms, row 0's exactly 0, so their rounding is measured
+    against the size of those terms, not of the ~0 result) and the
+    relative Frobenius norm."""
+    diff = got.double() - ref
+    mag = ref.abs()
+    scale = mag.amax(-1) + 2 ** -6 * mag.max()
+    return {"max_abs": diff.abs().max().item(),
+            "row": (diff.abs().amax(-1) / scale.clamp(min=1e-300)).max()
+            .item(),
+            "fro": (diff.norm() / ref.norm().clamp(min=1e-300)).item()}
+
+
+def flash_fp32_errors(torch, F, q, k, v, do, scale, causal, bias=None,
+                      dropout_p=0.0, seed_arr=None) -> dict:
+    """The fp32 kernels (forward, dQ, dK/dV; with ``bias`` and
+    ``dropout_p``/``seed_arr`` in those modes) and the plain fp32
+    versions, each against the plain versions run in fp64 on the same
+    inputs (the backward ones from the fp64 forward's lse and delta,
+    rounded to fp32). Each output of the kernels is held to
+    ``FP32_RATIO`` times the plain fp32 version's error plus
+    ``FP32_ROW_FLOOR`` / ``FP32_FRO_FLOOR``; lse to twice the plain
+    version's plus ``FP32_LSE_FLOOR``; rows that see no key exactly (out
+    0, lse -1e30). Returns per output ``{"kernel": .., "plain": ..}``
+    errors (``_rel_errors``), ``lse`` and ``failures``."""
+    mode = (bias, dropout_p, seed_arr)
+    q64, k64, v64, do64 = (x.double() for x in (q, k, v, do))
+    ref_o, ref_l = F.flash_fwd_plain(q64, k64, v64, scale, causal, *mode)
+    ref_delta = F.flash_delta(do64, ref_o)
+    ref_g = F.flash_block_grads_plain(q64, k64, v64, do64, ref_l, ref_delta,
+                                      scale, causal, *mode)
+    del q64, k64, v64, do64
+    lse, delta = ref_l.float(), ref_delta.float()
+    pl_o, pl_l = F.flash_fwd_plain(q, k, v, scale, causal, *mode)
+    pl_g = F.flash_block_grads_plain(q, k, v, do, lse, delta, scale, causal,
+                                     *mode)
+    got_o, got_l = F.flash_fwd_cuda(q, k, v, scale, causal, *mode)
+    got_dq = F.flash_bwd_dq_cuda(q, k, v, do, lse, delta, scale, causal,
+                                 *mode)
+    got_dk, got_dv = F.flash_bwd_dkv_cuda(q, k, v, do, lse, delta, scale,
+                                          causal, *mode)
+    torch.cuda.synchronize()
+    errs, failures = {}, []
+    for name, got, plain, ref in zip(
+            ("out", "dq", "dk", "dv"), (got_o, got_dq, got_dk, got_dv),
+            (pl_o,) + tuple(pl_g), (ref_o,) + tuple(ref_g)):
+        ke, pe = _rel_errors(torch, got, ref), _rel_errors(torch, plain, ref)
+        errs[name] = {"kernel": ke, "plain": pe}
+        for m, floor in (("row", FP32_ROW_FLOOR), ("fro", FP32_FRO_FLOOR)):
+            limit = FP32_RATIO * pe[m] + floor
+            if not ke[m] <= limit:
+                failures.append(f"{name}: {m} error {ke[m]:.3g} > "
+                                f"{FP32_RATIO} x plain {pe[m]:.3g} + "
+                                f"{floor:.3g}")
+    dead = ref_l <= -1e29
+    if not bool(((got_l <= -1e29) == dead).all()):
+        failures.append("lse: fully masked rows disagree")
+    if bool(dead.any()) and not bool(
+            (got_o.transpose(1, 2)[dead] == 0).all()):
+        failures.append("out: a fully masked row is not 0")
+    live = ~dead
+    k_lse = (got_l.double() - ref_l)[live].abs().max().item()
+    p_lse = (pl_l.double() - ref_l)[live].abs().max().item()
+    errs["lse"] = {"kernel": k_lse, "plain": p_lse}
+    if not k_lse <= 2 * p_lse + FP32_LSE_FLOOR:
+        failures.append(f"lse: {k_lse:.3g} > 2 x plain {p_lse:.3g} + "
+                        f"{FP32_LSE_FLOOR}")
+    errs["failures"] = failures
+    return errs
+
+
+def _kernel_err(errs):
+    """The kernel's errors in a ``flash_fp32_errors`` entry."""
+    return errs["kernel"]
+
+
+def _flash_inputs(torch, gen, shape, dtype):
+    return tuple(torch.randn(shape, generator=gen, device="cuda").to(dtype)
+                 for _ in range(4))
+
+
+def _keypad(torch, np, s):
+    """``train_bert_padded``'s key-padding mask, bool [b, 1, 1, s]."""
+    lens = torch.tensor(bert_lengths(np), device="cuda")
+    return (torch.arange(s, device="cuda")[None, :]
+            < lens[:, None])[:, None, None, :], lens
+
+
+def _mode_rows(torch, F, suffix, sets, scale, causal, dropout_p, keep, errs,
+               err_of, shape, tolerance, kept=None, elt=4,
+               peak=FP32_ACCURATE_FLOPS) -> dict:
+    """Times of one mode's three kernels (``flash_{fwd,dq,dkv}`` +
+    ``suffix``) on ``sets`` of ``(q, k, v, do, lse, delta, bias, seed)``:
+    the kernels, their plain versions (the backward's computes dq, dk and
+    dv together, so dQ and dK/dV report the same plain time), and as a
+    yardstick PyTorch's ``scaled_dot_product_attention`` with the same
+    causal flag, mask (``keep``, bool) and ``dropout_p``, forward and its
+    backward through autograd; each beside its bound at ``peak``. The
+    errors come from ``errs`` (a list of checks), ``err_of`` picking the
+    measure of an output."""
+    b, s, h, d = shape
+
+    def mode(a):
+        return a[6], dropout_p, a[7]
+
+    lib_fwd, lib_bwd = [], []
+    for a in sets:
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
+                      for x in a[:3])
+        lib_fwd.append((qt, kt, vt))
+        og = torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=keep, is_causal=causal,
+            dropout_p=dropout_p)
+        lib_bwd.append((og, qt, kt, vt, a[3].transpose(1, 2)))
+
+    def sdpa_fwd(qt, kt, vt):
+        with torch.no_grad():
+            return torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=keep, is_causal=causal,
+                dropout_p=dropout_p)
+
+    def sdpa_bwd(og, qt, kt, vt, dot):
+        return torch.autograd.grad(og, (qt, kt, vt), dot, retain_graph=True)
+
+    fns = {
+        "fwd": {"kernel": lambda *a: F.flash_fwd_cuda(*a[:3], scale, causal,
+                                                       *mode(a)),
+                "plain": lambda *a: F.flash_fwd_plain(*a[:3], scale, causal,
+                                                       *mode(a)),
+                "library": sdpa_fwd},
+        "dq": {"kernel": lambda *a: F.flash_bwd_dq_cuda(*a[:6], scale,
+                                                         causal, *mode(a)),
+               "plain": lambda *a: F.flash_block_grads_plain(
+                   *a[:6], scale, causal, *mode(a)),
+               "library": sdpa_bwd},
+        "dkv": {"kernel": lambda *a: F.flash_bwd_dkv_cuda(*a[:6], scale,
+                                                           causal, *mode(a))},
+    }
+    outs = {"fwd": ("out",), "dq": ("dq",), "dkv": ("dk", "dv")}
+    bias_bytes = 0 if keep is None else 4 * b * s
+    rows, bwd_times = {}, None
+    for kind in ("fwd", "dq", "dkv"):
+        flops, nbytes = _flash_work(b, s, s, h, d, causal, kind, bias_bytes,
+                                    kept=kept, elt=elt)
+        bound, bound_by = _bound(flops, nbytes, peak)
+        t = _timings(torch, fns[kind], sets,
+                     {"library": lib_fwd if kind == "fwd" else lib_bwd})
+        if kind == "dq":
+            bwd_times = {k_: t[k_] for k_ in (
+                "plain_ms", "plain_device_ms", "library_ms",
+                "library_device_ms")}
+        elif kind == "dkv":
+            t.update(bwd_times)
+        name = f"flash_{kind}{suffix}"
+        rows[name] = {
+            "shape": shape, "max_abs_err": max(err_of(e[o])["max_abs"]
+                                               for e in errs
+                                               for o in outs[kind]),
+            "errors_at_shape": {o: errs[0][o] for o in outs[kind]},
+            "tolerance": tolerance, **t, "flops": flops, "bytes": nbytes,
+            "bound_ms": bound, "bound_by": bound_by,
+            "bound_peak_flops": peak}
+        _emit("kernel_vs_plain", {"name": name, **rows[name]})
+    del lib_fwd, lib_bwd
+    return rows
+
+
+def _mode_sets(torch, F, gen, shape, dtype, causal, scale, bias_of=None,
+               dropout_p=0.0, seed=None, n=3):
+    """``n`` argument sets ``(q, k, v, do, lse, delta, bias, seed)`` of
+    one shape and mode for ``_mode_rows`` (lse and delta from the plain
+    forward in fp32)."""
+    sets = []
+    for _ in range(n):
+        q, k, v, do = _flash_inputs(torch, gen, shape, dtype)
+        bias = None if bias_of is None else bias_of(q, k)
+        out, lse = F.flash_fwd_plain(q, k, v, scale, causal, bias, dropout_p,
+                                     seed)
+        sets.append((q, k, v, do, lse, F.flash_delta(do, out.to(dtype)),
+                     bias, seed))
+    return sets
+
+
+FP32_TOLERANCE = ("against the plain versions in fp64 on the card: each "
+                  "output's worst-row and relative Frobenius errors at most "
+                  f"{FP32_RATIO} x the plain fp32 version's plus "
+                  f"2**-16 / 2**-18; lse 2 x plain + {FP32_LSE_FLOOR}; "
+                  "fully masked rows exact")
+BF16_TOLERANCE = ("against the fp32 plain version on the same inputs (and "
+                  "key): each row within 2**-7 of its largest magnitude + "
+                  "1e-3, relative Frobenius error <= 4e-3; lse 1e-4 "
+                  "absolute")
+
+
+def phase_flash_fp32(torch, np, F) -> dict:
+    """The fp32 mode of flash forward, dQ and dK/dV (3xTF32 products),
+    each held to ``flash_fp32_errors``'s rule: at GPT-2 small's shape
+    ([8, 1024, 12, 64] causal), ``entry()``'s ([2, 256, 8, 64] causal),
+    BERT-Base's ([32, 512, 12, 64] non-causal) without and with
+    ``train_bert_padded``'s key-padding mask, and at d 128 a causal
+    [2, 1024, 8, 128] with a random fp32 [sq, sk] bias and a ragged
+    non-causal [2, 1000, 4, 128]. Times (``_mode_rows``, the bound at the
+    3xTF32 rate) at GPT-2's shape for the no-bias mode and at the padded
+    BERT shape for the bias mode; the yardstick is
+    ``scaled_dot_product_attention`` in fp32."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    keep, lens = _keypad(torch, np, BERT_SEQ)
+    b_bert = BERT_BATCH
+
+    def keypad_bias(q, k):
+        return F.attn_bias(keep.expand(b_bert, 1, BERT_SEQ, BERT_SEQ), q, k)
+
+    def sq_sk_bias(q, k):
+        return F.pad_bias(torch.randn((q.shape[1], k.shape[1]),
+                                      generator=gen, device="cuda") * 2,
+                          q.shape[0], q.shape[2], q.shape[1], k.shape[1])
+
+    cases = [("gpt2", GPT2_SHAPE, True, None),
+             ("entry", ENTRY_SHAPE, True, None),
+             ("bert", (BERT_BATCH, BERT_SEQ, 12, 64), False, None),
+             ("bert_keypad", (BERT_BATCH, BERT_SEQ, 12, 64), False,
+              keypad_bias),
+             ("d128_causal_bias", (2, 1024, 8, 128), True, sq_sk_bias),
+             ("d128_ragged", (2, 1000, 4, 128), False, None)]
+    checks = {}
+    for name, shape, causal, bias_of in cases:
+        q, k, v, do = _flash_inputs(torch, gen, shape, torch.float32)
+        bias = None if bias_of is None else bias_of(q, k)
+        checks[name] = flash_fp32_errors(torch, F, q, k, v, do,
+                                         shape[3] ** -0.5, causal, bias)
+        del q, k, v, do, bias
+        torch.cuda.empty_cache()
+    _emit("flash_fp32_checks", checks)
+    failures = {n: c["failures"] for n, c in checks.items() if c["failures"]}
+    if failures:
+        raise AssertionError(f"fp32 flash kernels beyond tolerance: "
+                             f"{failures}")
+    rows = _mode_rows(
+        torch, F, "_fp32", _mode_sets(torch, F, gen, GPT2_SHAPE,
+                                      torch.float32, True, 0.125),
+        0.125, True, 0.0, None, [checks["gpt2"], checks["entry"],
+                                 checks["d128_ragged"]],
+        _kernel_err, GPT2_SHAPE, FP32_TOLERANCE)
+    torch.cuda.empty_cache()
+    shape = (BERT_BATCH, BERT_SEQ, 12, 64)
+    rows.update(_mode_rows(
+        torch, F, "_fp32_bias", _mode_sets(torch, F, gen, shape,
+                                           torch.float32, False, 0.125,
+                                           keypad_bias),
+        0.125, False, 0.0, keep, [checks["bert_keypad"],
+                                  checks["d128_causal_bias"]],
+        _kernel_err, shape, FP32_TOLERANCE, kept=[int(x) for x in lens]))
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_flash_dropout(torch, np, F, K) -> dict:
+    """The dropout mode (p = 0.1) of flash forward, dQ and dK/dV in bf16
+    and fp32, with and without a bias, each kernel given the same key
+    (seed, offset) as its plain version, so both draw the same Philox
+    mask: fp32 at GPT-2's shape (causal) and at the padded BERT shape
+    (key-padding mask), and a ragged causal [2, 1000, 4, 128], held by
+    ``flash_fp32_errors``'s rule against fp64 with the same mask; bf16 at
+    the same two shapes, held by ``_flash_errors``'s rule (the no-dropout
+    modes' tolerances). Each kernel launched twice on one key must be
+    bitwise equal, and the four dropout modes' launch counters must move.
+    Times (``_mode_rows``) at GPT-2's shape without a bias and at the
+    padded BERT shape with it; the yardstick is
+    ``scaled_dot_product_attention`` with ``dropout_p`` and the mask, in
+    the same dtype."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    seed = torch.tensor([SEED + 13, (1 << 31) + 5], dtype=torch.int64,
+                        device="cuda")
+    keep, lens = _keypad(torch, np, BERT_SEQ)
+    bert_shape = (BERT_BATCH, BERT_SEQ, 12, 64)
+
+    def keypad_bias(q, k):
+        return F.attn_bias(keep.expand(BERT_BATCH, 1, BERT_SEQ, BERT_SEQ),
+                           q, k)
+
+    cases = [("fp32_gpt2", GPT2_SHAPE, torch.float32, True, None),
+             ("fp32_bert_keypad", bert_shape, torch.float32, False,
+              keypad_bias),
+             ("fp32_d128_ragged", (2, 1000, 4, 128), torch.float32, True,
+              None),
+             ("bf16_gpt2", GPT2_SHAPE, torch.bfloat16, True, None),
+             ("bf16_bert_keypad", bert_shape, torch.bfloat16, False,
+              keypad_bias)]
+    K.reset_launch_counts()
+    checks, repeat = {}, {}
+    for name, shape, dtype, causal, bias_of in cases:
+        q, k, v, do = _flash_inputs(torch, gen, shape, dtype)
+        bias = None if bias_of is None else bias_of(q, k)
+        scale = shape[3] ** -0.5
+        mode = (bias, DROP_P, seed)
+        if dtype == torch.float32:
+            checks[name] = flash_fp32_errors(torch, F, q, k, v, do, scale,
+                                             causal, *mode)
+        else:
+            checks[name] = _flash_errors(torch, F, q, k, v, do, scale,
+                                         causal, *mode)
+        o1, l1 = F.flash_fwd_cuda(q, k, v, scale, causal, *mode)
+        o2, l2 = F.flash_fwd_cuda(q, k, v, scale, causal, *mode)
+        delta = F.flash_delta(do, o1)
+        g1 = (F.flash_bwd_dq_cuda(q, k, v, do, l1, delta, scale, causal,
+                                  *mode),) + F.flash_bwd_dkv_cuda(
+            q, k, v, do, l1, delta, scale, causal, *mode)
+        g2 = (F.flash_bwd_dq_cuda(q, k, v, do, l1, delta, scale, causal,
+                                  *mode),) + F.flash_bwd_dkv_cuda(
+            q, k, v, do, l1, delta, scale, causal, *mode)
+        repeat[name] = bool(torch.equal(o1, o2) and torch.equal(l1, l2)
+                            and all(torch.equal(a, b_)
+                                    for a, b_ in zip(g1, g2)))
+        del q, k, v, do, bias, o1, o2, g1, g2
+        torch.cuda.empty_cache()
+    launches = K.launch_counts()
+    _emit("flash_dropout_checks", {"checks": checks, "bitwise_repeat": repeat,
+                                   "launches": launches})
+    failures = {n: c["failures"] for n, c in checks.items() if c["failures"]}
+    failures.update({n: "two launches on one key differ"
+                     for n, ok in repeat.items() if not ok})
+    idle = [n for n in ("flash_fwd_drop", "flash_dq_drop", "flash_dkv_drop",
+                        "flash_fwd_drop_bias", "flash_dq_drop_bias",
+                        "flash_dkv_drop_bias", "flash_fwd_fp32_drop",
+                        "flash_dq_fp32_drop", "flash_dkv_fp32_drop",
+                        "flash_fwd_fp32_drop_bias", "flash_dq_fp32_drop_bias",
+                        "flash_dkv_fp32_drop_bias") if not launches[n]]
+    if idle:
+        failures["launch counters"] = f"no launch counted for {idle}"
+    if failures:
+        raise AssertionError(f"flash dropout kernels beyond tolerance: "
+                             f"{failures}")
+    rows = {}
+    kept = [int(x) for x in lens]
+    for suffix, dtype, shape, causal, bias_of, mask, names in (
+            ("_fp32_drop", torch.float32, GPT2_SHAPE, True, None, None,
+             ("fp32_gpt2", "fp32_d128_ragged")),
+            ("_fp32_drop_bias", torch.float32, bert_shape, False,
+             keypad_bias, keep, ("fp32_bert_keypad",)),
+            ("_drop", torch.bfloat16, GPT2_SHAPE, True, None, None,
+             ("bf16_gpt2",)),
+            ("_drop_bias", torch.bfloat16, bert_shape, False, keypad_bias,
+             keep, ("bf16_bert_keypad",))):
+        fp32 = dtype == torch.float32
+        rows.update(_mode_rows(
+            torch, F, suffix, _mode_sets(torch, F, gen, shape, dtype, causal,
+                                         0.125, bias_of, DROP_P, seed),
+            0.125, causal, DROP_P, mask, [checks[n] for n in names],
+            _kernel_err if fp32 else (lambda e: e), shape,
+            FP32_TOLERANCE if fp32 else BF16_TOLERANCE,
+            kept=None if mask is None else kept, elt=4 if fp32 else 2,
+            peak=FP32_ACCURATE_FLOPS if fp32 else BF16_TENSOR_FLOPS))
+        torch.cuda.empty_cache()
+    return rows
+
+
 def flagship_config(LlamaConfig, seq: int):
     """The JAX package's one-chip training configuration,
     ``bench.py::_llama_flagship`` (bench.py:245-263): full width and
@@ -1069,7 +1479,10 @@ def train_parity_run(torch, K, model, opt, TrainStep, loss_fn, args,
         if not probe_rel[kind][worst_n] <= lim:
             failures.append(f"{worst_n} {kind} {probe_rel[kind][worst_n]} "
                             f"> {lim} in relative L2")
+    worst_p = max((k for k in mk if k not in unresolved),
+                  key=lambda k: (mk[k] - mp[k]).abs().max().item())
     return {"losses_kernels": lk, "losses_plain": lp, "abs_dloss": dloss,
+            "worst_dparam": worst_p,
             "max_grad_rel_l2": grad_rel[worst], "worst_grad": worst,
             "top_grad_rel_l2": sorted(grad_rel.items(),
                                       key=lambda kv: -kv[1])[:8],
@@ -1839,6 +2252,313 @@ def phase_train_bert_profile(torch, model, opt, TrainStep, args,
     return out
 
 
+# ---------------- entry()'s fp32 model, GPT-2 small, BERT's defaults ------
+
+def entry_config(LlamaConfig):
+    """``__graft_entry__.py::entry()``'s flagship Llama: vocab 8192, hidden
+    512, ffn 1408, 4 layers, 8 heads / 4 KV heads of 64, at
+    ``LlamaConfig``'s default dtype, float32."""
+    return LlamaConfig(vocab_size=8192, hidden_size=512,
+                       intermediate_size=1408, num_hidden_layers=4,
+                       num_attention_heads=8, num_key_value_heads=4,
+                       max_position_embeddings=2048, mp_axis=None,
+                       fsdp_axis=None)
+
+
+# entry()'s forward, kernels against plain_reference(): the largest
+# |logit difference| (|logit| ~ 1-10). The fp32 kernels lie as close to
+# fp64 as the plain fp32 versions do (flash_fp32), and the logits moved
+# by 1.5e-6 (PERF.md); attention operands rounded to bf16 would move them
+# by ~1e-2.
+ENTRY_DLOGIT_LIMIT = 1e-4
+# fp32 train parity limits (train_parity_run): per-step |loss difference|
+# (measured 0 to 7.6e-6, one fp32 ulp of GPT-2's loss of ~85), each
+# gradient's relative L2 (measured 1.3e-6 and 4.3e-6; bf16 operands would
+# give ~1e-2), the weights after step 3 (max |difference|, measured
+# 4.4e-6 and 7.4e-6): half of lr, the room Adam's epsilon 1e-8 leaves a
+# gradient that is rounding noise of ~1e-9 (GPT-2's key bias, whose exact
+# gradient is 0 since the softmax cancels it) to move its step by a
+# fraction of lr.
+FP32_PARITY = (1e-4, 1e-3, 5e-5)
+FP32_KERNELS = ("flash_fwd_fp32", "flash_dq_fp32", "flash_dkv_fp32")
+
+
+def phase_entry_fp32(torch, np, K, LlamaConfig, LlamaForCausalLM,
+                     TrainStep, AdamW) -> dict:
+    """``entry()``'s configuration in the port (``entry_config``), weights
+    from seed 0 through ``init_random``, the ids ``entry()`` makes
+    (``default_rng(0).integers(0, 8192, (2, 256))``): the forward in eval
+    mode on the card (4 fp32 flash-forward launches, 9 RMSNorm) and again
+    inside ``plain_reference()``, the largest |logit difference| within
+    ``ENTRY_DLOGIT_LIMIT``; then 3 fp32 ``TrainStep``s (AdamW lr 1e-4),
+    through the kernels and inside ``plain_reference()`` from one state
+    (``train_parity_run`` at ``FP32_PARITY``: the fp32 flash forward, dQ
+    and dK/dV must launch)."""
+    cfg = entry_config(LlamaConfig)
+    model = LlamaForCausalLM(cfg, device="cuda", seed=0)
+    model.eval()
+    ids = torch.tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 256)), device="cuda")
+    K.reset_launch_counts()
+    with torch.no_grad():
+        logits = model(ids)
+        torch.cuda.synchronize()
+        launches = K.launch_counts()
+        with K.plain_reference():
+            ref = model(ids)
+    dlogit = (logits - ref).abs().max().item()
+    want = _counts(K, flash_fwd_fp32=cfg.num_hidden_layers,
+                   rms_norm=2 * cfg.num_hidden_layers + 1)
+    model.train()
+    opt = AdamW(learning_rate=TRAIN_LR, parameters=model)
+    parity = train_parity_run(torch, K, model, opt, TrainStep,
+                              *causal_lm_args(model, ids),
+                              kernels=FP32_KERNELS, limits=FP32_PARITY)
+    out = {"config": cfg.__dict__, "params": model.num_params(),
+           "logits_shape": list(logits.shape), "dtype": str(logits.dtype),
+           "finite": bool(torch.isfinite(logits).all()),
+           "max_abs_dlogit": dlogit, "dlogit_limit": ENTRY_DLOGIT_LIMIT,
+           "forward_launches": launches,
+           "parity": {k: v for k, v in parity.items() if k != "grad_rel_l2"}}
+    _emit("entry_fp32", out)
+    failures = list(parity["failures"])
+    if launches != want:
+        failures.append(f"forward launch counters {launches} != {want}")
+    if not (out["finite"] and dlogit <= ENTRY_DLOGIT_LIMIT):
+        failures.append(f"|logit difference| {dlogit} > "
+                        f"{ENTRY_DLOGIT_LIMIT} (or non-finite logits)")
+    if failures:
+        raise AssertionError(f"entry_fp32: {failures}")
+    del model, opt
+    torch.cuda.empty_cache()
+    return out
+
+
+GPT2_BATCH, GPT2_SEQ, GPT2_STEPS = 8, 1024, 10
+GPT2_KERNELS = ("flash_fwd_fp32_drop", "flash_dq_fp32_drop",
+                "flash_dkv_fp32_drop")
+
+
+def gpt2_config(GPTConfig, dtype="float32"):
+    """GPT-2 small at its published defaults (``paddle_tpu/models/gpt.py:
+    17-30``): vocab 50304, hidden 768, 12 layers of 12 heads of 64, FFN
+    3072, 1024 positions, LayerNorm eps 1e-5, exact GELU, tied LM head,
+    fp32, hidden and attention dropout 0.1; ``mp_axis=None`` (one card).
+    Full width and depth."""
+    return GPTConfig(mp_axis=None, dtype=dtype)
+
+
+def phase_train_gpt2(torch, np, K, model, TrainStep, AdamW, batch,
+                     smi) -> tuple:
+    """10 ``TrainStep``s of GPT-2 small (``gpt2_config``) on one fixed
+    batch of 8 x 1024 seeded ids (labels = inputs, shifted by the loss),
+    AdamW lr 1e-4, dropout 0.1 drawn from the model's generator: per-step
+    wall time, the median of steps 3-10, tokens/s, MFU (``6 N + 12 L s
+    h`` FLOPs a token over the 989 TFLOP/s bf16 peak, as the other
+    slices; beside it the same over the 67 TFLOP/s fp32 peak that bounds
+    its fp32 GEMMs), peak memory, every loss, and the launch counters of
+    this phase alone: per step 12 of each fp32 dropout flash kernel and
+    25 LayerNorm (two a block and ``ln_f``)."""
+    cfg = model.config
+    L, S, H = cfg.num_hidden_layers, GPT2_SEQ, cfg.hidden_size
+    opt = AdamW(learning_rate=TRAIN_LR, parameters=model)
+    step = TrainStep(model, opt, lambda logits, y: model.loss(logits, y))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    losses, times = [], []
+    for _ in range(GPT2_STEPS):
+        t0 = time.perf_counter()
+        loss = step(batch, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(loss.item())
+    launches = K.launch_counts()
+    n_params = model.num_params()
+    step_s = statistics.median(times[2:])
+    tokens = GPT2_BATCH * S
+    fpt = 6.0 * n_params + 12.0 * L * S * H
+    out = {"config": cfg.__dict__, "params": n_params, "batch": GPT2_BATCH,
+           "seq": S, "lr": TRAIN_LR, "step_ms": [t * 1e3 for t in times],
+           "median_step_ms": step_s * 1e3, "tokens_per_s": tokens / step_s,
+           "mfu": fpt * tokens / step_s / BF16_TENSOR_FLOPS,
+           "mfu_fp32_peak": fpt * tokens / step_s / FP32_FLOPS,
+           "flops_per_token": fpt,
+           "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "losses": losses, "launches": launches, "card": smi}
+    _emit("train_gpt2", out)
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite training loss: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"the loss did not fall on a fixed batch: "
+                             f"{losses}")
+    n = L * GPT2_STEPS
+    want = _counts(K, layer_norm=(2 * L + 1) * GPT2_STEPS,
+                   **dict.fromkeys(GPT2_KERNELS, n))
+    if launches != want:
+        raise AssertionError(f"launch counters {launches} != expected "
+                             f"{want} over {GPT2_STEPS} steps")
+    return out, opt
+
+
+def phase_train_gpt2_parity(torch, K, model, opt, TrainStep, batch) -> dict:
+    """Three steps from one state through the kernels and inside
+    ``plain_reference()`` (``train_parity_run`` at ``FP32_PARITY``), the
+    model's generator restored to one state before each run, so both
+    draw the same dropout masks and attention-dropout keys: the fp32
+    dropout flash kernels must launch."""
+    state = model.generator.get_state()
+    out = train_parity_run(torch, K, model, opt, TrainStep,
+                           *causal_lm_args(model, batch),
+                           kernels=GPT2_KERNELS, limits=FP32_PARITY,
+                           reseed=lambda: model.generator.set_state(state))
+    _emit("train_gpt2_parity", {k: v for k, v in out.items()
+                                if k != "grad_rel_l2"})
+    if out["failures"]:
+        raise AssertionError(f"GPT-2 train parity beyond tolerance: "
+                             f"{out['failures']}")
+    return out
+
+
+_GPT2_CATEGORIES = (("flash", ("flash_",)),
+                    ("layer_norm", ("layer_norm_fwd_kernel",)),
+                    ("gemm", ("nvjet", "gemm", "xmma", "cutlass", "cublas",
+                              "sgemm")))
+
+
+def phase_train_gpt2_profile(torch, model, opt, TrainStep, batch) -> dict:
+    """``_step_profile`` of one GPT-2 training step, by category: the
+    flash kernels, LayerNorm, GEMMs, AdamW, everything else."""
+    step = TrainStep(model, opt, lambda logits, y: model.loss(logits, y))
+    out = _step_profile(torch, lambda: step(batch, batch), model, opt,
+                        _GPT2_CATEGORIES)
+    _emit("train_gpt2_profile", out)
+    return out
+
+
+DEFAULTS_STEPS = 3
+
+
+def _train_steps(torch, K, model, TrainStep, AdamW, args, n_inputs, loss_fn,
+                 n_steps) -> dict:
+    """``n_steps`` TrainSteps (AdamW lr 1e-4) on ``args``: the losses, the
+    median step time and the launch counters of these steps alone."""
+    opt = AdamW(learning_rate=TRAIN_LR, parameters=model)
+    step = TrainStep(model, opt, loss_fn, n_inputs=n_inputs)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    losses, times = [], []
+    for _ in range(n_steps):
+        t0 = time.perf_counter()
+        losses.append(step(*args).item())
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return {"losses": losses, "step_ms": [t * 1e3 for t in times],
+            "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "launches": K.launch_counts()}
+
+
+def phase_train_bert_defaults(torch, np, K, BertConfig, BertForPreTraining,
+                              TrainStep, AdamW, smi) -> dict:
+    """BERT-Base at its own defaults (``BertConfig()``: fp32, hidden and
+    attention dropout 0.1, full width and depth) on ``train_bert_padded``'s
+    batch: 3 steps, each launching 12 of each fp32 flash kernel in its
+    bias + dropout mode (``_flash_bias_drop``) and 26 LayerNorm, with
+    finite losses; then the same weights evaluated (eval mode: the fp32
+    bias-mode forward, 12) and 2 steps of ``bench_bert``'s dropout 0 at
+    the default fp32 (the fp32 bias mode without dropout, 12 of each a
+    step)."""
+    cfg = BertConfig()
+    model = BertForPreTraining(cfg, device="cuda", seed=SEED)
+    args, n_inputs = bert_batch(torch, np, cfg, padded=True)
+    L = cfg.num_hidden_layers
+    out = {"config": cfg.__dict__, "params": model.num_params(),
+           "batch": BERT_BATCH, "seq": BERT_SEQ, "card": smi}
+    out["defaults"] = _train_steps(torch, K, model, TrainStep, AdamW, args,
+                                   n_inputs, _bert_loss(model),
+                                   DEFAULTS_STEPS)
+    model.eval()
+    K.reset_launch_counts()
+    with torch.no_grad():
+        mlm, _ = model(*args[:n_inputs])
+    out["eval_launches"] = K.launch_counts()
+    out["eval_finite"] = bool(torch.isfinite(mlm).all())
+    del mlm
+    nodrop = BertForPreTraining(BertConfig(hidden_dropout_prob=0.0,
+                                           attention_probs_dropout_prob=0.0),
+                                device="cuda", seed=SEED)
+    out["no_dropout"] = _train_steps(torch, K, nodrop, TrainStep, AdamW,
+                                     args, n_inputs, _bert_loss(nodrop), 2)
+    _emit("train_bert_defaults", out)
+    failures = []
+    for arm, n_steps, mode in (("defaults", DEFAULTS_STEPS, "_fp32_drop_bias"),
+                               ("no_dropout", 2, "_fp32_bias")):
+        want = _counts(K, layer_norm=(2 * L + 2) * n_steps,
+                       **{f"flash_{k}{mode}": L * n_steps
+                          for k in ("fwd", "dq", "dkv")})
+        if out[arm]["launches"] != want:
+            failures.append(f"{arm}: launch counters {out[arm]['launches']}"
+                            f" != {want}")
+        if not all(math.isfinite(x) for x in out[arm]["losses"]):
+            failures.append(f"{arm}: non-finite loss {out[arm]['losses']}")
+    if out["eval_launches"] != _counts(K, layer_norm=2 * L + 2,
+                                       flash_fwd_fp32_bias=L):
+        failures.append(f"eval launch counters {out['eval_launches']}")
+    if not out["eval_finite"]:
+        failures.append("eval: non-finite MLM logits")
+    if failures:
+        raise AssertionError(f"train_bert_defaults: {failures}")
+    del model, nodrop
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_dropout_bf16(torch, np, K, GPTConfig, GPTForCausalLM,
+                             BertConfig, BertForPreTraining, TrainStep,
+                             AdamW, smi) -> dict:
+    """The bf16 dropout modes on their paths: GPT-2 small with
+    ``dtype="bfloat16"`` (dropout 0.1, 2 steps on 8 x 1024 seeded ids: 12
+    of each bf16 dropout flash kernel a step) and BERT-Base with
+    ``dtype="bfloat16"`` at its dropout 0.1 on the padded batch (2 steps:
+    12 of each bf16 bias + dropout kernel a step); finite losses."""
+    out = {"card": smi}
+    gcfg = gpt2_config(GPTConfig, dtype="bfloat16")
+    model = GPTForCausalLM(gcfg, device="cuda", seed=SEED)
+    batch = torch.tensor(np.random.default_rng(SEED + 14).integers(
+        0, gcfg.vocab_size, (GPT2_BATCH, GPT2_SEQ)), device="cuda")
+    out["gpt2_bf16"] = _train_steps(
+        torch, K, model, TrainStep, AdamW, (batch, batch), 1,
+        lambda logits, y: model.loss(logits, y), 2)
+    del model, batch
+    torch.cuda.empty_cache()
+    bcfg = BertConfig(dtype="bfloat16")
+    model = BertForPreTraining(bcfg, device="cuda", seed=SEED)
+    args, n_inputs = bert_batch(torch, np, bcfg, padded=True)
+    out["bert_bf16"] = _train_steps(torch, K, model, TrainStep, AdamW, args,
+                                    n_inputs, _bert_loss(model), 2)
+    _emit("train_dropout_bf16", out)
+    failures = []
+    for arm, n_ln, mode, layers in (
+            ("gpt2_bf16", 2 * gcfg.num_hidden_layers + 1, "_drop",
+             gcfg.num_hidden_layers),
+            ("bert_bf16", 2 * bcfg.num_hidden_layers + 2, "_drop_bias",
+             bcfg.num_hidden_layers)):
+        want = _counts(K, layer_norm=n_ln * 2,
+                       **{f"flash_{k}{mode}": layers * 2
+                          for k in ("fwd", "dq", "dkv")})
+        if out[arm]["launches"] != want:
+            failures.append(f"{arm}: launch counters {out[arm]['launches']}"
+                            f" != {want}")
+        if not all(math.isfinite(x) for x in out[arm]["losses"]):
+            failures.append(f"{arm}: non-finite loss {out[arm]['losses']}")
+    if failures:
+        raise AssertionError(f"train_dropout_bf16: {failures}")
+    del model, args
+    torch.cuda.empty_cache()
+    return out
+
+
 # Slice parity's bound on the largest logit difference between the
 # kernels and the plain versions over one decode step. Each layer's
 # attention output moves by at most a bf16 ulp between the two; at 32
@@ -2050,6 +2770,7 @@ def main(argv=None) -> int:
     try:
         from paddle_tpu_torch.jit import TrainStep
         from paddle_tpu_torch.models import (BertConfig, BertForPreTraining,
+                                             GPTConfig, GPTForCausalLM,
                                              LlamaConfig, LlamaForCausalLM,
                                              Qwen2MoeConfig,
                                              Qwen2MoeForCausalLM, llama_3_8b)
@@ -2098,6 +2819,9 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     ln = phase_layer_norm(torch, K)
     flash_bias = phase_flash_bias(torch, np, F)
+    torch.cuda.empty_cache()
+    flash_modes = phase_flash_fp32(torch, np, F)
+    flash_modes.update(phase_flash_dropout(torch, np, F, K))
     torch.cuda.empty_cache()
     moe_k = phase_moe_kernels(torch, MR, GG)
     torch.cuda.empty_cache()
@@ -2169,6 +2893,31 @@ def main(argv=None) -> int:
         p.grad = None
     del model, opt, bert_args
     torch.cuda.empty_cache()
+
+    # entry()'s fp32 model; GPT-2 small and BERT-Base at their defaults
+    entry = phase_entry_fp32(torch, np, K, LlamaConfig, LlamaForCausalLM,
+                             TrainStep, AdamW)
+    cfg = gpt2_config(GPTConfig)
+    t0 = time.perf_counter()
+    model = GPTForCausalLM(cfg, device="cuda", seed=SEED)
+    torch.cuda.synchronize()
+    _emit("train_gpt2_model", {"init_s": time.perf_counter() - t0,
+                               "params": model.num_params()})
+    batch = torch.tensor(np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (GPT2_BATCH, GPT2_SEQ)), device="cuda")
+    train_gpt2, opt = phase_train_gpt2(torch, np, K, model, TrainStep,
+                                       AdamW, batch, smi)
+    phase_train_gpt2_parity(torch, K, model, opt, TrainStep, batch)
+    phase_train_gpt2_profile(torch, model, opt, TrainStep, batch)
+    for p in model.parameters():
+        p.grad = None
+    del model, opt, batch
+    torch.cuda.empty_cache()
+    bert_defaults = phase_train_bert_defaults(
+        torch, np, K, BertConfig, BertForPreTraining, TrainStep, AdamW, smi)
+    dropout_bf16 = phase_train_dropout_bf16(
+        torch, np, K, GPTConfig, GPTForCausalLM, BertConfig,
+        BertForPreTraining, TrainStep, AdamW, smi)
 
     # 7-9 on one model at Llama-3-8B widths
     cfg = llama_3_8b(dtype="bfloat16")
@@ -2283,6 +3032,43 @@ def main(argv=None) -> int:
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "shape": row["shape"]})
+    # the fp32 and dropout modes, launches from the phase whose path runs
+    # each: entry_fp32 (its forward and 3 kernel training steps),
+    # train_gpt2, train_bert_defaults (its arms), train_dropout_bf16
+    entry_train = entry["parity"]["launches_kernels"]
+    mode_launches = {
+        "_fp32": {k: entry["forward_launches"][f"flash_{k}_fp32"]
+                  + entry_train[f"flash_{k}_fp32"]
+                  for k in ("fwd", "dq", "dkv")},
+        "_fp32_bias": {
+            k: bert_defaults["no_dropout"]["launches"][f"flash_{k}_fp32_bias"]
+            + bert_defaults["eval_launches"][f"flash_{k}_fp32_bias"]
+            for k in ("fwd", "dq", "dkv")},
+        "_fp32_drop": {k: train_gpt2["launches"][f"flash_{k}_fp32_drop"]
+                       for k in ("fwd", "dq", "dkv")},
+        "_fp32_drop_bias": {
+            k: bert_defaults["defaults"]["launches"][
+                f"flash_{k}_fp32_drop_bias"] for k in ("fwd", "dq", "dkv")},
+        "_drop": {k: dropout_bf16["gpt2_bf16"]["launches"][f"flash_{k}_drop"]
+                  for k in ("fwd", "dq", "dkv")},
+        "_drop_bias": {
+            k: dropout_bf16["bert_bf16"]["launches"][f"flash_{k}_drop_bias"]
+            for k in ("fwd", "dq", "dkv")}}
+    for suffix, counts in mode_launches.items():
+        for kind, source, line in (
+                ("fwd", "flash_attention_fwd.cu", 242),
+                ("dq", "flash_attention_bwd.cu", 558),
+                ("dkv", "flash_attention_bwd.cu", 590)):
+            name = f"flash_{kind}{suffix}"
+            row = flash_modes[name]
+            kernels.append({
+                "name": name, "route": "cuda", "source": src + source,
+                "replaces": f"paddle_tpu/ops/pallas/flash_attention.py:{line}",
+                "launches": counts[kind],
+                "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+                "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+                "shape": row["shape"]})
     for name, line in (("moe_routing", "moe_routing.py:147"),
                        ("moe_fwd", "moe_grouped_gemm.py:263"),
                        ("moe_dx", "moe_grouped_gemm.py:371"),

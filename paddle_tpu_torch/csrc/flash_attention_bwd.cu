@@ -5,12 +5,14 @@
 // paddle_tpu/ops/pallas/flash_attention.py::flash_block_grads: the dQ pass
 // (_bwd_dq_kernel, :329-389, called at :558) and the dK/dV pass
 // (_bwd_dkv_kernel, :392-463, called at :590), with their additive bias
-// mode (has_bias) and without the segment-id and dropout modes.
+// mode (has_bias), their in-kernel dropout (dropout_p) and bf16 and fp32
+// inputs; without the segment-id mode.
 //
 // Bound on the H100: operations. At the training path's shape (b 4, s 2048,
 // h 16, d 128, causal, bf16) dQ is 3 products (103 GFLOP, 104 us at the
 // 989 TFLOP/s bf16 peak) and dK/dV 4 products (137 GFLOP, 139 us), against
-// ~0.2 GB of inputs and outputs (~60 us at 3.35 TB/s).
+// ~0.2 GB of inputs and outputs (~60 us at 3.35 TB/s). fp32 products run
+// at 3xTF32's fp32-accurate 494.7 / 3 TFLOP/s at best.
 //
 // Design. As in the JAX package, two kernels, each with one accumulator
 // that a block owns, so neither needs atomics and both are deterministic
@@ -39,6 +41,17 @@
 // the point where _bwd_dq_kernel (:373) and _bwd_dkv_kernel (:437) add it
 // to (q k) * scale. dK/dV reads it in its transposed frame, bias[q, key]
 // for its (key row, q column) elements.
+// fp32 mode (T = float): the same loops on 3xTF32 products
+// (flash_common.cuh) over fp32 tiles with LD = D + 4; the tile sizes and
+// stages are the bf16 ones (shared memory: dQ 198 KB at d 128, dK/dV 133
+// KB, within the 227 KB a block may use).
+// Dropout mode (DROP, a template flag): each lane draws the keep bits of
+// the elements it holds (philox.cuh; dK/dV in its transposed frame, element
+// (query, key) for its (key row, q column)), as _bwd_dq_kernel (:376-385)
+// and _bwd_dkv_kernel (:440-458) regenerate the forward's mask: dP takes
+// keep ? dP / (1 - p_drop) : 0 before dS = P * (dP - delta) * scale, and
+// dV takes the dropped, rescaled P. delta = rowsum(dO * out) of the
+// dropped output, as the wrapper's caller computes it.
 //
 // Arithmetic against the Pallas kernels (and flash_block_grads_plain):
 // S = Q K^T and dP = dO V^T are bf16 products, exact in fp32, in another
@@ -46,8 +59,8 @@
 // A operand of dV += P^T dO, dQ += dS K and dK += dS^T Q (the TPU's MXU
 // rounds its fp32 operands the same way at default precision). The plain
 // version keeps them in fp32, so dq, dk and dv differ by about 2^-9 of the
-// size of their terms, averaged over the sum. Inputs are bf16 only (the
-// wrapper raises on others).
+// size of their terms, averaged over the sum. fp32 inputs: every product to
+// fp32 accuracy (3xTF32), P and dS too.
 //
 // C interface (bound with ctypes): flash_bwd_dq_launch and
 // flash_bwd_dkv_launch return the CUDA launch error (0 on success); they
@@ -63,24 +76,27 @@ constexpr int kThreads = 128;   // 4 warps x 16 rows
 constexpr int kBQ = 64;         // dQ: q rows per block
 constexpr int kBK = 64;         // keys per tile (both kernels)
 
-template <int D, bool HAS_BIAS>
+template <typename T, int D, bool HAS_BIAS, bool DROP>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const T* __restrict__ dout,
                     const float* __restrict__ lse,
-                    const float* __restrict__ delta, bf16* __restrict__ dq,
+                    const float* __restrict__ delta, T* __restrict__ dq,
                     int H, int sq, int sk, int64_t q_sb, int64_t q_ss,
                     int64_t q_sh, int64_t k_sb, int64_t k_ss, int64_t k_sh,
                     int64_t v_sb, int64_t v_ss, int64_t v_sh, int64_t o_sb,
                     int64_t o_ss, int64_t o_sh, float scale, bool causal,
                     const float* __restrict__ bias, int64_t b_sb,
-                    int64_t b_sh, int64_t b_sq, int64_t b_sk) {
-  constexpr int LD = D + 8;
+                    int64_t b_sh, int64_t b_sq, int64_t b_sk,
+                    const int64_t* __restrict__ seed, uint32_t thresh,
+                    float inv_keep) {
+  constexpr bool kF32 = std::is_same<T, float>::value;
+  constexpr int LD = Pitch<T, D>::LD;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sO = sQ + kBQ * LD;    // dO
-  bf16* sK[2] = {sO + kBQ * LD, sO + kBQ * LD + 2 * kBK * LD};   // 2 stages
-  bf16* sV[2] = {sK[0] + kBK * LD, sK[1] + kBK * LD};
+  T* sQ = reinterpret_cast<T*>(smem_raw);
+  T* sO = sQ + kBQ * LD;    // dO
+  T* sK[2] = {sO + kBQ * LD, sO + kBQ * LD + 2 * kBK * LD};   // 2 stages
+  T* sV[2] = {sK[0] + kBK * LD, sK[1] + kBK * LD};
 
   const int nq = (sq + kBQ - 1) / kBQ;
   const int q0 = (nq - 1 - (int)blockIdx.x) * kBQ;   // heaviest tile first
@@ -89,9 +105,14 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int g = lane >> 2, t = lane & 3;
   const int off = sk - sq;
   const float scale_log2 = scale * kLog2e;
+  uint32_t key0 = 0, key1 = 0;
+  if constexpr (DROP) {
+    key0 = (uint32_t)seed[0];
+    key1 = (uint32_t)seed[1];
+  }
 
-  const bf16* kb = k + bi * k_sb + hi * k_sh;
-  const bf16* vb = v + bi * v_sb + hi * v_sh;
+  const T* kb = k + bi * k_sb + hi * k_sh;
+  const T* vb = v + bi * v_sb + hi * v_sh;
   const int kend = causal ? min(sk, q0 + kBQ + off) : sk;
   const int n_tiles = kend > 0 ? (kend + kBK - 1) / kBK : 0;
   auto issue = [&](int jt) {   // tile jt of K and V into stage jt & 1
@@ -132,8 +153,8 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   for (int jt = 0; jt < n_tiles; ++jt) {
     const int k0 = jt * kBK;
-    const bf16* cK = sK[jt & 1];
-    const bf16* cV = sV[jt & 1];
+    const T* cK = sK[jt & 1];
+    const T* cV = sV[jt & 1];
     __syncthreads();   // stage (jt + 1) & 1 (tile jt - 1) is consumed
     if (jt + 1 < n_tiles) {
       issue(jt + 1);   // streams in while this tile is computed
@@ -149,20 +170,38 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
       dp[i][0] = dp[i][1] = dp[i][2] = dp[i][3] = 0.f;
     }
+    if constexpr (kF32) {
+      nt_product_f32<kBK / 8, D, LD>(s, sQ, warp * 16, cK, lane);
+      nt_product_f32<kBK / 8, D, LD>(dp, sO, warp * 16, cV, lane);
+    } else {
 #pragma unroll
-    for (int ks = 0; ks < D / 16; ++ks) {
-      uint32_t aq[4], ao[4];
-      ldsm_x4(aq, a_addr<LD>(sQ, warp * 16, ks * 16, lane));
-      ldsm_x4(ao, a_addr<LD>(sO, warp * 16, ks * 16, lane));
+      for (int ks = 0; ks < D / 16; ++ks) {
+        uint32_t aq[4], ao[4];
+        ldsm_x4(aq, a_addr<LD>(sQ, warp * 16, ks * 16, lane));
+        ldsm_x4(ao, a_addr<LD>(sO, warp * 16, ks * 16, lane));
 #pragma unroll
-      for (int np = 0; np < kBK / 16; ++np) {
-        uint32_t b[4];
-        ldsm_x4(b, b_addr<LD>(cK, np * 16, ks * 16, lane));
-        mma(s[2 * np], aq, b[0], b[1]);
-        mma(s[2 * np + 1], aq, b[2], b[3]);
-        ldsm_x4(b, b_addr<LD>(cV, np * 16, ks * 16, lane));
-        mma(dp[2 * np], ao, b[0], b[1]);
-        mma(dp[2 * np + 1], ao, b[2], b[3]);
+        for (int np = 0; np < kBK / 16; ++np) {
+          uint32_t b[4];
+          ldsm_x4(b, b_addr<LD>(cK, np * 16, ks * 16, lane));
+          mma(s[2 * np], aq, b[0], b[1]);
+          mma(s[2 * np + 1], aq, b[2], b[3]);
+          ldsm_x4(b, b_addr<LD>(cV, np * 16, ks * 16, lane));
+          mma(dp[2 * np], ao, b[0], b[1]);
+          mma(dp[2 * np + 1], ao, b[2], b[3]);
+        }
+      }
+    }
+    if constexpr (DROP) {   // dP of the dropped P: keep ? dP / (1 - p) : 0
+#pragma unroll
+      for (int nt = 0; nt < kBK / 8; ++nt) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          bool keep0, keep1;
+          drop_keep2(bh, row[r], k0 + nt * 8 + 2 * t, key0, key1, thresh,
+                     keep0, keep1);
+          dp[nt][2 * r] = keep0 ? dp[nt][2 * r] * inv_keep : 0.f;
+          dp[nt][2 * r + 1] = keep1 ? dp[nt][2 * r + 1] * inv_keep : 0.f;
+        }
       }
     }
 #pragma unroll
@@ -185,18 +224,22 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         s[nt][i] = p * (dp[nt][i] - dlt[r]) * scale;   // dS
       }
     }
+    if constexpr (kF32) {
+      nn_product_f32<kBK, D, LD>(acc, s, cK, lane);
+    } else {
 #pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) {
-      const uint32_t a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                             pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                             pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                             pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+      for (int kk = 0; kk < kBK / 16; ++kk) {
+        const uint32_t a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                               pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                               pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                               pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
 #pragma unroll
-      for (int dd = 0; dd < D / 16; ++dd) {
-        uint32_t b[4];
-        ldsm_x4_t(b, a_addr<LD>(cK, kk * 16, dd * 16, lane));
-        mma(acc[2 * dd], a, b[0], b[1]);
-        mma(acc[2 * dd + 1], a, b[2], b[3]);
+        for (int dd = 0; dd < D / 16; ++dd) {
+          uint32_t b[4];
+          ldsm_x4_t(b, a_addr<LD>(cK, kk * 16, dd * 16, lane));
+          mma(acc[2 * dd], a, b[0], b[1]);
+          mma(acc[2 * dd + 1], a, b[2], b[3]);
+        }
       }
     }
   }
@@ -205,36 +248,39 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     if (row[r] >= sq) continue;
-    bf16* drow = dq + (((int64_t)bi * sq + row[r]) * H + hi) * D;
+    T* drow = dq + (((int64_t)bi * sq + row[r]) * H + hi) * D;
 #pragma unroll
     for (int i = 0; i < D / 8; ++i)
       store2(drow + i * 8 + 2 * t, acc[i][2 * r], acc[i][2 * r + 1]);
   }
 }
 
-template <int D, int BQ, bool HAS_BIAS>
+template <typename T, int D, int BQ, bool HAS_BIAS, bool DROP>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v,
-                     const bf16* __restrict__ dout,
+flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v,
+                     const T* __restrict__ dout,
                      const float* __restrict__ lse,
-                     const float* __restrict__ delta, bf16* __restrict__ dk,
-                     bf16* __restrict__ dv, int H, int sq, int sk,
+                     const float* __restrict__ delta, T* __restrict__ dk,
+                     T* __restrict__ dv, int H, int sq, int sk,
                      int64_t q_sb, int64_t q_ss, int64_t q_sh, int64_t k_sb,
                      int64_t k_ss, int64_t k_sh, int64_t v_sb, int64_t v_ss, int64_t v_sh,
                      int64_t o_sb, int64_t o_ss, int64_t o_sh, float scale,
                      bool causal, const float* __restrict__ bias,
-                     int64_t b_sb, int64_t b_sh, int64_t b_sq, int64_t b_sk) {
-  constexpr int LD = D + 8;
+                     int64_t b_sb, int64_t b_sh, int64_t b_sq, int64_t b_sk,
+                     const int64_t* __restrict__ seed, uint32_t thresh,
+                     float inv_keep) {
+  constexpr bool kF32 = std::is_same<T, float>::value;
+  constexpr int LD = Pitch<T, D>::LD;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   // K, V, then two stages of (Q, dO, lse in base 2, delta)
-  constexpr int kStage = 2 * BQ * LD * sizeof(bf16) + 2 * BQ * sizeof(float);
-  bf16* sK = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sV = sK + kBK * LD;
+  constexpr int kStage = 2 * BQ * LD * sizeof(T) + 2 * BQ * sizeof(float);
+  T* sK = reinterpret_cast<T*>(smem_raw);
+  T* sV = sK + kBK * LD;
   unsigned char* stages = reinterpret_cast<unsigned char*>(sV + kBK * LD);
-  bf16* sQ[2] = {reinterpret_cast<bf16*>(stages),
-                 reinterpret_cast<bf16*>(stages + kStage)};
-  bf16* sO[2] = {sQ[0] + BQ * LD, sQ[1] + BQ * LD};
+  T* sQ[2] = {reinterpret_cast<T*>(stages),
+              reinterpret_cast<T*>(stages + kStage)};
+  T* sO[2] = {sQ[0] + BQ * LD, sQ[1] + BQ * LD};
   float* sL[2] = {reinterpret_cast<float*>(sO[0] + BQ * LD),
                   reinterpret_cast<float*>(sO[1] + BQ * LD)};
   float* sD[2] = {sL[0] + BQ, sL[1] + BQ};
@@ -245,9 +291,14 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int g = lane >> 2, t = lane & 3;
   const int off = sk - sq;
   const float scale_log2 = scale * kLog2e;
+  uint32_t key0 = 0, key1 = 0;
+  if constexpr (DROP) {
+    key0 = (uint32_t)seed[0];
+    key1 = (uint32_t)seed[1];
+  }
 
-  const bf16* qb = q + bi * q_sb + hi * q_sh;
-  const bf16* ob = dout + bi * o_sb + hi * o_sh;
+  const T* qb = q + bi * q_sb + hi * q_sh;
+  const T* ob = dout + bi * o_sb + hi * o_sh;
   load_tile_async<kBK, D, LD, kThreads>(
       sK, k + bi * k_sb + hi * k_sh + k0 * k_ss, k_ss, sk - k0);
   load_tile_async<kBK, D, LD, kThreads>(
@@ -288,8 +339,8 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   if (i0 < n_qt) issue(i0);
   for (int it = i0; it < n_qt; ++it) {
     const int qs0 = it * BQ, st = it & 1;
-    const bf16* cQ = sQ[st];
-    const bf16* cO = sO[st];
+    const T* cQ = sQ[st];
+    const T* cO = sO[st];
     const float* cL = sL[st];
     const float* cD = sD[st];
     __syncthreads();   // stage (it + 1) & 1 (q tile it - 1) is consumed
@@ -307,20 +358,25 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
       dp[i][0] = dp[i][1] = dp[i][2] = dp[i][3] = 0.f;
     }
+    if constexpr (kF32) {
+      nt_product_f32<BQ / 8, D, LD>(s, sK, warp * 16, cQ, lane);
+      nt_product_f32<BQ / 8, D, LD>(dp, sV, warp * 16, cO, lane);
+    } else {
 #pragma unroll
-    for (int ks = 0; ks < D / 16; ++ks) {
-      uint32_t ak[4], av[4];
-      ldsm_x4(ak, a_addr<LD>(sK, warp * 16, ks * 16, lane));
-      ldsm_x4(av, a_addr<LD>(sV, warp * 16, ks * 16, lane));
+      for (int ks = 0; ks < D / 16; ++ks) {
+        uint32_t ak[4], av[4];
+        ldsm_x4(ak, a_addr<LD>(sK, warp * 16, ks * 16, lane));
+        ldsm_x4(av, a_addr<LD>(sV, warp * 16, ks * 16, lane));
 #pragma unroll
-      for (int np = 0; np < BQ / 16; ++np) {
-        uint32_t b[4];
-        ldsm_x4(b, b_addr<LD>(cQ, np * 16, ks * 16, lane));
-        mma(s[2 * np], ak, b[0], b[1]);
-        mma(s[2 * np + 1], ak, b[2], b[3]);
-        ldsm_x4(b, b_addr<LD>(cO, np * 16, ks * 16, lane));
-        mma(dp[2 * np], av, b[0], b[1]);
-        mma(dp[2 * np + 1], av, b[2], b[3]);
+        for (int np = 0; np < BQ / 16; ++np) {
+          uint32_t b[4];
+          ldsm_x4(b, b_addr<LD>(cQ, np * 16, ks * 16, lane));
+          mma(s[2 * np], ak, b[0], b[1]);
+          mma(s[2 * np + 1], ak, b[2], b[3]);
+          ldsm_x4(b, b_addr<LD>(cO, np * 16, ks * 16, lane));
+          mma(dp[2 * np], av, b[0], b[1]);
+          mma(dp[2 * np + 1], av, b[2], b[3]);
+        }
       }
     }
 #pragma unroll
@@ -340,29 +396,42 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           p = visible(qs0 + c, krow[i >> 1], sq, sk, off, causal)
                   ? exp2f(s[nt][i] * scale_log2 - cL[c]) : 0.f;
         }
-        s[nt][i] = p;                                   // P^T
-        dp[nt][i] = p * (dp[nt][i] - cD[c]) * scale;    // dS^T
+        float dpv = dp[nt][i];
+        if constexpr (DROP) {   // element (query qs0 + c, key krow)
+          const bool keep = drop_keep(bh, qs0 + c, krow[i >> 1], key0, key1,
+                                      thresh);
+          s[nt][i] = keep ? p * inv_keep : 0.f;         // dropped P^T
+          dpv = keep ? dpv * inv_keep : 0.f;
+        } else {
+          s[nt][i] = p;                                   // P^T
+        }
+        dp[nt][i] = p * (dpv - cD[c]) * scale;          // dS^T
       }
     }
+    if constexpr (kF32) {
+      nn_product_f32<BQ, D, LD>(dva, s, cO, lane);
+      nn_product_f32<BQ, D, LD>(dka, dp, cQ, lane);
+    } else {
 #pragma unroll
-    for (int kk = 0; kk < BQ / 16; ++kk) {
-      const uint32_t ap[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-      const uint32_t as[4] = {pack_bf16(dp[2 * kk][0], dp[2 * kk][1]),
-                              pack_bf16(dp[2 * kk][2], dp[2 * kk][3]),
-                              pack_bf16(dp[2 * kk + 1][0], dp[2 * kk + 1][1]),
-                              pack_bf16(dp[2 * kk + 1][2], dp[2 * kk + 1][3])};
+      for (int kk = 0; kk < BQ / 16; ++kk) {
+        const uint32_t ap[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                                pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                                pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                                pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+        const uint32_t as[4] = {pack_bf16(dp[2 * kk][0], dp[2 * kk][1]),
+                                pack_bf16(dp[2 * kk][2], dp[2 * kk][3]),
+                                pack_bf16(dp[2 * kk + 1][0], dp[2 * kk + 1][1]),
+                                pack_bf16(dp[2 * kk + 1][2], dp[2 * kk + 1][3])};
 #pragma unroll
-      for (int dd = 0; dd < D / 16; ++dd) {
-        uint32_t b[4];
-        ldsm_x4_t(b, a_addr<LD>(cO, kk * 16, dd * 16, lane));
-        mma(dva[2 * dd], ap, b[0], b[1]);
-        mma(dva[2 * dd + 1], ap, b[2], b[3]);
-        ldsm_x4_t(b, a_addr<LD>(cQ, kk * 16, dd * 16, lane));
-        mma(dka[2 * dd], as, b[0], b[1]);
-        mma(dka[2 * dd + 1], as, b[2], b[3]);
+        for (int dd = 0; dd < D / 16; ++dd) {
+          uint32_t b[4];
+          ldsm_x4_t(b, a_addr<LD>(cO, kk * 16, dd * 16, lane));
+          mma(dva[2 * dd], ap, b[0], b[1]);
+          mma(dva[2 * dd + 1], ap, b[2], b[3]);
+          ldsm_x4_t(b, a_addr<LD>(cQ, kk * 16, dd * 16, lane));
+          mma(dka[2 * dd], as, b[0], b[1]);
+          mma(dka[2 * dd + 1], as, b[2], b[3]);
+        }
       }
     }
   }
@@ -383,49 +452,56 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // d = 128 takes 32-row q tiles in dK/dV (registers), d = 64 takes 64
 template <int D> struct DkvTile { static constexpr int BQ = D == 128 ? 32 : 64; };
 
-template <int D>
+template <typename T, int D>
 int launch_dq(const void* q, const void* k, const void* v, const void* o,
               const void* lse, const void* delta, void* dq, const void* bias,
-              int b, int h, int sq, int sk, const int64_t* st, float scale,
-              int causal, cudaStream_t stream) {
-  const size_t smem = sizeof(bf16) * (2 * kBQ + 4 * kBK) * (D + 8);
-  auto kern = bias ? flash_bwd_dq_kernel<D, true>
-                   : flash_bwd_dq_kernel<D, false>;
+              const void* seed, int b, int h, int sq, int sk,
+              const int64_t* st, float scale, int causal, uint32_t thresh,
+              float inv_keep, cudaStream_t stream) {
+  const size_t smem = sizeof(T) * (2 * kBQ + 4 * kBK) * Pitch<T, D>::LD;
+  auto kern = bias ? (seed ? flash_bwd_dq_kernel<T, D, true, true>
+                           : flash_bwd_dq_kernel<T, D, true, false>)
+                   : (seed ? flash_bwd_dq_kernel<T, D, false, true>
+                           : flash_bwd_dq_kernel<T, D, false, false>);
   cudaError_t err = allow_smem(kern, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((sq + kBQ - 1) / kBQ, b * h);
   kern<<<grid, kThreads, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(o),
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(o),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<bf16*>(dq), h, sq, sk, st[0], st[1], st[2], st[3], st[4],
+      static_cast<T*>(dq), h, sq, sk, st[0], st[1], st[2], st[3], st[4],
       st[5], st[6], st[7], st[8], st[9], st[10], st[11], scale, causal != 0,
-      static_cast<const float*>(bias), st[12], st[13], st[14], st[15]);
+      static_cast<const float*>(bias), st[12], st[13], st[14], st[15],
+      static_cast<const int64_t*>(seed), thresh, inv_keep);
   return (int)cudaGetLastError();
 }
 
-template <int D>
+template <typename T, int D>
 int launch_dkv(const void* q, const void* k, const void* v, const void* o,
                const void* lse, const void* delta, void* dk, void* dv,
-               const void* bias, int b, int h, int sq, int sk,
-               const int64_t* st, float scale, int causal,
-               cudaStream_t stream) {
+               const void* bias, const void* seed, int b, int h, int sq,
+               int sk, const int64_t* st, float scale, int causal,
+               uint32_t thresh, float inv_keep, cudaStream_t stream) {
   constexpr int BQ = DkvTile<D>::BQ;
-  const size_t smem = sizeof(bf16) * (4 * BQ + 2 * kBK) * (D + 8)
+  const size_t smem = sizeof(T) * (4 * BQ + 2 * kBK) * Pitch<T, D>::LD
                       + sizeof(float) * 4 * BQ;
-  auto kern = bias ? flash_bwd_dkv_kernel<D, BQ, true>
-                   : flash_bwd_dkv_kernel<D, BQ, false>;
+  auto kern = bias ? (seed ? flash_bwd_dkv_kernel<T, D, BQ, true, true>
+                           : flash_bwd_dkv_kernel<T, D, BQ, true, false>)
+                   : (seed ? flash_bwd_dkv_kernel<T, D, BQ, false, true>
+                           : flash_bwd_dkv_kernel<T, D, BQ, false, false>);
   cudaError_t err = allow_smem(kern, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((sk + kBK - 1) / kBK, b * h);
   kern<<<grid, kThreads, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(o),
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(o),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<bf16*>(dk), static_cast<bf16*>(dv), h, sq, sk, st[0],
+      static_cast<T*>(dk), static_cast<T*>(dv), h, sq, sk, st[0],
       st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10],
       st[11], scale, causal != 0, static_cast<const float*>(bias), st[12],
-      st[13], st[14], st[15]);
+      st[13], st[14], st[15], static_cast<const int64_t*>(seed), thresh,
+      inv_keep);
   return (int)cudaGetLastError();
 }
 
@@ -435,31 +511,37 @@ bool shape_ok(int64_t b, int64_t h, int64_t sq, int64_t sk) {
 
 }  // namespace
 
-// q, k, v, dO and the gradients are bfloat16. Strides are in elements,
-// (batch, seq, head) for each of q, k, v and dO; head_dim is contiguous.
-// lse and delta are fp32 [b, h, sq]; dq is contiguous [b, sq, h, d].
-// bias is null (no bias) or fp32, element (b, h, q, k) at bias_sb * b +
-// bias_sh * h + bias_sq * q + bias_sk * k (a broadcast dimension: stride 0).
+// q, k, v, dO and the gradients are one dtype: dtype 1 bfloat16, 0
+// float32. Strides are in elements, (batch, seq, head) for each of q, k, v
+// and dO; head_dim is contiguous. lse and delta are fp32 [b, h, sq]; dq is
+// contiguous [b, sq, h, d]. bias is null (no bias) or fp32, element (b, h,
+// q, k) at bias_sb * b + bias_sh * h + bias_sq * q + bias_sk * k (a
+// broadcast dimension: stride 0). seed is null (no dropout) or the
+// forward's device int64 [2] (seed, offset), with its thresh and inv_keep.
 extern "C" int flash_bwd_dq_launch(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dq, const void* bias,
-    int64_t b, int64_t h, int64_t sq, int64_t sk, int64_t d, int64_t q_sb,
-    int64_t q_ss, int64_t q_sh, int64_t k_sb, int64_t k_ss, int64_t k_sh,
-    int64_t v_sb, int64_t v_ss, int64_t v_sh, int64_t o_sb, int64_t o_ss,
-    int64_t o_sh, int64_t bias_sb, int64_t bias_sh, int64_t bias_sq,
-    int64_t bias_sk, float scale, int causal, void* stream) {
+    const void* seed, int64_t b, int64_t h, int64_t sq, int64_t sk,
+    int64_t d, int64_t q_sb, int64_t q_ss, int64_t q_sh, int64_t k_sb,
+    int64_t k_ss, int64_t k_sh, int64_t v_sb, int64_t v_ss, int64_t v_sh,
+    int64_t o_sb, int64_t o_ss, int64_t o_sh, int64_t bias_sb,
+    int64_t bias_sh, int64_t bias_sq, int64_t bias_sk, float scale,
+    int causal, int dtype, uint32_t thresh, float inv_keep, void* stream) {
   if (b * h <= 0 || sq <= 0 || sk <= 0) return 0;
   if (!shape_ok(b, h, sq, sk)) return (int)cudaErrorInvalidValue;
   const int64_t st[16] = {q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
                           v_sb, v_ss, v_sh, o_sb, o_ss, o_sh,
                           bias_sb, bias_sh, bias_sq, bias_sk};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d == 64)
-    return launch_dq<64>(q, k, v, dout, lse, delta, dq, bias, (int)b,
-                         (int)h, (int)sq, (int)sk, st, scale, causal, s);
-  if (d == 128)
-    return launch_dq<128>(q, k, v, dout, lse, delta, dq, bias, (int)b,
-                          (int)h, (int)sq, (int)sk, st, scale, causal, s);
+#define FLASH_DQ_LAUNCH(T, D)                                                \
+  return launch_dq<T, D>(q, k, v, dout, lse, delta, dq, bias, seed, (int)b, \
+                         (int)h, (int)sq, (int)sk, st, scale, causal,        \
+                         thresh, inv_keep, s)
+  if (dtype == 1 && d == 64) FLASH_DQ_LAUNCH(bf16, 64);
+  if (dtype == 1 && d == 128) FLASH_DQ_LAUNCH(bf16, 128);
+  if (dtype == 0 && d == 64) FLASH_DQ_LAUNCH(float, 64);
+  if (dtype == 0 && d == 128) FLASH_DQ_LAUNCH(float, 128);
+#undef FLASH_DQ_LAUNCH
   return (int)cudaErrorInvalidValue;
 }
 
@@ -467,22 +549,26 @@ extern "C" int flash_bwd_dq_launch(
 extern "C" int flash_bwd_dkv_launch(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dk, void* dv, const void* bias,
-    int64_t b, int64_t h, int64_t sq, int64_t sk, int64_t d, int64_t q_sb,
-    int64_t q_ss, int64_t q_sh, int64_t k_sb, int64_t k_ss, int64_t k_sh,
-    int64_t v_sb, int64_t v_ss, int64_t v_sh, int64_t o_sb, int64_t o_ss,
-    int64_t o_sh, int64_t bias_sb, int64_t bias_sh, int64_t bias_sq,
-    int64_t bias_sk, float scale, int causal, void* stream) {
+    const void* seed, int64_t b, int64_t h, int64_t sq, int64_t sk,
+    int64_t d, int64_t q_sb, int64_t q_ss, int64_t q_sh, int64_t k_sb,
+    int64_t k_ss, int64_t k_sh, int64_t v_sb, int64_t v_ss, int64_t v_sh,
+    int64_t o_sb, int64_t o_ss, int64_t o_sh, int64_t bias_sb,
+    int64_t bias_sh, int64_t bias_sq, int64_t bias_sk, float scale,
+    int causal, int dtype, uint32_t thresh, float inv_keep, void* stream) {
   if (b * h <= 0 || sq <= 0 || sk <= 0) return 0;
   if (!shape_ok(b, h, sq, sk)) return (int)cudaErrorInvalidValue;
   const int64_t st[16] = {q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
                           v_sb, v_ss, v_sh, o_sb, o_ss, o_sh,
                           bias_sb, bias_sh, bias_sq, bias_sk};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d == 64)
-    return launch_dkv<64>(q, k, v, dout, lse, delta, dk, dv, bias, (int)b,
-                          (int)h, (int)sq, (int)sk, st, scale, causal, s);
-  if (d == 128)
-    return launch_dkv<128>(q, k, v, dout, lse, delta, dk, dv, bias, (int)b,
-                           (int)h, (int)sq, (int)sk, st, scale, causal, s);
+#define FLASH_DKV_LAUNCH(T, D)                                               \
+  return launch_dkv<T, D>(q, k, v, dout, lse, delta, dk, dv, bias, seed,    \
+                          (int)b, (int)h, (int)sq, (int)sk, st, scale,      \
+                          causal, thresh, inv_keep, s)
+  if (dtype == 1 && d == 64) FLASH_DKV_LAUNCH(bf16, 64);
+  if (dtype == 1 && d == 128) FLASH_DKV_LAUNCH(bf16, 128);
+  if (dtype == 0 && d == 64) FLASH_DKV_LAUNCH(float, 64);
+  if (dtype == 0 && d == 128) FLASH_DKV_LAUNCH(float, 128);
+#undef FLASH_DKV_LAUNCH
   return (int)cudaErrorInvalidValue;
 }

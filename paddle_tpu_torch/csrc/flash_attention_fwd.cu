@@ -2,13 +2,16 @@
 // over [b, s, h, d] tensors, causal or not.
 //
 // Replaces paddle_tpu/ops/pallas/flash_attention.py::_fwd_kernel / _fwd
-// (its pallas_call at :242), with its additive bias mode (has_bias) and
-// without the segment-id and dropout modes.
+// (its pallas_call at :242), with its additive bias mode (has_bias), its
+// in-kernel dropout (dropout_p, _drop_mask :50) and any input dtype the
+// JAX kernel takes in bf16 and fp32; without the segment-id mode.
 //
 // Bound on the H100: operations. At the training path's shape (b 4, s 2048,
 // h 16, d 128, causal, bf16) the two products are 68.7 GFLOP against
 // ~134 MB of q, k, v, out and lse: 69 us at the 989 TFLOP/s bf16
-// tensor-core peak against 40 us at 3.35 TB/s.
+// tensor-core peak against 40 us at 3.35 TB/s. fp32 (GPT-2 small, b 8, s
+// 1024, h 12, d 64, causal): 12.9 GFLOP at the fastest fp32-accurate rate,
+// 3xTF32 at 494.7 / 3 TFLOP/s, 78 us.
 //
 // Design. The TPU kernel walks a (b*h, q block, k block) grid in order and
 // carries acc, m and l in VMEM scratch across the sequential k axis. Blocks
@@ -40,14 +43,22 @@
 //     running max, as _fwd_kernel adds it after (q * scale) k (:146-148).
 //     Keys past sk are masked, never read: the JAX code pads them with
 //     -1e30 (_pad_bias :268), which gives them the same p = 0.
+//   - fp32 mode (T = float): the same loop on 3xTF32 products
+//     (flash_common.cuh), Q in its own shared tile (its split fragments
+//     would not fit the registers), fp32 tiles with LD = D + 4.
+//   - dropout mode (DROP, a template flag): as _fwd_kernel (:149-163), the
+//     row sums l take the undropped p; each lane then draws the keep bits
+//     of the elements it holds (philox.cuh) and P V takes keep ? p / (1 -
+//     p_drop) : 0. lse is unchanged. The key (seed, offset) is read from a
+//     device int64 [2], so no draw waits for the host.
 //
 // Arithmetic against the Pallas kernel (and flash_fwd_plain): QK^T of bf16
 // inputs is exact in fp32, only the order of the sums differs; the Pallas
 // kernel scales q before the product and this one scales the fp32 product
-// (one fp32 rounding apart). P is rounded to bf16 for the P V product
-// (the TPU's MXU does the same at default precision); the plain version
-// keeps P in fp32, so the output differs by about one bf16 ulp of out.
-// Inputs are bf16 only (the wrapper raises on others). Masked
+// (one fp32 rounding apart). bf16: P is rounded to bf16 for the P V
+// product (the TPU's MXU does the same at default precision); the plain
+// version keeps P in fp32, so the output differs by about one bf16 ulp of
+// out. fp32: every product to fp32 accuracy (3xTF32), P too. Masked
 // scores take -1e30, the subtracted max is clamped at -1e25, and a row that
 // sees no key gets out = 0 and lse = -1e30, as in the Pallas kernel.
 //
@@ -64,22 +75,27 @@ constexpr int kThreads = 128;   // 4 warps x 16 q rows
 constexpr int kBQ = 64;
 constexpr int kBK = 64;
 
-template <int D, bool HAS_BIAS>
+template <typename T, int D, bool HAS_BIAS, bool DROP>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, bf16* __restrict__ out,
+flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, T* __restrict__ out,
                  float* __restrict__ lse, int H, int sq, int sk,
                  int64_t q_sb, int64_t q_ss, int64_t q_sh, int64_t k_sb,
                  int64_t k_ss, int64_t k_sh, int64_t v_sb, int64_t v_ss,
                  int64_t v_sh, float scale, bool causal,
                  const float* __restrict__ bias, int64_t b_sb, int64_t b_sh,
-                 int64_t b_sq, int64_t b_sk) {
-  constexpr int LD = D + 8;
+                 int64_t b_sq, int64_t b_sk,
+                 const int64_t* __restrict__ seed, uint32_t thresh,
+                 float inv_keep) {
+  constexpr bool kF32 = std::is_same<T, float>::value;
+  constexpr int LD = Pitch<T, D>::LD;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  // two stages of (K, V); the Q tile is staged in stage 1's K first
-  bf16* sK[2] = {reinterpret_cast<bf16*>(smem_raw),
-                 reinterpret_cast<bf16*>(smem_raw) + 2 * kBK * LD};
-  bf16* sV[2] = {sK[0] + kBK * LD, sK[1] + kBK * LD};
+  // bf16: two stages of (K, V), the Q tile staged in stage 1's K first;
+  // fp32: Q's own tile, then the two stages
+  T* sQ = reinterpret_cast<T*>(smem_raw);
+  T* st0 = kF32 ? sQ + kBQ * LD : sQ;
+  T* sK[2] = {st0, st0 + 2 * kBK * LD};
+  T* sV[2] = {sK[0] + kBK * LD, sK[1] + kBK * LD};
 
   const int nq = (sq + kBQ - 1) / kBQ;
   const int q0 = (nq - 1 - (int)blockIdx.x) * kBQ;   // heaviest tile first
@@ -88,10 +104,15 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int g = lane >> 2, t = lane & 3;
   const int off = sk - sq;
   const float scale_log2 = scale * kLog2e;
+  uint32_t key0 = 0, key1 = 0;
+  if constexpr (DROP) {
+    key0 = (uint32_t)seed[0];
+    key1 = (uint32_t)seed[1];
+  }
 
-  const bf16* qb = q + bi * q_sb + hi * q_sh;
-  const bf16* kb = k + bi * k_sb + hi * k_sh;
-  const bf16* vb = v + bi * v_sb + hi * v_sh;
+  const T* qb = q + bi * q_sb + hi * q_sh;
+  const T* kb = k + bi * k_sb + hi * k_sh;
+  const T* vb = v + bi * v_sb + hi * v_sh;
 
   const int kend = causal ? min(sk, q0 + kBQ + off) : sk;   // keys < kend
   const int n_tiles = kend > 0 ? (kend + kBK - 1) / kBK : 0;
@@ -104,16 +125,18 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     cp_async_commit();
   };
 
-  load_tile_async<kBQ, D, LD, kThreads>(sK[1], qb + q0 * q_ss, q_ss,
-                                        sq - q0);
+  load_tile_async<kBQ, D, LD, kThreads>(kF32 ? sQ : sK[1], qb + q0 * q_ss,
+                                        q_ss, sq - q0);
   cp_async_commit();
   if (n_tiles > 0) issue(0);
   if (n_tiles > 0) cp_async_wait<1>(); else cp_async_wait<0>();
   __syncthreads();
-  uint32_t qf[D / 16][4];
+  uint32_t qf[D / 16][4];   // bf16: this warp's Q rows as A fragments
+  if constexpr (!kF32) {
 #pragma unroll
-  for (int ks = 0; ks < D / 16; ++ks)
-    ldsm_x4(qf[ks], a_addr<LD>(sK[1], warp * 16, ks * 16, lane));
+    for (int ks = 0; ks < D / 16; ++ks)
+      ldsm_x4(qf[ks], a_addr<LD>(sK[1], warp * 16, ks * 16, lane));
+  }
 
   float o[D / 8][4];
 #pragma unroll
@@ -130,8 +153,8 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   for (int jt = 0; jt < n_tiles; ++jt) {
     const int k0 = jt * kBK;
-    const bf16* cK = sK[jt & 1];
-    const bf16* cV = sV[jt & 1];
+    const T* cK = sK[jt & 1];
+    const T* cV = sV[jt & 1];
     __syncthreads();   // stage (jt + 1) & 1 (tile jt - 1, or Q) is consumed
     if (jt + 1 < n_tiles) {
       issue(jt + 1);   // streams in while this tile is computed
@@ -144,14 +167,18 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     float s[kBK / 8][4];
 #pragma unroll
     for (int i = 0; i < kBK / 8; ++i) s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
+    if constexpr (kF32) {
+      nt_product_f32<kBK / 8, D, LD>(s, sQ, warp * 16, cK, lane);
+    } else {
 #pragma unroll
-    for (int ks = 0; ks < D / 16; ++ks) {
+      for (int ks = 0; ks < D / 16; ++ks) {
 #pragma unroll
-      for (int np = 0; np < kBK / 16; ++np) {
-        uint32_t b[4];
-        ldsm_x4(b, b_addr<LD>(cK, np * 16, ks * 16, lane));
-        mma(s[2 * np], qf[ks], b[0], b[1]);
-        mma(s[2 * np + 1], qf[ks], b[2], b[3]);
+        for (int np = 0; np < kBK / 16; ++np) {
+          uint32_t b[4];
+          ldsm_x4(b, b_addr<LD>(cK, np * 16, ks * 16, lane));
+          mma(s[2 * np], qf[ks], b[0], b[1]);
+          mma(s[2 * np + 1], qf[ks], b[2], b[3]);
+        }
       }
     }
 
@@ -202,19 +229,36 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       o[i][2] *= alpha[1];
       o[i][3] *= alpha[1];
     }
+    if constexpr (DROP) {   // l keeps the undropped p; P V the dropped one
+#pragma unroll
+      for (int nt = 0; nt < kBK / 8; ++nt) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          bool keep0, keep1;
+          drop_keep2(bh, row[r], k0 + nt * 8 + 2 * t, key0, key1, thresh,
+                     keep0, keep1);
+          s[nt][2 * r] = keep0 ? s[nt][2 * r] * inv_keep : 0.f;
+          s[nt][2 * r + 1] = keep1 ? s[nt][2 * r + 1] * inv_keep : 0.f;
+        }
+      }
+    }
 
+    if constexpr (kF32) {
+      nn_product_f32<kBK, D, LD>(o, s, cV, lane);
+    } else {
 #pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) {
-      const uint32_t a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                             pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                             pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                             pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+      for (int kk = 0; kk < kBK / 16; ++kk) {
+        const uint32_t a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                               pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                               pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                               pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
 #pragma unroll
-      for (int dp = 0; dp < D / 16; ++dp) {
-        uint32_t b[4];
-        ldsm_x4_t(b, a_addr<LD>(cV, kk * 16, dp * 16, lane));
-        mma(o[2 * dp], a, b[0], b[1]);
-        mma(o[2 * dp + 1], a, b[2], b[3]);
+        for (int dp = 0; dp < D / 16; ++dp) {
+          uint32_t b[4];
+          ldsm_x4_t(b, a_addr<LD>(cV, kk * 16, dp * 16, lane));
+          mma(o[2 * dp], a, b[0], b[1]);
+          mma(o[2 * dp + 1], a, b[2], b[3]);
+        }
       }
     }
   }
@@ -224,7 +268,7 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const float l = quad_sum(l_r[r]);
     const float l_safe = l == 0.f ? 1.f : l;
     if (row[r] >= sq) continue;
-    bf16* orow = out + (((int64_t)bi * sq + row[r]) * H + hi) * D;
+    T* orow = out + (((int64_t)bi * sq + row[r]) * H + hi) * D;
 #pragma unroll
     for (int i = 0; i < D / 8; ++i)
       store2(orow + i * 8 + 2 * t, o[i][2 * r] / l_safe,
@@ -235,51 +279,68 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-template <int D>
+template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, void* out, void* lse,
-           const void* bias, int b, int h, int sq, int sk, const int64_t* st,
-           float scale, int causal, cudaStream_t stream) {
-  const size_t smem = sizeof(bf16) * 4 * kBK * (D + 8);
-  auto kern = bias ? flash_fwd_kernel<D, true> : flash_fwd_kernel<D, false>;
+           const void* bias, const void* seed, int b, int h, int sq, int sk,
+           const int64_t* st, float scale, int causal, uint32_t thresh,
+           float inv_keep, cudaStream_t stream) {
+  constexpr int LD = Pitch<T, D>::LD;
+  const size_t smem = std::is_same<T, float>::value
+                          ? sizeof(T) * (kBQ + 4 * kBK) * LD
+                          : sizeof(T) * 4 * kBK * LD;
+  auto kern = bias ? (seed ? flash_fwd_kernel<T, D, true, true>
+                           : flash_fwd_kernel<T, D, true, false>)
+                   : (seed ? flash_fwd_kernel<T, D, false, true>
+                           : flash_fwd_kernel<T, D, false, false>);
   const cudaError_t err = allow_smem(kern, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((sq + kBQ - 1) / kBQ, b * h);
   kern<<<grid, kThreads, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(out),
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(out),
       static_cast<float*>(lse), h, sq, sk, st[0], st[1], st[2], st[3], st[4],
       st[5], st[6], st[7], st[8], scale, causal != 0,
-      static_cast<const float*>(bias), st[9], st[10], st[11], st[12]);
+      static_cast<const float*>(bias), st[9], st[10], st[11], st[12],
+      static_cast<const int64_t*>(seed), thresh, inv_keep);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// q, k, v and out are bfloat16. Strides are in elements, (batch, seq,
-// head) for each of q, k, v; head_dim is contiguous. out is contiguous [b, sq, h, d]; lse fp32 [b, h, sq].
+// q, k, v and out are one dtype: dtype 1 bfloat16, 0 float32. Strides are
+// in elements, (batch, seq, head) for each of q, k, v; head_dim is
+// contiguous. out is contiguous [b, sq, h, d]; lse fp32 [b, h, sq].
 // bias is null (no bias) or fp32, element (b, h, q, k) at bias_sb * b +
 // bias_sh * h + bias_sq * q + bias_sk * k (a broadcast dimension: stride 0).
+// seed is null (no dropout) or a device int64 [2] (seed, offset), the
+// Philox key of the keep mask; an element is kept when its word is >=
+// thresh, and a kept p is multiplied by inv_keep = 1 / (1 - p_drop).
 extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v,
                                 void* out, void* lse, const void* bias,
-                                int64_t b, int64_t h,
+                                const void* seed, int64_t b, int64_t h,
                                 int64_t sq, int64_t sk, int64_t d,
                                 int64_t q_sb, int64_t q_ss, int64_t q_sh,
                                 int64_t k_sb, int64_t k_ss, int64_t k_sh,
                                 int64_t v_sb, int64_t v_ss, int64_t v_sh,
                                 int64_t bias_sb, int64_t bias_sh,
                                 int64_t bias_sq, int64_t bias_sk,
-                                float scale, int causal, void* stream) {
+                                float scale, int causal, int dtype,
+                                uint32_t thresh, float inv_keep,
+                                void* stream) {
   if (b * h <= 0 || sq <= 0) return 0;
   if (b * h > 65535 || sq > (1 << 30) || sk < 0 || sk > (1 << 30))
     return (int)cudaErrorInvalidValue;
   const int64_t st[13] = {q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss,
                           v_sh, bias_sb, bias_sh, bias_sq, bias_sk};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d == 64)
-    return launch<64>(q, k, v, out, lse, bias, (int)b, (int)h, (int)sq,
-                      (int)sk, st, scale, causal, s);
-  if (d == 128)
-    return launch<128>(q, k, v, out, lse, bias, (int)b, (int)h, (int)sq,
-                       (int)sk, st, scale, causal, s);
+#define FLASH_FWD_LAUNCH(T, D)                                              \
+  return launch<T, D>(q, k, v, out, lse, bias, seed, (int)b, (int)h,       \
+                      (int)sq, (int)sk, st, scale, causal, thresh, inv_keep, \
+                      s)
+  if (dtype == 1 && d == 64) FLASH_FWD_LAUNCH(bf16, 64);
+  if (dtype == 1 && d == 128) FLASH_FWD_LAUNCH(bf16, 128);
+  if (dtype == 0 && d == 64) FLASH_FWD_LAUNCH(float, 64);
+  if (dtype == 0 && d == 128) FLASH_FWD_LAUNCH(float, 128);
+#undef FLASH_FWD_LAUNCH
   return (int)cudaErrorInvalidValue;
 }

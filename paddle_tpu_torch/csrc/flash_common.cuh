@@ -1,9 +1,9 @@
 // Pieces shared by the flash attention kernels (flash_attention_fwd.cu,
-// flash_attention_bwd.cu): bf16 packing, the m16n8k16 tensor-core product,
-// ldmatrix fragment loads, and the global -> shared tile loader (with
-// cp.async, so that the next tile streams in while the block computes).
-// The kernels take bf16 q, k, v and dO only: the tensor cores' input type,
-// so no input is rounded on the way in.
+// flash_attention_bwd.cu): bf16 packing, the m16n8k16 bf16 tensor-core
+// product, ldmatrix fragment loads, the fp32 mode's 3xTF32 product, and the
+// global -> shared tile loader (with cp.async, so that the next tile streams
+// in while the block computes). The kernels take bf16 or fp32 q, k, v and
+// dO, all of one type; no input is rounded to another type on the way in.
 //
 // Fragment layouts (PTX ISA, mma.m16n8k16 with .bf16 inputs): lane = 4 * g
 // + t (g = lane >> 2, t = lane & 3).
@@ -18,12 +18,37 @@
 // 16-byte aligned for ldmatrix and the 8 rows an ldmatrix phase reads fall
 // in 8 distinct 4-bank groups (LD / 2 = 4 mod 32 words), so loads are free
 // of bank conflicts.
+//
+// fp32 mode (3xTF32). A product of fp32 operands keeps fp32 accuracy on the
+// TF32 tensor cores when each operand is split into hi = tf32(x) and lo =
+// tf32(x - hi) (round to nearest both times, so hi + lo is x to ~2^-24) and
+// the sum takes lo*hi + hi*lo + hi*hi in fp32 (the dropped lo*lo is
+// ~2^-24 of the product). mma.m16n8k8 with .tf32 inputs, per lane:
+//   A 16x8: {(g, t), (g+8, t), (g, t+4), (g+8, t+4)};
+//   B 8x8 (k x n): {(k t, n g), (k t+4, n g)};
+//   C as above.
+// ldmatrix has no 32-bit layout, so fragments come from plain shared
+// loads. A C tile (16 x 8, lane holding columns 2t and 2t+1) feeds the next
+// product as an A fragment with no shuffle by renaming the 8 keys of the
+// k-step: logical column t is key 2t and t+4 is key 2t+1, so A = {c0, c2,
+// c1, c3}, and the B operand reads rows 2t and 2t+1 to match. fp32 tiles
+// take LD = D + 4 floats a row (16-byte rows; LD = 4 mod 32 words), which
+// keeps both access patterns, (row g, column t) and (row 2t, column g),
+// free of bank conflicts.
+//
+// Dropout (philox.cuh): each lane draws the keep bits of the score elements
+// it holds, from (batch * head, query, key), in the forward and again in
+// both backward kernels.
 
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+#include "philox.cuh"
 
 namespace flash {
 
@@ -112,18 +137,20 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
 }
 
-// ROWS x D bf16 tile from global rows `row_stride` elements apart into
-// shared memory (LD elements a row) with cp.async, so the threads are not
-// held; rows at or past n_valid are zero-filled. Neighbouring threads copy
-// neighbouring 16-byte chunks of a row. The caller commits the group and
-// waits for it before the barrier that publishes the tile.
-template <int ROWS, int D, int LD, int NT>
-__device__ __forceinline__ void load_tile_async(bf16* dst, const bf16* src,
+// ROWS x D tile (bf16 or fp32) from global rows `row_stride` elements
+// apart into shared memory (LD elements a row) with cp.async, so the
+// threads are not held; rows at or past n_valid are zero-filled.
+// Neighbouring threads copy neighbouring 16-byte chunks of a row. The
+// caller commits the group and waits for it before the barrier that
+// publishes the tile.
+template <int ROWS, int D, int LD, int NT, typename T>
+__device__ __forceinline__ void load_tile_async(T* dst, const T* src,
                                                 int64_t row_stride,
                                                 int n_valid) {
-  constexpr int kChunks = D / 8;
+  constexpr int kPer = 16 / sizeof(T);   // elements in 16 bytes
+  constexpr int kChunks = D / kPer;
   for (int i = threadIdx.x; i < ROWS * kChunks; i += NT) {
-    const int r = i / kChunks, c = (i % kChunks) * 8;
+    const int r = i / kChunks, c = (i % kChunks) * kPer;
     const bool ok = r < n_valid;
     cp_async16(dst + r * LD + c, ok ? src + r * row_stride + c : src,
                ok ? 16 : 0);
@@ -140,6 +167,112 @@ cudaError_t allow_smem(Kern kern, size_t bytes) {
 
 __device__ __forceinline__ void store2(bf16* p, float a, float b) {
   *reinterpret_cast<uint32_t*>(p) = pack_bf16(a, b);
+}
+
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+
+// Row pitch of a shared tile of head dim D (see the header comment).
+template <typename T, int D>
+struct Pitch {
+  static constexpr int LD = std::is_same<T, float>::value ? D + 4 : D + 8;
+};
+
+// ---- fp32 mode: 3xTF32 products on mma.m16n8k8 ----
+
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(x));
+  const float rest = x - __uint_as_float(hi);
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(rest));
+}
+
+// D += A * B, tf32 inputs, fp32 accumulators
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// An fp32 A fragment of mma.m16n8k8 split into its hi and lo parts.
+struct FragA {
+  uint32_t hi[4], lo[4];
+};
+
+__device__ __forceinline__ FragA split_a(float a0, float a1, float a2,
+                                         float a3) {
+  FragA f;
+  split_tf32(a0, f.hi[0], f.lo[0]);
+  split_tf32(a1, f.hi[1], f.lo[1]);
+  split_tf32(a2, f.hi[2], f.lo[2]);
+  split_tf32(a3, f.hi[3], f.lo[3]);
+  return f;
+}
+
+// D += A * B to fp32 accuracy, B = {b0, b1} in fp32. The three passes (the
+// small terms first) sum into a fresh accumulator, which is then added to
+// D on the CUDA cores: the tensor cores align a sum to its largest term
+// and truncate, so a long chain of mma on one accumulator (a k loop over a
+// whole sequence) drifts by up to an ulp of the running sum per step,
+// while IEEE adds round to nearest.
+__device__ __forceinline__ void mma3(float (&d)[4], const FragA& a, float b0,
+                                     float b1) {
+  uint32_t bh0, bl0, bh1, bl1;
+  split_tf32(b0, bh0, bl0);
+  split_tf32(b1, bh1, bl1);
+  float part[4] = {0.f, 0.f, 0.f, 0.f};
+  mma_tf32(part, a.lo, bh0, bh1);
+  mma_tf32(part, a.hi, bl0, bl1);
+  mma_tf32(part, a.hi, bh0, bh1);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) d[i] += part[i];
+}
+
+// The A fragment of rows r0.., columns c0..c0+7 of a row-major fp32 tile.
+template <int LD>
+__device__ __forceinline__ FragA frag_a(const float* tile, int r0, int c0,
+                                        int lane) {
+  const float* p = tile + (r0 + (lane >> 2)) * LD + c0 + (lane & 3);
+  return split_a(p[0], p[8 * LD], p[4], p[8 * LD + 4]);
+}
+
+// acc[n] += A (16 rows at r0, D columns) . B[n0 + 8n .. + 8)^T for n < NT:
+// both fp32 row-major tiles, B's rows the n index ([n][k]).
+template <int NT, int D, int LD>
+__device__ __forceinline__ void nt_product_f32(float (&acc)[NT][4],
+                                               const float* A, int r0,
+                                               const float* B, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int ks = 0; ks < D / 8; ++ks) {
+    const FragA a = frag_a<LD>(A, r0, ks * 8, lane);
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      const float* b = B + (n * 8 + g) * LD + ks * 8 + t;
+      mma3(acc[n], a, b[0], b[4]);
+    }
+  }
+}
+
+// acc[n] += C (16 x KT, C fragments c[kk] of 8 columns each) . B[0..KT) x
+// [8n .. 8n + 8) for n < D / 8: B an fp32 row-major [k][n] tile. Each
+// 8-column C fragment is an A operand with its keys renamed (see above).
+template <int KT, int D, int LD>
+__device__ __forceinline__ void nn_product_f32(float (&acc)[D / 8][4],
+                                               const float (&c)[KT / 8][4],
+                                               const float* B, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int kk = 0; kk < KT / 8; ++kk) {
+    const FragA a = split_a(c[kk][0], c[kk][2], c[kk][1], c[kk][3]);
+    const float* b = B + (kk * 8 + 2 * t) * LD + g;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) mma3(acc[n], a, b[n * 8], b[LD + n * 8]);
+  }
 }
 
 __device__ __forceinline__ float quad_max(float v) {

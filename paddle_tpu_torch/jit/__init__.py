@@ -29,9 +29,16 @@ class TrainStep:
     gradients of the last step stay in each parameter's ``.grad`` until
     the next call.
 
+    The step runs the model in training mode, as the JAX ``TrainStep``
+    calls ``functional_call(..., training=True)`` (jit/__init__.py:124),
+    and puts back the mode it found. Random draws (dropout) come from the
+    generators the model's layers hold, not from a key the step draws:
+    the same draws in the same order whether the kernels or their plain
+    versions (``plain_reference()``) run, so a parity run that restores a
+    generator's state draws the same masks on both sides.
+
     Not ported: ``has_aux``, grad hooks, fault-injection sites and
-    ``PipelineTrainStep``; no PRNG key is drawn, as nothing on this path
-    is random."""
+    ``PipelineTrainStep``."""
 
     def __init__(self, model: nn.Module, optimizer: Optimizer,
                  loss_fn: Callable, n_inputs: int = 1):
@@ -59,7 +66,12 @@ class TrainStep:
             opt.state = opt.init_state(self._params)
         for p in self._params.values():
             p.grad = None
-        loss = self.loss_fn(self.model(*inputs), *labels)
+        was_training = self.model.training
+        self.model.train()
+        try:
+            loss = self.loss_fn(self.model(*inputs), *labels)
+        finally:
+            self.model.train(was_training)
         loss.backward()
         for p in self._params.values():
             if p.grad is None:          # unused by this loss: a zero grad

@@ -9,9 +9,14 @@ takes flash attention, a padding mask in the kernels' bias mode. The MLM
 logits go through the tied word embedding, one parameter that receives
 the gradient of both the lookup and the product.
 
-Dropout with a probability above 0 raises in training (not ported yet,
-ROADMAP.md A1): ``bench.py::bench_bert`` trains with both dropouts at
-0, and a model in eval mode runs with any.
+Dropout (``hidden_dropout_prob`` on the embeddings, the residual
+branches and the FFN activation, ``attention_probs_dropout_prob`` on the
+probabilities, in the flash kernels' dropout mode from 256 rows on)
+draws from the model's ``generator``, seeded from ``seed`` and shared by
+every Dropout and attention layer, so BERT's own defaults (fp32, both
+dropouts 0.1) train reproducibly from a seed. The bits are not
+``jax.random``'s (ROADMAP.md A1). ``bench.py::bench_bert`` trains with
+both dropouts at 0.
 """
 
 from __future__ import annotations
@@ -24,7 +29,8 @@ from torch import nn
 from ..core import resolve_device, resolve_dtype
 from ..nn import functional as F
 from ..nn.layer import (Dropout, Embedding, LayerNorm, Linear,
-                        TransformerEncoder, TransformerEncoderLayer)
+                        TransformerEncoder, TransformerEncoderLayer,
+                        set_generator)
 
 __all__ = ["BertConfig", "BertEmbeddings", "BertModel", "BertForPreTraining",
            "BertForSequenceClassification", "bert_base", "bert_large"]
@@ -107,6 +113,12 @@ def _model_args(config, device):
 
 
 def _init(model, seed):
+    """The model's generator (seeded from ``seed``, or 0) on every layer
+    that draws, then seeded random weights unless ``seed`` is None."""
+    device = next(model.parameters()).device
+    model.generator = torch.Generator(device=device)
+    model.generator.manual_seed(0 if seed is None else int(seed))
+    set_generator(model, model.generator)
     if seed is not None:
         from .weights import init_random
         init_random(model, seed)
@@ -117,7 +129,9 @@ class BertForPreTraining(nn.Module):
     through the tied word embedding and NSP logits (counterpart:
     bert.py:86-109). ``device=None`` means the GPU (RuntimeError without
     one — pass ``device="cpu"`` for the CPU); ``seed=None`` leaves the
-    weights uninitialised for a load from the JAX model."""
+    weights uninitialised for a load from the JAX model. ``generator``
+    (seeded from ``seed``, or 0) draws every dropout mask and
+    attention-dropout key."""
 
     def __init__(self, config: BertConfig, device=None, seed: int | None = 0):
         super().__init__()

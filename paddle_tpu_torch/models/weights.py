@@ -25,7 +25,8 @@
   expert weights, zeros for Linear biases, XavierUniform for the fp32
   MoE router, N(0, 1) for Embedding, ones for RMSNorm, ones and zeros
   for LayerNorm), each in its parameter's own dtype. A tied weight (the
-  BERT MLM decoder is the word embedding) is one parameter, drawn once. The draws differ from ``jax.random``'s
+  BERT MLM decoder and the GPT LM head are the word embedding) is one
+  parameter, drawn once. The draws differ from ``jax.random``'s
   for the same seed; tests that compare the two packages load the JAX
   weights instead.
 """

@@ -1,5 +1,5 @@
-"""The nn subset the Llama, Qwen2-MoE and BERT models need (counterpart:
-paddle_tpu/nn)."""
+"""The nn subset the Llama, Qwen2-MoE, BERT and GPT models need
+(counterpart: paddle_tpu/nn)."""
 
 from . import functional
 from .functional import silu

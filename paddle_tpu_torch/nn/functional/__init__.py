@@ -12,11 +12,6 @@ __all__ = ["cached_prefill_attention", "paged_attention_decode",
            "rms_norm", "silu", "relu", "gelu", "tanh", "linear",
            "embedding", "dropout"]
 
-_NO_DROPOUT = ("dropout with p > 0 in training is not ported yet: the JAX "
-               "package draws its keep mask from jax.random, whose bits "
-               "are not ported (ROADMAP.md A1)")
-
-
 def silu(x: torch.Tensor) -> torch.Tensor:
     """x * sigmoid(x) (counterpart: activation.py:74, jax.nn.silu)."""
     return torch.nn.functional.silu(x)
@@ -50,14 +45,43 @@ def linear(x: torch.Tensor, weight: torch.Tensor,
 
 def embedding(ids: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
     """Row gather from a ``[vocab, dim]`` table (counterpart:
-    common.py:72)."""
-    return weight[ids.long()]
+    common.py:72, ``jnp.take``). Its backward sums each row's gradient in
+    a fixed order on every device, so a seed reproduces a run bitwise: on
+    the card indexing's (``index_put_`` with accumulation, sort-based
+    there), on the CPU ``torch.nn.functional.embedding``'s (indexing
+    accumulates in thread order on the CPU)."""
+    if ids.is_cuda:
+        return weight[ids.long()]
+    return torch.nn.functional.embedding(ids.long(), weight)
 
 
-def dropout(x: torch.Tensor, p: float = 0.5,
-            training: bool = True) -> torch.Tensor:
-    """The identity when ``p == 0`` or not training (counterpart:
-    common.py:31); raises otherwise."""
+def dropout(x: torch.Tensor, p: float = 0.5, axis=None,
+            training: bool = True, mode: str = "upscale_in_train",
+            generator: torch.Generator | None = None) -> torch.Tensor:
+    """Counterpart of common.py:31-45. Not training, or ``p == 0``: x
+    (``upscale_in_train``) or ``x * (1 - p)`` (``downscale_in_infer``).
+    ``p == 1``: zeros. Otherwise a keep mask ``torch.rand(shape,
+    generator=generator) < 1 - p`` (the counterpart of ``bernoulli(1 -
+    p)``; ``shape`` is x's, with size 1 on every dimension outside
+    ``axis`` when ``axis`` is given) and ``where(keep, x / (1 - p), 0)``
+    (``upscale_in_train``) or ``where(keep, x, 0)``. The bits come from
+    ``generator`` (the default generator of x's device when None), not
+    ``jax.random``'s: a run reproduces from its generator's state, never
+    the JAX package's mask (ROADMAP.md A1)."""
+    if mode not in ("upscale_in_train", "downscale_in_infer"):
+        raise ValueError(f"dropout mode must be 'upscale_in_train' or "
+                         f"'downscale_in_infer'; got {mode!r}")
     if not training or p == 0.0:
-        return x
-    raise NotImplementedError(_NO_DROPOUT)
+        return x if mode == "upscale_in_train" else x * (1.0 - p)
+    if p == 1.0:
+        return torch.zeros_like(x)
+    shape = list(x.shape)
+    if axis is not None:
+        axes = [a % x.dim() for a in (axis if isinstance(axis, (list, tuple))
+                                      else [axis])]
+        shape = [n if i in axes else 1 for i, n in enumerate(shape)]
+    keep = torch.rand(shape, generator=generator, device=x.device) < 1.0 - p
+    zero = torch.zeros((), dtype=x.dtype, device=x.device)
+    if mode == "upscale_in_train":
+        return torch.where(keep, x / (1.0 - p), zero).to(x.dtype)
+    return torch.where(keep, x, zero)

@@ -14,8 +14,8 @@ entry points carry the serving path:
   optional mask: from ``FLASH_MIN_SEQ`` query rows on it takes flash
   attention (``ops/kernels/flash_attention.py``; the CUDA kernels on the
   card, their plain versions on the CPU; a mask rides in the kernels'
-  bias mode), below that the plain core, as the JAX package routes it on
-  its accelerator.
+  bias mode, dropout in their dropout mode), below that the plain core,
+  as the JAX package routes it on its accelerator.
 
 bf16 note: a bf16 product in PyTorch returns bf16, while the JAX code
 asks XLA for the fp32 sum (``preferred_element_type``). The plain cores
@@ -54,13 +54,16 @@ def _rank4(m):
     return m
 
 
-def _plain_attention(q, k, v, is_causal=False, attn_mask=None):
-    """Counterpart of ``_xla_attention`` (attention.py:37-81) without
-    dropout: fp32 scores and softmax, probabilities cast to the input
-    dtype for the PV product, fp32 accumulation, one cast back. A bool
-    mask keeps where True and puts -1e30 elsewhere (a fully masked row
-    comes out uniform, not NaN); a float mask is added, and its gradient
-    flows."""
+def _plain_attention(q, k, v, is_causal=False, attn_mask=None,
+                     dropout_p=0.0, generator=None):
+    """Counterpart of ``_xla_attention`` (attention.py:37-81): fp32 scores
+    and softmax, probabilities cast to the input dtype for the PV
+    product, fp32 accumulation, one cast back. A bool mask keeps where
+    True and puts -1e30 elsewhere (a fully masked row comes out uniform,
+    not NaN); a float mask is added, and its gradient flows. With
+    ``dropout_p`` the probabilities take ``where(keep, p / (1 - p_drop),
+    0)``, the keep mask ``torch.rand(.., generator) < 1 - p_drop`` (the
+    counterpart of ``bernoulli(1 - p_drop)``, :77-80)."""
     b, sq, h, d = q.shape
     sk = k.shape[1]
     scale = 1.0 / math.sqrt(d)
@@ -76,6 +79,11 @@ def _plain_attention(q, k, v, is_causal=False, attn_mask=None):
         else:
             scores = scores + m.float()
     probs = torch.softmax(scores, dim=-1)
+    if dropout_p:
+        keep = torch.rand(probs.shape, generator=generator,
+                          device=q.device) < 1.0 - dropout_p
+        probs = torch.where(keep, probs / (1.0 - dropout_p),
+                            torch.zeros((), device=q.device))
     out = torch.einsum("bhqk,bkhd->bqhd", probs.to(q.dtype).float(),
                        v.float())
     return out.to(q.dtype)
@@ -97,33 +105,35 @@ def _normalize_kernel_mask(mask, b, h, sq, sk):
 
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  dropout_p=0.0, is_causal=False,
-                                 training=True):
+                                 training=True, generator=None):
     """Uncached attention (counterpart: attention.py:325), q/k/v with the
     same head count, differentiable in q, k and v. A query of
     FLASH_MIN_SEQ rows or more takes :func:`flash_attention` on every
-    device, its mask normalised as ``_normalize_kernel_mask`` does; a
-    shorter one, a float mask that wants a gradient (the JAX package
-    sends such a mask, a tracer, to its differentiable XLA path, :210)
-    or a mask that does not broadcast to the kernels' shape take the
-    plain core (the counterpart of ``_xla_attention``), with the same
-    rank convention. Dropout in training raises: ``jax.random``'s bits
-    are not ported (ROADMAP.md A1)."""
-    if dropout_p and training:
-        raise NotImplementedError(
-            "attention dropout in training is not ported yet: the JAX "
-            "package draws its keep mask from jax.random (ROADMAP.md A1)")
+    device, its mask normalised as ``_normalize_kernel_mask`` does, with
+    dropout in training in the kernels' dropout mode (its key drawn from
+    ``generator``); a shorter one, a float mask that wants a gradient
+    (the JAX package sends such a mask, a tracer, to its differentiable
+    XLA path, :210) or a mask that does not broadcast to the kernels'
+    shape take the plain core (the counterpart of ``_xla_attention``),
+    with the same rank convention and its keep mask drawn from
+    ``generator``. The draws are ``torch.Generator``'s, not
+    ``jax.random``'s (ROADMAP.md A1)."""
+    p = dropout_p if training else 0.0
     q, k = query, key
     if q.shape[1] >= FLASH_MIN_SEQ:
         if attn_mask is None:
-            return flash_attention(q, k, value, causal=is_causal)
+            return flash_attention(q, k, value, causal=is_causal,
+                                   dropout_p=p, generator=generator)
         if attn_mask.dtype == torch.bool or not attn_mask.requires_grad:
             m = _normalize_kernel_mask(attn_mask, q.shape[0], q.shape[2],
                                        q.shape[1], k.shape[1])
             if m is not None:
                 return flash_attention(q, k, value, causal=is_causal,
-                                       attn_mask=m)
+                                       attn_mask=m, dropout_p=p,
+                                       generator=generator)
     return _plain_attention(q, k, value, is_causal=is_causal,
-                            attn_mask=attn_mask)
+                            attn_mask=attn_mask, dropout_p=p,
+                            generator=generator)
 
 
 def _grouped_decode_attn(q, kc, vc, seq_lens, scale):

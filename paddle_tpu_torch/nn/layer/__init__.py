@@ -1,8 +1,8 @@
-from .common import Dropout, Embedding, Linear
+from .common import Dropout, Embedding, Linear, set_generator
 from .norm import LayerNorm, RMSNorm
 from .transformer import (MultiHeadAttention, TransformerEncoder,
                           TransformerEncoderLayer)
 
 __all__ = ["Dropout", "Embedding", "Linear", "LayerNorm", "RMSNorm",
            "MultiHeadAttention", "TransformerEncoder",
-           "TransformerEncoderLayer"]
+           "TransformerEncoderLayer", "set_generator"]

@@ -10,7 +10,7 @@ from torch import nn
 
 from .. import functional as F
 
-__all__ = ["Linear", "Embedding", "Dropout"]
+__all__ = ["Linear", "Embedding", "Dropout", "set_generator"]
 
 
 class Linear(nn.Module):
@@ -67,12 +67,31 @@ class Embedding(nn.Module):
 
 
 class Dropout(nn.Module):
-    """Counterpart of common.py:85: the identity when ``p == 0`` or in
-    eval mode; ``F.dropout`` raises otherwise (not ported yet)."""
+    """Counterpart of common.py:85-94: ``F.dropout`` with ``p``, ``axis``
+    and ``mode`` in training, the identity (``upscale_in_train``) in eval
+    mode. ``generator`` draws the keep masks (None: the default generator
+    of the input's device); a model that owns a generator sets it on
+    every Dropout, so that one seed reproduces a run."""
 
-    def __init__(self, p: float = 0.5):
+    def __init__(self, p: float = 0.5, axis=None,
+                 mode: str = "upscale_in_train",
+                 generator: torch.Generator | None = None):
         super().__init__()
         self.p = p
+        self.axis = axis
+        self.mode = mode
+        self.generator = generator
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.dropout(x, p=self.p, training=self.training)
+        return F.dropout(x, p=self.p, axis=self.axis, training=self.training,
+                         mode=self.mode, generator=self.generator)
+
+
+def set_generator(model: nn.Module, generator: torch.Generator) -> None:
+    """Give every module of ``model`` that draws random numbers (each one
+    with a ``generator`` attribute: ``Dropout``, ``MultiHeadAttention``, a
+    GPT block) the one generator of the model, so that its seed
+    reproduces a run."""
+    for module in model.modules():
+        if hasattr(module, "generator"):
+            module.generator = generator

@@ -8,6 +8,10 @@ attention (the CUDA kernels on the card) from 256 query rows on, a mask
 included. Parameter names are the JAX package's
 (``self_attn.{q,k,v,out}_proj``, ``linear1``, ``linear2``, ``norm1``,
 ``norm2``, ``layers.N``), so a JAX ``state_dict`` loads unchanged.
+Dropout, on the probabilities and on the residual branches, draws from
+the ``generator`` attribute of each ``MultiHeadAttention`` and
+``Dropout`` (None: the device's default generator); a model that owns a
+generator sets it on each (``common.set_generator``).
 
 Not ported yet: the KV-cache protocol (``gen_cache``, ``Cache``,
 ``StaticCache``, the ``cache`` arguments) and the decoder classes
@@ -34,7 +38,8 @@ _NO_CACHE = ("the transformer KV-cache protocol (gen_cache, Cache, "
 
 class MultiHeadAttention(nn.Module):
     """Counterpart of transformer.py:24-96, without the caches and the
-    separate key/value widths (``kdim``, ``vdim``)."""
+    separate key/value widths (``kdim``, ``vdim``); ``generator`` draws
+    the attention dropout's key."""
 
     def __init__(self, embed_dim: int, num_heads: int, dropout: float = 0.0,
                  *, device=None, dtype=None):
@@ -43,6 +48,7 @@ class MultiHeadAttention(nn.Module):
         self.num_heads = num_heads
         self.head_dim = embed_dim // num_heads
         self.dropout = dropout
+        self.generator = None
         kw = dict(device=device, dtype=dtype)
         self.q_proj = Linear(embed_dim, embed_dim, **kw)
         self.k_proj = Linear(embed_dim, embed_dim, **kw)
@@ -68,7 +74,7 @@ class MultiHeadAttention(nn.Module):
         out = F.scaled_dot_product_attention(
             q, k, v, attn_mask=attn_mask,
             dropout_p=self.dropout if self.training else 0.0,
-            training=self.training)
+            training=self.training, generator=self.generator)
         b, s = out.shape[0], out.shape[1]
         return self.out_proj(out.reshape(b, s, self.embed_dim))
 

@@ -6,16 +6,17 @@
 | paged decode | ``paged_attention.paged_attention_cuda`` | ``ops/pallas/paged_attention.py::paged_attention_tpu`` (fp mode) |
 | paged decode, int8 | ``paged_attention.paged_attention_cuda`` with scales | ``ops/pallas/paged_attention.py::paged_attention_tpu`` (``k_scale``/``v_scale``) |
 | flash forward | ``flash_attention.flash_fwd_cuda`` | ``ops/pallas/flash_attention.py::_fwd`` |
-| flash forward, bias mode | ``flash_attention.flash_fwd_cuda`` with ``bias`` | ``ops/pallas/flash_attention.py::_fwd`` (``has_bias``) |
 | flash dQ | ``flash_attention.flash_bwd_dq_cuda`` | ``ops/pallas/flash_attention.py::flash_block_grads`` (dQ pass) |
-| flash dQ, bias mode | ``flash_attention.flash_bwd_dq_cuda`` with ``bias`` | ``ops/pallas/flash_attention.py::flash_block_grads`` (dQ pass, ``has_bias``) |
 | flash dK/dV | ``flash_attention.flash_bwd_dkv_cuda`` | ``ops/pallas/flash_attention.py::flash_block_grads`` (dK/dV pass) |
-| flash dK/dV, bias mode | ``flash_attention.flash_bwd_dkv_cuda`` with ``bias`` | ``ops/pallas/flash_attention.py::flash_block_grads`` (dK/dV pass, ``has_bias``) |
 | MoE top-2 routing | ``moe_routing.moe_routing_cuda`` | ``ops/pallas/moe_routing.py::_run_kernel`` |
 | MoE grouped forward | ``moe_grouped_gemm.moe_fwd_cuda`` | ``ops/pallas/moe_grouped_gemm.py::_fwd_call`` |
 | MoE grouped dX | ``moe_grouped_gemm.moe_dx_cuda`` | ``ops/pallas/moe_grouped_gemm.py::_dx_call`` |
 | MoE grouped dW | ``moe_grouped_gemm.moe_dw_cuda`` | ``ops/pallas/moe_grouped_gemm.py::_dw_call`` |
 | LayerNorm | ``layer_norm.layer_norm_cuda`` | ``ops/pallas/fused_norm.py::_ln_fwd_pallas`` |
+
+Each flash kernel has eight modes: bf16 or fp32 inputs, with or without
+in-kernel dropout (``dropout_p`` and its key ``seed_arr``, ``_flash_drop``),
+with or without an additive bias (``has_bias``).
 
 The public flash functions (``flash_attention``, ``flash_attention_with_lse``,
 ``flash_block_grads``) live in the ``flash_attention`` module; the
@@ -23,14 +24,16 @@ differentiable MoE functions (``fused_top2_routing``,
 ``fused_grouped_moe``) in their modules. :func:`launch_counts` reports
 each kernel by name; the paged kernel's two modes count apart
 (``paged_attention``, ``paged_attention_int8``), and so do the flash
-kernels' two (``flash_fwd`` and ``flash_fwd_bias``, ``flash_dq`` and
-``flash_dq_bias``, ``flash_dkv`` and ``flash_dkv_bias``), so a run shows
-which mode its path took.
+kernels' eight (``flash_fwd``, ``flash_fwd_bias``, ``flash_fwd_drop``,
+``flash_fwd_drop_bias``, ``flash_fwd_fp32``, ..., ``flash_fwd_fp32_drop_bias``,
+and the same for ``flash_dq`` and ``flash_dkv``), so a run shows which
+mode its path took.
 """
 
-from .flash_attention import (flash_block_grads_plain, flash_bwd_dkv_cuda,
-                              flash_bwd_dq_cuda, flash_delta, flash_fwd_cuda,
-                              flash_fwd_plain)
+from .flash_attention import (MODES, flash_block_grads_plain,
+                              flash_bwd_dkv_cuda, flash_bwd_dq_cuda,
+                              flash_delta, flash_fwd_cuda, flash_fwd_plain,
+                              mode_attr)
 from .layer_norm import layer_norm, layer_norm_cuda, layer_norm_plain
 from .moe_grouped_gemm import (moe_dw_cuda, moe_dw_plain, moe_dx_cuda,
                                moe_dx_plain, moe_fwd_cuda, moe_fwd_plain)
@@ -54,12 +57,11 @@ _COUNTERS = {
     "rms_norm": (rms_norm_cuda, "launches"),
     "paged_attention": (paged_attention_cuda, "launches"),
     "paged_attention_int8": (paged_attention_cuda, "int8_launches"),
-    "flash_fwd": (flash_fwd_cuda, "launches"),
-    "flash_dq": (flash_bwd_dq_cuda, "launches"),
-    "flash_dkv": (flash_bwd_dkv_cuda, "launches"),
-    "flash_fwd_bias": (flash_fwd_cuda, "bias_launches"),
-    "flash_dq_bias": (flash_bwd_dq_cuda, "bias_launches"),
-    "flash_dkv_bias": (flash_bwd_dkv_cuda, "bias_launches"),
+    **{"flash_" + kind + "_fp32" * f + "_drop" * d + "_bias" * b:
+       (fn, mode_attr(f, d, b))
+       for (f, d, b) in MODES
+       for kind, fn in (("fwd", flash_fwd_cuda), ("dq", flash_bwd_dq_cuda),
+                        ("dkv", flash_bwd_dkv_cuda))},
     "moe_routing": (moe_routing_cuda, "launches"),
     "moe_fwd": (moe_fwd_cuda, "launches"),
     "moe_dx": (moe_dx_cuda, "launches"),

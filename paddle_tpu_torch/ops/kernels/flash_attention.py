@@ -4,39 +4,47 @@
 Replaces ``paddle_tpu/ops/pallas/flash_attention.py``: ``_fwd`` (its
 ``pallas_call`` at :242) and the two ``pallas_call``s of
 ``flash_block_grads`` (dQ :558, dK/dV :590), causal and non-causal, with
-and without the additive bias (``has_bias``). See the sources for what
-bounds them on the H100 and how the designs answer that. Layout
-``[batch, seq, heads, head_dim]`` as in the JAX package; ``lse`` and
-``delta`` are fp32 ``[batch, heads, seq_q]``; a bias is fp32
-``[b|1, h|1, sq, sk]``, added to the scaled scores before the softmax.
+and without the additive bias (``has_bias``), with and without in-kernel
+dropout (``dropout_p``: ``_flash_drop`` :660, ``_flash_bias_drop`` :684),
+on bf16 or fp32 inputs. See the sources for what bounds them on the
+H100 and how the designs answer that. Layout ``[batch, seq, heads,
+head_dim]`` as in the JAX package; ``lse`` and ``delta`` are fp32
+``[batch, heads, seq_q]``; a bias is fp32 ``[b|1, h|1, sq, sk]``, added
+to the scaled scores before the softmax; a dropout key ``seed_arr`` is
+an int64 ``[2]`` (seed, offset) on q's device (``philox.py`` defines the
+keep mask it keys).
 
 - :func:`flash_fwd_plain`, :func:`flash_block_grads_plain` — the plain
   PyTorch versions (CPU path, tests, and what the kernels are held
-  against on the card). They keep the Pallas arithmetic: fp32 q, k, v;
-  the forward scales q before the QK product, the backward scales the
-  product after; masked scores take the finite ``-1e30`` and the
-  subtracted max is clamped at ``-1e25``, so a fully masked row gives
-  ``out = 0`` and ``lse = -1e30``; causal masks align bottom-right
+  against on the card). They keep the Pallas arithmetic: fp32 q, k, v
+  (fp64 for fp64 inputs: the reference the fp32 kernels are measured
+  against); the forward scales q before the QK product, the backward
+  scales the product after; masked scores take the finite ``-1e30`` and
+  the subtracted max is clamped at ``-1e25``, so a fully masked row
+  gives ``out = 0`` and ``lse = -1e30``; causal masks align bottom-right
   (row r sees columns ``<= r + sk - sq``); a bias is added after the
-  causal mask, as in the Pallas kernels.
+  causal mask; dropout as the Pallas kernels apply it (:149-163,
+  :376-385, :440-458): the normaliser sums the undropped P, the PV
+  product and dV take ``keep ? P / (1 - p) : 0``, and dP is masked and
+  scaled before ``dS = P * (dP - delta) * scale``.
 - :func:`flash_fwd_cuda`, :func:`flash_bwd_dq_cuda`,
   :func:`flash_bwd_dkv_cuda` — the kernels' wrappers: they launch on
-  bf16 CUDA tensors or raise outside :func:`kernel_gate`; each counts its
-  no-bias launches in ``.launches`` and its bias-mode launches in
-  ``.bias_launches``. The kernels take bf16 only: their products run on
-  bf16 tensor cores, and an fp32 input rounded to bf16 on the way in
-  would silently lose the precision the plain versions keep. The bias
-  goes to the kernels through its strides, so a broadcast dimension
-  (stride 0) is never materialised.
-- :func:`flash_attention` (differentiable in q, k and v; the mask is
-  not), :func:`flash_attention_with_lse` and :func:`flash_block_grads`
-  — the public functions, with the JAX package's signatures. A CPU
-  tensor, or a CUDA tensor inside ``plain_reference()``, takes the plain
-  versions.
+  CUDA tensors or raise outside :func:`kernel_gate`, :func:`bias_gate`
+  and :func:`seed_gate`. q, k, v (and dO) share one dtype, bf16 or fp32:
+  bf16 runs on bf16 tensor cores, fp32 keeps fp32 accuracy (3xTF32), and
+  no input is rounded to another type. Each wrapper counts its launches
+  per mode in the attribute :func:`mode_attr` names (``launches``,
+  ``bias_launches``, ``fp32_launches``, ..., ``fp32_drop_bias_launches``).
+  The bias goes to the kernels through its strides, so a broadcast
+  dimension (stride 0) is never materialised.
+- :func:`flash_attention` (differentiable in q, k and v; the mask and the
+  dropout key are not), :func:`flash_attention_with_lse` and
+  :func:`flash_block_grads` — the public functions, with the JAX
+  package's signatures. A CPU tensor, or a CUDA tensor inside
+  ``plain_reference()``, takes the plain versions.
 
-Not ported: the segment-id (``flash_attn_unpadded``), in-kernel dropout
-and fp32 modes (ROADMAP.md B1); the public functions raise on the first
-two, and the wrappers on fp32 inputs.
+Not ported: the segment-id mode (``flash_attn_unpadded``, ROADMAP.md
+B3); ``flash_block_grads`` raises on it.
 """
 
 from __future__ import annotations
@@ -47,20 +55,53 @@ import math
 import torch
 
 from .build import library
+from .philox import drop_threshold, keep_mask
 from .routing import use_kernel
 
 __all__ = ["flash_attention", "flash_attention_with_lse",
            "flash_block_grads", "flash_fwd_plain", "flash_block_grads_plain",
            "flash_fwd_cuda", "flash_bwd_dq_cuda", "flash_bwd_dkv_cuda",
-           "flash_delta", "kernel_gate", "bias_gate", "pad_bias",
-           "attn_bias", "HEAD_DIMS"]
+           "flash_delta", "kernel_gate", "bias_gate", "seed_gate",
+           "seed_pair", "pad_bias", "attn_bias", "mode_attr", "MODES",
+           "HEAD_DIMS"]
 
 HEAD_DIMS = (64, 128)
 NEG = -1e30          # the Pallas kernels' finite mask value
 _CLAMP = -1e25       # clamp of the subtracted max / lse (fully masked rows)
-_UNPORTED = ("the segment-id and in-kernel dropout modes of flash "
-             "attention (and fp32 flash on the card) are not ported yet "
-             "(ROADMAP.md B1)")
+_SEG_UNPORTED = ("the segment-id mode of flash attention "
+                 "(flash_attn_unpadded) is not ported yet (ROADMAP.md B3)")
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# (fp32, dropout, bias) of each kernel mode, in the counters' order
+MODES = tuple((f, d, b) for f in (False, True) for d in (False, True)
+              for b in (False, True))
+
+
+def mode_attr(fp32: bool, drop: bool, bias: bool) -> str:
+    """The wrapper attribute that counts a mode's launches."""
+    return ("fp32_" * fp32 + "drop_" * drop + "bias_" * bias) + "launches"
+
+
+def _compute_dtype(t: torch.Tensor) -> torch.dtype:
+    """fp32, or fp64 for fp64 inputs (the plain versions' reference use)."""
+    return torch.float64 if t.dtype == torch.float64 else torch.float32
+
+
+def _inv_keep(p: float, dtype: torch.dtype) -> float:
+    """1 / (1 - p) as the kernels multiply by it (rounded to fp32 first,
+    for fp32 compute; in full for fp64)."""
+    inv = 1.0 / (1.0 - p)
+    return inv if dtype == torch.float64 else float(
+        torch.tensor(inv, dtype=torch.float32))
+
+
+def _dropped(x, dropout_p: float, seed_arr):
+    """``keep ? x / (1 - p) : 0`` over ``[b, h, sq, sk]`` scores, the keep
+    mask of ``philox.keep_mask`` under ``seed_arr``."""
+    b, h, sq, sk = x.shape
+    keep = keep_mask(seed_arr.to(x.device), dropout_p, b * h, sq, sk)
+    return torch.where(keep.view(b, h, sq, sk),
+                       x * _inv_keep(dropout_p, x.dtype),
+                       torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 def _causal_keep(sq: int, sk: int, device) -> torch.Tensor:
@@ -70,63 +111,82 @@ def _causal_keep(sq: int, sk: int, device) -> torch.Tensor:
     return rows + (sk - sq) >= cols
 
 
-def flash_fwd_plain(q, k, v, scale: float, causal: bool, bias=None):
+def flash_fwd_plain(q, k, v, scale: float, causal: bool, bias=None,
+                    dropout_p: float = 0.0, seed_arr=None):
     """``(out, lse)`` of ``_fwd`` / ``_fwd_kernel`` (flash_attention.py:96-265)
-    computed in one block: out in q's dtype, lse fp32 ``[b, h, sq]``;
-    ``bias`` (fp32, broadcastable to ``[b, h, sq, sk]``) is added after
-    ``(q * scale) k`` and the causal mask (:146-148)."""
+    computed in one block: out in q's dtype, lse ``[b, h, sq]`` in the
+    compute dtype (fp32; fp64 for fp64 inputs); ``bias`` (fp32,
+    broadcastable to ``[b, h, sq, sk]``) is added after ``(q * scale) k``
+    and the causal mask (:146-148); with ``dropout_p`` the PV product
+    takes the dropped, rescaled P under ``seed_arr`` and the normaliser
+    the undropped one (:149-163)."""
     sq, sk = q.shape[1], k.shape[1]
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float() * scale, k.float())
+    ct = _compute_dtype(q)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.to(ct) * scale, k.to(ct))
     if causal:
         s = torch.where(_causal_keep(sq, sk, q.device), s,
-                        torch.tensor(NEG, device=q.device))
+                        torch.tensor(NEG, dtype=ct, device=q.device))
     if bias is not None:
-        s = s + bias.float()
+        s = s + bias.to(ct)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m.clamp(min=_CLAMP))
     l = p.sum(dim=-1, keepdim=True)
     l_safe = torch.where(l == 0.0, torch.ones_like(l), l)
-    out = torch.einsum("bhqk,bkhd->bqhd", p, v.float())
+    if dropout_p:
+        p = _dropped(p, dropout_p, seed_arr)
+    out = torch.einsum("bhqk,bkhd->bqhd", p, v.to(ct))
     out = out / l_safe.permute(0, 2, 1, 3)
     lse = (m + torch.log(l_safe))[..., 0]
     return out.to(q.dtype), lse
 
 
 def flash_delta(do, out) -> torch.Tensor:
-    """delta = rowsum(dO * O) in fp32 ``[b, h, sq]`` (``_delta`` :466)."""
-    return (do.float() * out.float()).sum(dim=-1).transpose(1, 2) \
+    """delta = rowsum(dO * O) ``[b, h, sq]`` (``_delta`` :466), in fp32
+    (fp64 for fp64 inputs)."""
+    ct = _compute_dtype(do)
+    return (do.to(ct) * out.to(ct)).sum(dim=-1).transpose(1, 2) \
         .contiguous()
 
 
 def flash_block_grads_plain(q, k, v, do, lse, delta, scale: float,
-                            causal: bool, bias=None):
+                            causal: bool, bias=None, dropout_p: float = 0.0,
+                            seed_arr=None):
     """``(dq, dk, dv)`` of ``flash_block_grads`` (:478-612) in one block:
     P recomputed from ``lse`` (``bias`` added after ``(q k) * scale`` and
     the causal mask, :363-374 and :437), ``dS = P * (dP - delta) *
-    scale``; dq in q's dtype, dk and dv in k's and v's."""
+    scale``; with ``dropout_p`` dP is masked and rescaled first and dV
+    takes the dropped P (:376-385, :440-458); dq in q's dtype, dk and dv
+    in k's and v's."""
     sq, sk = q.shape[1], k.shape[1]
-    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    ct = _compute_dtype(q)
+    qf, kf, vf, dof = (x.to(ct) for x in (q, k, v, do))
     s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
     if causal:
         s = torch.where(_causal_keep(sq, sk, q.device), s,
-                        torch.tensor(NEG, device=q.device))
+                        torch.tensor(NEG, dtype=ct, device=q.device))
     if bias is not None:
-        s = s + bias.float()
-    p = torch.exp(s - lse.float().clamp(min=_CLAMP)[..., None])
+        s = s + bias.to(ct)
+    p = torch.exp(s - lse.to(ct).clamp(min=_CLAMP)[..., None])
     dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
-    ds = p * (dp - delta.float()[..., None]) * scale
+    p_drop = p
+    if dropout_p:
+        p_drop = _dropped(p, dropout_p, seed_arr)
+        dp = _dropped(dp, dropout_p, seed_arr)
+    ds = p * (dp - delta.to(ct)[..., None]) * scale
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf)
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf)
-    dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p_drop, dof)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 # ---------------- the kernels' wrappers ----------------
 
 def _rows_ok(t: torch.Tensor) -> bool:
-    """16-byte vector loads of 8 consecutive elements: unit stride on d,
-    the other strides multiples of 8, a 16-byte aligned start."""
-    return (t.stride(3) == 1 and all(s % 8 == 0 for s in t.stride()[:3])
+    """16-byte vector loads (8 bf16 or 4 fp32 elements): unit stride on
+    d, the other strides multiples of the vector, 16-byte aligned
+    storage."""
+    per = 16 // t.element_size()
+    return (t.stride(3) == 1 and all(s % per == 0 for s in t.stride()[:3])
             and t.data_ptr() % 16 == 0)
 
 
@@ -143,10 +203,10 @@ def kernel_gate(q, k, v, do=None, lse=None, delta=None) -> str | None:
                 f"dim with q {tuple(q.shape)} (repeat GQA heads first)")
     if d not in HEAD_DIMS:
         return f"head dim must be one of {HEAD_DIMS}; got {d}"
-    if not q.dtype == k.dtype == v.dtype == torch.bfloat16:
-        return (f"q, k, v must all be bfloat16 (the tensor cores' input "
-                f"type; fp32 flash on the card is ROADMAP B1); got "
-                f"{q.dtype}, {k.dtype}, {v.dtype}")
+    if q.dtype not in _DTYPE_CODE or not q.dtype == k.dtype == v.dtype:
+        return (f"q, k, v must share one dtype, bfloat16 or float32 (bf16 "
+                f"tensor cores, or fp32-accurate 3xTF32); got {q.dtype}, "
+                f"{k.dtype}, {v.dtype}")
     if do is not None:
         if do.shape != q.shape or do.dtype != q.dtype:
             return "dO must have q's shape and dtype"
@@ -156,8 +216,9 @@ def kernel_gate(q, k, v, do=None, lse=None, delta=None) -> str | None:
                 return f"{name} must be contiguous float32 [b, h, sq]"
     if not all(_rows_ok(t) for t in (q, k, v) + ((do,) if do is not None
                                                  else ())):
-        return ("q, k, v (and dO) need unit stride on head_dim, strides "
-                "that are multiples of 8 and 16-byte aligned storage")
+        per = 16 // q.element_size()
+        return (f"q, k, v (and dO) need unit stride on head_dim, strides "
+                f"that are multiples of {per} and 16-byte aligned storage")
     if b * h > 65535:
         return "at most 65535 batch*heads"
     return None
@@ -180,10 +241,30 @@ def bias_gate(bias, q, k) -> str | None:
     return None
 
 
-def _check(name, *args, bias=None):
+def seed_gate(dropout_p, seed_arr, q) -> str | None:
+    """None when the kernels take this dropout, else the reason:
+    ``0 <= dropout_p < 1``, and for ``dropout_p > 0`` a contiguous int64
+    ``[2]`` key on q's device."""
+    if not 0.0 <= dropout_p < 1.0:
+        return f"dropout_p must lie in [0, 1); got {dropout_p}"
+    if not dropout_p:
+        return None
+    if seed_arr is None:
+        return "dropout needs its (seed, offset) key, seed_arr"
+    if not (seed_arr.is_cuda and seed_arr.device == q.device):
+        return "seed_arr must be on q's CUDA device"
+    if (seed_arr.dtype != torch.int64 or tuple(seed_arr.shape) != (2,)
+            or not seed_arr.is_contiguous()):
+        return "seed_arr must be a contiguous int64 [2] (seed, offset)"
+    return None
+
+
+def _check(name, *args, bias=None, dropout_p=0.0, seed_arr=None):
     why = kernel_gate(*args)
     if why is None and bias is not None:
         why = bias_gate(bias, args[0], args[1])
+    if why is None:
+        why = seed_gate(dropout_p, seed_arr, args[0])
     if why is not None:
         raise ValueError(f"{name}: {why}")
 
@@ -192,7 +273,8 @@ def _fn(lib: str, sym: str, n_ptr: int, n_int: int):
     fn = getattr(library(lib), sym)
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int64] * n_int
-                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                          ctypes.c_uint32, ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
@@ -210,11 +292,20 @@ def _bias_args(bias):
                              for n, st in zip(bias.shape, bias.stride())]
 
 
-def _count(fn, bias):
-    if bias is None:
-        fn.launches += 1
-    else:
-        fn.bias_launches += 1
+def _mode_args(q, dropout_p, seed_arr):
+    """The C interface's tail: (dtype code, Philox threshold, 1 / (1 -
+    p)) and the key pointer (None: no dropout)."""
+    if not dropout_p:
+        return None, (_DTYPE_CODE[q.dtype], 0, 1.0)
+    return seed_arr.data_ptr(), (_DTYPE_CODE[q.dtype],
+                                 drop_threshold(dropout_p),
+                                 _inv_keep(dropout_p, torch.float32))
+
+
+def _count(fn, q, bias, dropout_p):
+    attr = mode_attr(q.dtype == torch.float32, bool(dropout_p),
+                     bias is not None)
+    setattr(fn, attr, getattr(fn, attr) + 1)
 
 
 def _raise_on(err: int, what: str) -> None:
@@ -222,11 +313,15 @@ def _raise_on(err: int, what: str) -> None:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
 
 
-def flash_fwd_cuda(q, k, v, scale: float, causal: bool, bias=None):
+def flash_fwd_cuda(q, k, v, scale: float, causal: bool, bias=None,
+                   dropout_p: float = 0.0, seed_arr=None):
     """Launch the forward kernel: ``(out [b, sq, h, d] in q's dtype,
-    lse fp32 [b, h, sq])``; with ``bias`` its bias mode. Raises
-    ValueError outside :func:`kernel_gate` and :func:`bias_gate`."""
-    _check("flash_fwd_cuda", q, k, v, bias=bias)
+    lse fp32 [b, h, sq])``; with ``bias`` its bias mode, with
+    ``dropout_p > 0`` its dropout mode under the key ``seed_arr``.
+    Raises ValueError outside :func:`kernel_gate`, :func:`bias_gate` and
+    :func:`seed_gate`."""
+    _check("flash_fwd_cuda", q, k, v, bias=bias, dropout_p=dropout_p,
+           seed_arr=seed_arr)
     b, sq, h, d = q.shape
     sk = k.shape[1]
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
@@ -234,22 +329,25 @@ def flash_fwd_cuda(q, k, v, scale: float, causal: bool, bias=None):
     if out.numel() == 0:
         return out, lse.fill_(NEG)
     bptr, bst = _bias_args(bias)
+    sptr, tail = _mode_args(q, dropout_p, seed_arr)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = _fn("flash_attention_fwd", "flash_fwd_launch", 6, 18)(
+        err = _fn("flash_attention_fwd", "flash_fwd_launch", 7, 18)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), bptr, b, h, sq, sk, d, *_strides(q, k, v), *bst,
-            float(scale), int(bool(causal)), stream)
+            lse.data_ptr(), bptr, sptr, b, h, sq, sk, d, *_strides(q, k, v),
+            *bst, float(scale), int(bool(causal)), *tail, stream)
     _raise_on(err, "flash attention forward")
-    _count(flash_fwd_cuda, bias)
+    _count(flash_fwd_cuda, q, bias, dropout_p)
     return out, lse
 
 
 def flash_bwd_dq_cuda(q, k, v, do, lse, delta, scale: float, causal: bool,
-                      bias=None):
-    """Launch the dQ kernel (with ``bias``: its bias mode); dq in q's
-    dtype, contiguous."""
-    _check("flash_bwd_dq_cuda", q, k, v, do, lse, delta, bias=bias)
+                      bias=None, dropout_p: float = 0.0, seed_arr=None):
+    """Launch the dQ kernel (with ``bias``: its bias mode; with
+    ``dropout_p > 0``: its dropout mode under the forward's
+    ``seed_arr``); dq in q's dtype, contiguous."""
+    _check("flash_bwd_dq_cuda", q, k, v, do, lse, delta, bias=bias,
+           dropout_p=dropout_p, seed_arr=seed_arr)
     b, sq, h, d = q.shape
     sk = k.shape[1]
     dq = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
@@ -258,23 +356,27 @@ def flash_bwd_dq_cuda(q, k, v, do, lse, delta, scale: float, causal: bool,
     if sk == 0:
         return dq.zero_()
     bptr, bst = _bias_args(bias)
+    sptr, tail = _mode_args(q, dropout_p, seed_arr)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = _fn("flash_attention_bwd", "flash_bwd_dq_launch", 8, 21)(
+        err = _fn("flash_attention_bwd", "flash_bwd_dq_launch", 9, 21)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), bptr, b, h, sq,
-            sk, d, *_strides(q, k, v, do), *bst, float(scale),
-            int(bool(causal)), stream)
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), bptr, sptr, b,
+            h, sq, sk, d, *_strides(q, k, v, do), *bst, float(scale),
+            int(bool(causal)), *tail, stream)
     _raise_on(err, "flash attention dQ")
-    _count(flash_bwd_dq_cuda, bias)
+    _count(flash_bwd_dq_cuda, q, bias, dropout_p)
     return dq
 
 
 def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, scale: float,
-                       causal: bool, bias=None):
-    """Launch the dK/dV kernel (with ``bias``: its bias mode); dk, dv in
-    k's dtype, contiguous."""
-    _check("flash_bwd_dkv_cuda", q, k, v, do, lse, delta, bias=bias)
+                       causal: bool, bias=None, dropout_p: float = 0.0,
+                       seed_arr=None):
+    """Launch the dK/dV kernel (with ``bias``: its bias mode; with
+    ``dropout_p > 0``: its dropout mode under the forward's
+    ``seed_arr``); dk, dv in k's dtype, contiguous."""
+    _check("flash_bwd_dkv_cuda", q, k, v, do, lse, delta, bias=bias,
+           dropout_p=dropout_p, seed_arr=seed_arr)
     b, sq, h, d = q.shape
     sk = k.shape[1]
     dk = torch.empty((b, sk, h, d), dtype=k.dtype, device=k.device)
@@ -284,61 +386,69 @@ def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, scale: float,
     if sq == 0:
         return dk.zero_(), dv.zero_()
     bptr, bst = _bias_args(bias)
+    sptr, tail = _mode_args(q, dropout_p, seed_arr)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = _fn("flash_attention_bwd", "flash_bwd_dkv_launch", 9, 21)(
+        err = _fn("flash_attention_bwd", "flash_bwd_dkv_launch", 10, 21)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            bptr, b, h, sq, sk, d, *_strides(q, k, v, do), *bst,
-            float(scale), int(bool(causal)), stream)
+            bptr, sptr, b, h, sq, sk, d, *_strides(q, k, v, do), *bst,
+            float(scale), int(bool(causal)), *tail, stream)
     _raise_on(err, "flash attention dK/dV")
-    _count(flash_bwd_dkv_cuda, bias)
+    _count(flash_bwd_dkv_cuda, q, bias, dropout_p)
     return dk, dv
 
 
 for _w in (flash_fwd_cuda, flash_bwd_dq_cuda, flash_bwd_dkv_cuda):
-    _w.launches = 0
-    _w.bias_launches = 0
+    for _mode in MODES:
+        setattr(_w, mode_attr(*_mode), 0)
 
 
 # ---------------- routers and the public functions ----------------
 
-def _fwd(q, k, v, scale, causal, bias=None):
+def _fwd(q, k, v, scale, causal, bias=None, dropout_p=0.0, seed_arr=None):
     if use_kernel(q):
-        return flash_fwd_cuda(q, k, v, scale, causal, bias)
-    return flash_fwd_plain(q, k, v, scale, causal, bias)
+        return flash_fwd_cuda(q, k, v, scale, causal, bias, dropout_p,
+                              seed_arr)
+    return flash_fwd_plain(q, k, v, scale, causal, bias, dropout_p, seed_arr)
 
 
-def _grads(q, k, v, do, lse, delta, scale, causal, bias=None):
+def _grads(q, k, v, do, lse, delta, scale, causal, bias=None, dropout_p=0.0,
+           seed_arr=None):
     if use_kernel(q):
-        dq = flash_bwd_dq_cuda(q, k, v, do, lse, delta, scale, causal, bias)
+        dq = flash_bwd_dq_cuda(q, k, v, do, lse, delta, scale, causal, bias,
+                               dropout_p, seed_arr)
         dk, dv = flash_bwd_dkv_cuda(q, k, v, do, lse, delta, scale, causal,
-                                    bias)
+                                    bias, dropout_p, seed_arr)
         return dq, dk, dv
     return flash_block_grads_plain(q, k, v, do, lse, delta, scale, causal,
-                                   bias)
+                                   bias, dropout_p, seed_arr)
 
 
 class _Flash(torch.autograd.Function):
-    """Counterpart of ``_flash`` and ``_flash_bias`` (:617-653): the
-    forward saves ``(q, k, v, out, lse, bias)``; the backward computes
-    ``delta`` and then runs dQ and dK/dV. The bias gets no gradient
-    (``_flash_bias_bwd`` returns zeros for it)."""
+    """Counterpart of ``_flash``, ``_flash_bias``, ``_flash_drop`` and
+    ``_flash_bias_drop`` (:617-705): the forward saves ``(q, k, v, out,
+    lse, bias, seed_arr)``; the backward computes ``delta`` of the
+    (dropped) output and then runs dQ and dK/dV with the same key, so
+    they draw the forward's mask again. Neither the bias nor the key gets
+    a gradient (``_flash_bias_bwd`` and ``_flash_drop_bwd`` return zeros
+    for them)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, bias, scale, causal):
-        out, lse = _fwd(q, k, v, scale, causal, bias)
-        ctx.save_for_backward(q, k, v, out, lse, bias)
-        ctx.scale, ctx.causal = scale, causal
+    def forward(ctx, q, k, v, bias, seed_arr, scale, causal, dropout_p):
+        out, lse = _fwd(q, k, v, scale, causal, bias, dropout_p, seed_arr)
+        ctx.save_for_backward(q, k, v, out, lse, bias, seed_arr)
+        ctx.scale, ctx.causal, ctx.dropout_p = scale, causal, dropout_p
         return out
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, out, lse, bias = ctx.saved_tensors
+        q, k, v, out, lse, bias, seed_arr = ctx.saved_tensors
         do = do.contiguous()
         dq, dk, dv = _grads(q, k, v, do, lse, flash_delta(do, out),
-                            ctx.scale, ctx.causal, bias)
-        return dq, dk, dv, None, None, None
+                            ctx.scale, ctx.causal, bias, ctx.dropout_p,
+                            seed_arr)
+        return dq, dk, dv, None, None, None, None, None
 
 
 def _scale(q, scale):
@@ -392,17 +502,43 @@ def attn_bias(attn_mask, q, k) -> torch.Tensor:
     return pad_bias(m, q.shape[0], q.shape[2], q.shape[1], k.shape[1])
 
 
+def seed_pair(q, fixed_seed_offset=None, generator=None) -> torch.Tensor:
+    """The dropout key, int64 ``[2]`` (seed, offset) on q's device:
+    ``fixed_seed_offset`` taken as it is (each word modulo 2**32, as the
+    JAX package takes it as int32), else two words drawn from
+    ``generator`` (its device's default generator when None), as
+    ``flash_attention`` (:738-741) draws ``seed_arr`` from ``next_key()``.
+    A draw on the generator's device never waits for the host."""
+    if fixed_seed_offset is not None:
+        words = [int(x) & 0xFFFFFFFF for x in fixed_seed_offset]
+        if len(words) != 2:
+            raise ValueError(f"fixed_seed_offset must be (seed, offset); "
+                             f"got {fixed_seed_offset!r}")
+        return torch.tensor(words, dtype=torch.int64, device=q.device)
+    dev = generator.device if generator is not None else q.device
+    return torch.randint(0, 1 << 32, (2,), generator=generator, device=dev,
+                         dtype=torch.int64).to(q.device)
+
+
 def flash_attention(q, k, v, causal: bool = False, scale: float | None = None,
-                    attn_mask=None, dropout_p: float = 0.0):
+                    attn_mask=None, dropout_p: float = 0.0,
+                    fixed_seed_offset=None, generator=None):
     """Differentiable flash attention; layout ``[b, s, h, d]``, k and v
     with q's head count. ``attn_mask``: an additive float mask or a bool
     one (True keeps), ``[sq, sk]``, ``[b, sq, sk]`` or
     ``[b|1, h|1, sq, sk]``, applied inside the kernels and given no
-    gradient."""
-    if dropout_p:
-        raise NotImplementedError(_UNPORTED)
+    gradient. ``dropout_p > 0``: in-kernel dropout of the attention
+    probabilities, its keep mask keyed on ``fixed_seed_offset`` or on two
+    words drawn from ``generator`` (:seed_pair), drawn again by the
+    backward, never stored."""
+    dropout_p = float(dropout_p)
+    if not 0.0 <= dropout_p < 1.0:
+        raise ValueError(f"dropout_p must lie in [0, 1); got {dropout_p}")
     bias = None if attn_mask is None else attn_bias(attn_mask, q, k)
-    return _Flash.apply(q, k, v, bias, _scale(q, scale), bool(causal))
+    seed_arr = (seed_pair(q, fixed_seed_offset, generator) if dropout_p
+                else None)
+    return _Flash.apply(q, k, v, bias, seed_arr, _scale(q, scale),
+                        bool(causal), dropout_p)
 
 
 def flash_attention_with_lse(q, k, v, causal: bool = False,
@@ -414,10 +550,23 @@ def flash_attention_with_lse(q, k, v, causal: bool = False,
 def flash_block_grads(q, k, v, do, lse, delta, *, scale, causal, seg=None,
                       bias=None, dropout_p=0.0, seed_arr=None):
     """``(dq, dk, dv)`` given the row statistics (counterpart: :478); a
-    ``bias`` is taken as ``_pad_bias`` takes it (cast to fp32)."""
-    if seg is not None or dropout_p or seed_arr is not None:
-        raise NotImplementedError(_UNPORTED)
+    ``bias`` is taken as ``_pad_bias`` takes it (cast to fp32); with
+    ``dropout_p > 0``, ``seed_arr`` is the forward's key (an int64
+    ``[2]`` tensor or a (seed, offset) pair). Segment ids raise (ROADMAP
+    B3)."""
+    if seg is not None:
+        raise NotImplementedError(_SEG_UNPORTED)
     if bias is not None:
         bias = pad_bias(bias.detach(), q.shape[0], q.shape[2], q.shape[1],
                         k.shape[1])
-    return _grads(q, k, v, do, lse, delta, float(scale), bool(causal), bias)
+    dropout_p = float(dropout_p)
+    if dropout_p:
+        if seed_arr is None:
+            raise ValueError("flash_block_grads: dropout needs the "
+                             "forward's seed_arr")
+        if not isinstance(seed_arr, torch.Tensor):
+            seed_arr = seed_pair(q, seed_arr)
+        elif seed_arr.dtype != torch.int64 or seed_arr.device != q.device:
+            seed_arr = seed_pair(q, seed_arr.tolist())
+    return _grads(q, k, v, do, lse, delta, float(scale), bool(causal), bias,
+                  dropout_p, seed_arr if dropout_p else None)

@@ -298,12 +298,35 @@ def test_padded_grads_reach_every_parameter(jax_run):
 
 
 def test_dropout_in_training_raises():
-    tm = BertForPreTraining(BertConfig(**{**TINY,
-                                          "hidden_dropout_prob": 0.1}),
-                            device="cpu")
+    """BERT at its own dropout 0.1 (hidden and attention) trains, its
+    masks and attention-dropout keys drawn from the model's generator:
+    two runs from one seed are bitwise equal, another seed differs, the
+    losses are finite; eval mode draws nothing. What still raises is a
+    probability the flash dropout mode cannot take (1.0: 1 / (1 - p) is
+    infinite)."""
+    drop = {**TINY, "hidden_dropout_prob": 0.1,
+            "attention_probs_dropout_prob": 0.1}
+    args, n_inputs = _args(_batch(43, padded=True))
+
+    def run(seed):
+        tm = BertForPreTraining(BertConfig(**drop), device="cpu", seed=seed)
+        step = TrainStep(tm, AdamW(learning_rate=LR, parameters=tm),
+                         _loss_fn(tm), n_inputs=n_inputs)
+        return [step(*args).item() for _ in range(3)], export_numpy_state(tm)
+
+    (l1, p1), (l2, p2), (l3, _) = run(5), run(5), run(6)
+    assert l1 == l2 and l1 != l3 and np.isfinite(l1).all()
+    assert all(np.array_equal(p1[k], p2[k]) for k in p1)
+    tm = BertForPreTraining(BertConfig(**drop), device="cpu", seed=5)
+    assert all(layer.self_attn.generator is tm.generator
+               for layer in tm.bert.encoder.layers)
     ids = torch.zeros((1, 8), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="A1"):
-        tm(ids)
     tm.eval()
+    state = tm.generator.get_state()
     mlm, nsp = tm(ids)
+    assert torch.equal(tm.generator.get_state(), state)
     assert mlm.shape == (1, 8, TINY["vocab_size"]) and nsp.shape == (1, 2)
+    tm = BertForPreTraining(BertConfig(**{
+        **drop, "attention_probs_dropout_prob": 1.0}), device="cpu")
+    with pytest.raises(ValueError, match=r"\[0, 1\)"):
+        tm(torch.zeros((1, 256), dtype=torch.long))

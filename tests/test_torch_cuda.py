@@ -272,10 +272,10 @@ def test_flash_kernels_take_strided_views(cuda):
 
 def test_flash_raises_outside_its_gate(cuda):
     q, k, v, do = _flash_inputs(1, 256, 256, 2, 64, "bfloat16", cuda)
-    with pytest.raises(NotImplementedError, match="B1"):
-        FA.flash_attention(q, k, v, attn_mask=torch.zeros(256, 256,
-                                                          device=cuda),
-                           dropout_p=0.1)
+    lse0 = torch.zeros((1, 2, 256), device=cuda)
+    with pytest.raises(NotImplementedError, match="B3"):
+        FA.flash_block_grads(q, k, v, do, lse0, lse0, scale=0.125,
+                             causal=True, seg=(np.zeros(256), np.zeros(256)))
     with pytest.raises(ValueError, match="float32"):
         FA.flash_fwd_cuda(q, k, v, 0.125, False,
                           torch.zeros((1, 1, 256, 256), device=cuda).half())
@@ -290,14 +290,23 @@ def test_flash_raises_outside_its_gate(cuda):
     with pytest.raises(ValueError, match="head dim"):
         FA.flash_fwd_cuda(*(torch.zeros((1, 256, 2, 96), device=cuda)
                             .bfloat16() for _ in range(3)), 0.1, True)
-    with pytest.raises(ValueError, match="all be bfloat16"):
+    with pytest.raises(ValueError, match="share one dtype"):
         FA.flash_fwd_cuda(q.half(), k.half(), v.half(), 0.125, True)
-    with pytest.raises(ValueError, match="all be bfloat16"):
+    with pytest.raises(ValueError, match="share one dtype"):
         FA.flash_fwd_cuda(q, k.float(), v, 0.125, True)
-    with pytest.raises(ValueError, match="all be bfloat16"):   # fp32 too
-        FA.flash_fwd_cuda(q.float(), k.float(), v.float(), 0.125, True)
-    with pytest.raises(ValueError, match="all be bfloat16"):
-        FA.flash_attention(q.float(), k.float(), v.float(), causal=True)
+    with pytest.raises(ValueError, match="share one dtype"):   # fp64 too
+        FA.flash_fwd_cuda(q.double(), k.double(), v.double(), 0.125, True)
+    with pytest.raises(ValueError, match="seed_arr"):
+        FA.flash_fwd_cuda(q, k, v, 0.125, True, None, 0.1)
+    with pytest.raises(ValueError, match="int64"):
+        FA.flash_fwd_cuda(q, k, v, 0.125, True, None, 0.1,
+                          torch.zeros(2, dtype=torch.int32, device=cuda))
+    with pytest.raises(ValueError, match=r"\[0, 1\)"):
+        FA.flash_fwd_cuda(q, k, v, 0.125, True, None, 1.0,
+                          torch.zeros(2, dtype=torch.int64, device=cuda))
+    wide32 = torch.zeros((1, 256, 2, 66), device=cuda)[..., :64]
+    with pytest.raises(ValueError, match="multiples of 4"):   # fp32 rows
+        FA.flash_fwd_cuda(wide32, wide32, wide32, 0.125, True)
     with pytest.raises(ValueError, match="repeat GQA"):
         FA.flash_fwd_cuda(q, k[:, :, :1], v[:, :, :1], 0.125, True)
     wide = torch.zeros((1, 256, 2, 128), device=cuda).bfloat16()
@@ -895,3 +904,184 @@ def test_bert_train_step_kernels_vs_plain(cuda):
         rel = ((gk[k] - gp[k]).norm() / gp[ref].norm().clamp(min=1e-30)
                ).item()
         assert rel <= 5e-2, (k, rel)
+
+
+def _fp32_rule(got, plain, ref):
+    """The fp32 kernels' rule (``chip_smoke.flash_fp32_errors``): the
+    kernel's error against fp64 at most 2x the plain fp32 version's plus
+    2**-16 of a row (worst row, a row's scale its largest magnitude plus
+    2**-6 of the output's: the first causal rows of dq are differences of
+    nearly equal terms) and 2**-18 in relative Frobenius norm."""
+    def errs(x):
+        diff = x.double() - ref
+        scale = ref.abs().amax(-1) + 2 ** -6 * ref.abs().max()
+        return ((diff.abs().amax(-1) / scale.clamp(min=1e-300)).max().item(),
+                (diff.norm() / ref.norm().clamp(min=1e-300)).item())
+    (kr, kf), (pr, pf) = errs(got), errs(plain)
+    assert kr <= 2 * pr + 2 ** -16 and kf <= 2 * pf + 2 ** -18, (kr, pr,
+                                                                  kf, pf)
+
+
+def _fp32_check(q, k, v, do, scale, causal, bias=None, p=0.0, seed=None):
+    """fp32 kernels and plain versions against the plain versions in
+    fp64, the backward from the fp64 forward's lse and delta."""
+    mode = (bias, p, seed)
+    q64, k64, v64, do64 = (x.double() for x in (q, k, v, do))
+    ro, rl = FA.flash_fwd_plain(q64, k64, v64, scale, causal, *mode)
+    rd = FA.flash_delta(do64, ro)
+    rg = FA.flash_block_grads_plain(q64, k64, v64, do64, rl, rd, scale,
+                                    causal, *mode)
+    lse, delta = rl.float(), rd.float()
+    po, _ = FA.flash_fwd_plain(q, k, v, scale, causal, *mode)
+    pg = FA.flash_block_grads_plain(q, k, v, do, lse, delta, scale, causal,
+                                    *mode)
+    ko, kl = FA.flash_fwd_cuda(q, k, v, scale, causal, *mode)
+    kg = (FA.flash_bwd_dq_cuda(q, k, v, do, lse, delta, scale, causal,
+                               *mode),) + FA.flash_bwd_dkv_cuda(
+        q, k, v, do, lse, delta, scale, causal, *mode)
+    torch.cuda.synchronize()
+    for got, plain, ref in zip((ko,) + kg, (po,) + pg, (ro,) + rg):
+        assert got.dtype == torch.float32
+        _fp32_rule(got, plain, ref)
+    live = rl > -1e29
+    assert ((kl.double() - rl)[live].abs().max().item()) <= 1e-5
+    return ko, kg
+
+
+def _bias_of(kind, b, h, sq, sk, q, k, device):
+    if kind is None:
+        return None
+    if kind == "keypad":
+        keep = torch.ones((b, 1, 1, sk), dtype=torch.bool, device=device)
+        keep[-1, ..., sk // 3:] = False
+        return FA.attn_bias(keep.expand(b, 1, sq, sk), q, k)
+    g = torch.Generator(device=device).manual_seed(7)
+    return FA.pad_bias(torch.randn((b, h, sq, sk), generator=g,
+                                   device=device) * 2, b, h, sq, sk)
+
+
+@pytest.mark.parametrize("b,sq,sk,h,d,causal,bias", [
+    (2, 256, 256, 4, 64, True, None),
+    (1, 700, 1000, 2, 128, True, None),
+    (1, 1000, 700, 2, 64, True, None),
+    (2, 333, 333, 3, 64, False, "keypad"),
+    (1, 512, 512, 2, 128, False, "dense"),
+])
+def test_flash_fp32_kernels_against_fp64(cuda, b, sq, sk, h, d, causal,
+                                         bias):
+    """The fp32 mode (3xTF32 products) against fp64, within ``_fp32_rule``
+    of the plain fp32 versions, ragged lengths and sq != sk included."""
+    q, k, v, do = _flash_inputs(b, sq, sk, h, d, "float32", cuda, seed=5)
+    reset_launch_counts()
+    _fp32_check(q, k, v, do, d ** -0.5, causal,
+                _bias_of(bias, b, h, sq, sk, q, k, cuda))
+    sfx = "_fp32" + ("_bias" if bias else "")
+    assert launch_counts() == _counts(**{f"flash_{n}{sfx}": 1
+                                         for n in ("fwd", "dq", "dkv")})
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("bias", [None, "keypad"])
+def test_flash_dropout_kernels_match_plain(cuda, dtype, bias):
+    """The dropout mode (p 0.1) against the plain versions on one key,
+    so on one Philox mask: fp32 by the fp32 rule against fp64, bf16 by
+    the bf16 rule against the fp32 plain versions; two launches on one
+    key bitwise equal; another key another output."""
+    b, s, h, d, p = 2, 320, 3, 64, 0.1
+    q, k, v, do = _flash_inputs(b, s, s, h, d, dtype, cuda, seed=6)
+    causal = bias is None
+    scale = d ** -0.5
+    seed = torch.tensor([2024, (1 << 32) - 7], dtype=torch.int64,
+                        device=cuda)
+    mask = _bias_of(bias, b, h, s, s, q, k, cuda)
+    mode = (mask, p, seed)
+    reset_launch_counts()
+    if dtype == "float32":
+        out, grads = _fp32_check(q, k, v, do, scale, causal, *mode)
+    else:
+        q32, k32, v32, do32 = (x.float() for x in (q, k, v, do))
+        want_o, want_l = FA.flash_fwd_plain(q32, k32, v32, scale, causal,
+                                            *mode)
+        delta = FA.flash_delta(do, want_o.bfloat16())
+        out, _ = FA.flash_fwd_cuda(q, k, v, scale, causal, *mode)
+        grads = (FA.flash_bwd_dq_cuda(q, k, v, do, want_l, delta, scale,
+                                      causal, *mode),) + \
+            FA.flash_bwd_dkv_cuda(q, k, v, do, want_l, delta, scale,
+                                  causal, *mode)
+        want_g = FA.flash_block_grads_plain(q32, k32, v32, do32, want_l,
+                                            delta, scale, causal, *mode)
+        for got, want in zip((out,) + grads, (want_o,) + want_g):
+            _assert_flash_close(got, want)
+    sfx = ("_fp32" if dtype == "float32" else "") + "_drop" + (
+        "_bias" if bias else "")
+    assert launch_counts() == _counts(**{f"flash_{n}{sfx}": 1
+                                         for n in ("fwd", "dq", "dkv")})
+    again, lse = FA.flash_fwd_cuda(q, k, v, scale, causal, *mode)
+    assert torch.equal(again, out)
+    other, _ = FA.flash_fwd_cuda(q, k, v, scale, causal, mask, p,
+                                 seed + 1)
+    assert not torch.equal(other, out)
+
+
+def test_gpt_train_step_kernels_vs_plain(cuda):
+    """One TrainStep of a small GPT at GPT-2's defaults (fp32, dropout
+    0.1; hidden 256, 4 heads of 64, 2 layers, b 2 x s 256) through the
+    kernels and inside plain_reference(), the model's generator restored
+    to one state, so both draw the same masks: the fp32 dropout flash
+    kernels and LayerNorm launch; the loss within 1e-5 relative, every
+    gradient within 1e-3 in relative L2 (fp32 kernels as accurate as the
+    plain versions; GPT's key bias, whose exact gradient is 0, held to
+    its weight's gradient's scale)."""
+    from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+    cfg = GPTConfig(vocab_size=512, hidden_size=256, num_hidden_layers=2,
+                    num_attention_heads=4, intermediate_size=512,
+                    max_position_embeddings=256, mp_axis=None)
+    ids = torch.tensor(np.random.default_rng(8).integers(0, 512, (2, 256)),
+                       device=cuda)
+    results = []
+    for plain in (False, True):
+        model = GPTForCausalLM(cfg, device=cuda, seed=3)
+        step = TrainStep(model, AdamW(learning_rate=1e-3, parameters=model),
+                         lambda logits, y: model.loss(logits, y))
+        reset_launch_counts()
+        with plain_reference() if plain else contextlib.nullcontext():
+            loss = step(ids, ids)
+        torch.cuda.synchronize()
+        results.append((loss.item(), launch_counts(),
+                        {k: p.grad for k, p in model.named_parameters()}))
+    (lk, ck, gk), (lp, cp, gp) = results
+    L = 2
+    assert ck == _counts(layer_norm=2 * L + 1, flash_fwd_fp32_drop=L,
+                         flash_dq_fp32_drop=L, flash_dkv_fp32_drop=L)
+    assert not any(cp.values())
+    assert abs(lk - lp) <= 1e-5 * abs(lp)
+    for k in gk:
+        ref = k.replace(".bias", ".weight") if k.endswith("attn_qkv.bias") \
+            else k
+        rel = ((gk[k] - gp[k]).norm() / gp[ref].norm().clamp(min=1e-30)
+               ).item()
+        assert rel <= 1e-3, (k, rel)
+
+
+def test_entry_config_forward_on_the_card(cuda):
+    """``entry()``'s fp32 Llama ([2, 256], 8 / 4 heads of 64) forward in
+    eval mode: 4 fp32 flash-forward launches, logits within 1e-4 of
+    plain_reference()'s."""
+    cfg = LlamaConfig(vocab_size=8192, hidden_size=512,
+                      intermediate_size=1408, num_hidden_layers=4,
+                      num_attention_heads=8, num_key_value_heads=4,
+                      max_position_embeddings=2048, mp_axis=None,
+                      fsdp_axis=None)
+    model = LlamaForCausalLM(cfg, device=cuda, seed=0)
+    model.eval()
+    ids = torch.tensor(np.random.default_rng(0).integers(0, 8192, (2, 256)),
+                       device=cuda)
+    reset_launch_counts()
+    with torch.no_grad():
+        logits = model(ids)
+        torch.cuda.synchronize()
+        assert launch_counts() == _counts(flash_fwd_fp32=4, rms_norm=9)
+        with plain_reference():
+            ref = model(ids)
+    assert logits.dtype == torch.float32
+    assert (logits - ref).abs().max().item() <= 1e-4

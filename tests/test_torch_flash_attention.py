@@ -22,7 +22,21 @@ CPU (as tests/test_flash_attention.py runs them).
   mask, below and above ``FLASH_MIN_SEQ`` (an all-masked row: uniform on
   the plain core, zero on flash, both as in the JAX package), and a float
   mask that wants a gradient taking the plain core;
-- the modes that are not ported.
+- fp32 at head dim 128 (the kernels' second width), causal with sq !=
+  sk and with a float bias: the plain versions and autograd against the
+  JAX kernels;
+- in-kernel dropout (``_flash_drop``, ``_flash_bias_drop``). The JAX
+  kernels draw their mask from the TPU core's PRNG, which interpret mode
+  cannot run (``flash_attention`` raises there), and their bits are not
+  reproducible off a TPU anyway. So the port's plain versions, and
+  autograd through ``flash_attention(dropout_p=)``, are held to an fp64
+  autograd composition ``softmax(q k^T * scale + bias) * keep / (1 - p)
+  @ v`` built from the same Philox mask (``philox.keep_mask``), at fp32
+  tolerance; ``p = 0`` equals the no-dropout mode bitwise; one key gives
+  the same output twice, another key another output; the key drawn from
+  a generator follows the generator's state;
+- the modes that are not ported (segment ids, ROADMAP B3), and the
+  wrappers of every mode raising on CPU tensors.
 
 Tolerances: fp32 2e-5 absolute and relative — the same fp32 arithmetic
 in one block instead of the online softmax over Pallas blocks, so only
@@ -47,6 +61,7 @@ from paddle_tpu_torch.ops.kernels import (flash_bwd_dkv_cuda,
                                           flash_bwd_dq_cuda, flash_delta,
                                           flash_fwd_cuda, launch_counts)
 from paddle_tpu_torch.ops.kernels import flash_attention as T
+from paddle_tpu_torch.ops.kernels.philox import keep_mask
 
 JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -319,43 +334,180 @@ def test_sdpa_float_mask_with_grad_takes_the_plain_core():
 
 
 def test_sdpa_dropout_in_training_raises():
+    """Dropout in training draws its mask now (the plain core below
+    FLASH_MIN_SEQ, the flash dropout mode from it on); a probability
+    outside [0, 1) raises on the flash route, where 1 / (1 - p) would
+    be infinite; eval mode takes no dropout."""
     q = torch.zeros((1, 16, 2, 64))
-    with pytest.raises(NotImplementedError, match="A1"):
-        scaled_dot_product_attention(q, q, q, dropout_p=0.1)
+    out = scaled_dot_product_attention(q, q, q, dropout_p=0.1)
+    assert out.shape == q.shape
     out = scaled_dot_product_attention(q, q, q, dropout_p=0.1,
                                        training=False)
     assert out.shape == q.shape
+    q = torch.zeros((1, FLASH_MIN_SEQ, 2, 64))
+    with pytest.raises(ValueError, match=r"\[0, 1\)"):
+        scaled_dot_product_attention(q, q, q, dropout_p=1.0)
+    assert torch.equal(scaled_dot_product_attention(
+        q, q, q, dropout_p=1.0, training=False),
+        scaled_dot_product_attention(q, q, q))
 
 
 def test_unported_modes_and_cpu_tensors_raise():
-    """Segment ids and in-kernel dropout still raise, naming ROADMAP B1;
-    the wrappers launch on CUDA tensors or raise, in both modes."""
+    """Segment ids still raise, naming ROADMAP B3; the wrappers launch on
+    CUDA tensors or raise, in every mode (bias, dropout, both)."""
     q = torch.zeros((1, 256, 2, 64))
     lse = torch.zeros((1, 2, 256))
     bias = torch.zeros((1, 1, 256, 256))
-    with pytest.raises(NotImplementedError, match="B1"):
-        T.flash_attention(q, q, q, attn_mask=torch.zeros(256, 256),
-                          dropout_p=0.1)
-    with pytest.raises(NotImplementedError, match="B1"):
-        T.flash_attention(q, q, q, dropout_p=0.1)
-    with pytest.raises(NotImplementedError, match="B1"):
+    seed = torch.tensor([1, 2])
+    with pytest.raises(NotImplementedError, match="B3"):
         T.flash_block_grads(q, q, q, q, lse, lse, scale=0.125,
                             causal=True, seg=(np.zeros(256), np.zeros(256)))
-    with pytest.raises(NotImplementedError, match="B1"):
-        T.flash_block_grads(q, q, q, q, lse, lse, scale=0.125,
-                            causal=False, bias=bias, dropout_p=0.1)
     with pytest.raises(ValueError, match="broadcast"):
         T.flash_attention(q, q, q, attn_mask=torch.zeros(3, 256, 256))
+    with pytest.raises(ValueError, match="seed_arr"):
+        T.flash_block_grads(q, q, q, q, lse, lse, scale=0.125,
+                            causal=False, bias=bias, dropout_p=0.1)
     # the wrappers launch on CUDA tensors or raise: never a CPU fallback
-    with pytest.raises(ValueError, match="CUDA"):
-        flash_fwd_cuda(q, q, q, 0.125, True)
-    with pytest.raises(ValueError, match="CUDA"):
-        flash_fwd_cuda(q, q, q, 0.125, False, bias)
-    with pytest.raises(ValueError, match="CUDA"):
-        flash_bwd_dq_cuda(q, q, q, q, lse, lse, 0.125, True)
-    with pytest.raises(ValueError, match="CUDA"):
-        flash_bwd_dq_cuda(q, q, q, q, lse, lse, 0.125, False, bias)
-    with pytest.raises(ValueError, match="CUDA"):
-        flash_bwd_dkv_cuda(q, q, q, q, lse, lse, 0.125, True)
-    with pytest.raises(ValueError, match="CUDA"):
-        flash_bwd_dkv_cuda(q, q, q, q, lse, lse, 0.125, False, bias)
+    for b_, p_, s_ in ((None, 0.0, None), (bias, 0.0, None),
+                       (None, 0.1, seed), (bias, 0.1, seed)):
+        with pytest.raises(ValueError, match="CUDA"):
+            flash_fwd_cuda(q, q, q, 0.125, True, b_, p_, s_)
+        with pytest.raises(ValueError, match="CUDA"):
+            flash_bwd_dq_cuda(q, q, q, q, lse, lse, 0.125, True, b_, p_, s_)
+        with pytest.raises(ValueError, match="CUDA"):
+            flash_bwd_dkv_cuda(q, q, q, q, lse, lse, 0.125, False, b_, p_,
+                               s_)
+
+
+@pytest.mark.parametrize("sq,sk,causal,bias_kind", [
+    (256, 256, True, None), (320, 256, True, None),
+    (256, 320, False, "float_2d"), (256, 256, True, "float_4d")])
+def test_flash_fp32_d128_matches_pallas(sq, sk, causal, bias_kind):
+    """fp32 at head dim 128: the plain forward and backward against the
+    JAX kernels (interpret mode) at 2e-5, as ``test_flash_plain_versions_
+    match_pallas``; ``sq > sk`` leaves rows that see no key."""
+    b, h, d = 1, 2, 128
+    scale = d ** -0.5
+    (jq, tq), (jk, tk), (jv, tv), (jdo, tdo) = _inputs(
+        sq + sk + (bias_kind is None), [(b, sq, h, d), (b, sk, h, d),
+                                        (b, sk, h, d), (b, sq, h, d)],
+        "float32")
+    jm = tbias = None
+    if bias_kind is not None:
+        m = (np.random.default_rng(sq).standard_normal(
+            (sq, sk) if bias_kind == "float_2d" else (b, h, sq, sk)) * 2) \
+            .astype(np.float32)
+        jm, tbias = jnp.asarray(m), T.pad_bias(torch.tensor(m), b, h, sq,
+                                               sk)
+    to, tl = T.flash_fwd_plain(tq, tk, tv, scale, causal, tbias)
+    delta = flash_delta(tdo, to)
+
+    def run(q, k, v, do, delta, m):
+        o, lse = J._fwd(q, k, v, scale, causal, bias=m)
+        return (o, lse) + tuple(J.flash_block_grads(
+            q, k, v, do, lse, delta, scale=scale, causal=causal, bias=m))
+
+    jo, jl, *jg = jax.jit(run)(jq, jk, jv, jdo, jnp.asarray(delta.numpy()),
+                               jm)
+    _close(to, jo, "float32")
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=2e-5,
+                               atol=2e-5)
+    tg = T.flash_block_grads_plain(tq, tk, tv, tdo,
+                                   torch.tensor(np.asarray(jl)), delta,
+                                   scale, causal, tbias)
+    for got, want in zip(tg, jg):
+        _close(got, want, "float32")
+
+
+def _dropout_reference(q, k, v, scale, causal, bias, p, seed):
+    """``softmax(q k^T * scale + bias) * keep / (1 - p) @ v`` in fp64, the
+    keep mask of ``keep_mask`` under ``seed``; differentiable. A row that
+    sees no key (its bias all -1e30) gives 0, the kernels' convention
+    (the subtracted max clamped at -1e25)."""
+    b, sq, h, _ = q.shape
+    sk = k.shape[1]
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
+    if causal:
+        s = s.masked_fill(~torch.ones(sq, sk, dtype=torch.bool).tril(
+            sk - sq), -np.inf)
+    if bias is not None:
+        s = s + bias.double()
+    keep = keep_mask(seed, p, b * h, sq, sk).view(b, h, sq, sk)
+    e = torch.exp(s - s.amax(-1, keepdim=True).clamp(min=-1e25))
+    l = e.sum(-1, keepdim=True)
+    probs = e / torch.where(l == 0, 1.0, l)
+    probs = torch.where(keep, probs / (1 - p), 0.0)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
+DROPOUT_CASES = [(256, True, None), (320, False, None),
+                 (256, False, "float_4d"), (320, True, "bool_keypad")]
+
+
+@pytest.mark.parametrize("s,causal,bias_kind", DROPOUT_CASES)
+def test_flash_dropout_matches_fp64_composition(s, causal, bias_kind):
+    """The forward (plain version) and autograd through
+    ``flash_attention(dropout_p=0.1, fixed_seed_offset=...)`` against the
+    fp64 composition with the same mask: fp32 tolerance 2e-5 (the plain
+    versions keep the Pallas arithmetic in fp32, the reference is the
+    same function in fp64). ``flash_block_grads(dropout_p, seed_arr)``
+    gives the autograd gradients from the forward's statistics."""
+    b, h, d, p = 2, 2, 64, 0.1
+    scale = d ** -0.5
+    pair = (2 ** 31 + 12345, 678)
+    seed = torch.tensor(pair)
+    (_, tq), (_, tk), (_, tv), (_, tc) = _inputs(
+        s + 3 * causal, [(b, s, h, d)] * 4, "float32")
+    mask = None
+    if bias_kind is not None:
+        _, tm = _masks(bias_kind, b, h, s, s, 17)
+        mask = tm
+    leaves = [t.clone().requires_grad_(True) for t in (tq, tk, tv)]
+    out = T.flash_attention(*leaves, causal=causal, attn_mask=mask,
+                            dropout_p=p, fixed_seed_offset=pair)
+    (out * tc).sum().backward()
+    ref_leaves = [t.double().requires_grad_(True) for t in (tq, tk, tv)]
+    bias = None if mask is None else T.attn_bias(mask, tq, tk)
+    ref = _dropout_reference(*ref_leaves, scale, causal, bias, p, seed)
+    (ref * tc.double()).sum().backward()
+    _close(out.detach(), ref.detach().float(), "float32")
+    for leaf, want in zip(leaves, ref_leaves):
+        _close(leaf.grad, want.grad.float(), "float32")
+    # the building blocks: forward plain version, backward from its stats
+    o, lse = T.flash_fwd_plain(tq, tk, tv, scale, causal, bias, p, seed)
+    assert torch.equal(o, out.detach())
+    grads = T.flash_block_grads(tq, tk, tv, tc, lse, flash_delta(tc, o),
+                                scale=scale, causal=causal, bias=bias,
+                                dropout_p=p, seed_arr=pair)
+    for got, leaf in zip(grads, leaves):
+        torch.testing.assert_close(got, leaf.grad, rtol=0, atol=0)
+
+
+def test_flash_dropout_keys_and_p0():
+    """``p = 0`` is the no-dropout mode, bitwise; one key gives one output
+    twice, another key another; a key drawn from a generator follows the
+    generator's state."""
+    b, s, h, d = 1, 256, 2, 64
+    (_, tq), (_, tk), (_, tv) = _inputs(5, [(b, s, h, d)] * 3, "float32")
+    none = T.flash_attention(tq, tk, tv, causal=True)
+    assert torch.equal(T.flash_attention(tq, tk, tv, causal=True,
+                                         dropout_p=0.0,
+                                         fixed_seed_offset=(1, 2)), none)
+    a = T.flash_attention(tq, tk, tv, causal=True, dropout_p=0.1,
+                          fixed_seed_offset=(1, 2))
+    assert torch.equal(a, T.flash_attention(tq, tk, tv, causal=True,
+                                            dropout_p=0.1,
+                                            fixed_seed_offset=(1, 2)))
+    assert not torch.equal(a, T.flash_attention(
+        tq, tk, tv, causal=True, dropout_p=0.1, fixed_seed_offset=(1, 3)))
+    assert not torch.equal(a, none)
+    g = torch.Generator().manual_seed(9)
+    state = g.get_state()
+    x = T.flash_attention(tq, tk, tv, dropout_p=0.1, generator=g)
+    y = T.flash_attention(tq, tk, tv, dropout_p=0.1, generator=g)
+    g.set_state(state)
+    assert torch.equal(x, T.flash_attention(tq, tk, tv, dropout_p=0.1,
+                                            generator=g))
+    assert not torch.equal(x, y)
+    with pytest.raises(ValueError, match=r"\[0, 1\)"):
+        T.flash_attention(tq, tk, tv, dropout_p=-0.1)

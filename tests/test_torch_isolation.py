@@ -56,6 +56,14 @@ mask = torch.ones((2, 256), dtype=torch.long)
 mask[1, 200:] = 0
 mlm, nsp = bert(ids, torch.zeros_like(ids), mask)
 bert.loss(mlm, nsp, ids, torch.tensor([0, 1])).backward()
+from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+gpt = GPTForCausalLM(GPTConfig(vocab_size=64, hidden_size=64,
+                               num_hidden_layers=1, num_attention_heads=1,
+                               intermediate_size=128,
+                               max_position_embeddings=256, mp_axis=None),
+                     device="cpu")
+ids = torch.arange(512).reshape(2, 256) % 64
+gpt.loss(gpt(ids), ids).backward()      # dropout 0.1: flash's dropout mode
 print("\n".join(sorted(sys.modules)))
 """
 
@@ -73,13 +81,16 @@ def test_port_imports_no_jax_in_a_fresh_interpreter():
     assert "paddle_tpu_torch.models.bert" in mods
     assert "paddle_tpu_torch.nn.layer.transformer" in mods
     assert "paddle_tpu_torch.ops.kernels.layer_norm" in mods
+    assert "paddle_tpu_torch.models.gpt" in mods
+    assert "paddle_tpu_torch.ops.kernels.philox" in mods
     bad = [m for m in mods if _banned(m)]
     assert not bad, bad
 
 
 def test_no_source_file_imports_jax_or_the_jax_package():
     files = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py",
-                                         REPO / "chip_grad_noise.py"]
+                                         REPO / "chip_grad_noise.py",
+                                         REPO / "chip_mutants.py"]
     assert len(files) > 10
     for path in files:
         tree = ast.parse(path.read_text(), str(path))
@@ -98,6 +109,7 @@ def test_entry_points_raise_without_a_device_argument_or_gpu():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: device=None is valid")
     from paddle_tpu_torch.models import (BertConfig, BertForPreTraining,
+                                         GPTConfig, GPTForCausalLM,
                                          LlamaForCausalLM,
                                          Qwen2MoeForCausalLM, llama_tiny,
                                          qwen2_moe_tiny)
@@ -108,6 +120,8 @@ def test_entry_points_raise_without_a_device_argument_or_gpu():
         Qwen2MoeForCausalLM(qwen2_moe_tiny())
     with pytest.raises(RuntimeError, match="device='cpu'"):
         BertForPreTraining(BertConfig())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        GPTForCausalLM(GPTConfig(mp_axis=None))
     model = LlamaForCausalLM(llama_tiny(), device="cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ServingEngine(model, num_pages=8, page_size=4)

@@ -152,3 +152,37 @@ def test_paged_mixed_then_decode_step_match_jax(pair):
     assert tl.shape == (S, 1, 512)
     np.testing.assert_allclose(tl[:2], jl[:2], rtol=0, atol=2e-3)
     _assert_pools_close(jp, tp)
+
+
+def test_entry_forward_matches_jax_entry(monkeypatch):
+    """``__graft_entry__.py::entry()``'s configuration (vocab 8192, hidden
+    512, 4 layers, 8 / 4 heads of 64, fp32: ``LlamaConfig``'s default
+    dtype) at its [2, 256] ids through the port, from the weights of the
+    model ``entry()`` builds, against ``entry()``'s own jitted forward.
+    The JAX flash route is switched on (``_flash_backend_ok``, as on its
+    TPU), so at s 256 both take flash attention: the Pallas kernel in
+    interpret mode and the port's plain version (on the card, its fp32
+    kernel). Tolerance: fp32, 2e-5 relative and 1e-4 absolute on logits
+    of magnitude ~1-10 (the same fp32 arithmetic, sums in another order,
+    through four layers)."""
+    import __graft_entry__ as G
+    from paddle_tpu.nn.functional import attention as jattn
+    from paddle_tpu_torch.models import LlamaConfig
+    monkeypatch.setattr(jattn, "_flash_backend_ok", lambda: True)
+    fn, (ids,) = G.entry()
+    state = next(c.cell_contents for c in fn.__closure__
+                 if isinstance(c.cell_contents, dict))
+    want = np.asarray(fn(ids))
+    cfg = LlamaConfig(vocab_size=8192, hidden_size=512,
+                      intermediate_size=1408, num_hidden_layers=4,
+                      num_attention_heads=8, num_key_value_heads=4,
+                      max_position_embeddings=2048, mp_axis=None,
+                      fsdp_axis=None)
+    assert cfg.dtype == "float32"
+    tm = LlamaForCausalLM(cfg, device="cpu", seed=None)
+    load_numpy_state(tm, {k: np.asarray(v) for k, v in state.items()})
+    tm.eval()
+    with torch.no_grad():
+        got = tm(torch.tensor(np.asarray(ids)))
+    assert got.dtype == torch.float32 and tuple(got.shape) == want.shape
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=1e-4)
