@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Plant known faults in the flash attention, MoE, int8 paged and
-LayerNorm kernels and in the flash bias, fp32 and dropout modes, and
+LayerNorm kernels and in the flash bias, fp32, dropout and segment modes, and
 show which of ``chip_smoke.py``'s checks catch each one (a mutation
 check, on one GPU).
 
@@ -47,7 +47,12 @@ of the fault's kind (the control runs every kind of the faults chosen):
   GPT-2's shape in fp32, ``_flash_errors`` at the padded BERT shape in
   bf16 with its key-padding mask, both given one key) and the GPT-2 train
   parity of ``phase_train_gpt2_parity`` (fp32, dropout 0.1, the masks
-  drawn from one generator state) after 10 steps of ``train_gpt2``.
+  drawn from one generator state) after 10 steps of ``train_gpt2``;
+- varlen: the segment-mode kernel check (``_flash_errors(seg=)``) on
+  ``flash_varlen``'s packed batch, [1, 8760, 16, 128] bf16 causal and
+  non-causal, and in place of a train parity ``phase_varlen_packed``:
+  the packed entry points against each document alone through the
+  no-segment kernels.
 
 It prints one JSON line per run and then a summary line. It exits 0
 when the control passes both checks and every fault fails the kernel
@@ -94,8 +99,8 @@ MUTANTS = {
     "dq_drops_last_k_tile": (
         "dQ: the loop over k tiles stops one tile early (the diagonal "
         "tile, causal)",
-        [(BWD, "for (int jt = 0; jt < n_tiles; ++jt) {",
-          "for (int jt = 0; jt < n_tiles - 1; ++jt) {")]),
+        [(BWD, "for (int it = 0; jt < j_end; ++it) {",
+          "for (int it = 0; jt < j_end - 1; ++it) {")]),
     "dkv_skips_first_q_tile": (
         "dK/dV: the loop over q tiles starts one tile past the diagonal",
         [(BWD, "const int i0 = first / BQ,",
@@ -166,6 +171,18 @@ MUTANTS = {
         [(BWD, "drop_keep(bh, qs0 + c, krow[i >> 1], key0, key1,",
           "drop_keep(bh, qs0 + c, krow[i >> 1] + 1, key0, key1,")],
         "dropout"),
+    "dkv_ignores_seg": (
+        "segment mode, dK/dV: the segment test inside a live tile dropped "
+        "(a key row takes the queries of every segment its tile meets), "
+        "while the forward and dQ apply it",
+        [(BWD, "same = same_ids<BQ / 8>(seg_q, qs0, sq, skey, t);",
+          "same = ~0u;")], "varlen"),
+    "seg_touching_ranges_disjoint": (
+        "segment mode: the tile-range test treats ranges that touch (share "
+        "one id) as disjoint, an off-by-one, so the kernels skip tiles "
+        "that hold kept pairs",
+        [(COMMON, "return alo <= bhi && blo <= ahi;",
+          "return alo < bhi && blo < ahi;")], "varlen"),
 }
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -368,6 +385,31 @@ def _dropout_checks(torch, S, K, TrainStep, AdamW) -> tuple:
     return check, parity
 
 
+def _varlen_checks(torch, S, K, TrainStep, AdamW) -> tuple:
+    import paddle_tpu_torch.incubate.nn.functional as TI
+    import paddle_tpu_torch.nn.functional as TF
+    from paddle_tpu_torch import io as PIO
+    from paddle_tpu_torch.ops.kernels import flash_attention as F
+    gen = torch.Generator(device="cuda").manual_seed(S.SEED + 14)
+    _, cu = S.varlen_pack(np, PIO, S.varlen_documents(np))
+    seg, _ = S.varlen_seg(np, F, cu, cu)
+    h, d = S.VARLEN_BF16
+    check = {"failures": []}
+    for name, causal in (("bf16_causal", True), ("bf16_noncausal", False)):
+        q, k, v, do = S._flash_inputs(torch, gen, (1, int(cu[-1]), h, d),
+                                      torch.bfloat16)
+        check[name] = S._flash_errors(torch, F, q, k, v, do, d ** -0.5,
+                                      causal, seg=seg)
+        check["failures"] += check[name]["failures"]
+        del q, k, v, do
+        torch.cuda.empty_cache()
+    try:
+        parity = S.phase_varlen_packed(torch, np, K, F, PIO, TF, TI)
+    except AssertionError as e:    # the phase's own failures, reported
+        parity = {"failures": [str(e)[:2000]]}
+    return check, parity
+
+
 def child(name: str, kinds=None) -> dict:
     """The checks of the mutant's kind on the tree this file sits in (a
     mutated copy); the control runs ``kinds``."""
@@ -386,7 +428,8 @@ def child(name: str, kinds=None) -> dict:
     caught_k, caught_p = False, False
     checks = {"flash": _flash_checks, "moe": _moe_checks,
               "int8": _int8_checks, "bert": _bert_checks,
-              "fp32": _fp32_checks, "dropout": _dropout_checks}
+              "fp32": _fp32_checks, "dropout": _dropout_checks,
+              "varlen": _varlen_checks}
     for kind in kinds:
         check, parity = checks[kind](torch, S, K, TrainStep, AdamW)
         grads = parity.pop("grad_rel_l2", None)
@@ -394,8 +437,8 @@ def child(name: str, kinds=None) -> dict:
             parity["top_grad_rel_l2"] = sorted(grads.items(),
                                                key=lambda kv: -kv[1])[:5]
         out[kind] = check
-        out[kind + ("_slice_parity" if kind == "int8"
-                    else "_train_parity")] = parity
+        out[kind + {"int8": "_slice_parity", "varlen": "_per_doc_parity"}
+            .get(kind, "_train_parity")] = parity
         caught_k |= bool(check["failures"])
         caught_p |= bool(parity["failures"])
     out["caught_by_kernel_check"] = caught_k

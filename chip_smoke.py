@@ -25,10 +25,23 @@ Phases; any failure ends the run with a traceback and a non-zero exit:
    128, each output within 2x the plain fp32 version's error plus a
    stated floor; ``flash_dropout``: the dropout mode (p 0.1), bf16 and
    fp32, with and without a bias, on one Philox key with its plain
-   version, two launches bitwise equal), with its time (CUDA events over many launches, inputs
+   version, two launches bitwise equal; ``flash_varlen``: the segment
+   mode (packed sequences) on ``bench_llama``'s first packed host step,
+   8 documents, 8,760 tokens, bf16 [8760, 16, 128] causal and not, fp32
+   [8760, 12, 64] causal against fp64, and a cross-attention batch with
+   a keyless segment; its yardsticks SDPA with the dense block-diagonal
+   mask and one SDPA a document), with its time (CUDA events over many launches, inputs
    rotated through more than the 50 MB L2), the plain version's time,
    the least time the card could take (the bound) and, as a yardstick
    only, PyTorch calls computing the same products;
+3b. varlen_packed — the packed-sequence path through its entry points:
+   the port's native ``pack_sequences`` (its C++ library built) packs
+   that host step, its ``cu`` become ``cu_seqlens``, and
+   ``nn.functional.flash_attn_unpadded`` (bf16 causal, fp32 causal) and
+   ``incubate.nn.functional.variable_length_memory_efficient_attention``
+   (bf16 non-causal) run forward and backward: exactly the segment
+   mode's launches; each document held against that document alone
+   through the no-segment kernels;
 4. train — the JAX package's one-chip Llama training configuration
    (``bench.py::_llama_flagship``: 8 layers at full width, bf16, AdamW at
    lr 1e-4, batch 4 x seq 2048) with seeded random weights made on the
@@ -462,22 +475,26 @@ def phase_paged_int8(torch, K, QZ) -> dict:
 
 
 def _flash_work(b, sq, sk, h, d, causal, kind, bias_bytes=0, kept=None,
-                elt=2):
+                elt=2, pairs=None):
     """(flops, bytes) one flash call needs: 2 * d flops per product
     (2 in the forward, 3 in dQ, 4 in dK/dV) for each (query row, key)
     pair the mask keeps — this run's causal shape, not the dense one, and
     with a key-padding mask (``kept``: the valid keys of each batch row)
-    only its valid keys — and each input read once and each output
-    written once ([b, s, h, d] tensors of ``elt`` bytes an element: 2
-    bf16, 4 fp32; fp32 [b, h, sq] lse and delta, and in the bias mode the
-    bias's distinct fp32 values, ``bias_bytes``). Dropout adds no bytes
-    (its mask is drawn, never stored) and its Philox draws are integer
-    work outside these products, not counted."""
+    only its valid keys; in the segment mode ``pairs``, the pairs a head
+    that the segment (and per-segment causal) mask keeps, summed over
+    the batch — and each input read once and each output written once
+    ([b, s, h, d] tensors of ``elt`` bytes an element: 2 bf16, 4 fp32;
+    fp32 [b, h, sq] lse and delta, and in the bias mode the bias's
+    distinct fp32 values, in the segment mode the ids and their grain
+    summaries: ``bias_bytes``). Dropout adds no bytes (its mask is drawn,
+    never stored) and its Philox draws are integer work outside these
+    products, not counted."""
     off = sk - sq
-    pairs = (sum(min(sk, max(0, r + off + 1)) for r in range(sq))
-             if causal else sq * sk)
+    if pairs is None:
+        pairs = b * (sum(min(sk, max(0, r + off + 1)) for r in range(sq))
+                     if causal else sq * sk)
     n_products = {"fwd": 2, "dq": 3, "dkv": 4}[kind]
-    flops = 2.0 * d * b * h * pairs * n_products
+    flops = 2.0 * d * h * pairs * n_products
     if kept is not None:              # pairs summed over the batch rows
         flops = 2.0 * d * h * sq * sum(kept) * n_products
     qb, kb, stat = elt * b * sq * h * d, elt * b * sk * h * d, 4 * b * h * sq
@@ -502,13 +519,14 @@ FLASH_ROW_RTOL, FLASH_ROW_ATOL, FLASH_FRO = 2 ** -7, 1e-3, 4e-3
 
 
 def _flash_errors(torch, F, q, k, v, do, scale, causal, bias=None,
-                  dropout_p=0.0, seed_arr=None) -> dict:
+                  dropout_p=0.0, seed_arr=None, seg=None) -> dict:
     """Each flash kernel against its plain version on the same inputs
     (the backward kernels from the plain forward's lse and delta); with
     ``bias`` (fp32 ``[b|1, h|1, sq, sk]``) the kernels' bias mode, both
     versions given the same bias; with ``dropout_p`` their dropout mode,
     both given the same key ``seed_arr`` (so the same mask: a kernel that
-    drew another mask would miss these tolerances by far).
+    drew another mask would miss these tolerances by far); with ``seg``
+    (``F.SegIds``) their segment mode, both given the same ids.
 
     The plain versions run on fp32 copies of the bf16 inputs: the same
     arithmetic (they upcast first), with outputs that are not rounded to
@@ -529,7 +547,7 @@ def _flash_errors(torch, F, q, k, v, do, scale, causal, bias=None,
     row's error over its tolerance), ``lse`` and ``failures``, a list
     of what broke its tolerance."""
     q32, k32, v32, do32 = (x.float() for x in (q, k, v, do))
-    mode = (bias, dropout_p, seed_arr)
+    mode = (bias, dropout_p, seed_arr, seg)
     want_o, want_l = F.flash_fwd_plain(q32, k32, v32, scale, causal, *mode)
     delta = F.flash_delta(do, want_o.to(q.dtype))
     got_o, got_l = F.flash_fwd_cuda(q, k, v, scale, causal, *mode)
@@ -928,9 +946,9 @@ def _rel_errors(torch, got, ref) -> dict:
 
 
 def flash_fp32_errors(torch, F, q, k, v, do, scale, causal, bias=None,
-                      dropout_p=0.0, seed_arr=None) -> dict:
-    """The fp32 kernels (forward, dQ, dK/dV; with ``bias`` and
-    ``dropout_p``/``seed_arr`` in those modes) and the plain fp32
+                      dropout_p=0.0, seed_arr=None, seg=None) -> dict:
+    """The fp32 kernels (forward, dQ, dK/dV; with ``bias``,
+    ``dropout_p``/``seed_arr`` and ``seg`` in those modes) and the plain fp32
     versions, each against the plain versions run in fp64 on the same
     inputs (the backward ones from the fp64 forward's lse and delta,
     rounded to fp32). Each output of the kernels is held to
@@ -939,7 +957,7 @@ def flash_fp32_errors(torch, F, q, k, v, do, scale, causal, bias=None,
     version's plus ``FP32_LSE_FLOOR``; rows that see no key exactly (out
     0, lse -1e30). Returns per output ``{"kernel": .., "plain": ..}``
     errors (``_rel_errors``), ``lse`` and ``failures``."""
-    mode = (bias, dropout_p, seed_arr)
+    mode = (bias, dropout_p, seed_arr, seg)
     q64, k64, v64, do64 = (x.double() for x in (q, k, v, do))
     ref_o, ref_l = F.flash_fwd_plain(q64, k64, v64, scale, causal, *mode)
     ref_delta = F.flash_delta(do64, ref_o)
@@ -1268,6 +1286,381 @@ def phase_flash_dropout(torch, np, F, K) -> dict:
             peak=FP32_ACCURATE_FLOPS if fp32 else BF16_TENSOR_FLOPS))
         torch.cuda.empty_cache()
     return rows
+
+# ---- packed sequences (flash_attn_unpadded): the segment mode ----
+
+VARLEN_ROW, VARLEN_BATCH = 2048, 4   # bench_llama's seq and batch
+VARLEN_DOCS, VARLEN_VOCAB = 256, 32000
+VARLEN_BF16 = (16, 128)              # the flagship's heads, bf16
+VARLEN_FP32 = (12, 64)               # GPT-2 small's heads, fp32
+# varlen_packed holds each document of the packed batch against that
+# document alone through the no-segment kernels. bf16: each row within
+# VARLEN_ROW_RTOL of its largest magnitude plus VARLEN_ROW_ATOL, each
+# output within VARLEN_FRO in relative Frobenius norm: twice the bf16
+# kernel-vs-plain rule, as both sides are kernels that round their
+# outputs (and P, dS) to bf16 and each carries that rule's error against
+# the same fp32 values, in other tilings. fp32: ``_rel_errors`` within
+# VARLEN_FP32_ROW (worst row) and VARLEN_FP32_FRO: both sides lie within
+# ~1e-6 of fp64 (flash_fp32). A document that saw another's keys would
+# miss either by orders of magnitude.
+VARLEN_ROW_RTOL, VARLEN_ROW_ATOL, VARLEN_FRO = 2 ** -6, 2e-3, 8e-3
+VARLEN_FP32_ROW, VARLEN_FP32_FRO = 2 ** -14, 2 ** -16
+
+
+def varlen_documents(np) -> list:
+    """The documents of ``bench.py::bench_llama``'s first host step:
+    256 documents of ``rng.integers(128, 2049)`` tokens drawn from
+    ``default_rng(0)`` (bench.py:276-278), of which a host step packs
+    ``2 * batch = 8``."""
+    rng = np.random.default_rng(0)
+    docs = [rng.integers(0, VARLEN_VOCAB, rng.integers(128, VARLEN_ROW + 1))
+            .astype(np.int32) for _ in range(VARLEN_DOCS)]
+    return docs[:2 * VARLEN_BATCH]
+
+
+def varlen_pack(np, io, docs) -> tuple:
+    """``docs`` packed into rows of 2048 by the port's ``pack_sequences``
+    and the padding dropped: (tokens [total], cu_seqlens [n + 1]), the
+    packer's per-row ``cu`` made the batch's."""
+    rows, cu_rows = io.pack_sequences(docs, VARLEN_ROW)
+    tokens, cu = [], [0]
+    for row, c in zip(rows, cu_rows):
+        bounds = c[c >= 0]
+        tokens.append(row[:bounds[-1]])
+        cu += [cu[-1] + int(x) for x in bounds[1:]]
+    return np.concatenate(tokens), np.asarray(cu, np.int64)
+
+
+def varlen_seg(np, F, cu_q, cu_k):
+    """The segment ids ``flash_attn_unpadded`` makes of ``cu_seqlens``."""
+    ids = [np.searchsorted(cu, np.arange(int(cu[-1])), side="right") - 1
+           for cu in (cu_q, cu_k)]
+    return F.seg_ids(ids[0], ids[1], "cuda"), ids
+
+
+def _kept_pairs(cu_q, cu_k, causal) -> int:
+    """(query, key) pairs a head that the segment mask (and, causal, the
+    per-segment causal mask) keeps."""
+    lq = [int(b) - int(a) for a, b in zip(cu_q[:-1], cu_q[1:])]
+    lk = [int(b) - int(a) for a, b in zip(cu_k[:-1], cu_k[1:])]
+    return sum(n * (n + 1) // 2 if causal else n * m for n, m in zip(lq, lk))
+
+
+def _seg_bytes(sq, sk) -> int:
+    """The segment ids (int32) and their int4 grain summaries."""
+    grains = (sq + 31) // 32 + (sk + 31) // 32
+    return 4 * (sq + sk) + 16 * grains
+
+
+def _varlen_rows(torch, F, suffix, sets, scale, seg, cu, keep, shape, errs,
+                 err_of, tolerance, elt, peak) -> dict:
+    """Times of the segment mode's three kernels (``flash_{fwd,dq,dkv}``
+    + ``suffix``, causal) on ``sets`` of ``(q, k, v, do, lse, delta)``
+    ``[1, total, h, d]``: the kernels; their plain versions (the
+    backward's computes dq, dk and dv together: one time for dQ and
+    dK/dV); as yardsticks, one ``scaled_dot_product_attention`` call with
+    the dense block-diagonal causal bool mask ``keep`` over ``[1, h,
+    total, d]`` (``library``) and the loop of one
+    ``scaled_dot_product_attention(is_causal=True)`` a document
+    (``library_per_doc``), forward and backward through autograd; each
+    beside its bound on the kept pairs at ``peak``."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    docs = [(int(a), int(b)) for a, b in zip(cu[:-1], cu[1:])]
+    total, h, d = shape[1], shape[2], shape[3]
+    pairs = _kept_pairs(cu, cu, True)
+
+    def per_doc(qt, kt, vt):
+        return [sdpa(qt[:, :, a:b], kt[:, :, a:b], vt[:, :, a:b],
+                     is_causal=True) for a, b in docs]
+
+    lib_fwd, lib_bwd, doc_bwd = [], [], []
+    for a in sets:
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
+                      for x in a[:3])
+        dot = a[3].transpose(1, 2)
+        lib_fwd.append((qt, kt, vt))
+        lib_bwd.append((sdpa(qt, kt, vt, attn_mask=keep), qt, kt, vt, dot))
+        doc_bwd.append((per_doc(qt, kt, vt), qt, kt, vt,
+                        [dot[:, :, a_:b_] for a_, b_ in docs]))
+
+    def sdpa_fwd(qt, kt, vt):
+        with torch.no_grad():
+            return sdpa(qt, kt, vt, attn_mask=keep)
+
+    def docs_fwd(qt, kt, vt):
+        with torch.no_grad():
+            return per_doc(qt, kt, vt)
+
+    def grad(og, qt, kt, vt, dot):
+        return torch.autograd.grad(og, (qt, kt, vt), dot, retain_graph=True)
+
+    fns = {
+        "fwd": {"kernel": lambda *a: F.flash_fwd_cuda(*a[:3], scale, True,
+                                                       seg=seg),
+                "plain": lambda *a: F.flash_fwd_plain(*a[:3], scale, True,
+                                                       seg=seg),
+                "library": sdpa_fwd, "library_per_doc": docs_fwd},
+        "dq": {"kernel": lambda *a: F.flash_bwd_dq_cuda(*a[:6], scale, True,
+                                                         seg=seg),
+               "plain": lambda *a: F.flash_block_grads_plain(
+                   *a[:6], scale, True, seg=seg),
+               "library": grad, "library_per_doc": grad},
+        "dkv": {"kernel": lambda *a: F.flash_bwd_dkv_cuda(*a[:6], scale,
+                                                           True, seg=seg)},
+    }
+    outs = {"fwd": ("out",), "dq": ("dq",), "dkv": ("dk", "dv")}
+    rows, bwd_times = {}, None
+    for kind in ("fwd", "dq", "dkv"):
+        flops, nbytes = _flash_work(1, total, total, h, d, True, kind,
+                                    _seg_bytes(total, total), elt=elt,
+                                    pairs=pairs)
+        bound, bound_by = _bound(flops, nbytes, peak)
+        own = ({"library": lib_fwd, "library_per_doc": lib_fwd}
+               if kind == "fwd" else
+               {"library": lib_bwd, "library_per_doc": doc_bwd})
+        t = _timings(torch, fns[kind], sets, own)
+        if kind == "dq":
+            bwd_times = {k_: t[k_] for k_ in t if not k_.startswith(
+                ("ms", "device_ms"))}
+        elif kind == "dkv":
+            t.update(bwd_times)
+        name = f"flash_{kind}{suffix}"
+        rows[name] = {
+            "shape": list(shape), "causal": True, "segments": len(docs),
+            "max_abs_err": max(err_of(e[o])["max_abs"] for e in errs
+                               for o in outs[kind]),
+            "errors_at_shape": {o: errs[0][o] for o in outs[kind]},
+            "tolerance": tolerance, **t, "flops": flops, "bytes": nbytes,
+            "kept_pairs_per_head": pairs, "bound_ms": bound,
+            "bound_by": bound_by, "bound_peak_flops": peak}
+        _emit("kernel_vs_plain", {"name": name, **rows[name]})
+    del lib_fwd, lib_bwd, doc_bwd
+    return rows
+
+
+def phase_flash_varlen(torch, np, F, io) -> dict:
+    """The segment mode of flash forward, dQ and dK/dV (packed sequences,
+    ``flash_attn_unpadded``) against the plain versions given the same
+    ids, on ``bench_llama``'s first packed host step: 8 documents of
+    1762, 1490, 825, 1537, 558, 463, 297 and 1828 tokens (8,760 in all,
+    not a multiple of any tile), as ``varlen_pack`` packs them.
+    bf16 at the flagship's widths ([1, 8760, 16, 128]) causal and
+    non-causal, by ``_flash_errors``'s rule; fp32 at GPT-2's heads ([1,
+    8760, 12, 64]) causal, by ``flash_fp32_errors``'s rule against fp64;
+    a non-causal cross-attention batch (bf16, d 128) whose key segments
+    are half their query segments' lengths and segment 2 has none: its
+    queries must give out 0 and lse -1e30. Times (``_varlen_rows``) for
+    bf16 and fp32 causal beside the bound on the kept pairs, and the
+    non-causal bf16 kernels' times."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 14)
+    _, cu = varlen_pack(np, io, varlen_documents(np))
+    total = int(cu[-1])
+    seg, (ids, _) = varlen_seg(np, F, cu, cu)
+    h, d = VARLEN_BF16
+    scale = d ** -0.5
+    checks = {}
+    for name, causal in (("bf16_causal", True), ("bf16_noncausal", False)):
+        q, k, v, do = _flash_inputs(torch, gen, (1, total, h, d),
+                                    torch.bfloat16)
+        checks[name] = _flash_errors(torch, F, q, k, v, do, scale, causal,
+                                     seg=seg)
+        del q, k, v, do
+        torch.cuda.empty_cache()
+    lens_k = np.diff(cu) // 2
+    lens_k[2] = 0
+    cu_k = np.concatenate([[0], np.cumsum(lens_k)])
+    seg_x, _ = varlen_seg(np, F, cu, cu_k)
+    q, _, _, do = _flash_inputs(torch, gen, (1, total, h, d), torch.bfloat16)
+    _, k, v, _ = _flash_inputs(torch, gen, (1, int(cu_k[-1]), h, d),
+                               torch.bfloat16)
+    checks["bf16_cross"] = _flash_errors(torch, F, q, k, v, do, scale, False,
+                                         seg=seg_x)
+    out, lse = F.flash_fwd_cuda(q, k, v, scale, False, seg=seg_x)
+    dead = torch.tensor(ids == 2, device="cuda")
+    if not (bool((lse[:, :, dead] == F.NEG).all())
+            and bool((lse[:, :, ~dead] > -1e29).all())
+            and bool((out[:, dead] == 0).all())):
+        checks["bf16_cross"]["failures"].append(
+            "the queries of the keyless segment are not exactly dead")
+    del q, k, v, do, out, lse
+    torch.cuda.empty_cache()
+    h32, d32 = VARLEN_FP32
+    q, k, v, do = _flash_inputs(torch, gen, (1, total, h32, d32),
+                                torch.float32)
+    checks["fp32_causal"] = flash_fp32_errors(torch, F, q, k, v, do,
+                                              d32 ** -0.5, True, seg=seg)
+    del q, k, v, do
+    torch.cuda.empty_cache()
+    _emit("flash_varlen_checks", {"cu_seqlens": [int(x) for x in cu],
+                                  "cu_seqlens_k_cross":
+                                  [int(x) for x in cu_k], **checks})
+    failures = {n: c["failures"] for n, c in checks.items() if c["failures"]}
+    if failures:
+        raise AssertionError(f"flash segment-mode kernels beyond tolerance: "
+                             f"{failures}")
+    idt = torch.tensor(ids, device="cuda")
+    pos = torch.arange(total, device="cuda")
+    keep = (idt[:, None] == idt[None, :]) & (pos[:, None] >= pos[None, :])
+    rows = {}
+    for suffix, (hh, dd), dtype, names, err_of, tol, elt, peak in (
+            ("_seg", VARLEN_BF16, torch.bfloat16, ("bf16_causal",
+                                                  "bf16_noncausal",
+                                                  "bf16_cross"),
+             lambda e: e, BF16_TOLERANCE, 2, BF16_TENSOR_FLOPS),
+            ("_fp32_seg", VARLEN_FP32, torch.float32, ("fp32_causal",),
+             _kernel_err, FP32_TOLERANCE, 4, FP32_ACCURATE_FLOPS)):
+        sets = []
+        for _ in range(3):
+            q, k, v, do = _flash_inputs(torch, gen, (1, total, hh, dd), dtype)
+            out, lse = F.flash_fwd_cuda(q, k, v, dd ** -0.5, True, seg=seg)
+            sets.append((q, k, v, do, lse, F.flash_delta(do, out)))
+        rows.update(_varlen_rows(
+            torch, F, suffix, sets, dd ** -0.5, seg, cu, keep,
+            (1, total, hh, dd), [checks[n] for n in names], err_of, tol,
+            elt, peak))
+        if suffix == "_seg":     # the non-causal mode, kernels only
+            pairs = _kept_pairs(cu, cu, False)
+            nc = {}
+            for kind, fn in (
+                    ("fwd", lambda *a: F.flash_fwd_cuda(
+                        *a[:3], scale, False, seg=seg)),
+                    ("dq", lambda *a: F.flash_bwd_dq_cuda(
+                        *a[:6], scale, False, seg=seg)),
+                    ("dkv", lambda *a: F.flash_bwd_dkv_cuda(
+                        *a[:6], scale, False, seg=seg))):
+                flops, nbytes = _flash_work(1, total, total, hh, dd, False,
+                                            kind, _seg_bytes(total, total),
+                                            pairs=pairs)
+                nc[kind] = {**_timings(torch, {"kernel": fn}, sets),
+                            "bound_ms": _bound(flops, nbytes)[0],
+                            "kept_pairs_per_head": pairs}
+            _emit("flash_varlen_noncausal", nc)
+        del sets
+        torch.cuda.empty_cache()
+    del keep
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _doc_errors(torch, got, want, fp32) -> tuple:
+    """(worst row over its tolerance, relative Frobenius error) of a
+    packed document's output or gradient against the document alone."""
+    if fp32:
+        e = _rel_errors(torch, got, want.double())
+        return e["row"] / VARLEN_FP32_ROW, e["fro"] / VARLEN_FP32_FRO
+    diff = got.float() - want.float()
+    tol = VARLEN_ROW_RTOL * want.float().abs().amax(-1) + VARLEN_ROW_ATOL
+    fro = (diff.norm() / want.float().norm().clamp(min=1e-30)).item()
+    return (diff.abs().amax(-1) / tol).max().item(), fro / VARLEN_FRO
+
+
+def phase_varlen_packed(torch, np, K, F, io, TF, TI) -> dict:
+    """The slice's path through its public entry points: the port's
+    native ``pack_sequences`` (its C++ library must have built:
+    ``native_available()``) packs ``bench_llama``'s first host step into
+    rows of 2048; the rows' ``cu`` become the batch's ``cu_seqlens``
+    (8,760 tokens, 8 documents); then ``nn.functional.
+    flash_attn_unpadded`` forward and backward through autograd at
+    [8760, 16, 128] bf16 causal, ``incubate.nn.functional.
+    variable_length_memory_efficient_attention`` non-causal at the same
+    widths, and ``flash_attn_unpadded`` in fp32 at [8760, 12, 64] causal.
+    The launch counters, read around these calls alone, must be exactly
+    theirs (the segment mode: bf16 2 of each kernel, fp32 1). Then each
+    document's output and q, k and v gradients are held against
+    ``flash_attention`` on that document alone ([1, len, h, d], the
+    no-segment kernels, whose 16 bf16 and 8 fp32 launches of each kernel
+    are counted apart): ``VARLEN_*`` limits. Last, for information, CUDA
+    event times of the packed bf16 causal call (forward and backward)
+    against the 8 per-document calls."""
+    if not io.native_available():
+        raise AssertionError("the C++ sequence packer did not build: "
+                             "pack_sequences would take its numpy path")
+    docs = varlen_documents(np)
+    t0 = time.perf_counter()
+    tokens, cu = varlen_pack(np, io, docs)
+    pack_ms = (time.perf_counter() - t0) * 1e3
+    if not np.array_equal(tokens, np.concatenate(docs)):
+        raise AssertionError("packing and unpadding changed the tokens")
+    total = int(cu[-1])
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 15)
+
+    def arm(h, d, dtype):
+        q, k, v, dout = _flash_inputs(torch, gen, (total, h, d), dtype)
+        return [x.requires_grad_(True) for x in (q, k, v)], dout
+
+    arms = {"bf16_causal": (*arm(*VARLEN_BF16, torch.bfloat16), True),
+            "bf16_noncausal": (*arm(*VARLEN_BF16, torch.bfloat16), False),
+            "fp32_causal": (*arm(*VARLEN_FP32, torch.float32), True)}
+    outs = {}
+    K.reset_launch_counts()
+    for name, (leaves, dout, causal) in arms.items():
+        if name == "bf16_noncausal":
+            out = TI.variable_length_memory_efficient_attention(
+                *leaves, cu, cu, causal=False)
+        else:
+            out = TF.flash_attn_unpadded(*leaves, cu, cu, causal=causal)
+        out.backward(dout)
+        outs[name] = out.detach()
+    torch.cuda.synchronize()
+    launches = K.launch_counts()
+    want = _counts(K, flash_fwd_seg=2, flash_dq_seg=2, flash_dkv_seg=2,
+                   flash_fwd_fp32_seg=1, flash_dq_fp32_seg=1,
+                   flash_dkv_fp32_seg=1)
+    failures = []
+    if launches != want:
+        failures.append(f"launches {launches} != {want}")
+    K.reset_launch_counts()
+    errors = {}
+    for name, (leaves, dout, causal) in arms.items():
+        worst = {}
+        for a, b in zip(cu[:-1], cu[1:]):
+            alone = [x.detach()[a:b][None].clone().requires_grad_(True)
+                     for x in leaves]
+            o = F.flash_attention(*alone, causal=causal)
+            o.backward(dout[a:b][None])
+            for what, got, ref in zip(
+                    ("out", "dq", "dk", "dv"),
+                    (outs[name][a:b],) + tuple(x.grad[a:b] for x in leaves),
+                    (o.detach()[0],) + tuple(x.grad[0] for x in alone)):
+                r, f = _doc_errors(torch, got, ref, name.startswith("fp32"))
+                w = worst.setdefault(what, {"row": 0.0, "fro": 0.0})
+                w["row"], w["fro"] = max(w["row"], r), max(w["fro"], f)
+        errors[name] = worst
+        failures += [f"{name} {what}: {m} at {v:.3g} of its limit"
+                     for what, w in worst.items() for m, v in w.items()
+                     if not v <= 1.0]
+    torch.cuda.synchronize()
+    ref_launches = K.launch_counts()
+    want_ref = _counts(K, flash_fwd=16, flash_dq=16, flash_dkv=16,
+                       flash_fwd_fp32=8, flash_dq_fp32=8, flash_dkv_fp32=8)
+    if ref_launches != want_ref:
+        failures.append(f"reference launches {ref_launches} != {want_ref}")
+    (leaves, dout, _), docs_cu = arms["bf16_causal"], list(zip(cu[:-1],
+                                                              cu[1:]))
+
+    def packed():
+        TF.flash_attn_unpadded(*leaves, cu, cu, causal=True).backward(dout)
+
+    def per_doc():
+        for a, b in docs_cu:
+            F.flash_attention(*(x[a:b][None] for x in leaves),
+                              causal=True).backward(dout[a:b][None])
+
+    times = {"packed_fwd_bwd_ms": _time_ms(torch, packed, [()], iters=20,
+                                           warmup=3),
+             "per_doc_fwd_bwd_ms": _time_ms(torch, per_doc, [()], iters=20,
+                                            warmup=3)}
+    result = {"native_packer": True, "pack_host_ms": pack_ms,
+              "cu_seqlens": [int(x) for x in cu], "tokens": total,
+              "launches": launches, "reference_launches": ref_launches,
+              "errors_over_limit": errors, "limits": {
+                  "bf16": [VARLEN_ROW_RTOL, VARLEN_ROW_ATOL, VARLEN_FRO],
+                  "fp32": [VARLEN_FP32_ROW, VARLEN_FP32_FRO]},
+              **times, "failures": failures}
+    _emit("varlen_packed", result)
+    if failures:
+        raise AssertionError(f"varlen_packed: {failures}")
+    return result
 
 
 def flagship_config(LlamaConfig, seq: int):
@@ -2768,6 +3161,9 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     try:
+        import paddle_tpu_torch.incubate.nn.functional as TI
+        import paddle_tpu_torch.nn.functional as TF
+        from paddle_tpu_torch import io as PIO
         from paddle_tpu_torch.jit import TrainStep
         from paddle_tpu_torch.models import (BertConfig, BertForPreTraining,
                                              GPTConfig, GPTForCausalLM,
@@ -2822,6 +3218,10 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     flash_modes = phase_flash_fp32(torch, np, F)
     flash_modes.update(phase_flash_dropout(torch, np, F, K))
+    torch.cuda.empty_cache()
+    flash_varlen = phase_flash_varlen(torch, np, F, PIO)
+    torch.cuda.empty_cache()
+    varlen = phase_varlen_packed(torch, np, K, F, PIO, TF, TI)
     torch.cuda.empty_cache()
     moe_k = phase_moe_kernels(torch, MR, GG)
     torch.cuda.empty_cache()
@@ -3068,6 +3468,24 @@ def main(argv=None) -> int:
                 "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                 "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                 "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+                "shape": row["shape"]})
+    # the segment mode: launches from varlen_packed, the slice's path
+    for suffix in ("_seg", "_fp32_seg"):
+        for kind, source, line in (
+                ("fwd", "flash_attention_fwd.cu", 242),
+                ("dq", "flash_attention_bwd.cu", 558),
+                ("dkv", "flash_attention_bwd.cu", 590)):
+            name = f"flash_{kind}{suffix}"
+            row = flash_varlen[name]
+            kernels.append({
+                "name": name, "route": "cuda", "source": src + source,
+                "replaces": f"paddle_tpu/ops/pallas/flash_attention.py:{line}",
+                "launches": varlen["launches"][name],
+                "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+                "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+                "library_per_doc_ms": row["library_per_doc_ms"],
+                "kept_pairs_per_head": row["kept_pairs_per_head"],
                 "shape": row["shape"]})
     for name, line in (("moe_routing", "moe_routing.py:147"),
                        ("moe_fwd", "moe_grouped_gemm.py:263"),

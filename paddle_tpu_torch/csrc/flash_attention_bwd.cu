@@ -5,8 +5,8 @@
 // paddle_tpu/ops/pallas/flash_attention.py::flash_block_grads: the dQ pass
 // (_bwd_dq_kernel, :329-389, called at :558) and the dK/dV pass
 // (_bwd_dkv_kernel, :392-463, called at :590), with their additive bias
-// mode (has_bias), their in-kernel dropout (dropout_p) and bf16 and fp32
-// inputs; without the segment-id mode.
+// mode (has_bias), their in-kernel dropout (dropout_p), their segment-id
+// mode (has_seg, flash_attn_unpadded :765) and bf16 and fp32 inputs.
 //
 // Bound on the H100: operations. At the training path's shape (b 4, s 2048,
 // h 16, d 128, causal, bf16) dQ is 3 products (103 GFLOP, 104 us at the
@@ -52,6 +52,19 @@
 // keep ? dP / (1 - p_drop) : 0 before dS = P * (dP - delta) * scale, and
 // dV takes the dropped, rescaled P. delta = rowsum(dO * out) of the
 // dropped output, as the wrapper's caller computes it.
+// Segment mode (SEG, a template flag, instantiated without bias and
+// dropout): as in the forward, each loop runs only over the tiles of the
+// other side that the grain summaries allow ([first, end) of its own
+// tile, flash_common.cuh) and skips a tile whose id range does not meet
+// its own: dQ over k tiles for its q tile, dK/dV over q tiles (of BQ rows)
+// for its k tile; the range of the tile after next is loaded while the
+// current one is computed. Inside a live tile that holds more than one
+// id an element takes P = 0 where its ids differ, after the causal test
+// (:366-369, :430-433): each lane reads the other side's ids of its
+// columns once for the tile into a bitmask (same_ids), dK/dV in its
+// transposed frame (its key rows' ids against the q columns'). Stages
+// alternate by the count of live tiles. A key that no query sees gets
+// dk = dv = 0, a query that sees no key dq = 0.
 //
 // Arithmetic against the Pallas kernels (and flash_block_grads_plain):
 // S = Q K^T and dP = dO V^T are bf16 products, exact in fp32, in another
@@ -76,7 +89,7 @@ constexpr int kThreads = 128;   // 4 warps x 16 rows
 constexpr int kBQ = 64;         // dQ: q rows per block
 constexpr int kBK = 64;         // keys per tile (both kernels)
 
-template <typename T, int D, bool HAS_BIAS, bool DROP>
+template <typename T, int D, bool HAS_BIAS, bool DROP, bool SEG>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ dout,
@@ -89,7 +102,10 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const float* __restrict__ bias, int64_t b_sb,
                     int64_t b_sh, int64_t b_sq, int64_t b_sk,
                     const int64_t* __restrict__ seed, uint32_t thresh,
-                    float inv_keep) {
+                    float inv_keep, const int* __restrict__ seg_q,
+                    const int* __restrict__ seg_k,
+                    const int4* __restrict__ q_info,
+                    const int4* __restrict__ k_info) {
   constexpr bool kF32 = std::is_same<T, float>::value;
   constexpr int LD = Pitch<T, D>::LD;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -114,12 +130,27 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* kb = k + bi * k_sb + hi * k_sh;
   const T* vb = v + bi * v_sb + hi * v_sh;
   const int kend = causal ? min(sk, q0 + kBQ + off) : sk;
-  const int n_tiles = kend > 0 ? (kend + kBK - 1) / kBK : 0;
-  auto issue = [&](int jt) {   // tile jt of K and V into stage jt & 1
-    const int k0 = jt * kBK;
-    load_tile_async<kBK, D, LD, kThreads>(sK[jt & 1], kb + k0 * k_ss,
+  int j_end = kend > 0 ? (kend + kBK - 1) / kBK : 0;   // k tiles < j_end
+  int jt = 0;                                          // the first one
+  // SEG: the k tiles whose ids can meet this q tile's, and the ranges of
+  // tiles jt and jn (the next one)
+  constexpr int kG = kBK / kSegGrain;   // grains a k tile
+  SegWalk<kG> walk{k_info, (sk + kSegGrain - 1) / kSegGrain, 0, 0, 0};
+  SegRange rcur{}, rnext{};
+  if constexpr (SEG) {
+    const SegRange r = seg_range<kBQ / kSegGrain>(
+        q_info, q0 / kSegGrain, (sq + kSegGrain - 1) / kSegGrain);
+    j_end = min(j_end, (r.end + kG - 1) / kG);
+    walk.end = j_end;
+    walk.lo = r.lo;
+    walk.hi = r.hi;
+    jt = walk.next(r.first / kG, rcur);
+  }
+  auto issue = [&](int j, int st) {   // tile j of K and V into stage st
+    const int k0 = j * kBK;
+    load_tile_async<kBK, D, LD, kThreads>(sK[st], kb + k0 * k_ss,
                                           k_ss, sk - k0);
-    load_tile_async<kBK, D, LD, kThreads>(sV[jt & 1], vb + k0 * v_ss,
+    load_tile_async<kBK, D, LD, kThreads>(sV[st], vb + k0 * v_ss,
                                           v_ss, sk - k0);
     cp_async_commit();
   };
@@ -128,7 +159,9 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   load_tile_async<kBQ, D, LD, kThreads>(
       sO, dout + bi * o_sb + hi * o_sh + q0 * o_ss, o_ss, sq - q0);
   cp_async_commit();
-  if (n_tiles > 0) issue(0);
+  if (jt < j_end) issue(jt, 0);
+  int jn = 0;   // SEG: the next live k tile
+  if constexpr (SEG) jn = walk.next(jt + 1, rnext);
 
   const int row[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
   const float* brow[2] = {nullptr, nullptr};   // this lane's bias rows
@@ -145,24 +178,36 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  : 0.f;
     dlt[r] = ok ? delta[(int64_t)bh * sq + row[r]] : 0.f;
   }
+  int srow[2] = {0, 0};   // SEG: this lane's rows' ids
+  if constexpr (SEG) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) srow[r] = row[r] < sq ? seg_q[row[r]] : -1;
+  }
 
   float acc[D / 8][4];
 #pragma unroll
   for (int i = 0; i < D / 8; ++i)
     acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
 
-  for (int jt = 0; jt < n_tiles; ++jt) {
-    const int k0 = jt * kBK;
-    const T* cK = sK[jt & 1];
-    const T* cV = sV[jt & 1];
-    __syncthreads();   // stage (jt + 1) & 1 (tile jt - 1) is consumed
-    if (jt + 1 < n_tiles) {
-      issue(jt + 1);   // streams in while this tile is computed
+  for (int it = 0; jt < j_end; ++it) {
+    if constexpr (!SEG) jn = jt + 1;
+    const int k0 = jt * kBK, st = (SEG ? it : jt) & 1;
+    const T* cK = sK[st];
+    const T* cV = sV[st];
+    __syncthreads();   // stage st ^ 1 (the previous tile) is consumed
+    if (jn < j_end) {
+      issue(jn, st ^ 1);   // streams in while this tile is computed
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
     }
     __syncthreads();   // Q, dO and tile jt are visible to every warp
+    SegRange rpre{};      // SEG: tile jn + 1's range, loaded during this tile
+    uint32_t same = ~0u;  // SEG: the elements whose ids are equal
+    if constexpr (SEG) {
+      if (jn + 1 < j_end) rpre = walk.range(jn + 1);
+      if (!walk.uniform(rcur)) same = same_ids<kBK / 8>(seg_k, k0, sk, srow, t);
+    }
 
     float s[kBK / 8][4], dp[kBK / 8][4];
 #pragma unroll
@@ -218,8 +263,9 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                           - lse2[r])
                   : 0.f;
         } else {
-          p = visible(row[r], col, sq, sk, off, causal)
-                  ? exp2f(s[nt][i] * scale_log2 - lse2[r]) : 0.f;
+          bool vis = visible(row[r], col, sq, sk, off, causal);
+          if constexpr (SEG) vis = vis && same_bit(same, nt, i);
+          p = vis ? exp2f(s[nt][i] * scale_log2 - lse2[r]) : 0.f;
         }
         s[nt][i] = p * (dp[nt][i] - dlt[r]) * scale;   // dS
       }
@@ -242,9 +288,19 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
         }
       }
     }
+    if constexpr (SEG) {   // the live tile after jn
+      int jnn = jn + 1;
+      if (jnn < j_end && !walk.live(rpre)) jnn = walk.next(jnn + 1, rpre);
+      rcur = rnext;
+      rnext = rpre;
+      jt = jn;
+      jn = jnn;
+    } else {
+      ++jt;
+    }
   }
 
-  cp_async_wait<0>();   // nothing in flight at exit (n_tiles == 0)
+  cp_async_wait<0>();   // nothing in flight at exit (no live k tile)
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     if (row[r] >= sq) continue;
@@ -255,7 +311,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int D, int BQ, bool HAS_BIAS, bool DROP>
+template <typename T, int D, int BQ, bool HAS_BIAS, bool DROP, bool SEG>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v,
@@ -269,7 +325,10 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      bool causal, const float* __restrict__ bias,
                      int64_t b_sb, int64_t b_sh, int64_t b_sq, int64_t b_sk,
                      const int64_t* __restrict__ seed, uint32_t thresh,
-                     float inv_keep) {
+                     float inv_keep, const int* __restrict__ seg_q,
+                     const int* __restrict__ seg_k,
+                     const int4* __restrict__ q_info,
+                     const int4* __restrict__ k_info) {
   constexpr bool kF32 = std::is_same<T, float>::value;
   constexpr int LD = Pitch<T, D>::LD;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -312,6 +371,11 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int r = 0; r < 2; ++r)
       bkey[r] = bias + bi * b_sb + hi * b_sh + (int64_t)krow[r] * b_sk;
   }
+  int skey[2] = {0, 0};   // SEG: this lane's key rows' ids
+  if constexpr (SEG) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) skey[r] = krow[r] < sk ? seg_k[krow[r]] : -1;
+  }
   float dka[D / 8][4], dva[D / 8][4];
 #pragma unroll
   for (int i = 0; i < D / 8; ++i) {
@@ -322,8 +386,24 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // causal: query row r sees key k0 when r >= k0 - off
   const int first = causal ? max(0, k0 - off) : 0;
   const int i0 = first / BQ, n_qt = (sq + BQ - 1) / BQ;
-  auto issue = [&](int it) {   // q tile it into stage it & 1
-    const int qs0 = it * BQ, st = it & 1;
+  int i_end = n_qt;       // q tiles < i_end
+  int it = i0;            // the first one
+  // SEG: the q tiles whose ids can meet this k tile's, and the ranges of
+  // tiles it and in (the next one)
+  constexpr int kG = BQ / kSegGrain;   // grains a q tile
+  SegWalk<kG> walk{q_info, (sq + kSegGrain - 1) / kSegGrain, 0, 0, 0};
+  SegRange rcur{}, rnext{};
+  if constexpr (SEG) {
+    const SegRange r = seg_range<kBK / kSegGrain>(
+        k_info, k0 / kSegGrain, (sk + kSegGrain - 1) / kSegGrain);
+    i_end = min(i_end, (r.end + kG - 1) / kG);
+    walk.end = i_end;
+    walk.lo = r.lo;
+    walk.hi = r.hi;
+    it = walk.next(max(it, r.first / kG), rcur);
+  }
+  auto issue = [&](int iq, int st) {   // q tile iq into stage st
+    const int qs0 = iq * BQ;
     load_tile_async<BQ, D, LD, kThreads>(sQ[st], qb + qs0 * q_ss, q_ss,
                                          sq - qs0);
     load_tile_async<BQ, D, LD, kThreads>(sO[st], ob + qs0 * o_ss, o_ss,
@@ -336,21 +416,30 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       sD[st][i] = ok ? delta[(int64_t)bh * sq + qs0 + i] : 0.f;
     }
   };
-  if (i0 < n_qt) issue(i0);
-  for (int it = i0; it < n_qt; ++it) {
-    const int qs0 = it * BQ, st = it & 1;
+  if (it < i_end) issue(it, (SEG ? 0 : it) & 1);
+  int in = 0;   // SEG: the next live q tile
+  if constexpr (SEG) in = walk.next(it + 1, rnext);
+  for (int n = 0; it < i_end; ++n) {
+    if constexpr (!SEG) in = it + 1;
+    const int qs0 = it * BQ, st = (SEG ? n : it) & 1;
     const T* cQ = sQ[st];
     const T* cO = sO[st];
     const float* cL = sL[st];
     const float* cD = sD[st];
-    __syncthreads();   // stage (it + 1) & 1 (q tile it - 1) is consumed
-    if (it + 1 < n_qt) {
-      issue(it + 1);   // streams in while this q tile is computed
+    __syncthreads();   // stage st ^ 1 (the previous q tile) is consumed
+    if (in < i_end) {
+      issue(in, st ^ 1);   // streams in while this q tile is computed
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
     }
     __syncthreads();   // K, V and q tile it are visible to every warp
+    SegRange rpre{};      // SEG: tile in + 1's range, loaded during this tile
+    uint32_t same = ~0u;  // SEG: the elements whose ids are equal
+    if constexpr (SEG) {
+      if (in + 1 < i_end) rpre = walk.range(in + 1);
+      if (!walk.uniform(rcur)) same = same_ids<BQ / 8>(seg_q, qs0, sq, skey, t);
+    }
 
     float s[BQ / 8][4], dp[BQ / 8][4];   // S^T and dP^T: key rows x q cols
 #pragma unroll
@@ -393,8 +482,9 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                           - cL[c])
                   : 0.f;
         } else {
-          p = visible(qs0 + c, krow[i >> 1], sq, sk, off, causal)
-                  ? exp2f(s[nt][i] * scale_log2 - cL[c]) : 0.f;
+          bool vis = visible(qs0 + c, krow[i >> 1], sq, sk, off, causal);
+          if constexpr (SEG) vis = vis && same_bit(same, nt, i);
+          p = vis ? exp2f(s[nt][i] * scale_log2 - cL[c]) : 0.f;
         }
         float dpv = dp[nt][i];
         if constexpr (DROP) {   // element (query qs0 + c, key krow)
@@ -434,6 +524,16 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         }
       }
     }
+    if constexpr (SEG) {   // the live tile after in
+      int inn = in + 1;
+      if (inn < i_end && !walk.live(rpre)) inn = walk.next(inn + 1, rpre);
+      rcur = rnext;
+      rnext = rpre;
+      it = in;
+      in = inn;
+    } else {
+      ++it;
+    }
   }
 
   cp_async_wait<0>();   // nothing in flight at exit (no live q tile)
@@ -455,14 +555,15 @@ template <int D> struct DkvTile { static constexpr int BQ = D == 128 ? 32 : 64; 
 template <typename T, int D>
 int launch_dq(const void* q, const void* k, const void* v, const void* o,
               const void* lse, const void* delta, void* dq, const void* bias,
-              const void* seed, int b, int h, int sq, int sk,
-              const int64_t* st, float scale, int causal, uint32_t thresh,
-              float inv_keep, cudaStream_t stream) {
+              const void* seed, const void* const* seg, int b, int h, int sq,
+              int sk, const int64_t* st, float scale, int causal,
+              uint32_t thresh, float inv_keep, cudaStream_t stream) {
   const size_t smem = sizeof(T) * (2 * kBQ + 4 * kBK) * Pitch<T, D>::LD;
-  auto kern = bias ? (seed ? flash_bwd_dq_kernel<T, D, true, true>
-                           : flash_bwd_dq_kernel<T, D, true, false>)
-                   : (seed ? flash_bwd_dq_kernel<T, D, false, true>
-                           : flash_bwd_dq_kernel<T, D, false, false>);
+  auto kern = seg[0] ? flash_bwd_dq_kernel<T, D, false, false, true>
+              : bias ? (seed ? flash_bwd_dq_kernel<T, D, true, true, false>
+                             : flash_bwd_dq_kernel<T, D, true, false, false>)
+                     : (seed ? flash_bwd_dq_kernel<T, D, false, true, false>
+                             : flash_bwd_dq_kernel<T, D, false, false, false>);
   cudaError_t err = allow_smem(kern, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((sq + kBQ - 1) / kBQ, b * h);
@@ -473,23 +574,28 @@ int launch_dq(const void* q, const void* k, const void* v, const void* o,
       static_cast<T*>(dq), h, sq, sk, st[0], st[1], st[2], st[3], st[4],
       st[5], st[6], st[7], st[8], st[9], st[10], st[11], scale, causal != 0,
       static_cast<const float*>(bias), st[12], st[13], st[14], st[15],
-      static_cast<const int64_t*>(seed), thresh, inv_keep);
+      static_cast<const int64_t*>(seed), thresh, inv_keep,
+      static_cast<const int*>(seg[0]), static_cast<const int*>(seg[1]),
+      static_cast<const int4*>(seg[2]), static_cast<const int4*>(seg[3]));
   return (int)cudaGetLastError();
 }
 
 template <typename T, int D>
 int launch_dkv(const void* q, const void* k, const void* v, const void* o,
                const void* lse, const void* delta, void* dk, void* dv,
-               const void* bias, const void* seed, int b, int h, int sq,
-               int sk, const int64_t* st, float scale, int causal,
-               uint32_t thresh, float inv_keep, cudaStream_t stream) {
+               const void* bias, const void* seed, const void* const* seg,
+               int b, int h, int sq, int sk, const int64_t* st, float scale,
+               int causal, uint32_t thresh, float inv_keep,
+               cudaStream_t stream) {
   constexpr int BQ = DkvTile<D>::BQ;
   const size_t smem = sizeof(T) * (4 * BQ + 2 * kBK) * Pitch<T, D>::LD
                       + sizeof(float) * 4 * BQ;
-  auto kern = bias ? (seed ? flash_bwd_dkv_kernel<T, D, BQ, true, true>
-                           : flash_bwd_dkv_kernel<T, D, BQ, true, false>)
-                   : (seed ? flash_bwd_dkv_kernel<T, D, BQ, false, true>
-                           : flash_bwd_dkv_kernel<T, D, BQ, false, false>);
+  auto kern =
+      seg[0] ? flash_bwd_dkv_kernel<T, D, BQ, false, false, true>
+      : bias ? (seed ? flash_bwd_dkv_kernel<T, D, BQ, true, true, false>
+                     : flash_bwd_dkv_kernel<T, D, BQ, true, false, false>)
+             : (seed ? flash_bwd_dkv_kernel<T, D, BQ, false, true, false>
+                     : flash_bwd_dkv_kernel<T, D, BQ, false, false, false>);
   cudaError_t err = allow_smem(kern, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((sk + kBK - 1) / kBK, b * h);
@@ -501,12 +607,19 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* o,
       st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10],
       st[11], scale, causal != 0, static_cast<const float*>(bias), st[12],
       st[13], st[14], st[15], static_cast<const int64_t*>(seed), thresh,
-      inv_keep);
+      inv_keep, static_cast<const int*>(seg[0]),
+      static_cast<const int*>(seg[1]), static_cast<const int4*>(seg[2]),
+      static_cast<const int4*>(seg[3]));
   return (int)cudaGetLastError();
 }
 
 bool shape_ok(int64_t b, int64_t h, int64_t sq, int64_t sk) {
   return b * h <= 65535 && sq <= (1 << 30) && sk <= (1 << 30);
+}
+
+// segment ids take neither a bias nor dropout
+bool seg_ok(const void* const* seg, const void* bias, const void* seed) {
+  return !seg[0] || (!bias && !seed);
 }
 
 }  // namespace
@@ -518,25 +631,31 @@ bool shape_ok(int64_t b, int64_t h, int64_t sq, int64_t sk) {
 // q, k) at bias_sb * b + bias_sh * h + bias_sq * q + bias_sk * k (a
 // broadcast dimension: stride 0). seed is null (no dropout) or the
 // forward's device int64 [2] (seed, offset), with its thresh and inv_keep.
+// seg_q, seg_k, q_info and k_info are null (no segment ids) or as in
+// flash_fwd_launch.
 extern "C" int flash_bwd_dq_launch(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dq, const void* bias,
-    const void* seed, int64_t b, int64_t h, int64_t sq, int64_t sk,
+    const void* seed, const void* seg_q, const void* seg_k,
+    const void* q_info, const void* k_info, int64_t b, int64_t h,
+    int64_t sq, int64_t sk,
     int64_t d, int64_t q_sb, int64_t q_ss, int64_t q_sh, int64_t k_sb,
     int64_t k_ss, int64_t k_sh, int64_t v_sb, int64_t v_ss, int64_t v_sh,
     int64_t o_sb, int64_t o_ss, int64_t o_sh, int64_t bias_sb,
     int64_t bias_sh, int64_t bias_sq, int64_t bias_sk, float scale,
     int causal, int dtype, uint32_t thresh, float inv_keep, void* stream) {
   if (b * h <= 0 || sq <= 0 || sk <= 0) return 0;
-  if (!shape_ok(b, h, sq, sk)) return (int)cudaErrorInvalidValue;
+  const void* const seg[4] = {seg_q, seg_k, q_info, k_info};
+  if (!shape_ok(b, h, sq, sk) || !seg_ok(seg, bias, seed))
+    return (int)cudaErrorInvalidValue;
   const int64_t st[16] = {q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
                           v_sb, v_ss, v_sh, o_sb, o_ss, o_sh,
                           bias_sb, bias_sh, bias_sq, bias_sk};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define FLASH_DQ_LAUNCH(T, D)                                                \
-  return launch_dq<T, D>(q, k, v, dout, lse, delta, dq, bias, seed, (int)b, \
-                         (int)h, (int)sq, (int)sk, st, scale, causal,        \
-                         thresh, inv_keep, s)
+  return launch_dq<T, D>(q, k, v, dout, lse, delta, dq, bias, seed, seg,    \
+                         (int)b, (int)h, (int)sq, (int)sk, st, scale,       \
+                         causal, thresh, inv_keep, s)
   if (dtype == 1 && d == 64) FLASH_DQ_LAUNCH(bf16, 64);
   if (dtype == 1 && d == 128) FLASH_DQ_LAUNCH(bf16, 128);
   if (dtype == 0 && d == 64) FLASH_DQ_LAUNCH(float, 64);
@@ -549,21 +668,25 @@ extern "C" int flash_bwd_dq_launch(
 extern "C" int flash_bwd_dkv_launch(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dk, void* dv, const void* bias,
-    const void* seed, int64_t b, int64_t h, int64_t sq, int64_t sk,
+    const void* seed, const void* seg_q, const void* seg_k,
+    const void* q_info, const void* k_info, int64_t b, int64_t h,
+    int64_t sq, int64_t sk,
     int64_t d, int64_t q_sb, int64_t q_ss, int64_t q_sh, int64_t k_sb,
     int64_t k_ss, int64_t k_sh, int64_t v_sb, int64_t v_ss, int64_t v_sh,
     int64_t o_sb, int64_t o_ss, int64_t o_sh, int64_t bias_sb,
     int64_t bias_sh, int64_t bias_sq, int64_t bias_sk, float scale,
     int causal, int dtype, uint32_t thresh, float inv_keep, void* stream) {
   if (b * h <= 0 || sq <= 0 || sk <= 0) return 0;
-  if (!shape_ok(b, h, sq, sk)) return (int)cudaErrorInvalidValue;
+  const void* const seg[4] = {seg_q, seg_k, q_info, k_info};
+  if (!shape_ok(b, h, sq, sk) || !seg_ok(seg, bias, seed))
+    return (int)cudaErrorInvalidValue;
   const int64_t st[16] = {q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
                           v_sb, v_ss, v_sh, o_sb, o_ss, o_sh,
                           bias_sb, bias_sh, bias_sq, bias_sk};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define FLASH_DKV_LAUNCH(T, D)                                               \
   return launch_dkv<T, D>(q, k, v, dout, lse, delta, dk, dv, bias, seed,    \
-                          (int)b, (int)h, (int)sq, (int)sk, st, scale,      \
+                          seg, (int)b, (int)h, (int)sq, (int)sk, st, scale, \
                           causal, thresh, inv_keep, s)
   if (dtype == 1 && d == 64) FLASH_DKV_LAUNCH(bf16, 64);
   if (dtype == 1 && d == 128) FLASH_DKV_LAUNCH(bf16, 128);

@@ -3,8 +3,9 @@
 //
 // Replaces paddle_tpu/ops/pallas/flash_attention.py::_fwd_kernel / _fwd
 // (its pallas_call at :242), with its additive bias mode (has_bias), its
-// in-kernel dropout (dropout_p, _drop_mask :50) and any input dtype the
-// JAX kernel takes in bf16 and fp32; without the segment-id mode.
+// in-kernel dropout (dropout_p, _drop_mask :50), its segment-id mode
+// (has_seg, flash_attn_unpadded :765) and any input dtype the JAX kernel
+// takes in bf16 and fp32.
 //
 // Bound on the H100: operations. At the training path's shape (b 4, s 2048,
 // h 16, d 128, causal, bf16) the two products are 68.7 GFLOP against
@@ -51,6 +52,26 @@
 //     of the elements it holds (philox.cuh) and P V takes keep ? p / (1 -
 //     p_drop) : 0. lse is unchanged. The key (seed, offset) is read from a
 //     device int64 [2], so no draw waits for the host.
+//   - segment mode (SEG, a template flag, instantiated without bias and
+//     dropout: no path combines them): packed sequences, where a query sees
+//     only keys of its own segment id. The Pallas kernel masks elements and
+//     skips causal-dead blocks only, so a packed batch of 8 documents
+//     (8,760 tokens) pays for 38.4 M causal pairs where 6.2 M are kept.
+//     Here the loop runs only over the k tiles that the wrapper's grain
+//     summaries allow for this q tile ([first, end), flash_common.cuh) and
+//     skips a tile whose id range does not meet the q tile's, so a block
+//     visits its own document's tiles (and those a boundary straddles);
+//     the range of the tile after next is loaded while the current one
+//     is computed, so a step waits on no load. Inside a live tile that
+//     holds more than one id each element is masked to -1e30 where its
+//     ids differ, after the causal test (:143-146): each lane reads the
+//     key ids of its 16 columns once into a bitmask (same_ids) before the
+//     products, and a tile of one id reads none (a test per element with
+//     its own load took 1.3-1.5x the time on an H100,
+//     tools/flash_seg_probe.py).
+//     Stages alternate by the count of live tiles, not by tile index. A
+//     row that sees no key (a segment with queries and no keys) gets out
+//     = 0 and lse = -1e30.
 //
 // Arithmetic against the Pallas kernel (and flash_fwd_plain): QK^T of bf16
 // inputs is exact in fp32, only the order of the sums differs; the Pallas
@@ -75,7 +96,7 @@ constexpr int kThreads = 128;   // 4 warps x 16 q rows
 constexpr int kBQ = 64;
 constexpr int kBK = 64;
 
-template <typename T, int D, bool HAS_BIAS, bool DROP>
+template <typename T, int D, bool HAS_BIAS, bool DROP, bool SEG>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ out,
@@ -86,7 +107,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const float* __restrict__ bias, int64_t b_sb, int64_t b_sh,
                  int64_t b_sq, int64_t b_sk,
                  const int64_t* __restrict__ seed, uint32_t thresh,
-                 float inv_keep) {
+                 float inv_keep, const int* __restrict__ seg_q,
+                 const int* __restrict__ seg_k,
+                 const int4* __restrict__ q_info,
+                 const int4* __restrict__ k_info) {
   constexpr bool kF32 = std::is_same<T, float>::value;
   constexpr int LD = Pitch<T, D>::LD;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -115,12 +139,27 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* vb = v + bi * v_sb + hi * v_sh;
 
   const int kend = causal ? min(sk, q0 + kBQ + off) : sk;   // keys < kend
-  const int n_tiles = kend > 0 ? (kend + kBK - 1) / kBK : 0;
-  auto issue = [&](int jt) {   // tile jt of K and V into stage jt & 1
-    const int k0 = jt * kBK;
-    load_tile_async<kBK, D, LD, kThreads>(sK[jt & 1], kb + k0 * k_ss,
+  int j_end = kend > 0 ? (kend + kBK - 1) / kBK : 0;   // k tiles < j_end
+  int jt = 0;                                          // the first one
+  // SEG: the k tiles whose ids can meet this q tile's, and the ranges of
+  // tiles jt and jn (the next one)
+  constexpr int kG = kBK / kSegGrain;   // grains a k tile
+  SegWalk<kG> walk{k_info, (sk + kSegGrain - 1) / kSegGrain, 0, 0, 0};
+  SegRange rcur{}, rnext{};
+  if constexpr (SEG) {
+    const SegRange r = seg_range<kBQ / kSegGrain>(
+        q_info, q0 / kSegGrain, (sq + kSegGrain - 1) / kSegGrain);
+    j_end = min(j_end, (r.end + kG - 1) / kG);
+    walk.end = j_end;
+    walk.lo = r.lo;
+    walk.hi = r.hi;
+    jt = walk.next(r.first / kG, rcur);
+  }
+  auto issue = [&](int j, int st) {   // tile j of K and V into stage st
+    const int k0 = j * kBK;
+    load_tile_async<kBK, D, LD, kThreads>(sK[st], kb + k0 * k_ss,
                                           k_ss, sk - k0);
-    load_tile_async<kBK, D, LD, kThreads>(sV[jt & 1], vb + k0 * v_ss,
+    load_tile_async<kBK, D, LD, kThreads>(sV[st], vb + k0 * v_ss,
                                           v_ss, sk - k0);
     cp_async_commit();
   };
@@ -128,8 +167,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   load_tile_async<kBQ, D, LD, kThreads>(kF32 ? sQ : sK[1], qb + q0 * q_ss,
                                         q_ss, sq - q0);
   cp_async_commit();
-  if (n_tiles > 0) issue(0);
-  if (n_tiles > 0) cp_async_wait<1>(); else cp_async_wait<0>();
+  if (jt < j_end) issue(jt, 0);
+  int jn = 0;   // SEG: the next live k tile
+  if constexpr (SEG) jn = walk.next(jt + 1, rnext);
+  if (jt < j_end) cp_async_wait<1>(); else cp_async_wait<0>();
   __syncthreads();
   uint32_t qf[D / 16][4];   // bf16: this warp's Q rows as A fragments
   if constexpr (!kF32) {
@@ -150,19 +191,31 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int r = 0; r < 2; ++r)
       brow[r] = bias + bi * b_sb + hi * b_sh + (int64_t)row[r] * b_sq;
   }
+  int srow[2] = {0, 0};   // SEG: this lane's rows' ids
+  if constexpr (SEG) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) srow[r] = row[r] < sq ? seg_q[row[r]] : -1;
+  }
 
-  for (int jt = 0; jt < n_tiles; ++jt) {
-    const int k0 = jt * kBK;
-    const T* cK = sK[jt & 1];
-    const T* cV = sV[jt & 1];
-    __syncthreads();   // stage (jt + 1) & 1 (tile jt - 1, or Q) is consumed
-    if (jt + 1 < n_tiles) {
-      issue(jt + 1);   // streams in while this tile is computed
+  for (int it = 0; jt < j_end; ++it) {
+    if constexpr (!SEG) jn = jt + 1;
+    const int k0 = jt * kBK, st = (SEG ? it : jt) & 1;
+    const T* cK = sK[st];
+    const T* cV = sV[st];
+    __syncthreads();   // stage st ^ 1 (the previous tile, or Q) is consumed
+    if (jn < j_end) {
+      issue(jn, st ^ 1);   // streams in while this tile is computed
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
     }
     __syncthreads();   // tile jt is visible to every warp
+    SegRange rpre{};      // SEG: tile jn + 1's range, loaded during this tile
+    uint32_t same = ~0u;  // SEG: the elements whose ids are equal
+    if constexpr (SEG) {
+      if (jn + 1 < j_end) rpre = walk.range(jn + 1);
+      if (!walk.uniform(rcur)) same = same_ids<kBK / 8>(seg_k, k0, sk, srow, t);
+    }
 
     float s[kBK / 8][4];
 #pragma unroll
@@ -195,8 +248,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          __ldg(brow[i >> 1] + col * b_sk) * kLog2e)
                   : kNeg;
         } else {
-          x = visible(row[i >> 1], col, sq, sk, off, causal)
-                  ? s[nt][i] * scale_log2 : kNeg;
+          bool vis = visible(row[i >> 1], col, sq, sk, off, causal);
+          if constexpr (SEG) vis = vis && same_bit(same, nt, i);
+          x = vis ? s[nt][i] * scale_log2 : kNeg;
         }
         s[nt][i] = x;
         mx[i >> 1] = fmaxf(mx[i >> 1], x);
@@ -261,6 +315,16 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         }
       }
     }
+    if constexpr (SEG) {   // the live tile after jn
+      int jnn = jn + 1;
+      if (jnn < j_end && !walk.live(rpre)) jnn = walk.next(jnn + 1, rpre);
+      rcur = rnext;
+      rnext = rpre;
+      jt = jn;
+      jn = jnn;
+    } else {
+      ++jt;
+    }
   }
 
 #pragma unroll
@@ -281,17 +345,19 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, void* out, void* lse,
-           const void* bias, const void* seed, int b, int h, int sq, int sk,
-           const int64_t* st, float scale, int causal, uint32_t thresh,
-           float inv_keep, cudaStream_t stream) {
+           const void* bias, const void* seed, const void* const* seg,
+           int b, int h, int sq, int sk, const int64_t* st, float scale,
+           int causal, uint32_t thresh, float inv_keep,
+           cudaStream_t stream) {
   constexpr int LD = Pitch<T, D>::LD;
   const size_t smem = std::is_same<T, float>::value
                           ? sizeof(T) * (kBQ + 4 * kBK) * LD
                           : sizeof(T) * 4 * kBK * LD;
-  auto kern = bias ? (seed ? flash_fwd_kernel<T, D, true, true>
-                           : flash_fwd_kernel<T, D, true, false>)
-                   : (seed ? flash_fwd_kernel<T, D, false, true>
-                           : flash_fwd_kernel<T, D, false, false>);
+  auto kern = seg[0] ? flash_fwd_kernel<T, D, false, false, true>
+              : bias ? (seed ? flash_fwd_kernel<T, D, true, true, false>
+                             : flash_fwd_kernel<T, D, true, false, false>)
+                     : (seed ? flash_fwd_kernel<T, D, false, true, false>
+                             : flash_fwd_kernel<T, D, false, false, false>);
   const cudaError_t err = allow_smem(kern, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((sq + kBQ - 1) / kBQ, b * h);
@@ -301,7 +367,9 @@ int launch(const void* q, const void* k, const void* v, void* out, void* lse,
       static_cast<float*>(lse), h, sq, sk, st[0], st[1], st[2], st[3], st[4],
       st[5], st[6], st[7], st[8], scale, causal != 0,
       static_cast<const float*>(bias), st[9], st[10], st[11], st[12],
-      static_cast<const int64_t*>(seed), thresh, inv_keep);
+      static_cast<const int64_t*>(seed), thresh, inv_keep,
+      static_cast<const int*>(seg[0]), static_cast<const int*>(seg[1]),
+      static_cast<const int4*>(seg[2]), static_cast<const int4*>(seg[3]));
   return (int)cudaGetLastError();
 }
 
@@ -315,9 +383,15 @@ int launch(const void* q, const void* k, const void* v, void* out, void* lse,
 // seed is null (no dropout) or a device int64 [2] (seed, offset), the
 // Philox key of the keep mask; an element is kept when its word is >=
 // thresh, and a kept p is multiplied by inv_keep = 1 / (1 - p_drop).
+// seg_q is null (no segment ids) or, with seg_k, contiguous int32 ids [sq]
+// and [sk]; q_info and k_info are their int4 grain summaries
+// [ceil(sq / kSegGrain)] and [ceil(sk / kSegGrain)] (flash_common.cuh).
+// Segment ids take neither a bias nor dropout.
 extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v,
                                 void* out, void* lse, const void* bias,
-                                const void* seed, int64_t b, int64_t h,
+                                const void* seed, const void* seg_q,
+                                const void* seg_k, const void* q_info,
+                                const void* k_info, int64_t b, int64_t h,
                                 int64_t sq, int64_t sk, int64_t d,
                                 int64_t q_sb, int64_t q_ss, int64_t q_sh,
                                 int64_t k_sb, int64_t k_ss, int64_t k_sh,
@@ -330,11 +404,13 @@ extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v,
   if (b * h <= 0 || sq <= 0) return 0;
   if (b * h > 65535 || sq > (1 << 30) || sk < 0 || sk > (1 << 30))
     return (int)cudaErrorInvalidValue;
+  if (seg_q && (bias || seed)) return (int)cudaErrorInvalidValue;
+  const void* const seg[4] = {seg_q, seg_k, q_info, k_info};
   const int64_t st[13] = {q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss,
                           v_sh, bias_sb, bias_sh, bias_sq, bias_sk};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define FLASH_FWD_LAUNCH(T, D)                                              \
-  return launch<T, D>(q, k, v, out, lse, bias, seed, (int)b, (int)h,       \
+  return launch<T, D>(q, k, v, out, lse, bias, seed, seg, (int)b, (int)h,  \
                       (int)sq, (int)sk, st, scale, causal, thresh, inv_keep, \
                       s)
   if (dtype == 1 && d == 64) FLASH_FWD_LAUNCH(bf16, 64);

@@ -39,11 +39,15 @@
 // Dropout (philox.cuh): each lane draws the keep bits of the score elements
 // it holds, from (batch * head, query, key), in the forward and again in
 // both backward kernels.
+//
+// Segment ids (the end of this file): tile skipping from per-grain id
+// ranges, and the element test of a lane's ids.
 
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 #include <type_traits>
@@ -291,5 +295,112 @@ __device__ __forceinline__ bool visible(int row, int col, int sq, int sk,
                                         int off, bool causal) {
   return row < sq && col < sk && (!causal || col <= row + off);
 }
+
+// ---- segment-id mode (packed sequences, flash_attn_unpadded) ----
+//
+// A query sees a key only when their int32 segment ids are equal (after
+// the causal test, as the Pallas kernels mask, :143-146). The wrapper
+// summarises each grain of kSegGrain consecutive tokens as an int4
+// (min id, max id, first, end): [first, end) are the grains of the other
+// side (keys for a query grain, queries for a key grain) outside which no
+// id can equal one of this grain's. A tile is a whole number of grains;
+// a pair of tiles whose [min, max] ranges do not meet holds no kept
+// pair, so the loops skip it, and they run only over the tiles that
+// [first, end) touches. Both are right for any ids; for the sorted ids
+// of cu_seqlens every tile in [first, end) is live, and every tile pair
+// but those a segment boundary crosses holds one id, where the element
+// test is left out.
+constexpr int kSegGrain = 32;
+
+struct SegRange {
+  int lo, hi;        // min and max id of the tile
+  int first, end;    // grains of the other side that can meet it
+};
+
+// The union of grains [g, g + N) of info, clipped at n_grains (a tile at
+// the ragged end).
+template <int N>
+__device__ __forceinline__ SegRange seg_range(const int4* __restrict__ info,
+                                              int g, int n_grains) {
+  const int4 a = __ldg(info + g);
+  SegRange r = {a.x, a.y, a.z, a.w};
+#pragma unroll
+  for (int i = 1; i < N; ++i) {
+    if (g + i < n_grains) {
+      const int4 b = __ldg(info + g + i);
+      r.lo = min(r.lo, b.x);
+      r.hi = max(r.hi, b.y);
+      r.first = min(r.first, b.z);
+      r.end = max(r.end, b.w);
+    }
+  }
+  return r;
+}
+
+// whether two [lo, hi] id ranges share an id
+__device__ __forceinline__ bool ranges_meet(int alo, int ahi, int blo,
+                                            int bhi) {
+  return alo <= bhi && blo <= ahi;
+}
+
+// Which score elements of a lane share their ids, for a tile pair that
+// holds more than one id: bit 4 * nt + 2 * c + r is set when the id of
+// the lane's row r (ids[r]) equals that of column base + 8 * nt + 2 * t
+// + c (the C fragment layout; columns at or past n read no id). One
+// register carries the test through the tile's products.
+template <int NT>
+__device__ __forceinline__ uint32_t same_ids(const int* __restrict__ other,
+                                             int base, int n,
+                                             const int (&ids)[2], int t) {
+  uint32_t bits = 0;
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const int col = base + nt * 8 + 2 * t + c;
+      const int id = col < n ? __ldg(other + col) : INT_MIN;
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        bits |= (uint32_t)(ids[r] == id) << (4 * nt + 2 * c + r);
+    }
+  }
+  return bits;
+}
+
+// the bit of same_ids for C fragment element i (of 4) of n-tile nt
+__device__ __forceinline__ bool same_bit(uint32_t bits, int nt, int i) {
+  return (bits >> (4 * nt + 2 * (i & 1) + (i >> 1))) & 1u;
+}
+
+// The walk of a block over the other side's tiles (G grains each) that
+// can meet its own tile's ids [lo, hi], below end. A block loads the range
+// of the tile after the next one while it computes the current one
+// (range(), then live() on it later), so the common step of sorted ids
+// waits on no load; next() is the slow step, for a tile that turns out
+// dead. uniform(): both tiles hold one id, so every element pair of the
+// tile pair shares it and the element test can be left out.
+template <int G>
+struct SegWalk {
+  const int4* info;
+  int n_grains, end, lo, hi;
+
+  __device__ __forceinline__ SegRange range(int j) const {
+    return seg_range<G>(info, j * G, n_grains);
+  }
+  __device__ __forceinline__ bool live(const SegRange& r) const {
+    return ranges_meet(lo, hi, r.lo, r.hi);
+  }
+  // the first live tile at or after j (end if none), its range in r
+  __device__ __forceinline__ int next(int j, SegRange& r) const {
+    for (; j < end; ++j) {
+      r = range(j);
+      if (live(r)) break;
+    }
+    return j;
+  }
+  __device__ __forceinline__ bool uniform(const SegRange& r) const {
+    return lo == hi && r.lo == r.hi;
+  }
+};
 
 }  // namespace flash

@@ -2,6 +2,7 @@
 
 import torch
 
+from ...ops.kernels.flash_attention import flash_attn_unpadded
 from .attention import (cached_prefill_attention, paged_attention_decode,
                         scaled_dot_product_attention)
 from .loss import cross_entropy
@@ -10,7 +11,7 @@ from .norm import layer_norm, rms_norm
 __all__ = ["cached_prefill_attention", "paged_attention_decode",
            "scaled_dot_product_attention", "cross_entropy", "layer_norm",
            "rms_norm", "silu", "relu", "gelu", "tanh", "linear",
-           "embedding", "dropout"]
+           "embedding", "dropout", "flash_attn_unpadded"]
 
 def silu(x: torch.Tensor) -> torch.Tensor:
     """x * sigmoid(x) (counterpart: activation.py:74, jax.nn.silu)."""

@@ -14,19 +14,23 @@
 | MoE grouped dW | ``moe_grouped_gemm.moe_dw_cuda`` | ``ops/pallas/moe_grouped_gemm.py::_dw_call`` |
 | LayerNorm | ``layer_norm.layer_norm_cuda`` | ``ops/pallas/fused_norm.py::_ln_fwd_pallas`` |
 
-Each flash kernel has eight modes: bf16 or fp32 inputs, with or without
+Each flash kernel has ten modes: bf16 or fp32 inputs, with or without
 in-kernel dropout (``dropout_p`` and its key ``seed_arr``, ``_flash_drop``),
-with or without an additive bias (``has_bias``).
+with or without an additive bias (``has_bias``), and the segment-id mode
+of packed sequences (``has_seg``, ``flash_attn_unpadded``), which takes
+neither a bias nor dropout.
 
 The public flash functions (``flash_attention``, ``flash_attention_with_lse``,
-``flash_block_grads``) live in the ``flash_attention`` module; the
+``flash_block_grads``, ``flash_attn_unpadded``) live in the
+``flash_attention`` module; the
 differentiable MoE functions (``fused_top2_routing``,
 ``fused_grouped_moe``) in their modules. :func:`launch_counts` reports
 each kernel by name; the paged kernel's two modes count apart
 (``paged_attention``, ``paged_attention_int8``), and so do the flash
-kernels' eight (``flash_fwd``, ``flash_fwd_bias``, ``flash_fwd_drop``,
+kernels' ten (``flash_fwd``, ``flash_fwd_bias``, ``flash_fwd_drop``,
 ``flash_fwd_drop_bias``, ``flash_fwd_fp32``, ..., ``flash_fwd_fp32_drop_bias``,
-and the same for ``flash_dq`` and ``flash_dkv``), so a run shows which
+``flash_fwd_seg``, ``flash_fwd_fp32_seg``, and the same for ``flash_dq``
+and ``flash_dkv``), so a run shows which
 mode its path took.
 """
 
@@ -57,9 +61,9 @@ _COUNTERS = {
     "rms_norm": (rms_norm_cuda, "launches"),
     "paged_attention": (paged_attention_cuda, "launches"),
     "paged_attention_int8": (paged_attention_cuda, "int8_launches"),
-    **{"flash_" + kind + "_fp32" * f + "_drop" * d + "_bias" * b:
-       (fn, mode_attr(f, d, b))
-       for (f, d, b) in MODES
+    **{"flash_" + kind + "_fp32" * f + "_drop" * d + "_bias" * b
+       + "_seg" * sg: (fn, mode_attr(f, d, b, sg))
+       for (f, d, b, sg) in MODES
        for kind, fn in (("fwd", flash_fwd_cuda), ("dq", flash_bwd_dq_cuda),
                         ("dkv", flash_bwd_dkv_cuda))},
     "moe_routing": (moe_routing_cuda, "launches"),

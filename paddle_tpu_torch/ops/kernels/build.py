@@ -21,7 +21,7 @@ import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["SOURCES", "BUILD_DIR", "build_all", "library"]
+__all__ = ["SOURCES", "BUILD_DIR", "build_all", "library", "ptxas_report"]
 
 _PKG = Path(__file__).resolve().parents[2]
 SOURCES = {
@@ -92,6 +92,22 @@ def build_all(names=None) -> dict[str, dict]:
         out[name] = {"path": target, "built": True, "log": log}
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+    return out
+
+
+def ptxas_report(log: str) -> dict[str, str]:
+    """``-Xptxas -v``'s report of a build log, one line per kernel
+    instantiation (its mangled name): registers and spilled bytes."""
+    out, fn = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function '" in line:
+            fn = line.split("'")[1]
+        elif fn and "spill stores" in line:
+            out[fn] = line.strip()
+        elif fn and "Used " in line and " registers" in line:
+            regs = line.split("Used ")[1].split(" registers")[0]
+            out[fn] = f"{regs} registers; {out.get(fn, '')}"
+            fn = None
     return out
 
 

@@ -6,13 +6,16 @@ Replaces ``paddle_tpu/ops/pallas/flash_attention.py``: ``_fwd`` (its
 ``flash_block_grads`` (dQ :558, dK/dV :590), causal and non-causal, with
 and without the additive bias (``has_bias``), with and without in-kernel
 dropout (``dropout_p``: ``_flash_drop`` :660, ``_flash_bias_drop`` :684),
+with per-token segment ids (``has_seg``: ``flash_attn_unpadded`` :765),
 on bf16 or fp32 inputs. See the sources for what bounds them on the
 H100 and how the designs answer that. Layout ``[batch, seq, heads,
 head_dim]`` as in the JAX package; ``lse`` and ``delta`` are fp32
 ``[batch, heads, seq_q]``; a bias is fp32 ``[b|1, h|1, sq, sk]``, added
 to the scaled scores before the softmax; a dropout key ``seed_arr`` is
 an int64 ``[2]`` (seed, offset) on q's device (``philox.py`` defines the
-keep mask it keys).
+keep mask it keys); segment ids are int32 ``[sq]`` and ``[sk]``, shared
+by every batch row and head, and a query sees only keys of its own id
+(:class:`SegIds`, made by :func:`seg_ids`).
 
 - :func:`flash_fwd_plain`, :func:`flash_block_grads_plain` — the plain
   PyTorch versions (CPU path, tests, and what the kernels are held
@@ -22,36 +25,40 @@ keep mask it keys).
   scales the product after; masked scores take the finite ``-1e30`` and
   the subtracted max is clamped at ``-1e25``, so a fully masked row
   gives ``out = 0`` and ``lse = -1e30``; causal masks align bottom-right
-  (row r sees columns ``<= r + sk - sq``); a bias is added after the
-  causal mask; dropout as the Pallas kernels apply it (:149-163,
-  :376-385, :440-458): the normaliser sums the undropped P, the PV
-  product and dV take ``keep ? P / (1 - p) : 0``, and dP is masked and
-  scaled before ``dS = P * (dP - delta) * scale``.
+  (row r sees columns ``<= r + sk - sq``); the segment mask follows the
+  causal one (:143-146); a bias is added after both; dropout as the
+  Pallas kernels apply it (:149-163, :376-385, :440-458): the normaliser
+  sums the undropped P, the PV product and dV take ``keep ? P / (1 - p)
+  : 0``, and dP is masked and scaled before ``dS = P * (dP - delta) *
+  scale``.
 - :func:`flash_fwd_cuda`, :func:`flash_bwd_dq_cuda`,
   :func:`flash_bwd_dkv_cuda` — the kernels' wrappers: they launch on
-  CUDA tensors or raise outside :func:`kernel_gate`, :func:`bias_gate`
-  and :func:`seed_gate`. q, k, v (and dO) share one dtype, bf16 or fp32:
-  bf16 runs on bf16 tensor cores, fp32 keeps fp32 accuracy (3xTF32), and
-  no input is rounded to another type. Each wrapper counts its launches
-  per mode in the attribute :func:`mode_attr` names (``launches``,
-  ``bias_launches``, ``fp32_launches``, ..., ``fp32_drop_bias_launches``).
-  The bias goes to the kernels through its strides, so a broadcast
-  dimension (stride 0) is never materialised.
+  CUDA tensors or raise outside :func:`kernel_gate`, :func:`bias_gate`,
+  :func:`seed_gate` and :func:`seg_gate`. q, k, v (and dO) share one
+  dtype, bf16 or fp32: bf16 runs on bf16 tensor cores, fp32 keeps fp32
+  accuracy (3xTF32), and no input is rounded to another type. Each
+  wrapper counts its launches per mode in the attribute
+  :func:`mode_attr` names (``launches``, ``bias_launches``,
+  ``fp32_launches``, ..., ``fp32_drop_bias_launches``, ``seg_launches``,
+  ``fp32_seg_launches``). The bias goes to the kernels through its
+  strides, so a broadcast dimension (stride 0) is never materialised.
+  The segment mode takes no bias and no dropout: no path of the JAX
+  package combines them, and the wrappers raise on it.
 - :func:`flash_attention` (differentiable in q, k and v; the mask and the
-  dropout key are not), :func:`flash_attention_with_lse` and
-  :func:`flash_block_grads` — the public functions, with the JAX
-  package's signatures. A CPU tensor, or a CUDA tensor inside
-  ``plain_reference()``, takes the plain versions.
-
-Not ported: the segment-id mode (``flash_attn_unpadded``, ROADMAP.md
-B3); ``flash_block_grads`` raises on it.
+  dropout key are not), :func:`flash_attention_with_lse`,
+  :func:`flash_block_grads` and :func:`flash_attn_unpadded` (packed
+  ``[total, h, d]`` sequences with their ``cu_seqlens``) — the public
+  functions, with the JAX package's signatures. A CPU tensor, or a CUDA
+  tensor inside ``plain_reference()``, takes the plain versions.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from .build import library
@@ -63,22 +70,30 @@ __all__ = ["flash_attention", "flash_attention_with_lse",
            "flash_fwd_cuda", "flash_bwd_dq_cuda", "flash_bwd_dkv_cuda",
            "flash_delta", "kernel_gate", "bias_gate", "seed_gate",
            "seed_pair", "pad_bias", "attn_bias", "mode_attr", "MODES",
-           "HEAD_DIMS"]
+           "HEAD_DIMS", "SegIds", "seg_ids", "seg_gate", "SEG_GRAIN",
+           "flash_attn_unpadded"]
 
 HEAD_DIMS = (64, 128)
 NEG = -1e30          # the Pallas kernels' finite mask value
 _CLAMP = -1e25       # clamp of the subtracted max / lse (fully masked rows)
-_SEG_UNPORTED = ("the segment-id mode of flash attention "
-                 "(flash_attn_unpadded) is not ported yet (ROADMAP.md B3)")
+_SEG_ALONE = ("segment ids with a bias or with dropout: no path of the "
+              "JAX package combines them, so the kernels have no such mode "
+              "(ROADMAP.md B5)")
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-# (fp32, dropout, bias) of each kernel mode, in the counters' order
-MODES = tuple((f, d, b) for f in (False, True) for d in (False, True)
-              for b in (False, True))
+# (fp32, dropout, bias, segment ids) of each kernel mode, in the counters'
+# order: every combination of the first three, and segment ids alone
+MODES = tuple((f, d, b, False) for f in (False, True) for d in (False, True)
+              for b in (False, True)) + tuple(
+    (f, False, False, True) for f in (False, True))
+# tokens a [min, max] id range covers (csrc/flash_common.cuh kSegGrain);
+# every tile of the kernels is a whole number of grains
+SEG_GRAIN = 32
 
 
-def mode_attr(fp32: bool, drop: bool, bias: bool) -> str:
+def mode_attr(fp32: bool, drop: bool, bias: bool, seg: bool = False) -> str:
     """The wrapper attribute that counts a mode's launches."""
-    return ("fp32_" * fp32 + "drop_" * drop + "bias_" * bias) + "launches"
+    return ("fp32_" * fp32 + "drop_" * drop + "bias_" * bias
+            + "seg_" * seg) + "launches"
 
 
 def _compute_dtype(t: torch.Tensor) -> torch.dtype:
@@ -111,20 +126,101 @@ def _causal_keep(sq: int, sk: int, device) -> torch.Tensor:
     return rows + (sk - sq) >= cols
 
 
+class SegIds(NamedTuple):
+    """Segment ids of a packed batch, on one device (:func:`seg_ids`):
+    ``q`` int32 ``[sq]`` and ``k`` int32 ``[sk]``; ``q_info`` int32
+    ``[ceil(sq / SEG_GRAIN), 4]``: for each grain of ``SEG_GRAIN`` queries
+    the min and max of its ids and the range ``[first, end)`` of key
+    grains outside which no key can share an id with it; ``k_info`` the
+    same for key grains over query grains. The kernels skip every tile
+    pair whose id ranges do not meet and loop only over ``[first, end)``:
+    right for any ids, and tight for the sorted ids of ``cu_seqlens``."""
+    q: torch.Tensor
+    k: torch.Tensor
+    q_info: torch.Tensor
+    k_info: torch.Tensor
+
+
+def _ids(x, device) -> torch.Tensor:
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=torch.int32).reshape(-1) \
+            .contiguous()
+    return torch.as_tensor(np.asarray(x).reshape(-1), dtype=torch.int32,
+                           device=device)
+
+
+def _grain_range(ids):
+    """Per grain of ``SEG_GRAIN`` ids: (min, max), int64; the last grain
+    is padded with its own last id."""
+    n = ids.numel()
+    g = -(-n // SEG_GRAIN)
+    if g * SEG_GRAIN > n:
+        ids = torch.cat([ids, ids[-1:].expand(g * SEG_GRAIN - n)])
+    v = ids.view(g, SEG_GRAIN).long()
+    return v.amin(1), v.amax(1)
+
+
+def _grain_info(lo, hi, other_lo, other_hi) -> torch.Tensor:
+    """``[g, 4]`` int32 rows (lo, hi, first, end): other grains j < first
+    have a running max of ``other_hi`` below lo, grains j >= end a
+    suffix min of ``other_lo`` above hi, so neither can meet [lo, hi]."""
+    if other_lo.numel() == 0:
+        first = end = torch.zeros_like(lo)
+    else:
+        run_max = torch.cummax(other_hi, 0).values
+        suf_min = torch.cummin(other_lo.flip(0), 0).values.flip(0)
+        first = torch.searchsorted(run_max, lo)
+        end = torch.searchsorted(suf_min, hi, right=True)
+    return torch.stack([lo, hi, first, end], 1).to(torch.int32).contiguous()
+
+
+def seg_ids(seg_q, seg_k, device=None) -> SegIds:
+    """:class:`SegIds` of per-token ids ``seg_q`` ``[sq]`` and ``seg_k``
+    ``[sk]`` (arrays, lists or tensors), computed on ``device`` (default:
+    the tensors' own, else the CPU) by a few torch ops."""
+    if device is None:
+        device = (seg_q.device if isinstance(seg_q, torch.Tensor)
+                  else torch.device("cpu"))
+    q, k = _ids(seg_q, device), _ids(seg_k, device)
+    q_lo, q_hi = _grain_range(q)
+    k_lo, k_hi = _grain_range(k)
+    return SegIds(q, k, _grain_info(q_lo, q_hi, k_lo, k_hi),
+                  _grain_info(k_lo, k_hi, q_lo, q_hi))
+
+
+def _as_seg(seg, device) -> SegIds | None:
+    """``seg`` as :class:`SegIds` on ``device``: a ``(seg_q, seg_k)``
+    pair (the JAX package's form) is converted."""
+    if seg is None or isinstance(seg, SegIds):
+        return seg
+    return seg_ids(seg[0], seg[1], device)
+
+
+def _seg_keep(seg, device) -> torch.Tensor:
+    """[sq, sk] bool: query r keeps key c when their ids are equal."""
+    seg_q, seg_k = (seg.q, seg.k) if isinstance(seg, SegIds) else seg
+    return _ids(seg_q, device)[:, None] == _ids(seg_k, device)[None, :]
+
+
 def flash_fwd_plain(q, k, v, scale: float, causal: bool, bias=None,
-                    dropout_p: float = 0.0, seed_arr=None):
+                    dropout_p: float = 0.0, seed_arr=None, seg=None):
     """``(out, lse)`` of ``_fwd`` / ``_fwd_kernel`` (flash_attention.py:96-265)
     computed in one block: out in q's dtype, lse ``[b, h, sq]`` in the
-    compute dtype (fp32; fp64 for fp64 inputs); ``bias`` (fp32,
+    compute dtype (fp32; fp64 for fp64 inputs); with ``seg`` (a
+    :class:`SegIds` or a ``(seg_q, seg_k)`` pair) a query keeps the keys
+    of its own id after the causal mask (:143-146); ``bias`` (fp32,
     broadcastable to ``[b, h, sq, sk]``) is added after ``(q * scale) k``
-    and the causal mask (:146-148); with ``dropout_p`` the PV product
-    takes the dropped, rescaled P under ``seed_arr`` and the normaliser
-    the undropped one (:149-163)."""
+    and the masks (:146-148); with ``dropout_p`` the PV product takes the
+    dropped, rescaled P under ``seed_arr`` and the normaliser the
+    undropped one (:149-163)."""
     sq, sk = q.shape[1], k.shape[1]
     ct = _compute_dtype(q)
     s = torch.einsum("bqhd,bkhd->bhqk", q.to(ct) * scale, k.to(ct))
     if causal:
         s = torch.where(_causal_keep(sq, sk, q.device), s,
+                        torch.tensor(NEG, dtype=ct, device=q.device))
+    if seg is not None:
+        s = torch.where(_seg_keep(seg, q.device), s,
                         torch.tensor(NEG, dtype=ct, device=q.device))
     if bias is not None:
         s = s + bias.to(ct)
@@ -150,19 +246,22 @@ def flash_delta(do, out) -> torch.Tensor:
 
 def flash_block_grads_plain(q, k, v, do, lse, delta, scale: float,
                             causal: bool, bias=None, dropout_p: float = 0.0,
-                            seed_arr=None):
+                            seed_arr=None, seg=None):
     """``(dq, dk, dv)`` of ``flash_block_grads`` (:478-612) in one block:
-    P recomputed from ``lse`` (``bias`` added after ``(q k) * scale`` and
-    the causal mask, :363-374 and :437), ``dS = P * (dP - delta) *
-    scale``; with ``dropout_p`` dP is masked and rescaled first and dV
-    takes the dropped P (:376-385, :440-458); dq in q's dtype, dk and dv
-    in k's and v's."""
+    P recomputed from ``lse`` (the causal and segment masks, then
+    ``bias`` added after ``(q k) * scale``, :363-374 and :433-437),
+    ``dS = P * (dP - delta) * scale``; with ``dropout_p`` dP is masked
+    and rescaled first and dV takes the dropped P (:376-385, :440-458);
+    dq in q's dtype, dk and dv in k's and v's."""
     sq, sk = q.shape[1], k.shape[1]
     ct = _compute_dtype(q)
     qf, kf, vf, dof = (x.to(ct) for x in (q, k, v, do))
     s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
     if causal:
         s = torch.where(_causal_keep(sq, sk, q.device), s,
+                        torch.tensor(NEG, dtype=ct, device=q.device))
+    if seg is not None:
+        s = torch.where(_seg_keep(seg, q.device), s,
                         torch.tensor(NEG, dtype=ct, device=q.device))
     if bias is not None:
         s = s + bias.to(ct)
@@ -259,12 +358,36 @@ def seed_gate(dropout_p, seed_arr, q) -> str | None:
     return None
 
 
-def _check(name, *args, bias=None, dropout_p=0.0, seed_arr=None):
+def seg_gate(seg, q, k) -> str | None:
+    """None when the kernels take these segment ids with q and k, else
+    the reason: a :class:`SegIds` of contiguous int32 tensors on q's
+    device, ids ``[sq]`` and ``[sk]``, grain summaries of
+    ``ceil(s / SEG_GRAIN)`` rows."""
+    if not isinstance(seg, SegIds):
+        return "segment ids must be a SegIds (seg_ids(seg_q, seg_k))"
+    sq, sk = q.shape[1], k.shape[1]
+    want = {"q": (sq,), "k": (sk,), "q_info": (-(-sq // SEG_GRAIN), 4),
+            "k_info": (-(-sk // SEG_GRAIN), 4)}
+    for name, shape in want.items():
+        t = getattr(seg, name)
+        if not (t.is_cuda and t.device == q.device):
+            return f"segment ids ({name}) must be on q's CUDA device"
+        if (t.dtype != torch.int32 or tuple(t.shape) != shape
+                or not t.is_contiguous()):
+            return (f"segment ids ({name}) must be contiguous int32 "
+                    f"{list(shape)}; got {t.dtype} {list(t.shape)}")
+    return None
+
+
+def _check(name, *args, bias=None, dropout_p=0.0, seed_arr=None, seg=None):
     why = kernel_gate(*args)
     if why is None and bias is not None:
         why = bias_gate(bias, args[0], args[1])
     if why is None:
         why = seed_gate(dropout_p, seed_arr, args[0])
+    if why is None and seg is not None:
+        why = (_SEG_ALONE if bias is not None or dropout_p
+               else seg_gate(seg, args[0], args[1]))
     if why is not None:
         raise ValueError(f"{name}: {why}")
 
@@ -302,9 +425,17 @@ def _mode_args(q, dropout_p, seed_arr):
                                  _inv_keep(dropout_p, torch.float32))
 
 
-def _count(fn, q, bias, dropout_p):
+def _seg_args(seg):
+    """The four segment pointers (ids of q and k, their grain
+    summaries); all None without segment ids."""
+    if seg is None:
+        return [None] * 4
+    return [t.data_ptr() for t in seg]
+
+
+def _count(fn, q, bias, dropout_p, seg):
     attr = mode_attr(q.dtype == torch.float32, bool(dropout_p),
-                     bias is not None)
+                     bias is not None, seg is not None)
     setattr(fn, attr, getattr(fn, attr) + 1)
 
 
@@ -314,14 +445,16 @@ def _raise_on(err: int, what: str) -> None:
 
 
 def flash_fwd_cuda(q, k, v, scale: float, causal: bool, bias=None,
-                   dropout_p: float = 0.0, seed_arr=None):
+                   dropout_p: float = 0.0, seed_arr=None, seg=None):
     """Launch the forward kernel: ``(out [b, sq, h, d] in q's dtype,
     lse fp32 [b, h, sq])``; with ``bias`` its bias mode, with
-    ``dropout_p > 0`` its dropout mode under the key ``seed_arr``.
-    Raises ValueError outside :func:`kernel_gate`, :func:`bias_gate` and
-    :func:`seed_gate`."""
+    ``dropout_p > 0`` its dropout mode under the key ``seed_arr``, with
+    ``seg`` (:class:`SegIds`, or a ``(seg_q, seg_k)`` pair) its segment
+    mode. Raises ValueError outside :func:`kernel_gate`,
+    :func:`bias_gate`, :func:`seed_gate` and :func:`seg_gate`."""
+    seg = _as_seg(seg, q.device)
     _check("flash_fwd_cuda", q, k, v, bias=bias, dropout_p=dropout_p,
-           seed_arr=seed_arr)
+           seed_arr=seed_arr, seg=seg)
     b, sq, h, d = q.shape
     sk = k.shape[1]
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
@@ -332,22 +465,26 @@ def flash_fwd_cuda(q, k, v, scale: float, causal: bool, bias=None,
     sptr, tail = _mode_args(q, dropout_p, seed_arr)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = _fn("flash_attention_fwd", "flash_fwd_launch", 7, 18)(
+        err = _fn("flash_attention_fwd", "flash_fwd_launch", 11, 18)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), bptr, sptr, b, h, sq, sk, d, *_strides(q, k, v),
-            *bst, float(scale), int(bool(causal)), *tail, stream)
+            lse.data_ptr(), bptr, sptr, *_seg_args(seg), b, h, sq, sk, d,
+            *_strides(q, k, v), *bst, float(scale), int(bool(causal)),
+            *tail, stream)
     _raise_on(err, "flash attention forward")
-    _count(flash_fwd_cuda, q, bias, dropout_p)
+    _count(flash_fwd_cuda, q, bias, dropout_p, seg)
     return out, lse
 
 
 def flash_bwd_dq_cuda(q, k, v, do, lse, delta, scale: float, causal: bool,
-                      bias=None, dropout_p: float = 0.0, seed_arr=None):
+                      bias=None, dropout_p: float = 0.0, seed_arr=None,
+                      seg=None):
     """Launch the dQ kernel (with ``bias``: its bias mode; with
     ``dropout_p > 0``: its dropout mode under the forward's
-    ``seed_arr``); dq in q's dtype, contiguous."""
+    ``seed_arr``; with ``seg``: its segment mode); dq in q's dtype,
+    contiguous."""
+    seg = _as_seg(seg, q.device)
     _check("flash_bwd_dq_cuda", q, k, v, do, lse, delta, bias=bias,
-           dropout_p=dropout_p, seed_arr=seed_arr)
+           dropout_p=dropout_p, seed_arr=seed_arr, seg=seg)
     b, sq, h, d = q.shape
     sk = k.shape[1]
     dq = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
@@ -359,24 +496,26 @@ def flash_bwd_dq_cuda(q, k, v, do, lse, delta, scale: float, causal: bool,
     sptr, tail = _mode_args(q, dropout_p, seed_arr)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = _fn("flash_attention_bwd", "flash_bwd_dq_launch", 9, 21)(
+        err = _fn("flash_attention_bwd", "flash_bwd_dq_launch", 13, 21)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), bptr, sptr, b,
-            h, sq, sk, d, *_strides(q, k, v, do), *bst, float(scale),
-            int(bool(causal)), *tail, stream)
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), bptr, sptr,
+            *_seg_args(seg), b, h, sq, sk, d, *_strides(q, k, v, do), *bst,
+            float(scale), int(bool(causal)), *tail, stream)
     _raise_on(err, "flash attention dQ")
-    _count(flash_bwd_dq_cuda, q, bias, dropout_p)
+    _count(flash_bwd_dq_cuda, q, bias, dropout_p, seg)
     return dq
 
 
 def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, scale: float,
                        causal: bool, bias=None, dropout_p: float = 0.0,
-                       seed_arr=None):
+                       seed_arr=None, seg=None):
     """Launch the dK/dV kernel (with ``bias``: its bias mode; with
     ``dropout_p > 0``: its dropout mode under the forward's
-    ``seed_arr``); dk, dv in k's dtype, contiguous."""
+    ``seed_arr``; with ``seg``: its segment mode); dk, dv in k's dtype,
+    contiguous."""
+    seg = _as_seg(seg, q.device)
     _check("flash_bwd_dkv_cuda", q, k, v, do, lse, delta, bias=bias,
-           dropout_p=dropout_p, seed_arr=seed_arr)
+           dropout_p=dropout_p, seed_arr=seed_arr, seg=seg)
     b, sq, h, d = q.shape
     sk = k.shape[1]
     dk = torch.empty((b, sk, h, d), dtype=k.dtype, device=k.device)
@@ -389,13 +528,14 @@ def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, scale: float,
     sptr, tail = _mode_args(q, dropout_p, seed_arr)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = _fn("flash_attention_bwd", "flash_bwd_dkv_launch", 10, 21)(
+        err = _fn("flash_attention_bwd", "flash_bwd_dkv_launch", 14, 21)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            bptr, sptr, b, h, sq, sk, d, *_strides(q, k, v, do), *bst,
-            float(scale), int(bool(causal)), *tail, stream)
+            bptr, sptr, *_seg_args(seg), b, h, sq, sk, d,
+            *_strides(q, k, v, do), *bst, float(scale), int(bool(causal)),
+            *tail, stream)
     _raise_on(err, "flash attention dK/dV")
-    _count(flash_bwd_dkv_cuda, q, bias, dropout_p)
+    _count(flash_bwd_dkv_cuda, q, bias, dropout_p, seg)
     return dk, dv
 
 
@@ -406,39 +546,45 @@ for _w in (flash_fwd_cuda, flash_bwd_dq_cuda, flash_bwd_dkv_cuda):
 
 # ---------------- routers and the public functions ----------------
 
-def _fwd(q, k, v, scale, causal, bias=None, dropout_p=0.0, seed_arr=None):
+def _fwd(q, k, v, scale, causal, bias=None, dropout_p=0.0, seed_arr=None,
+         seg=None):
     if use_kernel(q):
         return flash_fwd_cuda(q, k, v, scale, causal, bias, dropout_p,
-                              seed_arr)
-    return flash_fwd_plain(q, k, v, scale, causal, bias, dropout_p, seed_arr)
+                              seed_arr, seg)
+    return flash_fwd_plain(q, k, v, scale, causal, bias, dropout_p, seed_arr,
+                           seg)
 
 
 def _grads(q, k, v, do, lse, delta, scale, causal, bias=None, dropout_p=0.0,
-           seed_arr=None):
+           seed_arr=None, seg=None):
     if use_kernel(q):
         dq = flash_bwd_dq_cuda(q, k, v, do, lse, delta, scale, causal, bias,
-                               dropout_p, seed_arr)
+                               dropout_p, seed_arr, seg)
         dk, dv = flash_bwd_dkv_cuda(q, k, v, do, lse, delta, scale, causal,
-                                    bias, dropout_p, seed_arr)
+                                    bias, dropout_p, seed_arr, seg)
         return dq, dk, dv
     return flash_block_grads_plain(q, k, v, do, lse, delta, scale, causal,
-                                   bias, dropout_p, seed_arr)
+                                   bias, dropout_p, seed_arr, seg)
 
 
 class _Flash(torch.autograd.Function):
-    """Counterpart of ``_flash``, ``_flash_bias``, ``_flash_drop`` and
-    ``_flash_bias_drop`` (:617-705): the forward saves ``(q, k, v, out,
-    lse, bias, seed_arr)``; the backward computes ``delta`` of the
-    (dropped) output and then runs dQ and dK/dV with the same key, so
-    they draw the forward's mask again. Neither the bias nor the key gets
-    a gradient (``_flash_bias_bwd`` and ``_flash_drop_bwd`` return zeros
-    for them)."""
+    """Counterpart of ``_flash``, ``_flash_bias``, ``_flash_drop``,
+    ``_flash_bias_drop`` (:617-705) and ``flash_attn_unpadded``'s ``run``
+    (:796-816): the forward saves ``(q, k, v, out, lse, bias,
+    seed_arr)`` and the segment ids; the backward computes ``delta`` of
+    the (dropped) output and then runs dQ and dK/dV with the same key and
+    ids, so they draw the forward's mask again. Neither the bias, the key
+    nor the ids get a gradient (``_flash_bias_bwd`` and
+    ``_flash_drop_bwd`` return zeros for them)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, bias, seed_arr, scale, causal, dropout_p):
-        out, lse = _fwd(q, k, v, scale, causal, bias, dropout_p, seed_arr)
+    def forward(ctx, q, k, v, bias, seed_arr, scale, causal, dropout_p,
+                seg=None):
+        out, lse = _fwd(q, k, v, scale, causal, bias, dropout_p, seed_arr,
+                        seg)
         ctx.save_for_backward(q, k, v, out, lse, bias, seed_arr)
         ctx.scale, ctx.causal, ctx.dropout_p = scale, causal, dropout_p
+        ctx.seg = seg
         return out
 
     @staticmethod
@@ -447,8 +593,8 @@ class _Flash(torch.autograd.Function):
         do = do.contiguous()
         dq, dk, dv = _grads(q, k, v, do, lse, flash_delta(do, out),
                             ctx.scale, ctx.causal, bias, ctx.dropout_p,
-                            seed_arr)
-        return dq, dk, dv, None, None, None, None, None
+                            seed_arr, ctx.seg)
+        return dq, dk, dv, None, None, None, None, None, None
 
 
 def _scale(q, scale):
@@ -552,14 +698,18 @@ def flash_block_grads(q, k, v, do, lse, delta, *, scale, causal, seg=None,
     """``(dq, dk, dv)`` given the row statistics (counterpart: :478); a
     ``bias`` is taken as ``_pad_bias`` takes it (cast to fp32); with
     ``dropout_p > 0``, ``seed_arr`` is the forward's key (an int64
-    ``[2]`` tensor or a (seed, offset) pair). Segment ids raise (ROADMAP
-    B3)."""
+    ``[2]`` tensor or a (seed, offset) pair); ``seg`` is a ``(seg_q,
+    seg_k)`` pair of per-token ids (or a :class:`SegIds`). Segment ids
+    with a bias or dropout raise ValueError: the kernels have no such
+    mode, as no path of the JAX package combines them."""
+    dropout_p = float(dropout_p)
     if seg is not None:
-        raise NotImplementedError(_SEG_UNPORTED)
+        if bias is not None or dropout_p:
+            raise ValueError(f"flash_block_grads: {_SEG_ALONE}")
+        seg = _as_seg(seg, q.device)
     if bias is not None:
         bias = pad_bias(bias.detach(), q.shape[0], q.shape[2], q.shape[1],
                         k.shape[1])
-    dropout_p = float(dropout_p)
     if dropout_p:
         if seed_arr is None:
             raise ValueError("flash_block_grads: dropout needs the "
@@ -569,4 +719,42 @@ def flash_block_grads(q, k, v, do, lse, delta, *, scale, causal, seg=None,
         elif seed_arr.dtype != torch.int64 or seed_arr.device != q.device:
             seed_arr = seed_pair(q, seed_arr.tolist())
     return _grads(q, k, v, do, lse, delta, float(scale), bool(causal), bias,
-                  dropout_p, seed_arr if dropout_p else None)
+                  dropout_p, seed_arr if dropout_p else None, seg)
+
+
+def _cu(cu) -> np.ndarray:
+    if isinstance(cu, torch.Tensor):
+        cu = cu.detach().cpu().numpy()
+    return np.asarray(cu, np.int64).reshape(-1)
+
+
+def flash_attn_unpadded(q, k, v, cu_seqlens_q, cu_seqlens_k,
+                        causal: bool = False, scale: float | None = None):
+    """Varlen flash attention over packed sequences (counterpart:
+    ``flash_attn_unpadded``, flash_attention.py:765-818): q ``[total_q,
+    h, d]``, k and v ``[total_k, h, d]`` (q's head count), b sequences
+    packed along dim 0 with host-known cumulative lengths
+    ``cu_seqlens_q`` / ``cu_seqlens_k`` ``[b + 1]`` (lists, arrays or
+    tensors). A token attends only within its own sequence; ``causal``
+    adds per-sequence causal masking, which needs equal query and key
+    lengths per sequence: then the packings align and the global causal
+    mask restricted to one segment is that sequence's own. One launch of
+    each kernel (the segment mode) for the whole batch, no padding.
+    Differentiable in q, k and v. Raises ValueError as the JAX function
+    does."""
+    cu_q, cu_k = _cu(cu_seqlens_q), _cu(cu_seqlens_k)
+    if causal and not np.array_equal(np.diff(cu_q), np.diff(cu_k)):
+        raise ValueError("causal varlen requires seqlen_q == seqlen_k "
+                         "per sequence")
+    total_q, h, d = q.shape
+    total_k = k.shape[0]
+    if total_q != cu_q[-1] or total_k != cu_k[-1]:
+        raise ValueError("cu_seqlens totals do not match packed lengths")
+    # ids as the JAX function makes them: a zero-length segment owns no
+    # token and its id is skipped
+    seg = seg_ids(np.searchsorted(cu_q, np.arange(total_q), side="right") - 1,
+                  np.searchsorted(cu_k, np.arange(total_k), side="right") - 1,
+                  q.device)
+    out = _Flash.apply(q[None], k[None], v[None], None, None,
+                       _scale(q, scale), bool(causal), 0.0, seg)
+    return out[0]

@@ -273,9 +273,16 @@ def test_flash_kernels_take_strided_views(cuda):
 def test_flash_raises_outside_its_gate(cuda):
     q, k, v, do = _flash_inputs(1, 256, 256, 2, 64, "bfloat16", cuda)
     lse0 = torch.zeros((1, 2, 256), device=cuda)
-    with pytest.raises(NotImplementedError, match="B3"):
+    with pytest.raises(ValueError, match="segment ids with a bias or "
+                                         "with dropout"):
         FA.flash_block_grads(q, k, v, do, lse0, lse0, scale=0.125,
-                             causal=True, seg=(np.zeros(256), np.zeros(256)))
+                             causal=True, seg=(np.zeros(256), np.zeros(256)),
+                             bias=torch.zeros((256, 256), device=cuda))
+    with pytest.raises(ValueError, match="segment ids with a bias or "
+                                         "with dropout"):
+        FA.flash_fwd_cuda(q, k, v, 0.125, True, None, 0.1,
+                          torch.tensor([1, 2], device=cuda),
+                          seg=(np.zeros(256), np.zeros(256)))
     with pytest.raises(ValueError, match="float32"):
         FA.flash_fwd_cuda(q, k, v, 0.125, False,
                           torch.zeros((1, 1, 256, 256), device=cuda).half())
@@ -922,10 +929,11 @@ def _fp32_rule(got, plain, ref):
                                                                   kf, pf)
 
 
-def _fp32_check(q, k, v, do, scale, causal, bias=None, p=0.0, seed=None):
+def _fp32_check(q, k, v, do, scale, causal, bias=None, p=0.0, seed=None,
+                seg=None):
     """fp32 kernels and plain versions against the plain versions in
     fp64, the backward from the fp64 forward's lse and delta."""
-    mode = (bias, p, seed)
+    mode = (bias, p, seed, seg)
     q64, k64, v64, do64 = (x.double() for x in (q, k, v, do))
     ro, rl = FA.flash_fwd_plain(q64, k64, v64, scale, causal, *mode)
     rd = FA.flash_delta(do64, ro)
@@ -1085,3 +1093,155 @@ def test_entry_config_forward_on_the_card(cuda):
             ref = model(ids)
     assert logits.dtype == torch.float32
     assert (logits - ref).abs().max().item() <= 1e-4
+
+
+def _seg_case(kind):
+    """(ids of the queries, ids of the keys) of one segment pattern."""
+    def packed(lens):
+        return np.repeat(np.arange(len(lens)), lens)
+    if kind == "packed":      # boundaries inside tiles, a 1-token segment
+        return packed((100, 37, 250, 1, 90)), packed((100, 37, 250, 1, 90))
+    if kind == "touching":    # tiles whose id ranges touch at one id
+        lens = (64, 64, 63, 65, 1, 127, 32)
+        return packed(lens), packed(lens)
+    if kind == "unsorted":    # ids that repeat: tile ranges overlap
+        return (np.arange(333) // 40) % 4, (np.arange(333) // 40) % 4
+    # cross attention: cu_q != cu_k, key segment 1 empty
+    return packed((120, 64, 200, 33)), packed((90, 0, 150, 70))
+
+
+@pytest.mark.parametrize("kind,dtype,d,causal", [
+    ("packed", "bfloat16", 128, True), ("packed", "float32", 64, True),
+    ("packed", "bfloat16", 64, False), ("touching", "bfloat16", 128, True),
+    ("touching", "float32", 128, False), ("unsorted", "bfloat16", 64, False),
+    ("unsorted", "float32", 128, True), ("cross", "bfloat16", 128, False),
+    ("cross", "float32", 64, False)])
+def test_flash_seg_kernels_match_plain(cuda, kind, dtype, d, causal):
+    """The segment mode of the forward, dQ and dK/dV against the plain
+    versions given the same ids: bf16 by the bf16 flash rule against the
+    fp32 plain versions, fp32 by the fp32 rule against fp64; queries that
+    see no key (the empty key segment) exact: out 0, lse -1e30, dq 0."""
+    ids_q, ids_k = _seg_case(kind)
+    b, h = 2, 2
+    q, k, v, do = _flash_inputs(b, len(ids_q), len(ids_k), h, d, dtype,
+                                cuda, seed=8)
+    seg = FA.seg_ids(ids_q, ids_k, cuda)
+    scale = d ** -0.5
+    reset_launch_counts()
+    if dtype == "float32":
+        out, (dq, _, _) = _fp32_check(q, k, v, do, scale, causal, seg=seg)
+        lse = FA.flash_fwd_cuda(q, k, v, scale, causal, seg=seg)[1]
+        n_fwd = 2
+    else:
+        out, lse = FA.flash_fwd_cuda(q, k, v, scale, causal, seg=seg)
+        q32, k32, v32, do32 = (x.float() for x in (q, k, v, do))
+        want_o, want_l = FA.flash_fwd_plain(q32, k32, v32, scale, causal,
+                                            seg=seg)
+        delta = FA.flash_delta(do, want_o.bfloat16())
+        dq = FA.flash_bwd_dq_cuda(q, k, v, do, want_l, delta, scale, causal,
+                                  seg=seg)
+        dk, dv = FA.flash_bwd_dkv_cuda(q, k, v, do, want_l, delta, scale,
+                                       causal, seg=seg)
+        torch.cuda.synchronize()
+        want_g = FA.flash_block_grads_plain(q32, k32, v32, do32, want_l,
+                                            delta, scale, causal, seg=seg)
+        for got, want in zip((out, dq, dk, dv), (want_o,) + tuple(want_g)):
+            _assert_flash_close(got, want)
+        live = want_l > -1e29
+        assert (lse - want_l)[live].abs().max().item() <= 1e-4
+        n_fwd = 1
+    dead = torch.tensor(np.isin(ids_q, ids_k), device=cuda) == 0
+    assert int(dead.sum()) == (64 if kind == "cross" else 0)
+    assert (lse[:, :, dead] == FA.NEG).all()
+    assert (out[:, dead] == 0).all() and (dq[:, dead] == 0).all()
+    sfx = "_fp32_seg" if dtype == "float32" else "_seg"
+    assert launch_counts() == _counts(**{f"flash_fwd{sfx}": n_fwd,
+                                         f"flash_dq{sfx}": 1,
+                                         f"flash_dkv{sfx}": 1})
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_seg_kernels_skip_tiles_of_other_segments(cuda, dtype):
+    """Segments on whole 64-row tiles (128, 192, 64 tokens): the middle
+    segment's k and v (forward, dQ) and its q, dO, lse and delta (dK/dV)
+    are NaN, so a kernel that read one of its tiles for another
+    segment's rows would give NaN there (p = 0 times NaN); the other
+    segments' outputs are finite and equal the plain versions run on
+    them alone."""
+    lens = (128, 192, 64)
+    ids = np.repeat(np.arange(3), lens)
+    s, h, d = len(ids), 2, 64
+    q, k, v, do = _flash_inputs(1, s, s, h, d, dtype, cuda, seed=9)
+    mid = slice(128, 320)
+    seg = FA.seg_ids(ids, ids, cuda)
+    keep = torch.ones(s, dtype=torch.bool, device=cuda)
+    keep[mid] = False
+    want_o, want_l = FA.flash_fwd_plain(q[:, keep], k[:, keep], v[:, keep],
+                                        0.125, True,
+                                        seg=(ids[keep.cpu().numpy()],) * 2)
+    delta = FA.flash_delta(do[:, keep], want_o.to(q.dtype))
+    want_g = FA.flash_block_grads_plain(q[:, keep], k[:, keep], v[:, keep],
+                                        do[:, keep], want_l, delta, 0.125,
+                                        True, seg=(ids[keep.cpu().numpy()],)
+                                        * 2)
+    nan = float("nan")
+    kn, vn = k.clone(), v.clone()
+    kn[:, mid], vn[:, mid] = nan, nan
+    out, _ = FA.flash_fwd_cuda(q, kn, vn, 0.125, True, seg=seg)
+    lse = torch.full((1, h, s), nan, device=cuda)
+    dlt = torch.full((1, h, s), nan, device=cuda)
+    lse[:, :, keep], dlt[:, :, keep] = want_l.float(), delta
+    dq = FA.flash_bwd_dq_cuda(q, kn, vn, do, lse, dlt, 0.125, True, seg=seg)
+    qn, don = q.clone(), do.clone()
+    qn[:, mid], don[:, mid] = nan, nan
+    dk, dv = FA.flash_bwd_dkv_cuda(qn, k, v, don, lse, dlt, 0.125, True,
+                                   seg=seg)
+    torch.cuda.synchronize()
+    for got, want in zip((out, dq, dk, dv), (want_o,) + tuple(want_g)):
+        got = got[:, keep]
+        assert torch.isfinite(got).all()
+        if dtype == "float32":
+            torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+        else:
+            _assert_flash_close(got, want.float())
+
+
+def test_flash_attn_unpadded_on_the_card(cuda):
+    """``flash_attn_unpadded`` forward and backward through autograd, bf16
+    causal: one launch of each segment-mode kernel, bitwise the outputs of
+    the wrappers called by hand on the same ids (the forward, delta of
+    its bf16 output, dQ, dK/dV: the kernels are deterministic), and the
+    forward within the bf16 flash rule of the plain version on fp32
+    copies. (The kernels against their plain versions given the same
+    delta: ``test_flash_seg_kernels_match_plain``. Against a plain
+    backward whose delta comes from an unrounded output, bf16 gradients
+    differ by more than that rule where P (dP - delta) cancels.)"""
+    lens = (300, 64, 1, 211, 500)
+    cu = np.concatenate([[0], np.cumsum(lens)])
+    q, k, v, dout = (x[0] for x in _flash_inputs(1, int(cu[-1]),
+                                                 int(cu[-1]), 4, 128,
+                                                 "bfloat16", cuda, seed=10))
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    reset_launch_counts()
+    out = FA.flash_attn_unpadded(*leaves, cu, cu, causal=True)
+    out.backward(dout)
+    torch.cuda.synchronize()
+    assert launch_counts() == _counts(flash_fwd_seg=1, flash_dq_seg=1,
+                                      flash_dkv_seg=1)
+    ids = np.repeat(np.arange(len(lens)), lens)
+    seg = FA.seg_ids(ids, ids, cuda)
+    args = (q[None], k[None], v[None])
+    sc = FA._scale(q, None)     # the scale flash_attn_unpadded takes
+    o, lse = FA.flash_fwd_cuda(*args, sc, True, seg=seg)
+    delta = FA.flash_delta(dout[None], o)
+    dq = FA.flash_bwd_dq_cuda(*args, dout[None], lse, delta, sc,
+                              True, seg=seg)
+    dk, dv = FA.flash_bwd_dkv_cuda(*args, dout[None], lse, delta,
+                                   sc, True, seg=seg)
+    torch.cuda.synchronize()
+    for got, want in zip((out,) + tuple(x.grad for x in leaves),
+                         (o, dq, dk, dv)):
+        assert torch.equal(got, want[0])
+    want_o, _ = FA.flash_fwd_plain(*(x.float() for x in args), sc,
+                                   True, seg=seg)
+    _assert_flash_close(out[None], want_o)

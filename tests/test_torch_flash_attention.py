@@ -35,8 +35,9 @@ CPU (as tests/test_flash_attention.py runs them).
   tolerance; ``p = 0`` equals the no-dropout mode bitwise; one key gives
   the same output twice, another key another output; the key drawn from
   a generator follows the generator's state;
-- the modes that are not ported (segment ids, ROADMAP B3), and the
-  wrappers of every mode raising on CPU tensors.
+- the mode combinations the kernels do not have (segment ids with a
+  bias or dropout, which no path uses), and the wrappers of every mode
+  raising on CPU tensors (the segment mode itself: test_torch_varlen.py).
 
 Tolerances: fp32 2e-5 absolute and relative — the same fp32 arithmetic
 in one block instead of the online softmax over Pallas blocks, so only
@@ -353,15 +354,24 @@ def test_sdpa_dropout_in_training_raises():
 
 
 def test_unported_modes_and_cpu_tensors_raise():
-    """Segment ids still raise, naming ROADMAP B3; the wrappers launch on
-    CUDA tensors or raise, in every mode (bias, dropout, both)."""
+    """Segment ids with a bias or with dropout raise (the kernels have no
+    such mode: no path of the JAX package combines them); the wrappers
+    launch on CUDA tensors or raise, in every mode (bias, dropout, both,
+    segment ids)."""
     q = torch.zeros((1, 256, 2, 64))
     lse = torch.zeros((1, 2, 256))
     bias = torch.zeros((1, 1, 256, 256))
     seed = torch.tensor([1, 2])
-    with pytest.raises(NotImplementedError, match="B3"):
+    seg = (np.zeros(256), np.zeros(256))
+    with pytest.raises(ValueError, match="segment ids with a bias or with "
+                                         "dropout"):
         T.flash_block_grads(q, q, q, q, lse, lse, scale=0.125,
-                            causal=True, seg=(np.zeros(256), np.zeros(256)))
+                            causal=True, seg=seg, bias=bias)
+    with pytest.raises(ValueError, match="segment ids with a bias or with "
+                                         "dropout"):
+        T.flash_block_grads(q, q, q, q, lse, lse, scale=0.125,
+                            causal=True, seg=seg, dropout_p=0.1,
+                            seed_arr=seed)
     with pytest.raises(ValueError, match="broadcast"):
         T.flash_attention(q, q, q, attn_mask=torch.zeros(3, 256, 256))
     with pytest.raises(ValueError, match="seed_arr"):
@@ -377,6 +387,12 @@ def test_unported_modes_and_cpu_tensors_raise():
         with pytest.raises(ValueError, match="CUDA"):
             flash_bwd_dkv_cuda(q, q, q, q, lse, lse, 0.125, False, b_, p_,
                                s_)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_fwd_cuda(q, q, q, 0.125, True, seg=seg)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_bwd_dq_cuda(q, q, q, q, lse, lse, 0.125, True, seg=seg)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_bwd_dkv_cuda(q, q, q, q, lse, lse, 0.125, True, seg=seg)
 
 
 @pytest.mark.parametrize("sq,sk,causal,bias_kind", [

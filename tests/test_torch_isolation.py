@@ -64,6 +64,17 @@ gpt = GPTForCausalLM(GPTConfig(vocab_size=64, hidden_size=64,
                      device="cpu")
 ids = torch.arange(512).reshape(2, 256) % 64
 gpt.loss(gpt(ids), ids).backward()      # dropout 0.1: flash's dropout mode
+import numpy as np
+from paddle_tpu_torch.incubate.nn.functional import (
+    variable_length_memory_efficient_attention)
+from paddle_tpu_torch.io import gather_rows, pack_sequences
+rows, cu = pack_sequences([np.arange(1, 13), np.arange(1, 21),
+                           np.arange(1, 10)], 48)
+assert gather_rows(rows.reshape(-1), [0], 48).shape == (1, 48)
+cu = cu[0][cu[0] >= 0]
+x = torch.randn((int(cu[-1]), 2, 64), requires_grad=True)
+variable_length_memory_efficient_attention(x, x, x, cu, cu,
+                                           causal=True).sum().backward()
 print("\n".join(sorted(sys.modules)))
 """
 
@@ -83,6 +94,8 @@ def test_port_imports_no_jax_in_a_fresh_interpreter():
     assert "paddle_tpu_torch.ops.kernels.layer_norm" in mods
     assert "paddle_tpu_torch.models.gpt" in mods
     assert "paddle_tpu_torch.ops.kernels.philox" in mods
+    assert "paddle_tpu_torch.io.native_loader" in mods
+    assert "paddle_tpu_torch.incubate.nn.functional" in mods
     bad = [m for m in mods if _banned(m)]
     assert not bad, bad
 

@@ -1,0 +1,120 @@
+#!/usr/bin/env python3
+"""Time the no-segment modes of the flash kernels of one source tree, so
+that two trees (a parent commit unpacked with ``git archive`` and the
+working tree) can be compared on one card in one call, in turns.
+
+    python3 tools/flash_ab.py [--tree PATH]
+
+``--tree`` is the root of a checkout holding ``paddle_tpu_torch`` (default:
+this repository); its kernels are built into that tree's own
+``build/kernels``. Modes and shapes: bf16 causal at the Llama training
+shape [4, 2048, 16, 128]; fp32 causal at GPT-2 small's [8, 1024, 12, 64];
+bf16 and fp32 with a key-padding bias (seeded lengths 128-512) at
+BERT-Base's [32, 512, 12, 64] non-causal; the dropout mode (p 0.1, one
+key) in bf16 at GPT-2's shape, and with the bias at BERT's. Each kernel's time is the mean of 100 launches between CUDA
+events, cycling three input sets (past the 50 MB L2), after 10 warm-up
+launches. Prints one JSON line: the tree, the card, the times in ms,
+and, when this run built the kernels, ``ptxas``'s registers and spills
+per instantiation.
+"""
+
+import argparse
+import importlib.util
+import json
+import os
+import subprocess
+import sys
+
+import torch
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _ms(fn, sets, iters=100, warmup=10):
+    for i in range(warmup):
+        fn(*sets[i % len(sets)])
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for i in range(iters):
+        fn(*sets[i % len(sets)])
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / iters
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--tree", default=HERE)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("flash_ab: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.abspath(args.tree))
+    from paddle_tpu_torch.ops.kernels import build
+    from paddle_tpu_torch.ops.kernels import flash_attention as F
+    if not os.path.abspath(F.__file__).startswith(os.path.abspath(args.tree)):
+        raise SystemExit(f"flash_ab: paddle_tpu_torch came from "
+                         f"{F.__file__}, not from {args.tree}")
+    built = build.build_all(["flash_attention_fwd", "flash_attention_bwd"])
+    # this repository's report parser (an older tree may lack it)
+    spec = importlib.util.spec_from_file_location(
+        "repo_build", os.path.join(HERE, "paddle_tpu_torch", "ops", "kernels",
+                                   "build.py"))
+    repo_build = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(repo_build)
+    report = {f"{name}:{fn}": line for name, b in built.items()
+              for fn, line in repo_build.ptxas_report(b["log"]).items()}
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    times = {}
+    seed = torch.tensor([7, 11], dtype=torch.int64, device="cuda")
+    for name, (b, s, h, d), dtype, causal, keypad, p in (
+            ("bf16_llama", (4, 2048, 16, 128), torch.bfloat16, True, False,
+             0.0),
+            ("fp32_gpt2", (8, 1024, 12, 64), torch.float32, True, False,
+             0.0),
+            ("bf16_bert_bias", (32, 512, 12, 64), torch.bfloat16, False,
+             True, 0.0),
+            ("fp32_bert_bias", (32, 512, 12, 64), torch.float32, False,
+             True, 0.0),
+            ("bf16_gpt2_drop", (8, 1024, 12, 64), torch.bfloat16, True,
+             False, 0.1),
+            ("bf16_bert_bias_drop", (32, 512, 12, 64), torch.bfloat16,
+             False, True, 0.1)):
+        mode = (p, seed if p else None)
+        sets = []
+        for _ in range(3):
+            q, k, v, do = (torch.randn((b, s, h, d), generator=gen,
+                                       device="cuda").to(dtype)
+                           for _ in range(4))
+            bias = None
+            if keypad:
+                lens = torch.randint(128, s + 1, (b,), generator=gen,
+                                     device="cuda")
+                keep = torch.arange(s, device="cuda")[None, :] < lens[:, None]
+                bias = F.attn_bias(keep[:, None, None, :].expand(b, 1, s, s),
+                                   q, k)
+            out, lse = F.flash_fwd_cuda(q, k, v, d ** -0.5, causal, bias,
+                                        *mode)
+            sets.append((q, k, v, do, lse, F.flash_delta(do, out), bias))
+        sc = d ** -0.5
+        times[name] = {
+            "fwd": _ms(lambda *a: F.flash_fwd_cuda(*a[:3], sc, causal, a[6],
+                                                   *mode), sets),
+            "dq": _ms(lambda *a: F.flash_bwd_dq_cuda(*a[:6], sc, causal,
+                                                     a[6], *mode), sets),
+            "dkv": _ms(lambda *a: F.flash_bwd_dkv_cuda(*a[:6], sc, causal,
+                                                       a[6], *mode), sets)}
+        del sets
+        torch.cuda.empty_cache()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    print(json.dumps({"tree": args.tree, "device": smi, "ms": times,
+                      "ptxas": report}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
