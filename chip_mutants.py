@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Plant known faults in the flash attention, MoE, int8 paged and
-LayerNorm kernels and in the flash bias, fp32, dropout and segment modes, and
+LayerNorm kernels, in the flash bias, fp32, dropout and segment modes and
+in the grouped-GEMM kernels' fp32 mode, and
 show which of ``chip_smoke.py``'s checks catch each one (a mutation
 check, on one GPU).
 
@@ -41,13 +42,20 @@ of the fault's kind (the control runs every kind of the faults chosen):
   of ``bench_bert``'s configuration, as ``train_bert_padded`` leaves it;
 - fp32: the fp32 flash kernel check (``flash_fp32_errors``: against fp64,
   within 2x the plain fp32 version's error plus the floor) at GPT-2
-  small's shape [8, 1024, 12, 64] causal, and ``entry()``'s fp32 train
-  parity (``phase_entry_fp32``'s three steps at ``FP32_PARITY``);
+  small's shape [8, 1024, 12, 64] causal and at rows that see one key
+  (``one_key_checks``), and ``entry()``'s fp32 train parity
+  (``phase_entry_fp32``'s three steps at ``FP32_PARITY``);
 - dropout: the dropout kernel check at p 0.1 (``flash_fp32_errors`` at
   GPT-2's shape in fp32, ``_flash_errors`` at the padded BERT shape in
   bf16 with its key-padding mask, both given one key) and the GPT-2 train
   parity of ``phase_train_gpt2_parity`` (fp32, dropout 0.1, the masks
   drawn from one generator state) after 10 steps of ``train_gpt2``;
+- moe_fp32: the fp32 grouped-GEMM kernel check (``moe_fp32_errors``:
+  against fp64, within 2x the plain fp32 version's error plus the floor)
+  at the fp32 slice's shapes (T 8192, E 16, D 1024, H 512), and the fp32
+  MoE train parity of ``phase_train_moe_fp32_parity`` (``FP32_PARITY``,
+  the layers' own outputs and input gradients, the routing-margin rule)
+  after 10 steps of ``moe_fp32_config``;
 - varlen: the segment-mode kernel check (``_flash_errors(seg=)``) on
   ``flash_varlen``'s packed batch, [1, 8760, 16, 128] bf16 causal and
   non-causal, and in place of a train parity ``phase_varlen_packed``:
@@ -171,6 +179,55 @@ MUTANTS = {
         [(BWD, "drop_keep(bh, qs0 + c, krow[i >> 1], key0, key1,",
           "drop_keep(bh, qs0 + c, krow[i >> 1] + 1, key0, key1,")],
         "dropout"),
+    "moe_fp32_dw_drops_hi_lo": (
+        "fp32 grouped dW: its 3xTF32 products drop the hi*lo pass (A's hi "
+        "times B's lo); the other fp32 kernels keep all three",
+        [(GG, "        const float* p = Bs + (kk + t) * LD + n * 8 + g;\n"
+              "        flash::mma3(acc[n], a, p[0], p[4 * LD]);",
+          "        const float* p = Bs + (kk + t) * LD + n * 8 + g;\n"
+          "        if (A_T) {    // dw_kernel's products only\n"
+          "          uint32_t bh0, bl0, bh1, bl1;\n"
+          "          flash::split_tf32(p[0], bh0, bl0);\n"
+          "          flash::split_tf32(p[4 * LD], bh1, bl1);\n"
+          "          float part[4] = {0.f, 0.f, 0.f, 0.f};\n"
+          "          flash::mma_tf32(part, a.lo, bh0, bh1);\n"
+          "          flash::mma_tf32(part, a.hi, bh0, bh1);\n"
+          "          for (int i = 0; i < 4; ++i) acc[n][i] += part[i];\n"
+          "        } else {\n"
+          "          flash::mma3(acc[n], a, p[0], p[4 * LD]);\n"
+          "        }")], "moe_fp32"),
+    "moe_fp32_dx_wgate_bf16_map": (
+        "fp32 grouped dX: the transposed W_gate fragment (an [n][k] tile) "
+        "read with the bf16 fragment's index map (lane (g, t) takes k 2t "
+        "and 2t + 1, where the tf32 fragment takes t and t + 4); bf16 and "
+        "the W_in product unchanged",
+        [(GG, "      load_dense(sbt, w_gate + e * DH, d.H, dt * kT, d.D, k0, "
+              "d.H);\n      wait_tiles();\n"
+              "      mma_chunk<false, false>(adx, sa, sbt, warp, lane);",
+          "      load_dense(sbt, w_gate + e * DH, d.H, dt * kT, d.D, k0, "
+          "d.H);\n      wait_tiles();\n"
+          "      if constexpr (std::is_same<X, float>::value) {\n"
+          "        constexpr int LD = Tile<float>::LD;\n"
+          "        for (int kk = 0; kk < kT; kk += 8) {\n"
+          "          const flash::FragA a = flash::frag_a<LD>(sa, warp * 16,"
+          " kk, lane);\n"
+          "          for (int n = 0; n < 8; ++n) {\n"
+          "            const float* p = sbt + (n * 8 + (lane >> 2)) * LD + kk"
+          " + 2 * (lane & 3);\n"
+          "            flash::mma3(adx[n], a, p[0], p[1]);\n"
+          "          }\n"
+          "        }\n"
+          "      } else {\n"
+          "        mma_chunk<false, false>(adx, sa, sbt, warp, lane);\n"
+          "      }")], "moe_fp32"),
+    "c6_repair_reverted": (
+        "fp32 flash backward: dP = dO V^T back to three 3xTF32 passes (no "
+        "lo*lo), the product before the ROADMAP C6 repair",
+        [(BWD, "nt_product_f32<kBK / 8, D, LD, mma4>(dp,",
+          "nt_product_f32<kBK / 8, D, LD, mma3>(dp,"),
+         (BWD, "nt_product_f32<BQ / 8, D, LD, mma4>(dp,",
+          "nt_product_f32<BQ / 8, D, LD, mma3>(dp,")],
+        "fp32"),
     "dkv_ignores_seg": (
         "segment mode, dK/dV: the segment test inside a live tile dropped "
         "(a key row takes the queries of every segment its tile meets), "
@@ -270,6 +327,36 @@ def _moe_checks(torch, S, K, TrainStep, AdamW) -> tuple:
     return check, parity
 
 
+def _moe_fp32_checks(torch, S, K, TrainStep, AdamW) -> tuple:
+    from paddle_tpu_torch.models import Qwen2MoeConfig, Qwen2MoeForCausalLM
+    from paddle_tpu_torch.ops.kernels import moe_grouped_gemm as GG
+    from paddle_tpu_torch.ops.kernels import moe_routing as MR
+    gen = torch.Generator(device="cuda").manual_seed(S.SEED + 13)
+    inp = S.moe_inputs(torch, GG, MR, gen, H=S.MOE_FP32_H, dtype="float32")
+    check = S.moe_fp32_errors(torch, GG, inp["x"], inp["row_id"],
+                              inp["gate_w"], inp["wi"], inp["wg"],
+                              inp["wo"], inp["g"])
+    del inp
+    torch.cuda.empty_cache()
+    cfg = S.moe_fp32_config(Qwen2MoeConfig, S.MOE_SEQ)
+    model = Qwen2MoeForCausalLM(cfg, device="cuda", seed=S.SEED)
+    batch = torch.tensor(np.random.default_rng(S.SEED).integers(
+        0, cfg.vocab_size, (S.MOE_BATCH, S.MOE_SEQ)), dtype=torch.int32,
+        device="cuda")
+    opt = AdamW(learning_rate=S.TRAIN_LR, parameters=model)
+    step = TrainStep(model, opt, lambda logits, y: model.loss(logits, y))
+    for _ in range(S.MOE_STEPS):
+        step(batch, batch)
+    try:
+        parity = S.phase_train_moe_fp32_parity(torch, K, model, opt,
+                                               TrainStep, batch)
+    except AssertionError as e:    # the phase's own failures, reported
+        parity = {"failures": [str(e)[:2000]]}
+    del model, opt, step
+    torch.cuda.empty_cache()
+    return check, parity
+
+
 def _int8_checks(torch, S, K, TrainStep, AdamW) -> tuple:
     from paddle_tpu_torch import quantization as QZ
     from paddle_tpu_torch.models import LlamaForCausalLM, llama_3_8b
@@ -335,8 +422,12 @@ def _fp32_checks(torch, S, K, TrainStep, AdamW) -> tuple:
     from paddle_tpu_torch.ops.kernels import flash_attention as F
     gen = torch.Generator(device="cuda").manual_seed(S.SEED + 12)
     q, k, v, do = S._flash_inputs(torch, gen, S.GPT2_SHAPE, torch.float32)
-    check = S.flash_fp32_errors(torch, F, q, k, v, do, 0.125, True)
+    check = {"gpt2": S.flash_fp32_errors(torch, F, q, k, v, do, 0.125,
+                                         True)}
     del q, k, v, do
+    check.update(S.one_key_checks(torch, np, F))
+    check["failures"] = [f"{n}: {f}" for n, c in check.items()
+                         for f in c["failures"]]
     torch.cuda.empty_cache()
     try:
         entry = S.phase_entry_fp32(torch, np, K, LlamaConfig,
@@ -429,7 +520,7 @@ def child(name: str, kinds=None) -> dict:
     checks = {"flash": _flash_checks, "moe": _moe_checks,
               "int8": _int8_checks, "bert": _bert_checks,
               "fp32": _fp32_checks, "dropout": _dropout_checks,
-              "varlen": _varlen_checks}
+              "varlen": _varlen_checks, "moe_fp32": _moe_fp32_checks}
     for kind in kinds:
         check, parity = checks[kind](torch, S, K, TrainStep, AdamW)
         grads = parity.pop("grad_rel_l2", None)

@@ -17,13 +17,18 @@ Phases; any failure ends the run with a traceback and a non-zero exit:
    dense [b, h, sq, sk] bias and a causal [sq, sk] one at a ragged
    length, and their no-bias mode at the unpadded BERT shape; MoE
    routing and the grouped-GEMM forward, dX and dW at the Qwen2-MoE
-   training shapes;
+   training shapes; ``moe_fp32_kernels``: their fp32 mode (3xTF32) at
+   the fp32 slice's shapes (H 512) and both FFN kinds at a smaller one,
+   against fp64 within 2x the plain fp32 version's error plus a floor,
+   each launched twice for a bitwise repeat;
    the int8 paged mode and the MoE kernels launched twice for a bitwise
    repeat; ``flash_fp32``: the fp32 mode of the three flash kernels
    (3xTF32 products) against fp64 at GPT-2 small's, ``entry()``'s and
    BERT-Base's shapes, with and without a bias, causal and not, d 64 and
    128, each output within 2x the plain fp32 version's error plus a
-   stated floor; ``flash_dropout``: the dropout mode (p 0.1), bf16 and
+   stated floor, and at rows that see one key (a 1-token segment and a
+   key-padding mask leaving one key, d 128: ROADMAP C6);
+   ``flash_dropout``: the dropout mode (p 0.1), bf16 and
    fp32, with and without a bias, on one Philox key with its plain
    version, two launches bitwise equal; ``flash_varlen``: the segment
    mode (packed sequences) on ``bench_llama``'s first packed host step,
@@ -56,6 +61,13 @@ Phases; any failure ends the run with a traceback and a non-zero exit:
    JAX package's ``qwen2_moe_fused`` configuration (8 sparse layers of 16
    experts, top-2, full width, bf16, batch 8 x seq 1024), with
    ``mfu_active``, the aux losses and the dropped copies per layer;
+7b. train_moe_fp32, train_moe_fp32_parity, train_moe_fp32_profile — the
+   same configuration in fp32 with its expert width cut from 704 to 512
+   (``moe_fp32_config``: the width the fused gates admit in fp32; the cut
+   is printed), through the fp32 modes of the flash and grouped-GEMM
+   kernels only; parity at ``FP32_PARITY`` with each MoE layer's own
+   output and input gradient, and routing decisions that may differ only
+   below ``ROUTE_MARGIN``;
 8. train_bert, train_bert_padded, train_bert_parity, train_bert_profile
    — ``bench.py::bench_bert``'s configuration (BERT-Base at full width
    and depth, bf16, AdamW lr 1e-4, batch 32 x seq 512): 10 steps of
@@ -1126,14 +1138,46 @@ BF16_TOLERANCE = ("against the fp32 plain version on the same inputs (and "
                   "absolute")
 
 
+# tests/test_torch_cuda.py's "touching" segment lengths: a 1-token
+# segment, whose row sees one key (ROADMAP C6)
+ONE_KEY_LENS = (64, 64, 63, 65, 1, 127, 32)
+
+
+def one_key_checks(torch, np, F) -> dict:
+    """``flash_fp32_errors`` at rows that see one key (ROADMAP C6), fp32,
+    d 128, non-causal: their dS = P (dP - delta) is 0 in exact arithmetic,
+    so their dq and that key's dk are dP's rounding alone. The segment
+    mode at ``ONE_KEY_LENS`` (a 1-token segment) on the inputs of
+    ``test_flash_seg_kernels_match_plain[touching-float32-128-False]``
+    (seed 8), where three-pass dP missed the rule, and the bias mode with
+    a key-padding mask that leaves batch element 1 one key."""
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    ids = np.repeat(np.arange(len(ONE_KEY_LENS)), ONE_KEY_LENS)
+    q, k, v, do = _flash_inputs(torch, gen, (2, len(ids), 2, 128),
+                                torch.float32)
+    out = {"one_key_segment": flash_fp32_errors(
+        torch, F, q, k, v, do, 128 ** -0.5, False,
+        seg=F.seg_ids(ids, ids, "cuda"))}
+    q, k, v, do = _flash_inputs(torch, gen, (2, 200, 2, 128), torch.float32)
+    keep1 = (torch.arange(200, device="cuda")[None, :]
+             < torch.tensor([200, 1], device="cuda")[:, None])
+    out["one_key_keypad"] = flash_fp32_errors(
+        torch, F, q, k, v, do, 128 ** -0.5, False,
+        F.attn_bias(keep1[:, None, None, :].expand(2, 1, 200, 200), q, k))
+    return out
+
+
 def phase_flash_fp32(torch, np, F) -> dict:
     """The fp32 mode of flash forward, dQ and dK/dV (3xTF32 products),
     each held to ``flash_fp32_errors``'s rule: at GPT-2 small's shape
-    ([8, 1024, 12, 64] causal), ``entry()``'s ([2, 256, 8, 64] causal),
+    ([8, 1024, 12, 64] causal), ``train_moe_fp32``'s ([8, 1024, 16, 64]
+    causal), ``entry()``'s ([2, 256, 8, 64] causal),
     BERT-Base's ([32, 512, 12, 64] non-causal) without and with
-    ``train_bert_padded``'s key-padding mask, and at d 128 a causal
+    ``train_bert_padded``'s key-padding mask, at d 128 a causal
     [2, 1024, 8, 128] with a random fp32 [sq, sk] bias and a ragged
-    non-causal [2, 1000, 4, 128]. Times (``_mode_rows``, the bound at the
+    non-causal [2, 1000, 4, 128], and two cases of rows that see one key
+    (d 128, non-causal): the segment mode at ``ONE_KEY_LENS`` and a
+    key-padding mask that leaves one key. Times (``_mode_rows``, the bound at the
     3xTF32 rate) at GPT-2's shape for the no-bias mode and at the padded
     BERT shape for the bias mode; the yardstick is
     ``scaled_dot_product_attention`` in fp32."""
@@ -1150,6 +1194,7 @@ def phase_flash_fp32(torch, np, F) -> dict:
                           q.shape[0], q.shape[2], q.shape[1], k.shape[1])
 
     cases = [("gpt2", GPT2_SHAPE, True, None),
+             ("qwen2_moe", (MOE_BATCH, MOE_SEQ, 16, 64), True, None),
              ("entry", ENTRY_SHAPE, True, None),
              ("bert", (BERT_BATCH, BERT_SEQ, 12, 64), False, None),
              ("bert_keypad", (BERT_BATCH, BERT_SEQ, 12, 64), False,
@@ -1164,6 +1209,7 @@ def phase_flash_fp32(torch, np, F) -> dict:
                                          shape[3] ** -0.5, causal, bias)
         del q, k, v, do, bias
         torch.cuda.empty_cache()
+    checks.update(one_key_checks(torch, np, F))
     _emit("flash_fp32_checks", checks)
     failures = {n: c["failures"] for n, c in checks.items() if c["failures"]}
     if failures:
@@ -1975,6 +2021,19 @@ def moe_config(Qwen2MoeConfig, seq: int):
                           dtype="bfloat16", ep_dispatch="fused")
 
 
+def moe_fp32_config(Qwen2MoeConfig, seq: int):
+    """``moe_config`` in fp32 (``Qwen2MoeConfig``'s own default dtype,
+    ``paddle_tpu/models/qwen2_moe.py:49``) with the expert width cut
+    from 704 to ``MOE_FP32_H``: at T 8192 the JAX package's fused gate
+    (``moe_grouped_gemm.py:116``, its VMEM term 20 D H + 1 MiB <= 14 MiB
+    at D 1024) rejects fp32 at 704 and admits it at 512, so neither
+    package runs the fp32 grouped kernels at 704. Every other field is
+    ``moe_config``'s: full width elsewhere and full depth."""
+    cfg = moe_config(Qwen2MoeConfig, seq)
+    return dataclasses.replace(cfg, dtype="float32",
+                               moe_intermediate_size=MOE_FP32_H)
+
+
 MOE_BATCH, MOE_SEQ, MOE_STEPS = 8, 1024, 10
 MOE_KERNELS = ("moe_routing", "moe_fwd", "moe_dx", "moe_dw")
 # Routing kernel vs plain: a row's decisions (experts, keep2) may differ
@@ -2116,7 +2175,7 @@ def moe_errors(torch, GG, x, row_id, gate_w, wi, wg, wo, g) -> dict:
 
 
 def moe_inputs(torch, GG, MR, gen, T=MOE_BATCH * MOE_SEQ, E=16, D=1024,
-               H=704):
+               H=704, dtype="bfloat16"):
     """Inputs of the MoE kernels at the training path's shapes: fp32
     logits ~ N(0, 1.5^2) (the router's scale at init) plus a per-expert
     offset rising from 0 to 1.5, so that, as in training, some experts
@@ -2125,7 +2184,8 @@ def moe_inputs(torch, GG, MR, gen, T=MOE_BATCH * MOE_SEQ, E=16, D=1024,
     they route to (the plain routing and the fused dispatch's own
     packing, capacity 1280); x and g ~ N(0, 1) and weights ~ N(0, 1/K)
     for a product over K, so every product is O(1) and the tolerances'
-    1e-3 absolute term is small beside it; all bf16 but the logits."""
+    1e-3 absolute term is small beside it; all in ``dtype`` but the
+    logits."""
     from paddle_tpu_torch.distributed import moe as M
     logits = (torch.randn((T, E), generator=gen, device="cuda") * 1.5
               + torch.linspace(0.0, 1.5, E, device="cuda"))
@@ -2144,7 +2204,7 @@ def moe_inputs(torch, GG, MR, gen, T=MOE_BATCH * MOE_SEQ, E=16, D=1024,
 
     def rand(*shape, std=1.0):
         return (torch.randn(shape, generator=gen, device="cuda")
-                * std).bfloat16()
+                * std).to(getattr(torch, dtype))
 
     return {"logits": logits, "u": u, "row_id": row_id.contiguous(),
             "gate_w": gate_w.contiguous(), "x": rand(T, D),
@@ -2250,6 +2310,168 @@ def phase_moe_kernels(torch, MR, GG) -> dict:
     return rows
 
 
+# The fp32 slice: the expert width that the fused gates admit in fp32
+# (moe_fp32_config), the shapes of its kernel check (moe_fp32_kernels),
+# and the smaller shape at which both FFN kinds are checked.
+MOE_FP32_H = 512
+MOE_FP32_SMALL = {"T": 2048, "E": 8, "D": 256, "H": 96}
+MOE_FP32_KERNELS = ("moe_routing", "moe_fwd_fp32", "moe_dx_fp32",
+                    "moe_dw_fp32")
+
+
+def moe_fp32_errors(torch, GG, x, row_id, gate_w, wi, wg, wo, g,
+                    act="silu") -> dict:
+    """The fp32 grouped-GEMM kernels and their plain fp32 versions, each
+    against the plain versions run in fp64 on the same inputs: forward
+    ``out``; dX's ``dx`` and ``dgw`` (occupied slots); dW's three
+    outputs from the kernel's own dX intermediates (in fp64 for the
+    reference), so each kernel is held alone. The flash fp32 rule per
+    output (``_rel_errors``): worst row and relative Frobenius error at
+    most ``FP32_RATIO`` x the plain fp32 version's plus ``FP32_ROW_FLOOR``
+    / ``FP32_FRO_FLOOR``. Each kernel is launched twice and must repeat
+    bitwise. ``wg`` None runs the ungated FFN."""
+    args = (x, row_id, gate_w, wi, wg, wo)
+    out = GG.moe_fwd_cuda(*args, act)
+    out2 = GG.moe_fwd_cuda(*args, act)
+    dx, dgw, inter = GG.moe_dx_cuda(*args, g, act)
+    dx2, dgw2, _ = GG.moe_dx_cuda(*args, g, act)
+    dws = GG.moe_dw_cuda(x, row_id, gate_w, g, inter)
+    dws2 = GG.moe_dw_cuda(x, row_id, gate_w, g, inter)
+    torch.cuda.synchronize()
+    occ = (row_id < x.shape[0]).float()
+    repeat = {"fwd": torch.equal(out, out2),
+              "dx": torch.equal(dx, dx2) and torch.equal(dgw * occ,
+                                                         dgw2 * occ),
+              "dw": all(a is None or torch.equal(a, b)
+                        for a, b in zip(dws, dws2))}
+    failures = [f"{k}: a second launch differs" for k, v in repeat.items()
+                if not v]
+    x64, g64 = x.double(), g.double()
+    a64 = (x64, row_id, gate_w, wi.double(),
+           None if wg is None else wg.double(), wo.double())
+    got = {"out": out, "dx": dx, "dgw": dgw * occ}
+    ref = {"out": GG.moe_fwd_plain(*a64, act)}
+    plain = {"out": GG.moe_fwd_plain(*args, act)}
+    rdx, rdgw, _ = GG.moe_dx_plain(*a64, g64, act)
+    pdx, pdgw, _ = GG.moe_dx_plain(*args, g, act)
+    ref.update(dx=rdx, dgw=rdgw * occ)
+    plain.update(dx=pdx, dgw=pdgw * occ)
+    inter64 = tuple(None if t is None else t.double() for t in inter)
+    for name, k_, r_, p_ in zip(
+            ("dw_in", "dw_gate", "dw_out"), dws,
+            GG.moe_dw_plain(x64, row_id, gate_w, g64, inter64),
+            GG.moe_dw_plain(x, row_id, gate_w, g, inter)):
+        if k_ is not None:
+            got[name], ref[name], plain[name] = k_, r_, p_
+    errs = {}
+    for name in got:
+        ke = _rel_errors(torch, got[name], ref[name])
+        pe = _rel_errors(torch, plain[name], ref[name])
+        errs[name] = {"kernel": ke, "plain": pe}
+        for m, floor in (("row", FP32_ROW_FLOOR), ("fro", FP32_FRO_FLOOR)):
+            limit = FP32_RATIO * pe[m] + floor
+            if not ke[m] <= limit:
+                failures.append(f"{name}: {m} error {ke[m]:.3g} > "
+                                f"{FP32_RATIO} x plain {pe[m]:.3g} + "
+                                f"{floor:.3g}")
+    return {"errors": errs, "bitwise_repeat": repeat, "failures": failures}
+
+
+def phase_moe_fp32_kernels(torch, MR, GG) -> dict:
+    """The fp32 mode of the grouped-GEMM forward, dX and dW (3xTF32) at the
+    fp32 slice's shapes (T 8192, E 16, D 1024, H ``MOE_FP32_H``, cpad
+    1280, gated silu, ``moe_inputs``' skewed logits, so that some experts
+    fill) and both FFN kinds (gated silu, ungated relu) at
+    ``MOE_FP32_SMALL``: each held by ``moe_fp32_errors`` against fp64 and
+    launched twice for a bitwise repeat. Then, at the slice's shapes, the
+    time of each (CUDA events and profiler device time), of its plain
+    fp32 version, its bound (its products on this run's occupied slots
+    at ``FP32_ACCURATE_FLOPS``, or its bytes), and as a yardstick only
+    the ``torch.bmm`` fp32 calls of its products over packed [16, 1280,
+    *] buffers, TF32 off."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    checks, failures = {}, []
+    small = MOE_FP32_SMALL
+    for act in ("silu", "relu"):
+        inp = moe_inputs(torch, GG, MR, gen, T=small["T"], E=small["E"],
+                         D=small["D"], H=small["H"], dtype="float32")
+        c = moe_fp32_errors(
+            torch, GG, inp["x"], inp["row_id"], inp["gate_w"], inp["wi"],
+            inp["wg"] if act == "silu" else None, inp["wo"], inp["g"], act)
+        checks[f"small_{act}"] = c
+        failures += [f"small_{act} {f}" for f in c.pop("failures")]
+    inp = moe_inputs(torch, GG, MR, gen, H=MOE_FP32_H, dtype="float32")
+    T, E = inp["logits"].shape
+    D, H = inp["wi"].shape[1:]
+    cpad, n = inp["cpad"], inp["occupied"]
+    args = (inp["x"], inp["row_id"], inp["gate_w"], inp["wi"], inp["wg"],
+            inp["wo"])
+    c = moe_fp32_errors(torch, GG, *args, inp["g"])
+    checks["slice"] = c
+    failures += [f"slice {f}" for f in c.pop("failures")]
+    _emit("moe_fp32_kernel_check", {"checks": checks, "occupied_slots": n,
+                                    "slots": E * cpad,
+                                    "small_shape": small})
+    if failures:
+        raise AssertionError(f"fp32 MoE kernels beyond tolerance: "
+                             f"{failures}")
+    xp = torch.randn((E, cpad, D), device="cuda")
+    hp = torch.randn((E, cpad, H), device="cuda")
+    wi, wg, wo = inp["wi"], inp["wg"], inp["wo"]
+    wit, wgt, wot = (w.transpose(1, 2) for w in (wi, wg, wo))
+    xpt, hpt = xp.transpose(1, 2), hp.transpose(1, 2)
+
+    def lib_fwd():
+        return torch.bmm(xp, wi), torch.bmm(xp, wg), torch.bmm(hp, wo)
+
+    def lib_dx():
+        return (torch.bmm(xp, wi), torch.bmm(xp, wg), torch.bmm(xp, wot),
+                torch.bmm(hp, wo), torch.bmm(hp, wit), torch.bmm(hp, wgt))
+
+    def lib_dw():
+        return torch.bmm(xpt, hp), torch.bmm(xpt, hp), torch.bmm(hpt, xp)
+
+    _, _, inter = GG.moe_dx_cuda(*args, inp["g"], "silu")
+    fwd_args, dx_args = [args + ("silu",)], [args + (inp["g"], "silu")]
+    dw_args = [(inp["x"], inp["row_id"], inp["gate_w"], inp["g"], inter)]
+    maps = E * cpad * 8
+    xb, wb, ib = T * D * 4, 3 * E * D * H * 4, E * cpad * H * 4
+    work = {   # name: (flops, bytes) for this run's occupied slots
+        "moe_fwd_fp32": (3 * 2.0 * n * D * H, xb + wb + maps + T * D * 4),
+        "moe_dx_fp32": (6 * 2.0 * n * D * H,
+                        2 * xb + wb + maps + T * D * 4 + E * cpad * 4
+                        + 3 * ib),
+        "moe_dw_fp32": (3 * 2.0 * n * D * H, 2 * xb + maps + 3 * ib + wb)}
+    fns = {
+        "moe_fwd_fp32": ({"kernel": GG.moe_fwd_cuda,
+                          "plain": GG.moe_fwd_plain,
+                          "library": lambda *a: lib_fwd()}, fwd_args),
+        "moe_dx_fp32": ({"kernel": GG.moe_dx_cuda, "plain": GG.moe_dx_plain,
+                         "library": lambda *a: lib_dx()}, dx_args),
+        "moe_dw_fp32": ({"kernel": GG.moe_dw_cuda, "plain": GG.moe_dw_plain,
+                         "library": lambda *a: lib_dw()}, dw_args)}
+    err_of = {"moe_fwd_fp32": ("out",), "moe_dx_fp32": ("dx", "dgw"),
+              "moe_dw_fp32": ("dw_in", "dw_gate", "dw_out")}
+    e = checks["slice"]["errors"]
+    rows = {}
+    for name, (fn, sets) in fns.items():
+        flops, nbytes = work[name]
+        bound, bound_by = _bound(flops, nbytes, FP32_ACCURATE_FLOPS)
+        t = _timings(torch, fn, sets)
+        rows[name] = {
+            "shape": {"T": T, "E": E, "D": D, "H": H, "cpad": cpad,
+                      "occupied_slots": n, "dtype": "float32"},
+            "max_abs_err": max(e[o]["kernel"]["max_abs"]
+                               for o in err_of[name]),
+            "errors_at_shape": {o: e[o] for o in err_of[name]},
+            "tolerance": FP32_TOLERANCE.split("; lse")[0] + "; bitwise "
+                         "repeatable", **t, "flops": flops, "bytes": nbytes,
+            "bound_ms": bound, "bound_by": bound_by,
+            "bound_peak_flops": FP32_ACCURATE_FLOPS}
+        _emit("kernel_vs_plain", {"name": name, **rows[name]})
+    return rows
+
+
 def _moe_active_params(cfg, n_params: int) -> int:
     """bench.py:464-466: all parameters but the routed experts a token
     does not use."""
@@ -2271,14 +2493,19 @@ def _count_drops(port_moe):
     return calls, lambda: setattr(port_moe, "moe_fused_compute", orig)
 
 
-def phase_train_moe(torch, K, model, TrainStep, AdamW, batch, smi) -> tuple:
+def phase_train_moe(torch, K, model, TrainStep, AdamW, batch, smi,
+                    tag="train_moe", cut=None) -> tuple:
     """10 TrainSteps of the ``qwen2_moe_fused`` configuration on one fixed
     batch (labels = inputs, as bench.py:488): step wall times, the median
     of steps 3-10, tokens/s, ``mfu_active`` (``6 * n_active * tokens/s``
     over the 989 TFLOP/s bf16 peak, bench.py:496), peak memory, every
     loss and aux loss, the dropped copies per layer in each step, and the
     launch counters of this phase alone (one routing, forward, dX and dW
-    launch per layer and step)."""
+    launch per layer and step, in the model's mode: an fp32 model, as
+    ``moe_fp32_config``, takes the ``_fp32`` modes of the flash and
+    grouped-GEMM kernels and none of the bf16 ones, and reports
+    ``mfu_active`` over the 67 TFLOP/s fp32 peak too). ``tag`` names the
+    phase's line; ``cut`` says how the configuration was cut."""
     from paddle_tpu_torch.distributed import moe as port_moe
     cfg = model.config
     L = cfg.num_hidden_layers
@@ -2306,6 +2533,7 @@ def phase_train_moe(torch, K, model, TrainStep, AdamW, batch, smi) -> tuple:
     n_active = _moe_active_params(cfg, n_params)
     step_s = statistics.median(times[2:])
     tokens = MOE_BATCH * MOE_SEQ
+    fp32 = cfg.dtype == "float32"
     out = {"config": cfg.__dict__, "params": n_params,
            "params_active": n_active, "batch": MOE_BATCH, "seq": MOE_SEQ,
            "lr": TRAIN_LR, "step_ms": [t * 1e3 for t in times],
@@ -2316,16 +2544,21 @@ def phase_train_moe(torch, K, model, TrainStep, AdamW, batch, smi) -> tuple:
            "losses": losses, "aux_losses": auxes,
            "dropped_copies_per_layer": dropped, "launches": launches,
            "card": smi}
-    _emit("train_moe", out)
+    if fp32:
+        out["mfu_active_fp32_peak"] = (6.0 * n_active * tokens / step_s
+                                       / FP32_FLOPS)
+    if cut is not None:
+        out["cut"] = cut
+    _emit(tag, out)
     if not all(math.isfinite(x) for x in losses + auxes):
         raise AssertionError(f"non-finite training loss: {losses} {auxes}")
     if not losses[-1] < losses[0]:
         raise AssertionError(f"the loss did not fall on a fixed batch: "
                              f"{losses}")
-    n = L * MOE_STEPS
-    want = _counts(K, rms_norm=(2 * L + 1) * MOE_STEPS, flash_fwd=n,
-                   flash_dq=n, flash_dkv=n, moe_routing=n, moe_fwd=n,
-                   moe_dx=n, moe_dw=n)
+    n, sfx = L * MOE_STEPS, "_fp32" if fp32 else ""
+    want = _counts(K, rms_norm=(2 * L + 1) * MOE_STEPS, moe_routing=n,
+                   **{f"{k}{sfx}": n for k in FLASH_KERNELS
+                      + ("moe_fwd", "moe_dx", "moe_dw")})
     if launches != want or any(len(d) != L for d in dropped):
         raise AssertionError(f"launch counters {launches} != expected "
                              f"{want} over {MOE_STEPS} steps (fused "
@@ -2381,6 +2614,98 @@ def phase_train_moe_parity(torch, K, model, opt, TrainStep, batch) -> dict:
     return out
 
 
+# The fp32 slice's cut, printed on its line (see moe_fp32_config).
+MOE_FP32_CUT = (f"moe_intermediate_size {MOE_FP32_H} of bench.py's 704: "
+                f"the fused gate of both packages rejects fp32 at 704 "
+                f"(VMEM term, 20 D H + 1 MiB <= 14 MiB at D 1024, so H <= "
+                f"665) and admits it at {MOE_FP32_H}; depth and every "
+                f"other width as bench.py")
+
+
+def _record_routing(port_moe):
+    """Wrap ``_top2_parts`` to keep each call's logits, uniforms and
+    chosen experts; returns the list and an undo function."""
+    calls, orig = [], port_moe._top2_parts
+
+    def recording(logits, capacity, **kw):
+        res = orig(logits, capacity, **kw)
+        calls.append((logits.detach().float().clone(), kw["u"].clone(),
+                      res[0].clone(), res[1].clone()))
+        return res
+    port_moe._top2_parts = recording
+    return calls, lambda: setattr(port_moe, "_top2_parts", orig)
+
+
+def _keep2(torch, logits, u):
+    """The random second-expert keep of the plain chain (``u < 2 g2 /
+    (g1 + g2)``) from a run's own logits."""
+    p = torch.softmax(logits, dim=-1).topk(2, dim=-1).values
+    return u < 2.0 * p[:, 1] / torch.clamp(p[:, 0] + p[:, 1], min=1e-9)
+
+
+def routing_agreement(torch, calls) -> dict:
+    """Routing decisions (both experts and the random keep of the second)
+    of the kernel run (first half of ``calls``) against the plain run's
+    (second half), call by call (a layer in a step): a decision may
+    differ only where the plain run's margin (``_route_margin``) is below
+    ``ROUTE_MARGIN``. Returns the count of rows that differ, the largest
+    margin among them, and ``failures``."""
+    n = len(calls) // 2
+    differing, worst, failures = 0, 0.0, []
+    for i, (kc, pc) in enumerate(zip(calls[:n], calls[n:])):
+        (lk, uk, g1k, g2k), (lp, up, g1p, g2p) = kc, pc
+        if not torch.equal(uk, up):
+            failures.append(f"routing call {i}: the uniforms differ")
+        differ = ((g1k != g1p) | (g2k != g2p)
+                  | (_keep2(torch, lk, uk) != _keep2(torch, lp, up)))
+        nd = int(differ.sum())
+        if nd:
+            differing += nd
+            worst = max(worst, _route_margin(torch, lp, up)[differ]
+                        .max().item())
+    if differing and not worst < ROUTE_MARGIN:
+        failures.append(f"routing: {differing} rows decide otherwise, one "
+                        f"with margin {worst} >= {ROUTE_MARGIN}")
+    if len(calls) % 2 or not n:
+        failures.append(f"routing: {len(calls)} calls recorded")
+    return {"calls_per_run": n, "rows_deciding_otherwise": differing,
+            "their_largest_margin": worst, "failures": failures}
+
+
+def phase_train_moe_fp32_parity(torch, K, model, opt, TrainStep,
+                                batch) -> dict:
+    """``train_parity_run`` on the fp32 MoE model (``moe_fp32_config``)
+    at ``FP32_PARITY``, the routers' generator reseeded before each run:
+    the fp32 flash and grouped-GEMM kernels and the routing kernel must
+    launch. Each ``MoELayer``'s first-step output and input gradient are
+    held to the gradient limit too (both runs fp32: the routed experts add
+    ~1e-3 of the residual stream, so only the layer's own tensors show a
+    fault in its output or dX). The routing-margin rule
+    (``routing_agreement``) holds every layer's decisions in all three
+    steps: they may differ only where the margin is below
+    ``ROUTE_MARGIN``."""
+    from paddle_tpu_torch.distributed import moe as port_moe
+    calls, undo = _record_routing(port_moe)
+    try:
+        out = train_parity_run(
+            torch, K, model, opt, TrainStep, *causal_lm_args(model, batch),
+            kernels=FP32_KERNELS + MOE_FP32_KERNELS, limits=FP32_PARITY,
+            reseed=lambda: model.generator.manual_seed(SEED + 6),
+            probes=moe_probes(model),
+            probe_limits=(FP32_PARITY[1], FP32_PARITY[1]))
+    finally:
+        undo()
+    route = routing_agreement(torch, calls)
+    out["failures"] += route.pop("failures")
+    out["routing"] = route
+    _emit("train_moe_fp32_parity", {k: v for k, v in out.items()
+                                    if k != "grad_rel_l2"})
+    if out["failures"]:
+        raise AssertionError(f"fp32 MoE train parity beyond tolerance: "
+                             f"{out['failures']}")
+    return out
+
+
 _MOE_CATEGORIES = (
     ("moe_expert", ("expert_h_kernel", "fwd_out_kernel", "dx_out_kernel",
                     "dgw_reduce_kernel", "dw_kernel")),
@@ -2417,14 +2742,15 @@ def _step_profile(torch, step_fn, model, opt, categories) -> dict:
     return out
 
 
-def phase_train_moe_profile(torch, model, opt, TrainStep, batch) -> dict:
+def phase_train_moe_profile(torch, model, opt, TrainStep, batch,
+                            tag="train_moe_profile") -> dict:
     """``_step_profile`` of one MoE training step, by category: the MoE
     expert kernels, the routing kernel, flash, RMSNorm, GEMMs, AdamW,
     everything else."""
     step = TrainStep(model, opt, lambda logits, y: model.loss(logits, y))
     out = _step_profile(torch, lambda: step(batch, batch), model, opt,
                         _MOE_CATEGORIES)
-    _emit("train_moe_profile", out)
+    _emit(tag, out)
     return out
 
 
@@ -3225,6 +3551,8 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     moe_k = phase_moe_kernels(torch, MR, GG)
     torch.cuda.empty_cache()
+    moe_fp32_k = phase_moe_fp32_kernels(torch, MR, GG)
+    torch.cuda.empty_cache()
 
     # 4-6 on the training configuration, freed before the serving model
     cfg = flagship_config(LlamaConfig, TRAIN_SEQ)
@@ -3258,6 +3586,25 @@ def main(argv=None) -> int:
                                      batch, smi)
     phase_train_moe_parity(torch, K, model, opt, TrainStep, batch)
     phase_train_moe_profile(torch, model, opt, TrainStep, batch)
+    for p in model.parameters():
+        p.grad = None
+    del model, opt
+    torch.cuda.empty_cache()
+
+    # the same in fp32 at the expert width the fused gates admit in fp32
+    cfg = moe_fp32_config(Qwen2MoeConfig, MOE_SEQ)
+    print(f"train_moe_fp32 cut: {MOE_FP32_CUT}", flush=True)
+    t0 = time.perf_counter()
+    model = Qwen2MoeForCausalLM(cfg, device="cuda", seed=SEED)
+    torch.cuda.synchronize()
+    _emit("train_moe_fp32_model", {"init_s": time.perf_counter() - t0,
+                                   "params": model.num_params()})
+    train_moe_fp32, opt = phase_train_moe(
+        torch, K, model, TrainStep, AdamW, batch, smi, tag="train_moe_fp32",
+        cut=MOE_FP32_CUT)
+    phase_train_moe_fp32_parity(torch, K, model, opt, TrainStep, batch)
+    phase_train_moe_profile(torch, model, opt, TrainStep, batch,
+                            tag="train_moe_fp32_profile")
     for p in model.parameters():
         p.grad = None
     del model, opt
@@ -3498,6 +3845,19 @@ def main(argv=None) -> int:
                              else "moe_grouped_gemm.cu"),
             "replaces": f"paddle_tpu/ops/pallas/{line}",
             "launches": train_moe["launches"][name],
+            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "shape": row["shape"]})
+    for name, line in (("moe_fwd_fp32", "moe_grouped_gemm.py:263"),
+                       ("moe_dx_fp32", "moe_grouped_gemm.py:371"),
+                       ("moe_dw_fp32", "moe_grouped_gemm.py:485")):
+        row = moe_fp32_k[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": src + "moe_grouped_gemm.cu",
+            "replaces": f"paddle_tpu/ops/pallas/{line}",
+            "launches": train_moe_fp32["launches"][name],
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],

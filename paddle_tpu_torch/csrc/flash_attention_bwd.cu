@@ -42,7 +42,11 @@
 // to (q k) * scale. dK/dV reads it in its transposed frame, bias[q, key]
 // for its (key row, q column) elements.
 // fp32 mode (T = float): the same loops on 3xTF32 products
-// (flash_common.cuh) over fp32 tiles with LD = D + 4; the tile sizes and
+// (flash_common.cuh) over fp32 tiles with LD = D + 4; dP = dO V^T takes
+// a fourth pass, lo*lo (mma4): a row that sees one key has dS = P (dP -
+// delta) = 0 in exact arithmetic, so its dq and its key's dk are dP's
+// rounding alone, and with three passes they missed the fp32 rule at d
+// 128 (PERF.md, ROADMAP C6). The tile sizes and
 // stages are the bf16 ones (shared memory: dQ 198 KB at d 128, dK/dV 133
 // KB, within the 227 KB a block may use).
 // Dropout mode (DROP, a template flag): each lane draws the keep bits of
@@ -217,7 +221,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     if constexpr (kF32) {
       nt_product_f32<kBK / 8, D, LD>(s, sQ, warp * 16, cK, lane);
-      nt_product_f32<kBK / 8, D, LD>(dp, sO, warp * 16, cV, lane);
+      nt_product_f32<kBK / 8, D, LD, mma4>(dp, sO, warp * 16, cV, lane);
     } else {
 #pragma unroll
       for (int ks = 0; ks < D / 16; ++ks) {
@@ -449,7 +453,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     if constexpr (kF32) {
       nt_product_f32<BQ / 8, D, LD>(s, sK, warp * 16, cQ, lane);
-      nt_product_f32<BQ / 8, D, LD>(dp, sV, warp * 16, cO, lane);
+      nt_product_f32<BQ / 8, D, LD, mma4>(dp, sV, warp * 16, cO, lane);
     } else {
 #pragma unroll
       for (int ks = 0; ks < D / 16; ++ks) {

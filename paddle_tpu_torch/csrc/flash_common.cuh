@@ -21,9 +21,11 @@
 //
 // fp32 mode (3xTF32). A product of fp32 operands keeps fp32 accuracy on the
 // TF32 tensor cores when each operand is split into hi = tf32(x) and lo =
-// tf32(x - hi) (round to nearest both times, so hi + lo is x to ~2^-24) and
-// the sum takes lo*hi + hi*lo + hi*hi in fp32 (the dropped lo*lo is
-// ~2^-24 of the product). mma.m16n8k8 with .tf32 inputs, per lane:
+// tf32(x - hi) (round to nearest both times, so hi + lo is x to 2^-22 at
+// worst, ~2^-24 typically) and the sum takes lo*hi + hi*lo + hi*hi in fp32
+// (the dropped lo*lo is up to 2^-22 of the product). The backward's dP
+// takes lo*lo as a fourth pass (mma4). mma.m16n8k8 with .tf32 inputs,
+// per lane:
 //   A 16x8: {(g, t), (g+8, t), (g, t+4), (g+8, t+4)};
 //   B 8x8 (k x n): {(k t, n g), (k t+4, n g)};
 //   C as above.
@@ -244,9 +246,28 @@ __device__ __forceinline__ FragA frag_a(const float* tile, int r0, int c0,
   return split_a(p[0], p[8 * LD], p[4], p[8 * LD + 4]);
 }
 
+// mma3 and the fourth pass, lo*lo (the backward's dP, where a row that
+// sees one key takes its dq and its key's dk from dP's rounding alone).
+__device__ __forceinline__ void mma4(float (&d)[4], const FragA& a, float b0,
+                                     float b1) {
+  uint32_t bh0, bl0, bh1, bl1;
+  split_tf32(b0, bh0, bl0);
+  split_tf32(b1, bh1, bl1);
+  float part[4] = {0.f, 0.f, 0.f, 0.f};
+  mma_tf32(part, a.lo, bl0, bl1);
+  mma_tf32(part, a.lo, bh0, bh1);
+  mma_tf32(part, a.hi, bl0, bl1);
+  mma_tf32(part, a.hi, bh0, bh1);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) d[i] += part[i];
+}
+
+typedef void (*MmaF32)(float (&)[4], const FragA&, float, float);
+
 // acc[n] += A (16 rows at r0, D columns) . B[n0 + 8n .. + 8)^T for n < NT:
-// both fp32 row-major tiles, B's rows the n index ([n][k]).
-template <int NT, int D, int LD>
+// both fp32 row-major tiles, B's rows the n index ([n][k]); each k-step
+// by MMA (mma3, or mma4 for the backward's dP).
+template <int NT, int D, int LD, MmaF32 MMA = mma3>
 __device__ __forceinline__ void nt_product_f32(float (&acc)[NT][4],
                                                const float* A, int r0,
                                                const float* B, int lane) {
@@ -257,7 +278,7 @@ __device__ __forceinline__ void nt_product_f32(float (&acc)[NT][4],
 #pragma unroll
     for (int n = 0; n < NT; ++n) {
       const float* b = B + (n * 8 + g) * LD + ks * 8 + t;
-      mma3(acc[n], a, b[0], b[4]);
+      MMA(acc[n], a, b[0], b[4]);
     }
   }
 }

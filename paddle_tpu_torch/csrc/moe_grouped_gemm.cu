@@ -3,45 +3,57 @@
 // pallas_call at :263), dX (_dx_call, :371) and dW (_dw_call, :485).
 //
 // Slot (e, s) of the [E, cpad] maps names its token row_id (T: empty) and
-// its combine weight gate_w (0 when empty). With x [T, D] bf16, W_in and
-// W_gate [E, D, H], W_out [E, H, D] (bf16), per slot:
+// its combine weight gate_w (0 when empty). With x [T, D], W_in and W_gate
+// [E, D, H], W_out [E, H, D], all of one type X (bf16 or fp32), per slot:
 //   h1 = x[row] W_in[e], hg = x[row] W_gate[e]   (fp32 sums)
-//   h  = act(hg) * h1 (gated) or act(h1), rounded to bf16
+//   h  = act(hg) * h1 (gated) or act(h1), rounded to X
 //   y  = h W_out[e] (fp32), out[row] += gate_w * y (fp32 scatter-add)
-//   dX: dgw = <g[row], y>; dy = bf16(g[row] * gate_w); dh = dy W_out[e]^T;
-//       dh1 = bf16(dh * act(hg)), dhg = bf16(dh * h1 * act'(hg)) (gated) or
-//       dh1 = bf16(dh * act'(h1)); dx[row] += dh1 W_in[e]^T + dhg W_gate[e]^T
+//   dX: dgw = <g[row], y>; dy = X(g[row] * gate_w); dh = dy W_out[e]^T;
+//       dh1 = X(dh * act(hg)), dhg = X(dh * h1 * act'(hg)) (gated) or
+//       dh1 = X(dh * act'(h1)); dx[row] += dh1 W_in[e]^T + dhg W_gate[e]^T
 //   dW: per expert, over its slots, dW_in = x^T dh1, dW_gate = x^T dhg,
-//       dW_out = h^T dy, fp32 sums rounded once to bf16.
-// These are the Pallas kernels' rounding points. An empty slot adds 0: the
-// kernels zero its x and g rows (the Pallas kernels gather row T - 1 and
-// multiply by its gate weight 0) and skip slot blocks that hold no token.
+//       dW_out = h^T dy, fp32 sums rounded once to X.
+// These are the Pallas kernels' rounding points (casts to x's dtype, so in
+// fp32 nothing is rounded). An empty slot adds 0: the kernels zero its x
+// and g rows (the Pallas kernels gather row T - 1 and multiply by its gate
+// weight 0) and skip slot blocks that hold no token.
 //
 // What bounds them on the H100: the tensor cores. At the Qwen2-MoE shapes
 // (T 8192, D 1024, H 704, E 16, cpad 1280) the forward is 3 products of
 // 2 x 20480 x 1024 x 704 (88.6 GFLOP if every slot were full, 0.09 ms at
-// 989 TFLOP/s), dX and dW 6 each. What differs from the TPU:
+// 989 TFLOP/s), dX and dW 6 each. fp32 products run at 3xTF32's
+// fp32-accurate 494.7 / 3 TFLOP/s at best. What differs from the TPU:
 // - The TPU grid is sequential, so its read-modify-write scatter-add is
 //   race-free. Hopper blocks run in parallel: the scatter-add is an fp32
 //   atomicAdd into a zeroed [T, D] buffer. A token row gets at most two
 //   contributions (its top-2 copies) onto 0, and 0 + a + b == 0 + b + a
 //   exactly in IEEE fp32, so the result does not depend on the schedule.
 // - The TPU kept h in VMEM between its two products. Here each pass is a
-//   few simple launches over 64 x 64 output tiles (4 warps, mma.sync
-//   m16n8k16 bf16 with fp32 accumulators, cp.async tile loads): the
-//   forward writes h (bf16, [E * cpad, H]) between a gather-LHS launch and
-//   a W_out launch with the scatter epilogue; dX writes h, dh1 and dhg for
-//   the dW launch to read (the values the Pallas dW pass recomputes) and
-//   reduces <g, y> over the D tiles in a fixed order; dW gives each block
-//   one output tile of one expert's dW and loops over that expert's slots:
-//   no atomics there.
+//   few simple launches over 64 x 64 output tiles (4 warps, cp.async tile
+//   loads, fp32 accumulators): the forward writes h ([E * cpad, H] in X)
+//   between a gather-LHS launch and a W_out launch with the scatter
+//   epilogue; dX writes h, dh1 and dhg for the dW launch to read (the
+//   values the Pallas dW pass recomputes) and reduces <g, y> over the D
+//   tiles in a fixed order; dW gives each block one output tile of one
+//   expert's dW and loops over that expert's slots: no atomics there.
+// - bf16 takes mma.sync m16n8k16 with ldmatrix(.trans) fragment loads.
+//   fp32 takes the 3xTF32 product of flash_common.cuh (split_a / mma3 on
+//   mma.sync m16n8k8 .tf32, each 8-deep k-step summed in a fresh
+//   accumulator) with fragments from plain shared loads, one index map per
+//   orientation (ldmatrix moves 16-bit elements only); its tiles take LD =
+//   64 + 4 floats a row and dynamic shared memory (the backward's first
+//   pass holds five tiles, 87 KB).
 // - H = 704 is 11 x 64: tiles past H are zero-filled on load and not
-//   stored, so H need only be a multiple of 32 (the loads move 8 columns).
-// wgmma, TMA and deeper pipelines are later work (PERF.md).
+//   stored, so H need only be a multiple of 32 (the loads move 16 bytes, 8
+//   bf16 or 4 fp32 columns).
+// wgmma, TMA, deeper pipelines and conflict-free fp32 index maps are later
+// work (PERF.md).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "flash_common.cuh"
 
@@ -50,9 +62,20 @@ namespace {
 using flash::bf16;
 
 constexpr int kT = 64;            // tile edge (slots, D or H)
-constexpr int kLD = kT + 8;       // shared row: 16-byte rows, no conflicts
-constexpr int kTile = kT * kLD;   // bf16 elements of one shared tile
 constexpr int kThreads = 128;     // 4 warps, 16 output rows each
+
+// Shared tile geometry of element type X: LD elements a row (16-byte rows;
+// bf16 rows 8 apart in banks for ldmatrix, fp32 rows 4 apart), 16-byte
+// chunks of kPer elements.
+template <typename X>
+struct Tile {
+  static constexpr bool kF32 = std::is_same<X, float>::value;
+  static constexpr int LD = kF32 ? kT + 4 : kT + 8;
+  static constexpr int kElems = kT * LD;
+  static constexpr int kPer = 16 / sizeof(X);
+  static constexpr int kChunks = kT / kPer;
+  static constexpr size_t bytes(int n) { return sizeof(X) * kElems * n; }
+};
 
 struct Dims {
   int T, D, H, E, cpad, act, gated;
@@ -69,6 +92,9 @@ __device__ __forceinline__ float dact_f(int act, float v) {
   }
   return v > 0.f ? 1.f : 0.f;
 }
+
+__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f(float v) { return v; }
 
 // The 64 slots of block sb of expert e: their token rows (-1 for an empty
 // slot or one past cpad) and combine weights, in shared memory. Returns
@@ -100,14 +126,16 @@ __device__ __forceinline__ bool slot_rows(const int* row_id,
 
 // A 64 x 64 tile from 64 gathered global rows (rows[r] < 0: zeros),
 // columns col0.., columns >= ncol zero-filled.
-__device__ __forceinline__ void load_gather(bf16* dst, const bf16* src,
-                                            int ld, const int* rows,
-                                            int col0, int ncol) {
-  for (int i = threadIdx.x; i < kT * 8; i += kThreads) {
-    const int r = i >> 3, c = (i & 7) * 8;
+template <typename X>
+__device__ __forceinline__ void load_gather(X* dst, const X* src, int ld,
+                                            const int* rows, int col0,
+                                            int ncol) {
+  using G = Tile<X>;
+  for (unsigned i = threadIdx.x; i < kT * G::kChunks; i += kThreads) {
+    const int r = i / G::kChunks, c = (i % G::kChunks) * G::kPer;
     const int row = rows[r];
     const bool ok = row >= 0 && col0 + c < ncol;
-    flash::cp_async16(dst + r * kLD + c,
+    flash::cp_async16(dst + r * G::LD + c,
                       ok ? src + (int64_t)row * ld + col0 + c : src,
                       ok ? 16 : 0);
   }
@@ -115,37 +143,44 @@ __device__ __forceinline__ void load_gather(bf16* dst, const bf16* src,
 
 // A 64 x 64 tile of global rows row0.. (rows >= nrow and columns >= ncol
 // zero-filled).
-__device__ __forceinline__ void load_dense(bf16* dst, const bf16* src,
-                                           int64_t ld, int row0, int nrow,
-                                           int col0, int ncol) {
-  for (int i = threadIdx.x; i < kT * 8; i += kThreads) {
-    const int r = i >> 3, c = (i & 7) * 8;
+template <typename X>
+__device__ __forceinline__ void load_dense(X* dst, const X* src, int64_t ld,
+                                           int row0, int nrow, int col0,
+                                           int ncol) {
+  using G = Tile<X>;
+  for (unsigned i = threadIdx.x; i < kT * G::kChunks; i += kThreads) {
+    const int r = i / G::kChunks, c = (i % G::kChunks) * G::kPer;
     const bool ok = row0 + r < nrow && col0 + c < ncol;
-    flash::cp_async16(dst + r * kLD + c,
+    flash::cp_async16(dst + r * G::LD + c,
                       ok ? src + (row0 + r) * ld + col0 + c : src,
                       ok ? 16 : 0);
   }
 }
 
-// dy = bf16(g[row] * gate_w) for the 64 slots, columns col0..col0+63 of
+// dy = X(g[row] * gate_w) for the 64 slots, columns col0..col0+63 of
 // [T, D] g; zeros for an empty slot. Synchronous (it converts).
-__device__ __forceinline__ void load_dy(bf16* dst, const bf16* g, int D,
+template <typename X>
+__device__ __forceinline__ void load_dy(X* dst, const X* g, int D,
                                         const int* rows, const float* gw,
                                         int col0) {
-  for (int i = threadIdx.x; i < kT * 8; i += kThreads) {
-    const int r = i >> 3, c = (i & 7) * 8;
+  using G = Tile<X>;
+  for (unsigned i = threadIdx.x; i < kT * G::kChunks; i += kThreads) {
+    const int r = i / G::kChunks, c = (i % G::kChunks) * G::kPer;
     const int row = rows[r];
     uint4 v = make_uint4(0, 0, 0, 0);
     if (row >= 0) {
       const uint4 raw = *reinterpret_cast<const uint4*>(
           g + (int64_t)row * D + col0 + c);
-      const bf16* in = reinterpret_cast<const bf16*>(&raw);
-      bf16* out = reinterpret_cast<bf16*>(&v);
+      const X* in = reinterpret_cast<const X*>(&raw);
+      X* out = reinterpret_cast<X*>(&v);
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
-        out[j] = __float2bfloat16(__bfloat162float(in[j]) * gw[r]);
+      for (int j = 0; j < G::kPer; ++j) {
+        const float p = to_f(in[j]) * gw[r];
+        if constexpr (G::kF32) out[j] = p;
+        else out[j] = __float2bfloat16(p);
+      }
     }
-    *reinterpret_cast<uint4*>(dst + r * kLD + c) = v;
+    *reinterpret_cast<uint4*>(dst + r * G::LD + c) = v;
   }
 }
 
@@ -158,27 +193,62 @@ __device__ __forceinline__ void wait_tiles() {
 // acc[64 x 64 warp slice] += A[64 x 64] B[64 x 64] over one 64-deep chunk.
 // Warp w owns output rows 16w..16w+15 and all 64 columns (8 n-tiles).
 // A_T: A is stored [k][m] (else [m][k]); B_T: B is stored [k][n] (else
-// [n][k]). The transposed layouts come from ldmatrix.trans.
+// [n][k]). bf16: the transposed layouts come from ldmatrix.trans.
 template <bool A_T, bool B_T>
 __device__ __forceinline__ void mma_chunk(float (&acc)[8][4], const bf16* As,
                                           const bf16* Bs, int warp,
                                           int lane) {
+  constexpr int LD = Tile<bf16>::LD;
 #pragma unroll
   for (int kk = 0; kk < kT; kk += 16) {
     uint32_t a[4];
     if (A_T)
-      flash::ldsm_x4_t(a, flash::b_addr<kLD>(As, kk, warp * 16, lane));
+      flash::ldsm_x4_t(a, flash::b_addr<LD>(As, kk, warp * 16, lane));
     else
-      flash::ldsm_x4(a, flash::a_addr<kLD>(As, warp * 16, kk, lane));
+      flash::ldsm_x4(a, flash::a_addr<LD>(As, warp * 16, kk, lane));
 #pragma unroll
     for (int np = 0; np < 4; ++np) {
       uint32_t b[4];
       if (B_T)
-        flash::ldsm_x4_t(b, flash::a_addr<kLD>(Bs, kk, np * 16, lane));
+        flash::ldsm_x4_t(b, flash::a_addr<LD>(Bs, kk, np * 16, lane));
       else
-        flash::ldsm_x4(b, flash::b_addr<kLD>(Bs, np * 16, kk, lane));
+        flash::ldsm_x4(b, flash::b_addr<LD>(Bs, np * 16, kk, lane));
       flash::mma(acc[2 * np], a, b[0], b[1]);
       flash::mma(acc[2 * np + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+// The same on fp32 tiles, 3xTF32 on mma.m16n8k8 (8 k-steps). A [m][k]
+// with B [n][k] is flash::nt_product_f32; the transposed layouts read
+// the tf32 fragments (flash_common.cuh: lane (g, t) takes A (g, t),
+// (g+8, t), (g, t+4), (g+8, t+4) and B (k t, n g), (k t+4, n g)) as
+//   A [k][m]: As[(kk + t) * LD + r0 + g] and +8 columns, +4 rows;
+//   B [k][n]: Bs[(kk + t) * LD + 8n + g] and +4 rows.
+template <bool A_T, bool B_T>
+__device__ __forceinline__ void mma_chunk(float (&acc)[8][4],
+                                          const float* As, const float* Bs,
+                                          int warp, int lane) {
+  static_assert(B_T || !A_T, "an [k][m] A meets only a [k][n] B");
+  constexpr int LD = Tile<float>::LD;
+  const int g = lane >> 2, t = lane & 3, r0 = warp * 16;
+  if constexpr (!B_T) {
+    flash::nt_product_f32<8, kT, LD>(acc, As, r0, Bs, lane);
+  } else {
+#pragma unroll
+    for (int kk = 0; kk < kT; kk += 8) {
+      flash::FragA a;
+      if (A_T) {
+        const float* p = As + (kk + t) * LD + r0 + g;
+        a = flash::split_a(p[0], p[8], p[4 * LD], p[4 * LD + 8]);
+      } else {
+        a = flash::frag_a<LD>(As, r0, kk, lane);
+      }
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        const float* p = Bs + (kk + t) * LD + n * 8 + g;
+        flash::mma3(acc[n], a, p[0], p[4 * LD]);
+      }
     }
   }
 }
@@ -191,7 +261,7 @@ __device__ __forceinline__ void zero(float (&acc)[8][4]) {
 }
 
 // Accumulator element i of n-tile n of the calling lane: its row and
-// column in the 64 x 64 tile (mma.m16n8k16's C layout).
+// column in the 64 x 64 tile (the C layout of mma.m16n8k16 and k8).
 __device__ __forceinline__ int acc_row(int warp, int lane, int i) {
   return warp * 16 + (lane >> 2) + (i >> 1) * 8;
 }
@@ -199,27 +269,39 @@ __device__ __forceinline__ int acc_col(int lane, int n, int i) {
   return n * 8 + (lane & 3) * 2 + (i & 1);
 }
 
+// n shared tiles of type X from dynamic shared memory
+template <typename X>
+__device__ __forceinline__ X* smem_tiles() {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  return reinterpret_cast<X*>(smem_raw);
+}
+
 // ---- pass 1 of the forward and of dX: the expert's H-side products ----
 // Block (jt, sb, e): slots sb*64.., H columns jt*64... K runs over D.
 // Forward: h. Backward: h, dh1, dhg (and dh from dy W_out^T).
-template <bool BWD>
+// Shared: tiles sx, swi, swg (+ sdy, swo for BWD).
+template <typename X, bool BWD>
 __global__ void __launch_bounds__(kThreads) expert_h_kernel(
-    const bf16* __restrict__ x, const int* __restrict__ row_id,
-    const float* __restrict__ gate_w, const bf16* __restrict__ w_in,
-    const bf16* __restrict__ w_gate, const bf16* __restrict__ w_out,
-    const bf16* __restrict__ g, bf16* __restrict__ h_out,
-    bf16* __restrict__ dh1_out, bf16* __restrict__ dhg_out, Dims d) {
-  __shared__ __align__(16) bf16 sx[kTile], swi[kTile], swg[kTile];
-  __shared__ __align__(16) bf16 sdy[BWD ? kTile : 8], swo[BWD ? kTile : 8];
+    const X* __restrict__ x, const int* __restrict__ row_id,
+    const float* __restrict__ gate_w, const X* __restrict__ w_in,
+    const X* __restrict__ w_gate, const X* __restrict__ w_out,
+    const X* __restrict__ g, X* __restrict__ h_out, X* __restrict__ dh1_out,
+    X* __restrict__ dhg_out, Dims d) {
+  constexpr int kE = Tile<X>::kElems;
+  X* sx = smem_tiles<X>();
+  X* swi = sx + kE;
+  X* swg = swi + kE;
+  X* sdy = swg + kE;
+  X* swo = sdy + kE;
   __shared__ int rows[kT];
   __shared__ float gw[kT];
   const int jt = blockIdx.x, sb = blockIdx.y, e = blockIdx.z;
   if (!slot_rows(row_id, gate_w, e, sb, d, rows, gw)) return;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int64_t DH = (int64_t)d.D * d.H;
-  const bf16* wi = w_in + e * DH;
-  const bf16* wg = d.gated ? w_gate + e * DH : nullptr;
-  const bf16* wo = w_out + e * DH;
+  const X* wi = w_in + e * DH;
+  const X* wg = d.gated ? w_gate + e * DH : nullptr;
+  const X* wo = w_out + e * DH;
   float a1[8][4], ag[8][4], adh[8][4];
   zero(a1);
   zero(ag);
@@ -268,18 +350,21 @@ __global__ void __launch_bounds__(kThreads) expert_h_kernel(
 
 // ---- pass 2 of the forward: y = h W_out, out[row] += gate_w * y ----
 // Block (dt, sb, e): slots sb*64.., D columns dt*64... K runs over H.
+// Shared: tiles sh, swo.
+template <typename X>
 __global__ void __launch_bounds__(kThreads) fwd_out_kernel(
     const int* __restrict__ row_id, const float* __restrict__ gate_w,
-    const bf16* __restrict__ w_out, const bf16* __restrict__ h,
+    const X* __restrict__ w_out, const X* __restrict__ h,
     float* __restrict__ out, Dims d) {
-  __shared__ __align__(16) bf16 sh[kTile], swo[kTile];
+  X* sh = smem_tiles<X>();
+  X* swo = sh + Tile<X>::kElems;
   __shared__ int rows[kT];
   __shared__ float gw[kT];
   const int dt = blockIdx.x, sb = blockIdx.y, e = blockIdx.z;
   if (!slot_rows(row_id, gate_w, e, sb, d, rows, gw)) return;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const bf16* wo = w_out + (int64_t)e * d.H * d.D;
-  const bf16* hb = h + (int64_t)e * d.cpad * d.H;
+  const X* wo = w_out + (int64_t)e * d.H * d.D;
+  const X* hb = h + (int64_t)e * d.cpad * d.H;
   float acc[8][4];
   zero(acc);
   for (int k0 = 0; k0 < d.H; k0 += kT) {
@@ -303,14 +388,17 @@ __global__ void __launch_bounds__(kThreads) fwd_out_kernel(
 // ---- pass 2 of dX: dx[row] += dh1 W_in^T + dhg W_gate^T, and y = h W_out
 // for this D tile's share of dgw = <g[row], y> (written per tile, summed
 // in a fixed order by dgw_reduce_kernel). Block (dt, sb, e); K over H.
+// Shared: tiles sa, sbt.
+template <typename X>
 __global__ void __launch_bounds__(kThreads) dx_out_kernel(
     const int* __restrict__ row_id, const float* __restrict__ gate_w,
-    const bf16* __restrict__ w_in, const bf16* __restrict__ w_gate,
-    const bf16* __restrict__ w_out, const bf16* __restrict__ g,
-    const bf16* __restrict__ h, const bf16* __restrict__ dh1,
-    const bf16* __restrict__ dhg, float* __restrict__ dx,
+    const X* __restrict__ w_in, const X* __restrict__ w_gate,
+    const X* __restrict__ w_out, const X* __restrict__ g,
+    const X* __restrict__ h, const X* __restrict__ dh1,
+    const X* __restrict__ dhg, float* __restrict__ dx,
     float* __restrict__ part, Dims d) {
-  __shared__ __align__(16) bf16 sa[kTile], sbt[kTile];
+  X* sa = smem_tiles<X>();
+  X* sbt = sa + Tile<X>::kElems;
   __shared__ int rows[kT];
   __shared__ float gw[kT];
   const int dt = blockIdx.x, sb = blockIdx.y, e = blockIdx.z;
@@ -355,7 +443,7 @@ __global__ void __launch_bounds__(kThreads) dx_out_kernel(
       if (rows[r] < 0) continue;
       const int64_t o = (int64_t)rows[r] * d.D + dt * kT + acc_col(lane, n, i);
       atomicAdd(dx + o, adx[n][i]);
-      dot[i >> 1] += __bfloat162float(g[o]) * ay[n][i];
+      dot[i >> 1] += to_f(g[o]) * ay[n][i];
     }
 #pragma unroll
   for (int j = 0; j < 2; ++j) {
@@ -378,13 +466,18 @@ __global__ void dgw_reduce_kernel(const float* __restrict__ part,
 // ---- dW: one output tile of one expert's dW per block, K over its slots.
 // Blocks [0, nd * nj): dW_in and dW_gate tile (dt, jt) = x^T [dh1 | dhg];
 // blocks [nd * nj, 2 nd * nj): dW_out tile (jt, dt) = h^T dy.
+// Shared: tiles sa, sb1, sb2.
+template <typename X>
 __global__ void __launch_bounds__(kThreads) dw_kernel(
-    const bf16* __restrict__ x, const int* __restrict__ row_id,
-    const float* __restrict__ gate_w, const bf16* __restrict__ g,
-    const bf16* __restrict__ h, const bf16* __restrict__ dh1,
-    const bf16* __restrict__ dhg, bf16* __restrict__ dwi,
-    bf16* __restrict__ dwg, bf16* __restrict__ dwo, Dims d) {
-  __shared__ __align__(16) bf16 sa[kTile], sb1[kTile], sb2[kTile];
+    const X* __restrict__ x, const int* __restrict__ row_id,
+    const float* __restrict__ gate_w, const X* __restrict__ g,
+    const X* __restrict__ h, const X* __restrict__ dh1,
+    const X* __restrict__ dhg, X* __restrict__ dwi, X* __restrict__ dwg,
+    X* __restrict__ dwo, Dims d) {
+  constexpr int kE = Tile<X>::kElems;
+  X* sa = smem_tiles<X>();
+  X* sb1 = sa + kE;
+  X* sb2 = sb1 + kE;
   __shared__ int rows[kT];
   __shared__ float gw[kT];
   const int e = blockIdx.y;
@@ -447,63 +540,130 @@ bool dims_ok(const Dims& d) {
          (d.cpad + kT - 1) / kT <= 65535 && (d.act == 0 || d.act == 1);
 }
 
+// launch kern with `tiles` shared tiles of X after raising its dynamic
+// shared memory limit where that is above 48 KB
+template <typename X, typename Kern, typename... Args>
+cudaError_t launch(Kern kern, int tiles, dim3 grid, cudaStream_t stream,
+                   Args... args) {
+  const size_t smem = Tile<X>::bytes(tiles);
+  cudaError_t err = flash::allow_smem(kern, smem);
+  if (err != cudaSuccess) return err;
+  kern<<<grid, kThreads, smem, stream>>>(args...);
+  return cudaGetLastError();
+}
+
+template <typename X>
+int fwd(const void* x, const int* row_id, const float* gate_w,
+        const void* w_in, const void* w_gate, const void* w_out, void* h,
+        float* out, const Dims& d, cudaStream_t stream) {
+  const int n_sb = (d.cpad + kT - 1) / kT;
+  cudaError_t err = launch<X>(
+      expert_h_kernel<X, false>, 3, dim3((d.H + kT - 1) / kT, n_sb, d.E),
+      stream, static_cast<const X*>(x), row_id, gate_w,
+      static_cast<const X*>(w_in), static_cast<const X*>(w_gate),
+      static_cast<const X*>(w_out), static_cast<const X*>(nullptr),
+      static_cast<X*>(h), static_cast<X*>(nullptr), static_cast<X*>(nullptr),
+      d);
+  if (err != cudaSuccess) return err;
+  return launch<X>(fwd_out_kernel<X>, 2, dim3(d.D / kT, n_sb, d.E), stream,
+                   row_id, gate_w, static_cast<const X*>(w_out),
+                   static_cast<const X*>(h), out, d);
+}
+
+template <typename X>
+int dx(const void* x, const int* row_id, const float* gate_w,
+       const void* w_in, const void* w_gate, const void* w_out,
+       const void* g, void* h, void* dh1, void* dhg, float* dxo, float* dgw,
+       float* part, const Dims& d, cudaStream_t stream) {
+  const int n_sb = (d.cpad + kT - 1) / kT;
+  cudaError_t err = launch<X>(
+      expert_h_kernel<X, true>, 5, dim3((d.H + kT - 1) / kT, n_sb, d.E),
+      stream, static_cast<const X*>(x), row_id, gate_w,
+      static_cast<const X*>(w_in), static_cast<const X*>(w_gate),
+      static_cast<const X*>(w_out), static_cast<const X*>(g),
+      static_cast<X*>(h), static_cast<X*>(dh1), static_cast<X*>(dhg), d);
+  if (err != cudaSuccess) return err;
+  err = launch<X>(dx_out_kernel<X>, 2, dim3(d.D / kT, n_sb, d.E), stream,
+                  row_id, gate_w, static_cast<const X*>(w_in),
+                  static_cast<const X*>(w_gate),
+                  static_cast<const X*>(w_out), static_cast<const X*>(g),
+                  static_cast<const X*>(h), static_cast<const X*>(dh1),
+                  static_cast<const X*>(dhg), dxo, part, d);
+  if (err != cudaSuccess) return err;
+  const int n_slots = d.E * d.cpad;
+  dgw_reduce_kernel<<<(n_slots + 255) / 256, 256, 0, stream>>>(
+      part, dgw, n_slots, d.D / kT);
+  return cudaGetLastError();
+}
+
+template <typename X>
+int dw(const void* x, const int* row_id, const float* gate_w, const void* g,
+       const void* h, const void* dh1, const void* dhg, void* dwi, void* dwg,
+       void* dwo, const Dims& d, cudaStream_t stream) {
+  const int tiles = 2 * (d.D / kT) * ((d.H + kT - 1) / kT);
+  return launch<X>(dw_kernel<X>, 3, dim3(tiles, d.E), stream,
+                   static_cast<const X*>(x), row_id, gate_w,
+                   static_cast<const X*>(g), static_cast<const X*>(h),
+                   static_cast<const X*>(dh1), static_cast<const X*>(dhg),
+                   static_cast<X*>(dwi), static_cast<X*>(dwg),
+                   static_cast<X*>(dwo), d);
+}
+
 }  // namespace
 
-extern "C" int moe_fwd_launch(const bf16* x, const int* row_id,
-                              const float* gate_w, const bf16* w_in,
-                              const bf16* w_gate, const bf16* w_out, bf16* h,
+// x, g, the expert weights, h, dh1, dhg and the dW outputs are one dtype:
+// dtype 1 bfloat16, 0 float32 (the flash kernels' codes). row_id is int32
+// and gate_w, out, dx, dgw and part are float32.
+extern "C" int moe_fwd_launch(const void* x, const int* row_id,
+                              const float* gate_w, const void* w_in,
+                              const void* w_gate, const void* w_out, void* h,
                               float* out, int T, int D, int H, int E,
-                              int cpad, int act, int gated,
+                              int cpad, int act, int gated, int dtype,
                               cudaStream_t stream) {
   const Dims d{T, D, H, E, cpad, act, gated};
   if (!dims_ok(d) || (gated && !w_gate)) return cudaErrorInvalidValue;
-  const int n_sb = (cpad + kT - 1) / kT;
-  expert_h_kernel<false><<<dim3((H + kT - 1) / kT, n_sb, E), kThreads, 0,
-                           stream>>>(x, row_id, gate_w, w_in, w_gate, w_out,
-                                     nullptr, h, nullptr, nullptr, d);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  fwd_out_kernel<<<dim3(D / kT, n_sb, E), kThreads, 0, stream>>>(
-      row_id, gate_w, w_out, h, out, d);
-  return cudaGetLastError();
+  if (dtype == 1)
+    return fwd<bf16>(x, row_id, gate_w, w_in, w_gate, w_out, h, out, d,
+                     stream);
+  if (dtype == 0)
+    return fwd<float>(x, row_id, gate_w, w_in, w_gate, w_out, h, out, d,
+                      stream);
+  return cudaErrorInvalidValue;
 }
 
-extern "C" int moe_dx_launch(const bf16* x, const int* row_id,
-                             const float* gate_w, const bf16* w_in,
-                             const bf16* w_gate, const bf16* w_out,
-                             const bf16* g, bf16* h, bf16* dh1, bf16* dhg,
-                             float* dx, float* dgw, float* part, int T, int D,
-                             int H, int E, int cpad, int act, int gated,
-                             cudaStream_t stream) {
+extern "C" int moe_dx_launch(const void* x, const int* row_id,
+                             const float* gate_w, const void* w_in,
+                             const void* w_gate, const void* w_out,
+                             const void* g, void* h, void* dh1, void* dhg,
+                             float* dxo, float* dgw, float* part, int T,
+                             int D, int H, int E, int cpad, int act,
+                             int gated, int dtype, cudaStream_t stream) {
   const Dims d{T, D, H, E, cpad, act, gated};
   if (!dims_ok(d) || (gated && (!w_gate || !dhg)))
     return cudaErrorInvalidValue;
-  const int n_sb = (cpad + kT - 1) / kT;
-  expert_h_kernel<true><<<dim3((H + kT - 1) / kT, n_sb, E), kThreads, 0,
-                          stream>>>(x, row_id, gate_w, w_in, w_gate, w_out,
-                                    g, h, dh1, dhg, d);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  dx_out_kernel<<<dim3(D / kT, n_sb, E), kThreads, 0, stream>>>(
-      row_id, gate_w, w_in, w_gate, w_out, g, h, dh1, dhg, dx, part, d);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const int n_slots = E * cpad;
-  dgw_reduce_kernel<<<(n_slots + 255) / 256, 256, 0, stream>>>(
-      part, dgw, n_slots, D / kT);
-  return cudaGetLastError();
+  if (dtype == 1)
+    return dx<bf16>(x, row_id, gate_w, w_in, w_gate, w_out, g, h, dh1, dhg,
+                    dxo, dgw, part, d, stream);
+  if (dtype == 0)
+    return dx<float>(x, row_id, gate_w, w_in, w_gate, w_out, g, h, dh1, dhg,
+                     dxo, dgw, part, d, stream);
+  return cudaErrorInvalidValue;
 }
 
-extern "C" int moe_dw_launch(const bf16* x, const int* row_id,
-                             const float* gate_w, const bf16* g,
-                             const bf16* h, const bf16* dh1, const bf16* dhg,
-                             bf16* dwi, bf16* dwg, bf16* dwo, int T, int D,
-                             int H, int E, int cpad, cudaStream_t stream) {
+extern "C" int moe_dw_launch(const void* x, const int* row_id,
+                             const float* gate_w, const void* g,
+                             const void* h, const void* dh1, const void* dhg,
+                             void* dwi, void* dwg, void* dwo, int T, int D,
+                             int H, int E, int cpad, int dtype,
+                             cudaStream_t stream) {
   const int gated = dhg != nullptr;
   const Dims d{T, D, H, E, cpad, 0, gated};
   if (!dims_ok(d) || (gated && !dwg)) return cudaErrorInvalidValue;
-  const int tiles = 2 * (D / kT) * ((H + kT - 1) / kT);
-  dw_kernel<<<dim3(tiles, E), kThreads, 0, stream>>>(
-      x, row_id, gate_w, g, h, dh1, dhg, dwi, dwg, dwo, d);
-  return cudaGetLastError();
+  if (dtype == 1)
+    return dw<bf16>(x, row_id, gate_w, g, h, dh1, dhg, dwi, dwg, dwo, d,
+                    stream);
+  if (dtype == 0)
+    return dw<float>(x, row_id, gate_w, g, h, dh1, dhg, dwi, dwg, dwo, d,
+                     stream);
+  return cudaErrorInvalidValue;
 }

@@ -12,6 +12,7 @@
 | MoE grouped forward | ``moe_grouped_gemm.moe_fwd_cuda`` | ``ops/pallas/moe_grouped_gemm.py::_fwd_call`` |
 | MoE grouped dX | ``moe_grouped_gemm.moe_dx_cuda`` | ``ops/pallas/moe_grouped_gemm.py::_dx_call`` |
 | MoE grouped dW | ``moe_grouped_gemm.moe_dw_cuda`` | ``ops/pallas/moe_grouped_gemm.py::_dw_call`` |
+| MoE grouped forward, dX, dW in fp32 | the same wrappers on fp32 tensors | the same ``pallas_call``s on fp32 inputs |
 | LayerNorm | ``layer_norm.layer_norm_cuda`` | ``ops/pallas/fused_norm.py::_ln_fwd_pallas`` |
 
 Each flash kernel has ten modes: bf16 or fp32 inputs, with or without
@@ -30,8 +31,9 @@ each kernel by name; the paged kernel's two modes count apart
 kernels' ten (``flash_fwd``, ``flash_fwd_bias``, ``flash_fwd_drop``,
 ``flash_fwd_drop_bias``, ``flash_fwd_fp32``, ..., ``flash_fwd_fp32_drop_bias``,
 ``flash_fwd_seg``, ``flash_fwd_fp32_seg``, and the same for ``flash_dq``
-and ``flash_dkv``), so a run shows which
-mode its path took.
+and ``flash_dkv``), and the grouped-GEMM kernels' two (``moe_fwd`` and
+``moe_fwd_fp32``, and the same for ``moe_dx`` and ``moe_dw``), so a run
+shows which mode its path took.
 """
 
 from .flash_attention import (MODES, flash_block_grads_plain,
@@ -70,6 +72,9 @@ _COUNTERS = {
     "moe_fwd": (moe_fwd_cuda, "launches"),
     "moe_dx": (moe_dx_cuda, "launches"),
     "moe_dw": (moe_dw_cuda, "launches"),
+    "moe_fwd_fp32": (moe_fwd_cuda, "fp32_launches"),
+    "moe_dx_fp32": (moe_dx_cuda, "fp32_launches"),
+    "moe_dw_fp32": (moe_dw_cuda, "fp32_launches"),
     "layer_norm": (layer_norm_cuda, "launches")}
 
 

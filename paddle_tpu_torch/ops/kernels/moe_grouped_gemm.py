@@ -19,13 +19,14 @@ weight ``gate_w`` (0 for an empty slot).
   dtype before the products that take them; gate weight and scatter-add
   in fp32). An empty slot gathers row ``T - 1`` and adds 0, as there.
 - :func:`moe_fwd_cuda`, :func:`moe_dx_cuda`, :func:`moe_dw_cuda` — the
-  kernels' wrappers; each launches on bf16 CUDA tensors or raises
-  outside :func:`kernel_gate`, and counts its calls in ``.launches``
-  (one call enqueues the kernel's passes: 2 for the forward, 3 for dX,
-  1 for dW).
+  kernels' wrappers; each launches on bf16 or fp32 CUDA tensors (x, g
+  and the three weights of one dtype) or raises outside
+  :func:`kernel_gate`, and counts its calls (one call enqueues the
+  kernel's passes: 2 for the forward, 3 for dX, 1 for dW) in
+  ``.launches`` (bf16) or ``.fp32_launches`` (fp32, the 3xTF32 mode).
 - The dX pass hands dW what both Pallas passes recompute: ``h``, ``dh1``
-  and ``dhg`` per slot, rounded to x's dtype (``inter``). The dW pass
-  takes them instead of recomputing them.
+  and ``dhg`` per slot, rounded to x's dtype (``inter``; in fp32 nothing
+  is rounded). The dW pass takes them instead of recomputing them.
 - :func:`fused_grouped_moe` — the differentiable function (counterpart
   of the JAX ``custom_vjp``): gradients for x, ``gate_w`` and the three
   expert weights.
@@ -54,6 +55,7 @@ _VMEM_BUDGET = 14 * 2 ** 20
 _SMEM_BUDGET = 256 * 2 ** 10
 ACTS = ("silu", "relu")
 _ITEMSIZE = {torch.float32: 4, torch.bfloat16: 2}
+_DTYPE_CODE = {torch.bfloat16: 1, torch.float32: 0}   # C interface codes
 
 
 def act_name_of(activation) -> str | None:
@@ -131,40 +133,44 @@ def _dact(name, v):
 
 
 def _round(v, dtype):
-    """v rounded to ``dtype`` and back to fp32 (a product's operand)."""
-    return v.to(dtype).float()
+    """v rounded to ``dtype`` and back (a product's operand)."""
+    return v.to(dtype).to(v.dtype)
 
 
 def _gather(t, row_id):
-    """Rows of ``t`` by slot, ``[E, cpad, D]`` fp32; the sentinel ``T``
-    gathers row ``T - 1`` (moe_grouped_gemm.py:200)."""
-    return t[row_id.long().clamp(max=t.shape[0] - 1)].float()
+    """Rows of ``t`` by slot, ``[E, cpad, D]`` in fp32 (fp64 for fp64
+    ``t``, the reference use); the sentinel ``T`` gathers row ``T - 1``
+    (moe_grouped_gemm.py:200)."""
+    cd = torch.float64 if t.dtype == torch.float64 else torch.float32
+    return t[row_id.long().clamp(max=t.shape[0] - 1)].to(cd)
 
 
 def _forward_parts(x, row_id, w_in, w_gate, act_name):
     xf = _gather(x, row_id)
-    h1 = torch.bmm(xf, w_in.float())
+    h1 = torch.bmm(xf, w_in.to(xf.dtype))
     if w_gate is not None:
-        hg = torch.bmm(xf, w_gate.float())
+        hg = torch.bmm(xf, w_gate.to(xf.dtype))
         return xf, h1, hg, _act(act_name, hg) * h1
     return xf, h1, None, _act(act_name, h1)
 
 
 def _scatter_add(rows, row_id, T):
-    """fp32 ``[T, D]``: each slot's row added into its token's row; empty
-    slots land in the trash row ``T`` and are cut off."""
+    """``[T, D]`` in rows' dtype: each slot's row added into its token's
+    row; empty slots land in the trash row ``T`` and are cut off."""
     D = rows.shape[-1]
-    out = torch.zeros((T + 1, D), dtype=torch.float32, device=rows.device)
+    out = torch.zeros((T + 1, D), dtype=rows.dtype, device=rows.device)
     out.index_add_(0, row_id.reshape(-1).long(), rows.reshape(-1, D))
     return out[:T]
 
 
 def moe_fwd_plain(x, row_id, gate_w, w_in, w_gate, w_out, act_name):
     """fp32 ``[T, D]`` routed-expert output before its cast to x's dtype
-    (``_fwd_kernel``, moe_grouped_gemm.py:179-229)."""
+    (``_fwd_kernel``, moe_grouped_gemm.py:179-229). The plain versions
+    compute in fp32, or in fp64 for fp64 inputs (a reference)."""
     _, _, _, h = _forward_parts(x, row_id, w_in, w_gate, act_name)
-    y = torch.bmm(_round(h, x.dtype), w_out.float())
-    return _scatter_add(y * gate_w.float()[..., None], row_id, x.shape[0])
+    y = torch.bmm(_round(h, x.dtype), w_out.to(h.dtype))
+    return _scatter_add(y * gate_w.to(h.dtype)[..., None], row_id,
+                        x.shape[0])
 
 
 def moe_dx_plain(x, row_id, gate_w, w_in, w_gate, w_out, g, act_name):
@@ -174,21 +180,22 @@ def moe_dx_plain(x, row_id, gate_w, w_in, w_gate, w_out, g, act_name):
     ``[E, cpad, H]`` in x's dtype (dhg None when ungated), the values the
     dW pass multiplies."""
     xf, h1, hg, h = _forward_parts(x, row_id, w_in, w_gate, act_name)
+    cd = h.dtype
     hr = _round(h, x.dtype)
     gf = _gather(g, row_id)
-    dgw = (gf * torch.bmm(hr, w_out.float())).sum(dim=-1)
-    dy = _round(gf * gate_w.float()[..., None], x.dtype)
-    dh = torch.bmm(dy, w_out.float().transpose(1, 2))
+    dgw = (gf * torch.bmm(hr, w_out.to(cd))).sum(dim=-1)
+    dy = _round(gf * gate_w.to(cd)[..., None], x.dtype)
+    dh = torch.bmm(dy, w_out.to(cd).transpose(1, 2))
     if w_gate is not None:
         ag = _act(act_name, hg)
         dh1 = _round(dh * ag, x.dtype)
         dhg = _round(dh * h1 * _dact(act_name, hg), x.dtype)
-        dxr = (torch.bmm(dh1, w_in.float().transpose(1, 2))
-               + torch.bmm(dhg, w_gate.float().transpose(1, 2)))
+        dxr = (torch.bmm(dh1, w_in.to(cd).transpose(1, 2))
+               + torch.bmm(dhg, w_gate.to(cd).transpose(1, 2)))
     else:
         dh1 = _round(dh * _dact(act_name, h1), x.dtype)
         dhg = None
-        dxr = torch.bmm(dh1, w_in.float().transpose(1, 2))
+        dxr = torch.bmm(dh1, w_in.to(cd).transpose(1, 2))
     inter = tuple(None if t is None else t.to(x.dtype)
                   for t in (hr, dh1, dhg))
     return _scatter_add(dxr, row_id, x.shape[0]), dgw, inter
@@ -201,10 +208,11 @@ def moe_dw_plain(x, row_id, gate_w, g, inter):
     ungated."""
     h, dh1, dhg = inter
     xt = _gather(x, row_id).transpose(1, 2)
-    dy = _round(_gather(g, row_id) * gate_w.float()[..., None], x.dtype)
-    dwo = torch.bmm(h.float().transpose(1, 2), dy)
-    dwi = torch.bmm(xt, dh1.float())
-    dwg = None if dhg is None else torch.bmm(xt, dhg.float())
+    cd = xt.dtype
+    dy = _round(_gather(g, row_id) * gate_w.to(cd)[..., None], x.dtype)
+    dwo = torch.bmm(h.to(cd).transpose(1, 2), dy)
+    dwi = torch.bmm(xt, dh1.to(cd))
+    dwg = None if dhg is None else torch.bmm(xt, dhg.to(cd))
     return dwi, dwg, dwo
 
 
@@ -214,18 +222,17 @@ _ACT_CODE = {"silu": 0, "relu": 1}
 
 
 def _maps_gate(x, row_id, gate_w, g, H) -> str | None:
-    """The checks the three passes share: x (and g) bf16 ``[T, D]``,
-    the slot maps, and the kernels' tile rules for D and H."""
+    """The checks the three passes share: x (and g) bf16 or fp32 ``[T,
+    D]``, the slot maps, and the kernels' tile rules for D and H."""
     ts = [t for t in (x, row_id, gate_w, g) if t is not None]
     if not all(t.is_cuda and t.device == x.device for t in ts):
         return "all inputs must be on one CUDA device"
     if not all(t.is_contiguous() for t in ts):
         return "all inputs must be contiguous"
-    if x.dim() != 2 or x.dtype != torch.bfloat16 or (
+    if x.dim() != 2 or x.dtype not in _DTYPE_CODE or (
             g is not None and (g.dtype != x.dtype or g.shape != x.shape)):
-        return ("x (and g, of x's shape) must be bfloat16 [T, D] (the "
-                "tensor cores' input type; fp32 grouped GEMM on the card is "
-                "ROADMAP B8)")
+        return ("x (and g, of x's shape and dtype) must be bfloat16 or "
+                "float32 [T, D] (the kernels' two modes, ROADMAP B4)")
     T, D = x.shape
     if D <= 0 or H <= 0 or D % 64 or H % 32:
         return f"D must be a multiple of 64 and H of 32; got D {D}, H {H}"
@@ -251,8 +258,9 @@ def kernel_gate(x, row_id, gate_w, w_in, w_gate, w_out, act_name,
         return why
     ws = [w for w in (w_in, w_gate, w_out) if w is not None]
     if not all(w.is_cuda and w.device == x.device and w.is_contiguous()
-               and w.dtype == torch.bfloat16 for w in ws):
-        return "the expert weights must be contiguous bfloat16 on x's device"
+               and w.dtype == x.dtype for w in ws):
+        return ("the expert weights must be contiguous, on x's device and "
+                "of x's dtype")
     if (D != x.shape[1] or row_id.shape[0] != E
             or tuple(w_out.shape) != (E, H, D)
             or (w_gate is not None and w_gate.shape != w_in.shape)):
@@ -292,7 +300,14 @@ def _ptr(t):
 def _dims(x, row_id, w_in, act_name, gated):
     T, D = x.shape
     E, cpad = row_id.shape
-    return [T, D, w_in.shape[2], E, cpad, _ACT_CODE[act_name], int(gated)]
+    return [T, D, w_in.shape[2], E, cpad, _ACT_CODE[act_name], int(gated),
+            _DTYPE_CODE[x.dtype]]
+
+
+def _count(fn, x):
+    """One more launch of fn's mode: ``.fp32_launches`` for fp32 x."""
+    attr = "fp32_launches" if x.dtype == torch.float32 else "launches"
+    setattr(fn, attr, getattr(fn, attr) + 1)
 
 
 def _stream(dev):
@@ -307,13 +322,13 @@ def moe_fwd_cuda(x, row_id, gate_w, w_in, w_gate, w_out, act_name):
                     device=x.device)
     out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
-        err = _fn("moe_fwd_launch", 8, 7)(
+        err = _fn("moe_fwd_launch", 8, 8)(
             _ptr(x), _ptr(row_id), _ptr(gate_w), _ptr(w_in), _ptr(w_gate),
             _ptr(w_out), _ptr(h), _ptr(out),
             *_dims(x, row_id, w_in, act_name, w_gate is not None),
             _stream(x.device))
     _raise_on(err, "moe grouped forward")
-    moe_fwd_cuda.launches += 1
+    _count(moe_fwd_cuda, x)
     return out
 
 
@@ -334,20 +349,21 @@ def moe_dx_cuda(x, row_id, gate_w, w_in, w_gate, w_out, g, act_name):
                        device=x.device)
     dhg = inter[2] if w_gate is not None else None
     with torch.cuda.device(x.device):
-        err = _fn("moe_dx_launch", 13, 7)(
+        err = _fn("moe_dx_launch", 13, 8)(
             _ptr(x), _ptr(row_id), _ptr(gate_w), _ptr(w_in), _ptr(w_gate),
             _ptr(w_out), _ptr(g), _ptr(inter[0]), _ptr(inter[1]), _ptr(dhg),
             _ptr(dx), _ptr(dgw), _ptr(part),
             *_dims(x, row_id, w_in, act_name, w_gate is not None),
             _stream(x.device))
     _raise_on(err, "moe grouped dX")
-    moe_dx_cuda.launches += 1
+    _count(moe_dx_cuda, x)
     return dx, dgw, (inter[0], inter[1], dhg)
 
 
 def moe_dw_cuda(x, row_id, gate_w, g, inter):
-    """Launch the dW pass: ``(dw_in, dw_gate, dw_out)`` in x's dtype
-    (bf16), each the per-expert fp32 sum rounded once."""
+    """Launch the dW pass: ``(dw_in, dw_gate, dw_out)`` in x's dtype,
+    each the per-expert fp32 sum rounded once (bf16) or as summed
+    (fp32)."""
     h, dh1, dhg = inter
     E, cpad = row_id.shape
     H = h.shape[-1]
@@ -367,18 +383,19 @@ def moe_dw_cuda(x, row_id, gate_w, g, inter):
     dwg = None if dhg is None else torch.empty_like(dwi)
     dwo = torch.empty((E, H, D), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
-        err = _fn("moe_dw_launch", 10, 5)(
+        err = _fn("moe_dw_launch", 10, 6)(
             _ptr(x), _ptr(row_id), _ptr(gate_w), _ptr(g), _ptr(h),
             _ptr(dh1), _ptr(dhg), _ptr(dwi), _ptr(dwg), _ptr(dwo),
-            x.shape[0], D, H, E, cpad, _stream(x.device))
+            x.shape[0], D, H, E, cpad, _DTYPE_CODE[x.dtype],
+            _stream(x.device))
     _raise_on(err, "moe grouped dW")
-    moe_dw_cuda.launches += 1
+    _count(moe_dw_cuda, x)
     return dwi, dwg, dwo
 
 
-moe_fwd_cuda.launches = 0
-moe_dx_cuda.launches = 0
-moe_dw_cuda.launches = 0
+moe_fwd_cuda.launches = moe_fwd_cuda.fp32_launches = 0
+moe_dx_cuda.launches = moe_dx_cuda.fp32_launches = 0
+moe_dw_cuda.launches = moe_dw_cuda.fp32_launches = 0
 
 
 # ---------------- the differentiable function ----------------

@@ -680,10 +680,10 @@ def test_int8_engine_decode_step_kernels_vs_plain(cuda):
 
 # ---------------- the MoE kernels ----------------
 
-def _moe_inputs(cuda, T, E, D, H, seed=0, capfac=1.25):
+def _moe_inputs(cuda, T, E, D, H, seed=0, capfac=1.25, dtype="bfloat16"):
     """Routing (the plain chain, random keep) and grouped-GEMM inputs:
     x, g ~ N(0, 1), weights ~ N(0, 1/K) for a product over K (so every
-    product is O(1)), bf16; fp32 logits and uniforms."""
+    product is O(1)), in ``dtype``; fp32 logits and uniforms."""
     from paddle_tpu_torch.distributed.moe import _slot_structures, _top2_parts
     from paddle_tpu_torch.ops.kernels import moe_grouped_gemm as GG
     g = torch.Generator(device=cuda).manual_seed(seed)
@@ -701,7 +701,7 @@ def _moe_inputs(cuda, T, E, D, H, seed=0, capfac=1.25):
 
     def rand(*shape, std=1.0):
         return (torch.randn(shape, generator=g, device=cuda)
-                * std).bfloat16()
+                * std).to(DT[dtype])
     return dict(logits=logits, u=u, row_id=row_id, gate_w=gate_w.detach(),
                 x=rand(T, D), g=rand(T, D), wi=rand(E, D, H, std=D ** -0.5),
                 wg=rand(E, D, H, std=D ** -0.5),
@@ -746,19 +746,23 @@ def test_moe_routing_kernel_matches_plain(cuda, T, E, random_keep2):
     torch.testing.assert_close(got[8], want[8], rtol=1e-5, atol=0)
 
 
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 @pytest.mark.parametrize("T,E,D,H,capfac,act", [
     (1024, 4, 128, 64, 1.25, "silu"), (1024, 4, 128, 96, 1.0, "silu"),
     (2048, 8, 256, 704, 1.25, "silu"), (1024, 4, 128, 64, 0.3, "silu"),
     (1024, 4, 128, 64, 1.25, "relu"), (1024, 16, 128, 32, 0.1, "silu")])
-def test_moe_grouped_kernels_match_plain(cuda, T, E, D, H, capfac, act):
+def test_moe_grouped_kernels_match_plain(cuda, T, E, D, H, capfac, act,
+                                         dtype):
     """Forward, dX and dW (dW from the kernel's own dX intermediates)
-    against the plain versions: each row within 2**-7 of its largest
-    magnitude + 1e-3 and 4e-3 in relative Frobenius norm (the flash rule;
-    the dW outputs are rounded to bf16, the plain ones are fp32); the
-    dgw of empty slots is not compared; each launch repeated bitwise.
-    ``relu`` runs the ungated FFN."""
+    against the plain versions. bf16: each row within 2**-7 of its
+    largest magnitude + 1e-3 and 4e-3 in relative Frobenius norm (the
+    flash rule; the dW outputs are rounded to bf16, the plain ones are
+    fp32). fp32 (3xTF32): each output against the plain versions in fp64
+    within ``_fp32_rule`` of the plain fp32 versions. The dgw of empty
+    slots is not compared; each launch repeated bitwise. ``relu`` runs
+    the ungated FFN."""
     from paddle_tpu_torch.ops.kernels import moe_grouped_gemm as GG
-    inp = _moe_inputs(cuda, T, E, D, H, seed=H, capfac=capfac)
+    inp = _moe_inputs(cuda, T, E, D, H, seed=H, capfac=capfac, dtype=dtype)
     wg = inp["wg"] if act == "silu" else None
     args = (inp["x"], inp["row_id"], inp["gate_w"], inp["wi"], wg, inp["wo"])
     reset_launch_counts()
@@ -767,7 +771,9 @@ def test_moe_grouped_kernels_match_plain(cuda, T, E, D, H, capfac, act):
     dws = [GG.moe_dw_cuda(inp["x"], inp["row_id"], inp["gate_w"], inp["g"],
                           dxs[0][2]) for _ in range(2)]
     torch.cuda.synchronize()
-    assert launch_counts() == _counts(moe_fwd=2, moe_dx=2, moe_dw=2)
+    sfx = "_fp32" if dtype == "float32" else ""
+    assert launch_counts() == _counts(**{f"moe_{n}{sfx}": 2
+                                         for n in ("fwd", "dx", "dw")})
     occ = (inp["row_id"] < T).float()
     assert torch.equal(outs[0], outs[1]) and torch.equal(dxs[0][0],
                                                          dxs[1][0])
@@ -781,6 +787,21 @@ def test_moe_grouped_kernels_match_plain(cuda, T, E, D, H, capfac, act):
     pairs = [(outs[0], want_out), (dxs[0][0], wdx),
              (dxs[0][1] * occ, wdgw * occ)]
     pairs += [(a, b) for a, b in zip(dws[0], wdw) if b is not None]
+    if dtype == "float32":
+        a64 = (inp["x"].double(), inp["row_id"], inp["gate_w"],
+               inp["wi"].double(), None if wg is None else wg.double(),
+               inp["wo"].double())
+        g64 = inp["g"].double()
+        rdx, rdgw, _ = GG.moe_dx_plain(*a64, g64, act)
+        refs = [GG.moe_fwd_plain(*a64, act), rdx, rdgw * occ]
+        refs += [r for r in GG.moe_dw_plain(
+            a64[0], inp["row_id"], inp["gate_w"], g64,
+            tuple(None if t is None else t.double() for t in dxs[0][2]))
+            if r is not None]
+        for (got, plain), ref in zip(pairs, refs):
+            assert got.dtype == torch.float32 and got.shape == ref.shape
+            _fp32_rule(got, plain, ref)
+        return
     for got, want in pairs:
         assert got.shape == want.shape
         _assert_flash_close(got, want)
@@ -795,9 +816,9 @@ def test_moe_kernels_raise_outside_their_gate(cuda):
     inp = _moe_inputs(cuda, 1024, 4, 128, 64)
     args = [inp["x"], inp["row_id"], inp["gate_w"], inp["wi"], inp["wg"],
             inp["wo"]]
-    with pytest.raises(ValueError, match="bfloat16"):
-        GG.moe_fwd_cuda(args[0].float(), *args[1:], "silu")
-    with pytest.raises(ValueError, match="bfloat16"):
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        GG.moe_fwd_cuda(args[0].half(), *args[1:], "silu")
+    with pytest.raises(ValueError, match="x's dtype"):
         GG.moe_fwd_cuda(*args[:3], *(w.float() for w in args[3:]), "silu")
     with pytest.raises(ValueError, match="H of 32"):
         GG.moe_fwd_cuda(*args[:3], args[3][..., :48].contiguous(),
@@ -813,10 +834,10 @@ def test_moe_kernels_raise_outside_their_gate(cuda):
         MR.moe_routing_cuda(inp["logits"].bfloat16(), None, False)
 
 
-def _small_moe(cuda, seed=3):
+def _small_moe(cuda, seed=3, dtype="bfloat16"):
     """Two sparse layers at D 128 (the fused gate needs D % 128 == 0),
-    head_dim 64, E 4 x H 64, bf16; at b 2 x s 512 (T 1024) both MoE
-    kernels, flash and RMSNorm run."""
+    head_dim 64, E 4 x H 64, in ``dtype``; at b 2 x s 512 (T 1024) both
+    MoE kernels, flash and RMSNorm run."""
     from paddle_tpu_torch.models import Qwen2MoeConfig, Qwen2MoeForCausalLM
     cfg = Qwen2MoeConfig(vocab_size=512, hidden_size=128,
                          intermediate_size=256, moe_intermediate_size=64,
@@ -824,7 +845,7 @@ def _small_moe(cuda, seed=3):
                          num_hidden_layers=2, num_attention_heads=2,
                          num_key_value_heads=1, num_experts=4,
                          num_experts_per_tok=2, max_position_embeddings=512,
-                         dtype="bfloat16", ep_dispatch="fused")
+                         dtype=dtype, ep_dispatch="fused")
     return Qwen2MoeForCausalLM(cfg, device=cuda, seed=seed)
 
 
@@ -866,6 +887,39 @@ def test_moe_train_step_kernels_vs_plain(cuda):
         rel = ((gk[k] - gp[k]).norm() / gp[k].norm()).item()
         assert rel <= 0.15, (k, rel)
     assert gk["layers.0.mlp.moe.gate.weight"].dtype == torch.float32
+
+
+def test_moe_fp32_train_step_kernels_vs_plain(cuda):
+    """One fp32 TrainStep of ``_small_moe`` from one state through the
+    kernels and inside plain_reference(): every MoE launch is the fp32
+    mode (and flash's), none the bf16 one; loss 1e-4 and each gradient
+    1e-3 in relative L2 (``chip_smoke.FP32_PARITY``'s limits: both runs
+    fp32, so no routing decision sits within their difference of a tie
+    at this size, and no gradient moves to another expert)."""
+    ids = torch.tensor(np.random.default_rng(2).integers(0, 512, (2, 512)),
+                       device=cuda)
+    results = []
+    for plain in (False, True):
+        model = _small_moe(cuda, dtype="float32")
+        step = TrainStep(model, AdamW(learning_rate=1e-3, parameters=model),
+                         lambda logits, y: model.loss(logits, y))
+        reset_launch_counts()
+        with plain_reference() if plain else contextlib.nullcontext():
+            loss = step(ids, ids)
+        torch.cuda.synchronize()
+        results.append((loss.item(), launch_counts(),
+                        {k: p.grad for k, p in model.named_parameters()}))
+    (lk, ck, gk), (lp, cp, gp) = results
+    L = 2
+    assert ck == _counts(rms_norm=2 * L + 1, flash_fwd_fp32=L,
+                         flash_dq_fp32=L, flash_dkv_fp32=L, moe_routing=L,
+                         moe_fwd_fp32=L, moe_dx_fp32=L, moe_dw_fp32=L)
+    assert not any(cp.values())
+    assert abs(lk - lp) <= 1e-4
+    for k in gk:
+        assert gk[k].dtype == torch.float32
+        rel = ((gk[k] - gp[k]).norm() / gp[k].norm()).item()
+        assert rel <= 1e-3, (k, rel)
 
 
 def test_bert_train_step_kernels_vs_plain(cuda):
@@ -959,9 +1013,9 @@ def _fp32_check(q, k, v, do, scale, causal, bias=None, p=0.0, seed=None,
 def _bias_of(kind, b, h, sq, sk, q, k, device):
     if kind is None:
         return None
-    if kind == "keypad":
+    if kind in ("keypad", "one_key"):
         keep = torch.ones((b, 1, 1, sk), dtype=torch.bool, device=device)
-        keep[-1, ..., sk // 3:] = False
+        keep[-1, ..., sk // 3 if kind == "keypad" else 1:] = False
         return FA.attn_bias(keep.expand(b, 1, sq, sk), q, k)
     g = torch.Generator(device=device).manual_seed(7)
     return FA.pad_bias(torch.randn((b, h, sq, sk), generator=g,
@@ -974,11 +1028,15 @@ def _bias_of(kind, b, h, sq, sk, q, k, device):
     (1, 1000, 700, 2, 64, True, None),
     (2, 333, 333, 3, 64, False, "keypad"),
     (1, 512, 512, 2, 128, False, "dense"),
+    (2, 200, 200, 2, 128, False, "one_key"),
 ])
 def test_flash_fp32_kernels_against_fp64(cuda, b, sq, sk, h, d, causal,
                                          bias):
     """The fp32 mode (3xTF32 products) against fp64, within ``_fp32_rule``
-    of the plain fp32 versions, ragged lengths and sq != sk included."""
+    of the plain fp32 versions, ragged lengths and sq != sk included.
+    ``one_key``: a key-padding mask that leaves every row of the last
+    batch element one key, whose dS = P (dP - delta) is 0 in exact
+    arithmetic, so its dq and that key's dk are dP's rounding alone."""
     q, k, v, do = _flash_inputs(b, sq, sk, h, d, "float32", cuda, seed=5)
     reset_launch_counts()
     _fp32_check(q, k, v, do, d ** -0.5, causal,

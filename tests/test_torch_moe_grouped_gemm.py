@@ -194,8 +194,13 @@ def test_moe_compute_matches_jax(path, capfac):
 
 
 def test_gates_match_jax_and_the_kernel_wrappers_raise_on_cpu():
+    """The port's gate equals the JAX one, among others at the Qwen2-MoE
+    slices' shapes (T 8192, D 1024, E 16, capacity 1280): in fp32 both
+    admit the expert width 512 and reject bench.py's 704 (the VMEM
+    term), so the fp32 slice runs the fp32 kernels at H 512."""
     for args in [(256, 128, 64, 4, 160), (64, 96, 32, 4, 32),
-                 (8192, 1024, 704, 16, 1280), (8192, 1024, 4096, 16, 1280)]:
+                 (8192, 1024, 704, 16, 1280), (8192, 1024, 4096, 16, 1280),
+                 (8192, 1024, 512, 16, 1280), (8192, 1024, 640, 16, 1280)]:
         for dt in ("float32", "bfloat16"):
             for act, gated in ((JF.silu, True), (JF.relu, False)):
                 want = jax_gg.fused_dispatch_applicable(*args, JDT[dt], act,
@@ -203,11 +208,17 @@ def test_gates_match_jax_and_the_kernel_wrappers_raise_on_cpu():
                 got = gg.fused_dispatch_applicable(
                     *args, TDT[dt], F.silu if gated else torch.relu, gated)
                 assert got == want, (args, dt, gated)
+    for H, admitted in ((512, True), (640, True), (704, False)):
+        assert gg.fused_dispatch_applicable(8192, 1024, H, 16, 1280,
+                                            torch.float32, F.silu,
+                                            True) == admitted, H
     assert [gg.padded_capacity(c) for c in (4, 40, 128, 1280, 1300)] == \
         [jax_gg.padded_capacity(c) for c in (4, 40, 128, 1280, 1300)]
     x = torch.zeros((T, D), dtype=torch.bfloat16)
     w = torch.zeros((E, D, 64), dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="CUDA"):
-        gg.moe_fwd_cuda(x, torch.zeros((E, 128), dtype=torch.int32),
-                        torch.zeros((E, 128)), w, w,
-                        w.transpose(1, 2).contiguous(), "silu")
+    for dt in (torch.bfloat16, torch.float32):
+        x, w = x.to(dt), w.to(dt)
+        with pytest.raises(ValueError, match="CUDA"):
+            gg.moe_fwd_cuda(x, torch.zeros((E, 128), dtype=torch.int32),
+                            torch.zeros((E, 128)), w, w,
+                            w.transpose(1, 2).contiguous(), "silu")

@@ -229,6 +229,49 @@ def test_train_steps_match_jax(jax_run, port):
     assert router.grad is not None and router.grad.abs().sum() > 0
 
 
+def test_wider_fp32_forward_matches_jax(monkeypatch):
+    """One sparse layer at D 256 with experts of H 128 (a multiple of
+    64, as the fp32 slice's 512), fp32, b 2 x s 512, in train mode: both
+    packages take the fused dispatch (the JAX model its fp32 Pallas
+    kernels in interpret mode), route alike (``MARGIN``) and give the
+    same logits (``atol 2e-5``)."""
+    widths = dict(WIDTHS, hidden_size=256, moe_intermediate_size=128,
+                  shared_expert_intermediate_size=256, num_hidden_layers=1)
+    mp = pytest.MonkeyPatch()
+    mp.setattr(jattn, "_flash_backend_ok", lambda: True)
+    mp.setattr(jax_moe, "rng", SimpleNamespace(next_key=lambda: KEY))
+    jax_fused, jax_routes = [], []
+    _record(mp, jax_gg, "fused_grouped_moe", jax_fused)
+    _record(mp, jax_moe, "_top2_parts", jax_routes)
+    try:
+        pt.seed(37)
+        jm = JaxQwen(JaxConfig(mp_axis=None, fsdp_axis=None, ep_axis=None,
+                               **widths))
+        state0 = {k: np.asarray(v) for k, v in jm.state_dict(
+            include_non_persistable_buffer=True).items()}
+        ids = np.random.default_rng(8).integers(0, 256, (B, S))
+        jm.train()
+        want = np.asarray(jm(jnp.asarray(ids.astype(np.int32))))
+    finally:
+        mp.undo()
+    assert len(jax_fused) == 1
+    u = torch.tensor(np.asarray(jax.random.uniform(KEY, (T,))))
+    monkeypatch.setattr(port_moe, "draw_uniform", lambda n, gen, dev: u)
+    fused, routes = [], []
+    _record(monkeypatch, port_moe, "moe_fused_compute", fused)
+    _record(monkeypatch, port_moe, "_top2_parts", routes)
+    tm = Qwen2MoeForCausalLM(Qwen2MoeConfig(**widths), device="cpu",
+                             seed=None)
+    load_numpy_state(tm, state0)
+    got = tm(torch.tensor(ids)).detach().numpy()
+    assert len(fused) == 1
+    (g,), (w,) = _decisions(routes), _decisions(jax_routes)
+    bad = np.nonzero((g[1] != w[1]).any(1) | (g[3] != w[3]).any(1))[0]
+    margins = [_row_margin(w[0], u.numpy(), i) for i in bad]
+    assert all(m < MARGIN for m in margins), (bad, margins)
+    np.testing.assert_allclose(got, want, rtol=0, atol=2e-5)
+
+
 def test_jax_train_step_drops_the_aux_gradient(jax_run, port):
     """The stock JAX TrainStep's router gradient is the port's with the
     aux loss held constant: the reference-side fault above."""

@@ -11,9 +11,11 @@ this repository); its kernels are built into that tree's own
 shape [4, 2048, 16, 128]; fp32 causal at GPT-2 small's [8, 1024, 12, 64];
 bf16 and fp32 with a key-padding bias (seeded lengths 128-512) at
 BERT-Base's [32, 512, 12, 64] non-causal; the dropout mode (p 0.1, one
-key) in bf16 at GPT-2's shape, and with the bias at BERT's. Each kernel's time is the mean of 100 launches between CUDA
-events, cycling three input sets (past the 50 MB L2), after 10 warm-up
-launches. Prints one JSON line: the tree, the card, the times in ms,
+key) in bf16 and fp32 at GPT-2's shape, and in bf16 with the bias at
+BERT's; the fp32 segment mode on ``bench.py::bench_llama``'s first
+packed host step ([1, 8760, 12, 64] causal, 8 documents). Each kernel's
+time is the mean of 100 launches between CUDA events, cycling three
+input sets (past the 50 MB L2), after 10 warm-up launches. Prints one JSON line: the tree, the card, the times in ms,
 and, when this run built the kernels, ``ptxas``'s registers and spills
 per instantiation.
 """
@@ -25,9 +27,11 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import torch
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PACKED = (1762, 1490, 825, 1537, 558, 463, 297, 1828)   # bench_llama's
 
 
 def _ms(fn, sets, iters=100, warmup=10):
@@ -69,6 +73,7 @@ def main(argv=None) -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     times = {}
     seed = torch.tensor([7, 11], dtype=torch.int64, device="cuda")
+    ids = np.repeat(np.arange(len(PACKED)), PACKED)
     for name, (b, s, h, d), dtype, causal, keypad, p in (
             ("bf16_llama", (4, 2048, 16, 128), torch.bfloat16, True, False,
              0.0),
@@ -80,9 +85,14 @@ def main(argv=None) -> int:
              True, 0.0),
             ("bf16_gpt2_drop", (8, 1024, 12, 64), torch.bfloat16, True,
              False, 0.1),
+            ("fp32_gpt2_drop", (8, 1024, 12, 64), torch.float32, True,
+             False, 0.1),
             ("bf16_bert_bias_drop", (32, 512, 12, 64), torch.bfloat16,
-             False, True, 0.1)):
-        mode = (p, seed if p else None)
+             False, True, 0.1),
+            ("fp32_varlen_seg", (1, len(ids), 12, 64), torch.float32, True,
+             False, 0.0)):
+        seg = F.seg_ids(ids, ids, "cuda") if name.endswith("seg") else None
+        mode = (p, seed if p else None, seg)
         sets = []
         for _ in range(3):
             q, k, v, do = (torch.randn((b, s, h, d), generator=gen,

@@ -20,6 +20,13 @@ segment mode with one id for every token, non-causal, beside the
 no-segment kernel on the same inputs (the cost of the segment machinery
 where no tile is skipped and no element tested).
 
+The fp32 rule's rows (``tests/test_torch_cuda.py::_fp32_rule``) are the
+segment cases with 1-token and 32-token segments, and a key-padding
+bias that leaves the rows of one batch element one key (fp32, d 128,
+non-causal): a row that sees one key has dS = P (dP - delta) = 0 in
+exact arithmetic, so its dq, and its key's dk, are the rounding of dP
+alone.
+
 The full checks, with their limits, are ``chip_smoke.py``'s
 ``flash_varlen`` and ``varlen_packed`` phases.
 """
@@ -144,46 +151,7 @@ def _checks(F, gen):
                                  (po,) + pg, (ro,) + rg):
             res[o] = {"kernel": _err(kk, rr), "plain": _err(pp, rr)}
         print(json.dumps(res), flush=True)
-    # the fp32 rule of tests/test_torch_cuda.py::_fp32_rule, output by
-    # output, at its segment cases with 1-token and 32-token segments: the
-    # worst row's error over its scale (row max + 2**-6 of the output's
-    # max), the plain fp32 version's, and that row's segment length
-    for lens, d_, causal in (((64, 64, 63, 65, 1, 127, 32), 128, False),
-                             ((64, 64, 63, 65, 1, 127, 32), 64, False),
-                             ((64, 64, 63, 65, 1, 127, 32), 128, True)):
-        ids = _ids(lens)
-        g = torch.Generator(device="cuda").manual_seed(8)
-        q, k, v, do = (torch.randn((2, len(ids), 2, d_), generator=g,
-                                   device="cuda") for _ in range(4))
-        seg = F.seg_ids(ids, ids, "cuda")
-        sc = d_ ** -0.5
-        q64, k64, v64, do64 = (x.double() for x in (q, k, v, do))
-        ro, rl = F.flash_fwd_plain(q64, k64, v64, sc, causal, seg=seg)
-        rd = F.flash_delta(do64, ro)
-        rg = F.flash_block_grads_plain(q64, k64, v64, do64, rl, rd, sc,
-                                       causal, seg=seg)
-        lse, delta = rl.float(), rd.float()
-        po, _ = F.flash_fwd_plain(q, k, v, sc, causal, seg=seg)
-        pg = F.flash_block_grads_plain(q, k, v, do, lse, delta, sc, causal,
-                                       seg=seg)
-        ko, _ = F.flash_fwd_cuda(q, k, v, sc, causal, seg=seg)
-        kg = (F.flash_bwd_dq_cuda(q, k, v, do, lse, delta, sc, causal,
-                                  seg=seg),) + F.flash_bwd_dkv_cuda(
-            q, k, v, do, lse, delta, sc, causal, seg=seg)
-        torch.cuda.synchronize()
-        rows = {}
-        for o, kk, pp, rr in zip(("out", "dq", "dk", "dv"), (ko,) + kg,
-                                 (po,) + pg, (ro,) + rg):
-            scale = rr.abs().amax(-1) + 2 ** -6 * rr.abs().max()
-            kr = (kk.double() - rr).abs().amax(-1) / scale
-            pr = (pp.double() - rr).abs().amax(-1) / scale
-            worst = int(kr.argmax())
-            bi, t, hi = np.unravel_index(worst, kr.shape)
-            rows[o] = {"kernel": kr.max().item(), "plain": pr.max().item(),
-                       "limit": 2 * pr.max().item() + 2 ** -16,
-                       "worst_row_segment_len": int(lens[ids[t]])}
-        print(json.dumps({"fp32_rule_rows": [lens, d_, causal], **rows}),
-              flush=True)
+    _rule_rows(F)
     ids = _ids(PACKED)
     n, h, d = len(ids), 16, 128
     seg = F.seg_ids(ids, ids, "cuda")
@@ -195,6 +163,66 @@ def _checks(F, gen):
     torch.cuda.synchronize()
     print(json.dumps({"packed_fwd_vs_plain": _err(o, po),
                       "lse": (lse - pl).abs().max().item()}), flush=True)
+
+
+def _rule_rows(F):
+    """The fp32 rule (tests/test_torch_cuda.py::_fp32_rule), output by
+    output, at its segment cases with 1-token and 32-token segments and
+    at a key-padding bias whose batch element 1 keeps one key: the worst
+    row's error over its scale (row max + 2**-6 of the output's max),
+    the plain fp32 version's, the limit, the worst row's segment length,
+    and the relative Frobenius errors with theirs."""
+    lens = (64, 64, 63, 65, 1, 127, 32)
+    ids = _ids(lens)
+    cases = [(f"seg {lens} d {d_} causal {c}", d_, c, len(ids), "seg")
+             for d_, c in ((128, False), (64, False), (128, True))]
+    cases.append(("keypad (200, 1) d 128 non-causal", 128, False, 200,
+                  "keypad"))
+    for name, d_, causal, s, kind in cases:
+        g = torch.Generator(device="cuda").manual_seed(8)
+        q, k, v, do = (torch.randn((2, s, 2, d_), generator=g,
+                                   device="cuda") for _ in range(4))
+        if kind == "seg":
+            mode = {"seg": F.seg_ids(ids, ids, "cuda")}
+            rows_len = np.asarray(lens)[ids]
+        else:
+            n_keys = torch.tensor([s, 1], device="cuda")
+            keep = torch.arange(s, device="cuda")[None, :] < n_keys[:, None]
+            mode = {"bias": F.attn_bias(keep[:, None, None, :].expand(
+                2, 1, s, s), q, k)}
+            rows_len = None
+        sc = d_ ** -0.5
+        q64, k64, v64, do64 = (x.double() for x in (q, k, v, do))
+        ro, rl = F.flash_fwd_plain(q64, k64, v64, sc, causal, **mode)
+        rd = F.flash_delta(do64, ro)
+        rg = F.flash_block_grads_plain(q64, k64, v64, do64, rl, rd, sc,
+                                       causal, **mode)
+        lse, delta = rl.float(), rd.float()
+        po, _ = F.flash_fwd_plain(q, k, v, sc, causal, **mode)
+        pg = F.flash_block_grads_plain(q, k, v, do, lse, delta, sc, causal,
+                                       **mode)
+        ko, _ = F.flash_fwd_cuda(q, k, v, sc, causal, **mode)
+        kg = (F.flash_bwd_dq_cuda(q, k, v, do, lse, delta, sc, causal,
+                                  **mode),) + F.flash_bwd_dkv_cuda(
+            q, k, v, do, lse, delta, sc, causal, **mode)
+        torch.cuda.synchronize()
+        rows = {}
+        for o, kk, pp, rr in zip(("out", "dq", "dk", "dv"), (ko,) + kg,
+                                 (po,) + pg, (ro,) + rg):
+            scale = rr.abs().amax(-1) + 2 ** -6 * rr.abs().max()
+            kr = (kk.double() - rr).abs().amax(-1) / scale
+            pr = (pp.double() - rr).abs().amax(-1) / scale
+            kf = ((kk.double() - rr).norm() / rr.norm()).item()
+            pf = ((pp.double() - rr).norm() / rr.norm()).item()
+            bi, t, hi = np.unravel_index(int(kr.argmax()), kr.shape)
+            rows[o] = {"kernel": kr.max().item(), "plain": pr.max().item(),
+                       "limit": 2 * pr.max().item() + 2 ** -16,
+                       "fro": kf, "plain_fro": pf,
+                       "fro_limit": 2 * pf + 2 ** -18,
+                       "worst_row": [int(bi), int(t), int(hi)],
+                       "worst_row_segment_len": None if rows_len is None
+                       else int(rows_len[t])}
+        print(json.dumps({"fp32_rule_rows": name, **rows}), flush=True)
 
 
 def _timings(F, gen, tree):
