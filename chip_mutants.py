@@ -86,6 +86,7 @@ ROUTE, GG = "moe_routing.cu", "moe_grouped_gemm.cu"
 PAGED = "paged_attention.cu"
 LN = "layer_norm.cu"
 COMMON = "flash_common.cuh"
+HOP = "hopper.cuh"
 INT8_LAYERS = 4
 FP8 = ('#include "flash_common.cuh"',
        '#include "flash_common.cuh"\n#include <cuda_fp8.h>')
@@ -126,20 +127,44 @@ MUTANTS = {
           "      out[(int64_t)rows[r] * d.D + dt * kT + acc_col(lane, n, i)]"
           " =\n                acc[n][i] * gw[r];")], "moe"),
     "moe_dx_drops_gate_branch": (
-        "grouped dX: dx takes dh1 W_in^T only, without dhg W_gate^T",
-        [(GG, "    if (d.gated) {\n      load_dense(sa, dhg + e * CH,",
-          "    if (false) {\n      load_dense(sa, dhg + e * CH,")], "moe"),
+        "grouped dX (bf16): dx takes dh1 W_in^T only, without dhg "
+        "W_gate^T",
+        [(GG, "    if constexpr (GATED) {   // dhg W_gate^T into the same "
+              "accumulator",
+          "    if constexpr (false) {   // dhg W_gate^T into the same "
+          "accumulator")],
+        "moe"),
     "moe_dw_out_without_gate_weight": (
-        "grouped dW: dW_out = h^T g, the gate weight left out of dy",
-        [(GG, "      load_dy(sb1, g, d.D, rows, gw, dt * kT);",
-          "      for (int i = threadIdx.x; i < kT; i += kThreads) "
-          "gw[i] = rows[i] >= 0 ? 1.f : 0.f;\n      __syncthreads();\n"
-          "      load_dy(sb1, g, d.D, rows, gw, dt * kT);")], "moe"),
+        "grouped dW (bf16): dW_out = h^T g, the gate weight left out of dy",
+        [(GG, "        sgw[s][t] = w;",
+          "        sgw[s][t] = row >= 0 ? 1.f : 0.f;")], "moe"),
     "moe_dw_skips_last_block": (
-        "grouped dW: the loop over an expert's slots skips its last "
-        "64-slot block",
-        [(GG, "for (int sb = 0; sb < n_sb; ++sb) {",
-          "for (int sb = 0; sb < n_sb - 1; ++sb) {")], "moe"),
+        "grouped dW (bf16): the loop over an expert's slots stops one "
+        "64-slot chunk short, before the last chunk that holds a token",
+        [(GG, "  const int n_chunks = last + 1;",
+          "  const int n_chunks = last;")], "moe"),
+    "moe_gather_swizzle_off": (
+        "grouped dX and dW (bf16): the gathered x and g rows written "
+        "unswizzled, while the wgmma descriptors read the 128B swizzle",
+        [(HOP, "  return r * 128 + ((c ^ (r & 7)) << 4);",
+          "  return r * 128 + (c << 4);")], "moe"),
+    "moe_stage_released_early": (
+        "grouped dX and dW (bf16): a stage goes back to the producer as "
+        "soon as the consumer's wait for it ends, before dy is made and "
+        "before the products that read it (and their wgmma.wait_group)",
+        [(GG, "  hop::wg_commit();\n  hop::wg_wait<0>();\n"
+              "  if (lane == 0) hop::mbar_arrive(ring.e(k));",
+          "  hop::wg_commit();\n  hop::wg_wait<0>();"),
+         (GG, "  hop::mbar_wait(ring.f(k), Ring<S>::parity(k));\n"
+              "  hop::proxy_fence();",
+          "  hop::mbar_wait(ring.f(k), Ring<S>::parity(k));\n"
+              "  if ((threadIdx.x & 31) == 0) hop::mbar_arrive(ring.e(k));\n"
+              "  hop::proxy_fence();"),
+         (GG, "    hop::mbar_wait(ring.f(k), Ring<S>::parity(k));\n"
+              "    const uint32_t st = base + (k % S) * P2::BYTES;",
+          "    hop::mbar_wait(ring.f(k), Ring<S>::parity(k));\n"
+          "    if (lane == 0) hop::mbar_arrive(ring.e(k));\n"
+          "    const uint32_t st = base + (k % S) * P2::BYTES;")], "moe"),
     "moe_routing_top2_not_after_top1": (
         "routing: count1 reported as 0, so the top-2 claims take slots "
         "from position 0, on top of the top-1 claims instead of after them",

@@ -2214,6 +2214,13 @@ def moe_inputs(torch, GG, MR, gen, T=MOE_BATCH * MOE_SEQ, E=16, D=1024,
             "cpad": cpad, "occupied": int((row_id < T).sum())}
 
 
+def _short_kernel_name(name: str) -> str:
+    """A profiler kernel name without its return type, namespace and
+    parameters: ``void (anonymous namespace)::f<int>(int*)`` -> ``f<int>``."""
+    name = name.replace("(anonymous namespace)::", "").split("(")[0]
+    return name.removeprefix("void ").strip()[:60]
+
+
 def phase_moe_kernels(torch, MR, GG) -> dict:
     """The routing kernel and the three grouped-GEMM kernels at the
     Qwen2-MoE training shapes (T 8192, E 16, D 1024, H 704, cpad 1280),
@@ -2224,7 +2231,9 @@ def phase_moe_kernels(torch, MR, GG) -> dict:
     (CUDA events and profiler device time), of its plain version, its
     bound from this run's occupied slots, and as a yardstick only the
     ``torch.bmm`` calls of its products over packed [16, 1280, *]
-    buffers, without the gathers (none for routing)."""
+    buffers, without the gathers (none for routing). For the grouped
+    kernels also the device time of each pass (and memset) by kernel
+    name, from the profiler (``device_ms_by_kernel``)."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
     inp = moe_inputs(torch, GG, MR, gen)
     T, E = inp["logits"].shape
@@ -2306,6 +2315,12 @@ def phase_moe_kernels(torch, MR, GG) -> dict:
                                 "occupied_slots": n, "dtype": "bfloat16"},
                       **err, **t, "flops": flops, "bytes": nbytes,
                       "bound_ms": bound, "bound_by": bound_by}
+        if name != "moe_routing":
+            prof = _profile_steps(torch, lambda: fn["kernel"](*sets[0]), 20,
+                                  top=None)
+            rows[name]["device_ms_by_kernel"] = {
+                _short_kernel_name(k_): ms
+                for k_, ms in prof["all_kernels_ms"]}
         _emit("kernel_vs_plain", {"name": name, **rows[name]})
     return rows
 
@@ -2708,7 +2723,8 @@ def phase_train_moe_fp32_parity(torch, K, model, opt, TrainStep,
 
 _MOE_CATEGORIES = (
     ("moe_expert", ("expert_h_kernel", "fwd_out_kernel", "dx_out_kernel",
-                    "dgw_reduce_kernel", "dw_kernel")),
+                    "dgw_reduce_kernel", "dw_kernel", "dx_h_wgmma_kernel",
+                    "dx_out_wgmma_kernel", "dw_wgmma_kernel")),
     ("moe_routing", ("routing_kernel",)),) + _CATEGORIES
 
 

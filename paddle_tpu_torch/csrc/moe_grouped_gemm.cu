@@ -29,24 +29,53 @@
 //   contributions (its top-2 copies) onto 0, and 0 + a + b == 0 + b + a
 //   exactly in IEEE fp32, so the result does not depend on the schedule.
 // - The TPU kept h in VMEM between its two products. Here each pass is a
-//   few simple launches over 64 x 64 output tiles (4 warps, cp.async tile
-//   loads, fp32 accumulators): the forward writes h ([E * cpad, H] in X)
-//   between a gather-LHS launch and a W_out launch with the scatter
-//   epilogue; dX writes h, dh1 and dhg for the dW launch to read (the
-//   values the Pallas dW pass recomputes) and reduces <g, y> over the D
-//   tiles in a fixed order; dW gives each block one output tile of one
-//   expert's dW and loops over that expert's slots: no atomics there.
-// - bf16 takes mma.sync m16n8k16 with ldmatrix(.trans) fragment loads.
-//   fp32 takes the 3xTF32 product of flash_common.cuh (split_a / mma3 on
-//   mma.sync m16n8k8 .tf32, each 8-deep k-step summed in a fresh
-//   accumulator) with fragments from plain shared loads, one index map per
-//   orientation (ldmatrix moves 16-bit elements only); its tiles take LD =
-//   64 + 4 floats a row and dynamic shared memory (the backward's first
-//   pass holds five tiles, 87 KB).
-// - H = 704 is 11 x 64: tiles past H are zero-filled on load and not
-//   stored, so H need only be a multiple of 32 (the loads move 16 bytes, 8
-//   bf16 or 4 fp32 columns).
-// wgmma, TMA, deeper pipelines and conflict-free fp32 index maps are later
+//   few launches: the forward writes h ([E * cpad, H] in X) between a
+//   gather-LHS launch and a W_out launch with the scatter epilogue; dX
+//   writes h, dh1 and dhg for the dW launch to read (the values the Pallas
+//   dW pass recomputes) and reduces <g, y> over the D tiles in a fixed
+//   order; dW gives each block one output tile of one expert's dW and
+//   loops over that expert's slots: no atomics there.
+//
+// bf16 dX and dW (dx_h_wgmma_kernel, dx_out_wgmma_kernel, dw_wgmma_kernel):
+// Hopper's wgmma.m64n64k16 on 128B-swizzled shared tiles (hopper.cuh),
+// fed by a ring of 3 or 4 stages with full / empty mbarriers. A block
+// (one an SM: the ring takes 169-225 KB of shared memory) is two consumer
+// warpgroups (64 rows each: 128 slots in dX, 128 D columns in dW) and a
+// producer. The dense operands (the expert weights; h, dh1 and dhg in [E,
+// cpad, H]) come by TMA, whose zero fill covers H = 704 = 11 x 64, H 32
+// or 96 and the last slot block. The gathered rows (x[row], g[row]) have
+// no TMA on sm_90a (TMA's row gather is sm_100's): a producer warpgroup
+// copies them with cp.async into the same swizzled layout, and the copies
+// arrive on the stage's full barrier as they land; the consumer fences
+// them for the async proxy after its wait. dy = bf16(g[row] * gate_w) is
+// made in place by the consumer warpgroup that reads it, before the
+// chunk's products. Each chunk's wgmma group is drained before the next
+// (drain_chunk).
+// - dX pass 1 (block: 128 slots x 64 H columns, 4 stages): x W_in,
+//   x W_gate and dy W_out^T over K = D, three 64 x 64 accumulators a
+//   warpgroup, then h, dh1, dhg; a block without tokens writes their zeros.
+// - dX pass 2 (128 slots x 64 D columns, every operand by TMA, 3 stages):
+//   dh1 W_in^T + dhg W_gate^T and y = h W_out over K = H; dx by float2
+//   atomicAdd, and this D tile's share of <g, y> for dgw_reduce_kernel.
+// - dW (128 D columns x 64 H columns of one expert, 3 stages): x^T dh1,
+//   x^T dhg and dW_out^T's transpose h^T dy over the expert's 64-slot
+//   chunks up to the last that holds a token (a chunk without tokens
+//   before it passes through the ring with no loads and no products).
+// What bounds them: not the tensor cores. At the Qwen2-MoE shapes they
+// run at 200-290 TFLOP/s, and a chunk of 128 x 64 x 64 (x3) takes about a
+// microsecond and a half, of which the products are a quarter. The
+// 64-column tiles read each operand from shared memory at the SM's 128
+// bytes a clock and reread the gathered rows for every 64 columns; the
+// ring's loads (gathers most) set the pace. Wider tiles (m64n128) and a
+// persistent grid were tried and measured slower (PERF.md).
+// The fp32 mode (3xTF32) and the bf16 forward keep the first design: 64 x
+// 64 output tiles, 4 warps, cp.async tile loads waited whole before each
+// chunk's products, mma.sync (bf16 m16n8k16 with ldmatrix; fp32 the 3xTF32
+// product of flash_common.cuh on m16n8k8 .tf32, fragments from plain
+// shared loads, one index map per orientation; fp32 tiles take LD = 64 + 4
+// floats a row and dynamic shared memory: the backward's first pass holds
+// five tiles, 87 KB). H need only be a multiple of 32 there: tiles past H
+// are zero-filled on load and not stored. Their move to wgmma is later
 // work (PERF.md).
 
 #include <cuda_bf16.h>
@@ -56,6 +85,7 @@
 #include <type_traits>
 
 #include "flash_common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -93,20 +123,20 @@ __device__ __forceinline__ float dact_f(int act, float v) {
   return v > 0.f ? 1.f : 0.f;
 }
 
-__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ float to_f(float v) { return v; }
 
-// The 64 slots of block sb of expert e: their token rows (-1 for an empty
+// The N slots of block sb of expert e: their token rows (-1 for an empty
 // slot or one past cpad) and combine weights, in shared memory. Returns
 // whether any slot holds a token (the same answer for every thread).
+template <int N = kT>
 __device__ __forceinline__ bool slot_rows(const int* row_id,
                                           const float* gate_w, int e, int sb,
                                           const Dims& d, int* rows,
                                           float* gw) {
   const int tid = threadIdx.x;
   bool live = false;
-  if (tid < kT) {
-    const int s = sb * kT + tid;
+  if (tid < N) {
+    const int s = sb * N + tid;
     int row = -1;
     float w = 0.f;
     if (s < d.cpad) {
@@ -157,30 +187,24 @@ __device__ __forceinline__ void load_dense(X* dst, const X* src, int64_t ld,
   }
 }
 
-// dy = X(g[row] * gate_w) for the 64 slots, columns col0..col0+63 of
-// [T, D] g; zeros for an empty slot. Synchronous (it converts).
-template <typename X>
-__device__ __forceinline__ void load_dy(X* dst, const X* g, int D,
+// dy = g[row] * gate_w (fp32: nothing rounded) for the 64 slots, columns
+// col0..col0+63 of [T, D] g; zeros for an empty slot. Synchronous.
+__device__ __forceinline__ void load_dy(float* dst, const float* g, int D,
                                         const int* rows, const float* gw,
                                         int col0) {
-  using G = Tile<X>;
+  using G = Tile<float>;
   for (unsigned i = threadIdx.x; i < kT * G::kChunks; i += kThreads) {
     const int r = i / G::kChunks, c = (i % G::kChunks) * G::kPer;
     const int row = rows[r];
-    uint4 v = make_uint4(0, 0, 0, 0);
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
     if (row >= 0) {
-      const uint4 raw = *reinterpret_cast<const uint4*>(
-          g + (int64_t)row * D + col0 + c);
-      const X* in = reinterpret_cast<const X*>(&raw);
-      X* out = reinterpret_cast<X*>(&v);
-#pragma unroll
-      for (int j = 0; j < G::kPer; ++j) {
-        const float p = to_f(in[j]) * gw[r];
-        if constexpr (G::kF32) out[j] = p;
-        else out[j] = __float2bfloat16(p);
-      }
+      v = *reinterpret_cast<const float4*>(g + (int64_t)row * D + col0 + c);
+      v.x *= gw[r];
+      v.y *= gw[r];
+      v.z *= gw[r];
+      v.w *= gw[r];
     }
-    *reinterpret_cast<uint4*>(dst + r * G::LD + c) = v;
+    *reinterpret_cast<float4*>(dst + r * G::LD + c) = v;
   }
 }
 
@@ -193,26 +217,22 @@ __device__ __forceinline__ void wait_tiles() {
 // acc[64 x 64 warp slice] += A[64 x 64] B[64 x 64] over one 64-deep chunk.
 // Warp w owns output rows 16w..16w+15 and all 64 columns (8 n-tiles).
 // A_T: A is stored [k][m] (else [m][k]); B_T: B is stored [k][n] (else
-// [n][k]). bf16: the transposed layouts come from ldmatrix.trans.
+// [n][k]). bf16 takes the forward's orientation only (A [m][k], B [k][n]
+// through ldmatrix.trans): its dX and dW run the wgmma kernels below.
 template <bool A_T, bool B_T>
 __device__ __forceinline__ void mma_chunk(float (&acc)[8][4], const bf16* As,
                                           const bf16* Bs, int warp,
                                           int lane) {
+  static_assert(!A_T && B_T, "bf16 mma_chunk: the forward's orientation");
   constexpr int LD = Tile<bf16>::LD;
 #pragma unroll
   for (int kk = 0; kk < kT; kk += 16) {
     uint32_t a[4];
-    if (A_T)
-      flash::ldsm_x4_t(a, flash::b_addr<LD>(As, kk, warp * 16, lane));
-    else
-      flash::ldsm_x4(a, flash::a_addr<LD>(As, warp * 16, kk, lane));
+    flash::ldsm_x4(a, flash::a_addr<LD>(As, warp * 16, kk, lane));
 #pragma unroll
     for (int np = 0; np < 4; ++np) {
       uint32_t b[4];
-      if (B_T)
-        flash::ldsm_x4_t(b, flash::a_addr<LD>(Bs, kk, np * 16, lane));
-      else
-        flash::ldsm_x4(b, flash::b_addr<LD>(Bs, np * 16, kk, lane));
+      flash::ldsm_x4_t(b, flash::a_addr<LD>(Bs, kk, np * 16, lane));
       flash::mma(acc[2 * np], a, b[0], b[1]);
       flash::mma(acc[2 * np + 1], a, b[2], b[3]);
     }
@@ -276,7 +296,8 @@ __device__ __forceinline__ X* smem_tiles() {
   return reinterpret_cast<X*>(smem_raw);
 }
 
-// ---- pass 1 of the forward and of dX: the expert's H-side products ----
+// ---- pass 1 of the forward (bf16, fp32) and of fp32 dX: the expert's
+// H-side products ----
 // Block (jt, sb, e): slots sb*64.., H columns jt*64... K runs over D.
 // Forward: h. Backward: h, dh1, dhg (and dh from dy W_out^T).
 // Shared: tiles sx, swi, swg (+ sdy, swo for BWD).
@@ -287,6 +308,7 @@ __global__ void __launch_bounds__(kThreads) expert_h_kernel(
     const X* __restrict__ w_gate, const X* __restrict__ w_out,
     const X* __restrict__ g, X* __restrict__ h_out, X* __restrict__ dh1_out,
     X* __restrict__ dhg_out, Dims d) {
+  static_assert(!BWD || Tile<X>::kF32, "bf16 dX runs dx_h_wgmma_kernel");
   constexpr int kE = Tile<X>::kElems;
   X* sx = smem_tiles<X>();
   X* swi = sx + kE;
@@ -310,14 +332,14 @@ __global__ void __launch_bounds__(kThreads) expert_h_kernel(
     load_gather(sx, x, d.D, rows, k0, d.D);
     load_dense(swi, wi, d.H, k0, d.D, jt * kT, d.H);          // [k][n]
     if (d.gated) load_dense(swg, wg, d.H, k0, d.D, jt * kT, d.H);
-    if (BWD) {
+    if constexpr (BWD) {
       load_dense(swo, wo, d.D, jt * kT, d.H, k0, d.D);        // [n][k]
       load_dy(sdy, g, d.D, rows, gw, k0);
     }
     wait_tiles();
     mma_chunk<false, true>(a1, sx, swi, warp, lane);
     if (d.gated) mma_chunk<false, true>(ag, sx, swg, warp, lane);
-    if (BWD) mma_chunk<false, false>(adh, sdy, swo, warp, lane);
+    if constexpr (BWD) mma_chunk<false, false>(adh, sdy, swo, warp, lane);
     __syncthreads();
   }
 #pragma unroll
@@ -385,10 +407,10 @@ __global__ void __launch_bounds__(kThreads) fwd_out_kernel(
     }
 }
 
-// ---- pass 2 of dX: dx[row] += dh1 W_in^T + dhg W_gate^T, and y = h W_out
-// for this D tile's share of dgw = <g[row], y> (written per tile, summed
-// in a fixed order by dgw_reduce_kernel). Block (dt, sb, e); K over H.
-// Shared: tiles sa, sbt.
+// ---- pass 2 of fp32 dX: dx[row] += dh1 W_in^T + dhg W_gate^T, and y =
+// h W_out for this D tile's share of dgw = <g[row], y> (written per tile,
+// summed in a fixed order by dgw_reduce_kernel). Block (dt, sb, e); K over
+// H. Shared: tiles sa, sbt.
 template <typename X>
 __global__ void __launch_bounds__(kThreads) dx_out_kernel(
     const int* __restrict__ row_id, const float* __restrict__ gate_w,
@@ -397,6 +419,7 @@ __global__ void __launch_bounds__(kThreads) dx_out_kernel(
     const X* __restrict__ h, const X* __restrict__ dh1,
     const X* __restrict__ dhg, float* __restrict__ dx,
     float* __restrict__ part, Dims d) {
+  static_assert(Tile<X>::kF32, "bf16 dX runs dx_out_wgmma_kernel");
   X* sa = smem_tiles<X>();
   X* sbt = sa + Tile<X>::kElems;
   __shared__ int rows[kT];
@@ -463,9 +486,9 @@ __global__ void dgw_reduce_kernel(const float* __restrict__ part,
   dgw[s] = v;
 }
 
-// ---- dW: one output tile of one expert's dW per block, K over its slots.
-// Blocks [0, nd * nj): dW_in and dW_gate tile (dt, jt) = x^T [dh1 | dhg];
-// blocks [nd * nj, 2 nd * nj): dW_out tile (jt, dt) = h^T dy.
+// ---- fp32 dW: one output tile of one expert's dW per block, K over its
+// slots. Blocks [0, nd * nj): dW_in and dW_gate tile (dt, jt) = x^T
+// [dh1 | dhg]; blocks [nd * nj, 2 nd * nj): dW_out tile (jt, dt) = h^T dy.
 // Shared: tiles sa, sb1, sb2.
 template <typename X>
 __global__ void __launch_bounds__(kThreads) dw_kernel(
@@ -474,6 +497,7 @@ __global__ void __launch_bounds__(kThreads) dw_kernel(
     const X* __restrict__ h, const X* __restrict__ dh1,
     const X* __restrict__ dhg, X* __restrict__ dwi, X* __restrict__ dwg,
     X* __restrict__ dwo, Dims d) {
+  static_assert(Tile<X>::kF32, "bf16 dW runs dw_wgmma_kernel");
   constexpr int kE = Tile<X>::kElems;
   X* sa = smem_tiles<X>();
   X* sb1 = sa + kE;
@@ -534,6 +558,438 @@ __global__ void __launch_bounds__(kThreads) dw_kernel(
     }
 }
 
+// ---- bf16 dX and dW on Hopper: wgmma fed by a TMA / cp.async ring ----
+
+constexpr int kM = 128;               // dX slots a tile: 2 warpgroups x 64
+constexpr int kConsumers = 256;       // warpgroups 0 and 1: the products
+constexpr int kGatherers = 128;       // warpgroup 2: cp.async gathers + TMA
+constexpr uint32_t kTile = 8192;      // 64 rows x 128 bytes
+
+// Byte offsets in one stage of the ring (every tile 1024-byte aligned),
+// and the ring's depth (STAGES x BYTES + 1024 bytes of dynamic shared
+// memory and the kernel's static arrays fit the 227 KB of a block).
+// dX pass 1: x and g rows [128 slots][64 d] (gathered); W_in, W_gate [64
+// d][64 j] (MN-major B), W_out [64 j][64 d] (K-major B).
+struct P1 {
+  enum : uint32_t { X = 0, G = 2 * kTile, WI = 4 * kTile, WG = 5 * kTile,
+                    WO = 6 * kTile, BYTES = 7 * kTile, STAGES = 4 };
+};
+// dX pass 2: dh1, dhg, h [128 slots][64 j] (K-major A); W_in, W_gate [64
+// d][64 j] (K-major B), W_out [64 j][64 d] (MN-major B).
+struct P2 {
+  enum : uint32_t { DH1 = 0, DHG = 2 * kTile, H = 4 * kTile, WI = 6 * kTile,
+                    WG = 7 * kTile, WO = 8 * kTile, BYTES = 9 * kTile,
+                    STAGES = 3 };
+};
+// dW: x and g rows [64 slots][128 d] as two [64][64] tiles (MN-major A of
+// x^T; g becomes the MN-major B dy); dh1, dhg, h [64 slots][64 j] (MN-major
+// B of x^T dh1, x^T dhg; MN-major A of h^T dy).
+struct PW {
+  enum : uint32_t { X = 0, G = 2 * kTile, DH1 = 4 * kTile, DHG = 5 * kTile,
+                    H = 6 * kTile, BYTES = 7 * kTile, STAGES = 3 };
+};
+
+// The ring's barriers. Chunk k takes stage k % S. full completes when the
+// stage holds its chunk (the producer's arrivals and the TMA bytes), empty
+// when the 8 consumer warps are done with it.
+template <int S>
+struct Ring {
+  uint64_t full[S], empty[S];
+  __device__ uint32_t f(int k) const { return hop::smem_u32(&full[k % S]); }
+  __device__ uint32_t e(int k) const { return hop::smem_u32(&empty[k % S]); }
+  __device__ static uint32_t parity(int k) { return (k / S) & 1; }
+  __device__ void init(uint32_t full_count) {
+    for (int s = 0; s < S; ++s) {
+      hop::mbar_init(hop::smem_u32(&full[s]), full_count);
+      hop::mbar_init(hop::smem_u32(&empty[s]), kConsumers / 32);
+    }
+    hop::mbar_init_fence();
+  }
+};
+
+// the ring's tiles: dynamic shared memory, rounded up to 1024 bytes
+__device__ __forceinline__ unsigned char* ring_tiles() {
+  extern __shared__ __align__(16) unsigned char ring_raw[];
+  return ring_raw + ((1024 - (hop::smem_u32(ring_raw) & 1023)) & 1023);
+}
+
+// A consumer's wait for chunk k whose stage holds gathered rows: they
+// were written by cp.async (the generic proxy), so fence before wgmma
+// reads them.
+template <int S>
+__device__ __forceinline__ void wait_gathered(const Ring<S>& ring, int k) {
+  hop::mbar_wait(ring.f(k), Ring<S>::parity(k));
+  hop::proxy_fence();
+}
+
+// Commit chunk k's wgmma group, wait for it, and hand its stage back to
+// the producer (one arrival per consumer warp). Draining each chunk was
+// measured faster than keeping one group in flight across chunks: a
+// consumer then holds one stage, not two, so the producer runs a stage
+// further ahead; and no other instruction runs while a group is in flight
+// (dy is made before the chunk's products), where ptxas had serialised
+// the wgmmas of dX's first pass.
+template <int S>
+__device__ __forceinline__ void drain_chunk(const Ring<S>& ring, int k,
+                                            int lane) {
+  hop::wg_commit();
+  hop::wg_wait<0>();
+  if (lane == 0) hop::mbar_arrive(ring.e(k));
+}
+
+// dy = bf16(g * gw[row]) in place over one warpgroup's 64-row tile (its
+// 128 threads, 4 chunks each; a chunk's row is its offset / 128, whatever
+// the swizzle), fenced for wgmma and synchronised over the warpgroup.
+__device__ __forceinline__ void make_dy(unsigned char* tile, const float* gw,
+                                        int wg, int t) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int p = t + 128 * i;
+    uint4* q = reinterpret_cast<uint4*>(tile + p * 16);
+    uint4 v = *q;
+    bf16* e = reinterpret_cast<bf16*>(&v);
+    const float w = gw[p >> 3];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      e[j] = __float2bfloat16(__bfloat162float(e[j]) * w);
+    *q = v;
+  }
+  hop::proxy_fence();
+  hop::bar_sync(1 + wg, 128);
+}
+
+// ---- dX pass 1: h, dh1, dhg. Block (jt, sb, e): slots sb*128.., H
+// columns jt*64..; K = D in 64-deep chunks. Consumer warpgroup wg takes
+// slots 64 wg.. of the block. GATED is d.gated as a compile-time branch:
+// ptxas serialises the wgmmas of a kernel whose products sit under a
+// run-time one.
+template <bool GATED>
+__global__ void __launch_bounds__(kConsumers + kGatherers, 1)
+    dx_h_wgmma_kernel(const bf16* __restrict__ x,
+                      const int* __restrict__ row_id,
+                      const float* __restrict__ gate_w,
+                      const bf16* __restrict__ g, bf16* __restrict__ h_out,
+                      bf16* __restrict__ dh1_out, bf16* __restrict__ dhg_out,
+                      Dims d, const __grid_constant__ CUtensorMap tm_wi,
+                      const __grid_constant__ CUtensorMap tm_wg,
+                      const __grid_constant__ CUtensorMap tm_wo) {
+  constexpr int S = P1::STAGES;
+  __shared__ Ring<S> ring;
+  __shared__ int rows[kM];
+  __shared__ float gw[kM];
+  const int jt = blockIdx.x, sb = blockIdx.y, e = blockIdx.z;
+  const int tid = threadIdx.x;
+  if (!slot_rows<kM>(row_id, gate_w, e, sb, d, rows, gw)) {
+    for (int i = tid; i < kM * 8; i += blockDim.x) {   // zero h, dh1, dhg
+      const int s = sb * kM + (i >> 3), c = jt * 64 + (i & 7) * 8;
+      if (s >= d.cpad || c >= d.H) continue;
+      const int64_t o = ((int64_t)e * d.cpad + s) * d.H + c;
+      const uint4 z = make_uint4(0, 0, 0, 0);
+      *reinterpret_cast<uint4*>(h_out + o) = z;
+      *reinterpret_cast<uint4*>(dh1_out + o) = z;
+      if constexpr (GATED) *reinterpret_cast<uint4*>(dhg_out + o) = z;
+    }
+    return;
+  }
+  unsigned char* tiles = ring_tiles();
+  const uint32_t base = hop::smem_u32(tiles);
+  if (tid == 0) ring.init(kGatherers + 1);
+  __syncthreads();
+  const int nk = d.D / 64;
+  if (tid >= kConsumers) {                       // the producer warpgroup
+    const int t = tid - kConsumers;
+    for (int k = 0; k < nk; ++k) {
+      hop::mbar_wait(ring.e(k), Ring<S>::parity(k) ^ 1);
+      const uint32_t st = base + (k % S) * P1::BYTES, full = ring.f(k);
+      if (t == 0) {
+        hop::mbar_arrive_tx(full, (GATED ? 3 : 2) * kTile);
+        hop::tma_load3(st + P1::WI, &tm_wi, full, jt * 64, k * 64, e);
+        if constexpr (GATED) hop::tma_load3(st + P1::WG, &tm_wg, full, jt * 64, k * 64, e);
+        hop::tma_load3(st + P1::WO, &tm_wo, full, k * 64, jt * 64, e);
+      }
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int idx = t + kGatherers * i, r = idx >> 3, c = idx & 7;
+        const int row = rows[r];
+        const int64_t o = (int64_t)(row < 0 ? 0 : row) * d.D + k * 64 + c * 8;
+        hop::cp16(st + P1::X + hop::swz(r, c), x + o, row < 0 ? 0 : 16);
+        hop::cp16(st + P1::G + hop::swz(r, c), g + o, row < 0 ? 0 : 16);
+      }
+      hop::cp_arrive(full);
+    }
+    return;
+  }
+  const int wg = tid >> 7, t = tid & 127, warp = (tid >> 5) & 3,
+            lane = tid & 31;
+  float a1[8][4], ag[8][4], adh[8][4];
+  zero(a1);
+  zero(ag);
+  zero(adh);
+  for (int k = 0; k < nk; ++k) {
+    wait_gathered(ring, k);
+    const uint32_t st = base + (k % S) * P1::BYTES;
+    const uint32_t xa = st + P1::X + wg * kTile, ga = st + P1::G + wg * kTile;
+    make_dy(tiles + (ga - base), gw + 64 * wg, wg, t);
+    hop::wg_fence();
+    hop::wgmma_chunk<0, 1>(a1, xa, st + P1::WI);
+    if constexpr (GATED) hop::wgmma_chunk<0, 1>(ag, xa, st + P1::WG);
+    hop::wgmma_chunk<0, 0>(adh, ga, st + P1::WO);
+    drain_chunk(ring, k, lane);
+  }
+  hop::acc_fence(a1);
+  hop::acc_fence(ag);
+  hop::acc_fence(adh);
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; i += 2) {
+      const int s = sb * kM + 64 * wg + acc_row(warp, lane, i);
+      const int c = jt * 64 + acc_col(lane, n, i);
+      if (s >= d.cpad || c >= d.H) continue;
+      const int64_t o = ((int64_t)e * d.cpad + s) * d.H + c;
+      float hv[2], d1[2], dg[2];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const float h1 = a1[n][i + j], hg = ag[n][i + j], dh = adh[n][i + j];
+        const float act = act_f(d.act, GATED ? hg : h1);
+        hv[j] = GATED ? act * h1 : act;
+        d1[j] = GATED ? dh * act : dh * dact_f(d.act, h1);
+        dg[j] = GATED ? dh * h1 * dact_f(d.act, hg) : 0.f;
+      }
+      flash::store2(h_out + o, hv[0], hv[1]);
+      flash::store2(dh1_out + o, d1[0], d1[1]);
+      if constexpr (GATED) flash::store2(dhg_out + o, dg[0], dg[1]);
+    }
+}
+
+// ---- dX pass 2: dx[row] += dh1 W_in^T + dhg W_gate^T, y = h W_out and
+// this D tile's share of dgw. Block (dt, sb, e): slots sb*128.., D columns
+// dt*64..; K = H. Every operand comes by TMA: the producer is one thread.
+template <bool GATED>
+__global__ void __launch_bounds__(kConsumers + 32, 1) dx_out_wgmma_kernel(
+    const int* __restrict__ row_id, const float* __restrict__ gate_w,
+    const bf16* __restrict__ g, float* __restrict__ dx,
+    float* __restrict__ part, Dims d,
+    const __grid_constant__ CUtensorMap tm_wi,
+    const __grid_constant__ CUtensorMap tm_wg,
+    const __grid_constant__ CUtensorMap tm_wo,
+    const __grid_constant__ CUtensorMap tm_dh1,
+    const __grid_constant__ CUtensorMap tm_dhg,
+    const __grid_constant__ CUtensorMap tm_h) {
+  constexpr int S = P2::STAGES;
+  __shared__ Ring<S> ring;
+  __shared__ int rows[kM];
+  __shared__ float gw[kM];
+  const int dt = blockIdx.x, sb = blockIdx.y, e = blockIdx.z;
+  const int tid = threadIdx.x;
+  float* prow = part + (int64_t)dt * d.E * d.cpad + (int64_t)e * d.cpad;
+  if (!slot_rows<kM>(row_id, gate_w, e, sb, d, rows, gw)) {
+    const int s = sb * kM + tid;
+    if (tid < kM && s < d.cpad) prow[s] = 0.f;
+    return;
+  }
+  unsigned char* tiles = ring_tiles();
+  const uint32_t base = hop::smem_u32(tiles);
+  if (tid == 0) ring.init(1);
+  __syncthreads();
+  const int nk = (d.H + 63) / 64;
+  if (tid >= kConsumers) {                             // the producer
+    if (tid != kConsumers) return;
+    const uint32_t bytes = (GATED ? 3 : 2) * 3 * kTile;
+    for (int k = 0; k < nk; ++k) {
+      hop::mbar_wait(ring.e(k), Ring<S>::parity(k) ^ 1);
+      const uint32_t st = base + (k % S) * P2::BYTES, full = ring.f(k);
+      hop::mbar_arrive_tx(full, bytes);
+      hop::tma_load3(st + P2::DH1, &tm_dh1, full, k * 64, sb * kM, e);
+      if constexpr (GATED) hop::tma_load3(st + P2::DHG, &tm_dhg, full, k * 64, sb * kM, e);
+      hop::tma_load3(st + P2::H, &tm_h, full, k * 64, sb * kM, e);
+      hop::tma_load3(st + P2::WI, &tm_wi, full, k * 64, dt * 64, e);
+      if constexpr (GATED) hop::tma_load3(st + P2::WG, &tm_wg, full, k * 64, dt * 64, e);
+      hop::tma_load3(st + P2::WO, &tm_wo, full, dt * 64, k * 64, e);
+    }
+    return;
+  }
+  const int wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+  float adx[8][4], ay[8][4];
+  zero(adx);
+  zero(ay);
+  for (int k = 0; k < nk; ++k) {
+    hop::mbar_wait(ring.f(k), Ring<S>::parity(k));
+    const uint32_t st = base + (k % S) * P2::BYTES;
+    hop::wg_fence();
+    hop::wgmma_chunk<0, 0>(adx, st + P2::DH1 + wg * kTile, st + P2::WI);
+    if constexpr (GATED) {   // dhg W_gate^T into the same accumulator
+      hop::wgmma_chunk<0, 0>(adx, st + P2::DHG + wg * kTile, st + P2::WG);
+    }
+    hop::wgmma_chunk<0, 1>(ay, st + P2::H + wg * kTile, st + P2::WO);
+    drain_chunk(ring, k, lane);
+  }
+  hop::acc_fence(adx);
+  hop::acc_fence(ay);
+  float dot[2] = {0.f, 0.f};        // rows lane / 4 and + 8 of this warp
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; i += 2) {
+      const int row = rows[64 * wg + acc_row(warp, lane, i)];
+      if (row < 0) continue;
+      const int64_t o = (int64_t)row * d.D + dt * 64 + acc_col(lane, n, i);
+      atomicAdd(reinterpret_cast<float2*>(dx + o),
+                make_float2(adx[n][i], adx[n][i + 1]));
+      const __nv_bfloat162 gv = *reinterpret_cast<const __nv_bfloat162*>(g + o);
+      dot[i >> 1] += __bfloat162float(gv.x) * ay[n][i]
+                     + __bfloat162float(gv.y) * ay[n][i + 1];
+    }
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const float v = flash::quad_sum(dot[j]);
+    const int s = sb * kM + 64 * wg + acc_row(warp, lane, 2 * j);
+    if ((lane & 3) == 0 && s < d.cpad) prow[s] = v;
+  }
+}
+
+// ---- dW: block (jt, dt, e) owns D columns dt*128.. and H columns jt*64..
+// of expert e's dW_in, dW_gate and dW_out; K = its slots in 64-slot
+// chunks. Consumer warpgroup wg takes D columns 64 wg.. of the block.
+template <bool GATED>
+__global__ void __launch_bounds__(kConsumers + kGatherers, 1)
+    dw_wgmma_kernel(const bf16* __restrict__ x,
+                    const int* __restrict__ row_id,
+                    const float* __restrict__ gate_w,
+                    const bf16* __restrict__ g, bf16* __restrict__ dwi,
+                    bf16* __restrict__ dwg, bf16* __restrict__ dwo, Dims d,
+                    const __grid_constant__ CUtensorMap tm_dh1,
+                    const __grid_constant__ CUtensorMap tm_dhg,
+                    const __grid_constant__ CUtensorMap tm_h) {
+  constexpr int S = PW::STAGES;
+  __shared__ Ring<S> ring;
+  __shared__ int srow[S][64];      // each chunk's token rows,
+  __shared__ float sgw[S][64];     // gate weights
+  __shared__ int slive[S];         // and whether it holds a token
+  __shared__ int last;
+  const int jt = blockIdx.x, dt = blockIdx.y, e = blockIdx.z;
+  const int tid = threadIdx.x;
+  unsigned char* tiles = ring_tiles();
+  const uint32_t base = hop::smem_u32(tiles);
+  if (tid == 0) {
+    ring.init(kGatherers + 1);
+    last = -1;
+  }
+  __syncthreads();
+  {  // the chunks up to the last that holds a token (capacity past the
+     // expert's tokens is skipped)
+    int mine = -1;
+    for (int s = tid; s < d.cpad; s += blockDim.x) {
+      const int r = row_id[(int64_t)e * d.cpad + s];
+      if (r >= 0 && r < d.T) mine = s;
+    }
+    if (mine >= 0) atomicMax(&last, mine >> 6);
+  }
+  __syncthreads();
+  const int n_chunks = last + 1;
+  if (tid >= kConsumers) {                       // the producer warpgroup
+    const int t = tid - kConsumers;
+    // slot t of chunk c (t < 64): its row id and gate weight, loaded a
+    // chunk ahead
+    const int64_t slots = (int64_t)e * d.cpad + t;
+    auto fetch = [&](int c, int& r, float& w) {
+      r = -1;
+      w = 0.f;
+      if (t < 64 && c < n_chunks && c * 64 + t < d.cpad) {
+        r = row_id[slots + c * 64];
+        w = gate_w[slots + c * 64];
+      }
+    };
+    int r_next;
+    float w_next;
+    fetch(0, r_next, w_next);
+    for (int c = 0; c < n_chunks; ++c) {
+      const bool token = r_next >= 0 && r_next < d.T;
+      const int row = token ? r_next : -1;
+      const float w = token ? w_next : 0.f;
+      fetch(c + 1, r_next, w_next);
+      hop::mbar_wait(ring.e(c), Ring<S>::parity(c) ^ 1);
+      const int s = c % S;
+      if (t < 64) {
+        srow[s][t] = row;
+        sgw[s][t] = w;
+      }
+      const bool live = hop::bar_any(3, kGatherers, row >= 0);
+      const uint32_t st = base + s * PW::BYTES, full = ring.f(c);
+      if (t == 0) {
+        slive[s] = live;
+        if (live) {
+          hop::mbar_arrive_tx(full, (GATED ? 3 : 2) * kTile);
+          hop::tma_load3(st + PW::DH1, &tm_dh1, full, jt * 64, c * 64, e);
+          if constexpr (GATED) hop::tma_load3(st + PW::DHG, &tm_dhg, full, jt * 64, c * 64, e);
+          hop::tma_load3(st + PW::H, &tm_h, full, jt * 64, c * 64, e);
+        } else {
+          hop::mbar_arrive(full);
+        }
+      }
+      if (live) {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const int idx = t + kGatherers * i, r = idx >> 4, cc = idx & 15;
+          const int rr = srow[s][r], col = dt * 128 + cc * 8;
+          const bool ok = rr >= 0 && col < d.D;
+          const int64_t o = ok ? (int64_t)rr * d.D + col : 0;
+          const uint32_t at = (cc >> 3) * kTile + hop::swz(r, cc & 7);
+          hop::cp16(st + PW::X + at, x + o, ok ? 16 : 0);
+          hop::cp16(st + PW::G + at, g + o, ok ? 16 : 0);
+        }
+      }
+      hop::cp_arrive(full);
+    }
+    return;
+  }
+  const int wg = tid >> 7, t = tid & 127, warp = (tid >> 5) & 3,
+            lane = tid & 31;
+  float a1[8][4], a2[8][4], a3[8][4];
+  zero(a1);
+  zero(a2);
+  zero(a3);
+  for (int c = 0; c < n_chunks; ++c) {
+    wait_gathered(ring, c);
+    const int s = c % S;
+    // the same for every lane: a vote, so that the compiler sees the
+    // products' branch uniform (a branch it may think divergent makes
+    // ptxas serialise every wgmma of the kernel)
+    if (__any_sync(0xffffffffu, slive[s] != 0)) {
+      const uint32_t st = base + s * PW::BYTES;
+      const uint32_t xa = st + PW::X + wg * kTile, ga = st + PW::G + wg * kTile;
+      make_dy(tiles + (ga - base), sgw[s], wg, t);
+      hop::wg_fence();
+      hop::wgmma_chunk<1, 1>(a1, xa, st + PW::DH1);
+      if constexpr (GATED) hop::wgmma_chunk<1, 1>(a2, xa, st + PW::DHG);
+      hop::wgmma_chunk<1, 1>(a3, st + PW::H, ga);
+    }
+    drain_chunk(ring, c, lane);      // an empty group for a chunk without tokens
+  }
+  hop::acc_fence(a1);
+  hop::acc_fence(a2);
+  hop::acc_fence(a3);
+  const int d0 = dt * 128 + 64 * wg;
+  if (d0 >= d.D) return;
+  const int64_t DH = (int64_t)d.D * d.H;
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; i += 2) {
+      const int r = acc_row(warp, lane, i), c = acc_col(lane, n, i);
+      const int j = jt * 64 + c;                 // dW_in, dW_gate: [d][j]
+      if (j < d.H) {
+        const int64_t o = e * DH + (int64_t)(d0 + r) * d.H + j;
+        flash::store2(dwi + o, a1[n][i], a1[n][i + 1]);
+        if constexpr (GATED) flash::store2(dwg + o, a2[n][i], a2[n][i + 1]);
+      }
+      const int jo = jt * 64 + r;                // dW_out: [j][d]
+      if (jo < d.H)
+        flash::store2(dwo + e * DH + (int64_t)jo * d.D + d0 + c, a3[n][i],
+                      a3[n][i + 1]);
+    }
+}
+
 bool dims_ok(const Dims& d) {
   return d.T > 0 && d.D > 0 && d.H > 0 && d.E > 0 && d.cpad > 0 &&
          d.D % kT == 0 && d.H % 32 == 0 && d.E <= 65535 &&
@@ -570,6 +1026,15 @@ int fwd(const void* x, const int* row_id, const float* gate_w,
                    static_cast<const X*>(h), out, d);
 }
 
+// dgw from the partial sums of n_tiles D tiles, in a fixed order
+cudaError_t reduce_dgw(const float* part, float* dgw, int n_tiles,
+                       const Dims& d, cudaStream_t stream) {
+  const int n_slots = d.E * d.cpad;
+  dgw_reduce_kernel<<<(n_slots + 255) / 256, 256, 0, stream>>>(
+      part, dgw, n_slots, n_tiles);
+  return cudaGetLastError();
+}
+
 template <typename X>
 int dx(const void* x, const int* row_id, const float* gate_w,
        const void* w_in, const void* w_gate, const void* w_out,
@@ -590,10 +1055,7 @@ int dx(const void* x, const int* row_id, const float* gate_w,
                   static_cast<const X*>(h), static_cast<const X*>(dh1),
                   static_cast<const X*>(dhg), dxo, part, d);
   if (err != cudaSuccess) return err;
-  const int n_slots = d.E * d.cpad;
-  dgw_reduce_kernel<<<(n_slots + 255) / 256, 256, 0, stream>>>(
-      part, dgw, n_slots, d.D / kT);
-  return cudaGetLastError();
+  return reduce_dgw(part, dgw, d.D / kT, d, stream);
 }
 
 template <typename X>
@@ -607,6 +1069,71 @@ int dw(const void* x, const int* row_id, const float* gate_w, const void* g,
                    static_cast<const X*>(dh1), static_cast<const X*>(dhg),
                    static_cast<X*>(dwi), static_cast<X*>(dwg),
                    static_cast<X*>(dwo), d);
+}
+
+// a wgmma kernel: `threads` threads and the ring's dynamic shared memory
+template <typename Kern, typename... Args>
+cudaError_t launch_ring(Kern kern, dim3 grid, int threads, uint32_t stage,
+                        int stages, cudaStream_t stream, Args... args) {
+  const size_t smem = stages * stage + 1024;     // + the 1024 alignment
+  cudaError_t err = flash::allow_smem(kern, smem);
+  if (err != cudaSuccess) return err;
+  kern<<<grid, threads, smem, stream>>>(args...);
+  return cudaGetLastError();
+}
+
+// bf16 dX: the tensor maps of the weights (boxes 64 x 64) and of h, dh1,
+// dhg (boxes 64 x 128 slots), then the two passes and dgw
+int dx_bf16(const void* x, const int* row_id, const float* gate_w,
+            const void* w_in, const void* w_gate, const void* w_out,
+            const void* g, void* h, void* dh1, void* dhg, float* dxo,
+            float* dgw, float* part, const Dims& d, cudaStream_t stream) {
+  CUtensorMap m_wi, m_wg = {}, m_wo, m_dh1, m_dhg = {}, m_h;
+  const uint64_t E = d.E;
+  if (!hop::bf16_map3(&m_wi, w_in, d.H, d.D, E, 64) ||
+      (d.gated && !hop::bf16_map3(&m_wg, w_gate, d.H, d.D, E, 64)) ||
+      !hop::bf16_map3(&m_wo, w_out, d.D, d.H, E, 64) ||
+      !hop::bf16_map3(&m_dh1, dh1, d.H, d.cpad, E, kM) ||
+      (d.gated && !hop::bf16_map3(&m_dhg, dhg, d.H, d.cpad, E, kM)) ||
+      !hop::bf16_map3(&m_h, h, d.H, d.cpad, E, kM))
+    return cudaErrorInvalidValue;
+  const int n_sb = (d.cpad + kM - 1) / kM;
+  cudaError_t err = launch_ring(
+      d.gated ? dx_h_wgmma_kernel<true> : dx_h_wgmma_kernel<false>,
+      dim3((d.H + 63) / 64, n_sb, d.E),
+      kConsumers + kGatherers, P1::BYTES, P1::STAGES, stream,
+      static_cast<const bf16*>(x), row_id, gate_w,
+      static_cast<const bf16*>(g), static_cast<bf16*>(h),
+      static_cast<bf16*>(dh1), static_cast<bf16*>(dhg), d, m_wi, m_wg, m_wo);
+  if (err != cudaSuccess) return err;
+  err = launch_ring(d.gated ? dx_out_wgmma_kernel<true>
+                            : dx_out_wgmma_kernel<false>,
+                    dim3(d.D / 64, n_sb, d.E),
+                    kConsumers + 32, P2::BYTES, P2::STAGES, stream, row_id, gate_w,
+                    static_cast<const bf16*>(g), dxo, part, d, m_wi, m_wg,
+                    m_wo, m_dh1, m_dhg, m_h);
+  if (err != cudaSuccess) return err;
+  return reduce_dgw(part, dgw, d.D / 64, d, stream);
+}
+
+// bf16 dW: the tensor maps of h, dh1, dhg (boxes 64 x 64 slots), one launch
+int dw_bf16(const void* x, const int* row_id, const float* gate_w,
+            const void* g, const void* h, const void* dh1, const void* dhg,
+            void* dwi, void* dwg, void* dwo, const Dims& d,
+            cudaStream_t stream) {
+  CUtensorMap m_dh1, m_dhg = {}, m_h;
+  const uint64_t E = d.E;
+  if (!hop::bf16_map3(&m_dh1, dh1, d.H, d.cpad, E, 64) ||
+      (d.gated && !hop::bf16_map3(&m_dhg, dhg, d.H, d.cpad, E, 64)) ||
+      !hop::bf16_map3(&m_h, h, d.H, d.cpad, E, 64))
+    return cudaErrorInvalidValue;
+  return launch_ring(
+      d.gated ? dw_wgmma_kernel<true> : dw_wgmma_kernel<false>,
+      dim3((d.H + 63) / 64, (d.D + 127) / 128, d.E),
+      kConsumers + kGatherers, PW::BYTES, PW::STAGES, stream,
+      static_cast<const bf16*>(x), row_id, gate_w,
+      static_cast<const bf16*>(g), static_cast<bf16*>(dwi),
+      static_cast<bf16*>(dwg), static_cast<bf16*>(dwo), d, m_dh1, m_dhg, m_h);
 }
 
 }  // namespace
@@ -642,8 +1169,8 @@ extern "C" int moe_dx_launch(const void* x, const int* row_id,
   if (!dims_ok(d) || (gated && (!w_gate || !dhg)))
     return cudaErrorInvalidValue;
   if (dtype == 1)
-    return dx<bf16>(x, row_id, gate_w, w_in, w_gate, w_out, g, h, dh1, dhg,
-                    dxo, dgw, part, d, stream);
+    return dx_bf16(x, row_id, gate_w, w_in, w_gate, w_out, g, h, dh1, dhg,
+                   dxo, dgw, part, d, stream);
   if (dtype == 0)
     return dx<float>(x, row_id, gate_w, w_in, w_gate, w_out, g, h, dh1, dhg,
                      dxo, dgw, part, d, stream);
@@ -660,8 +1187,8 @@ extern "C" int moe_dw_launch(const void* x, const int* row_id,
   const Dims d{T, D, H, E, cpad, 0, gated};
   if (!dims_ok(d) || (gated && !dwg)) return cudaErrorInvalidValue;
   if (dtype == 1)
-    return dw<bf16>(x, row_id, gate_w, g, h, dh1, dhg, dwi, dwg, dwo, d,
-                    stream);
+    return dw_bf16(x, row_id, gate_w, g, h, dh1, dhg, dwi, dwg, dwo, d,
+                   stream);
   if (dtype == 0)
     return dw<float>(x, row_id, gate_w, g, h, dh1, dhg, dwi, dwg, dwo, d,
                      stream);

@@ -24,6 +24,8 @@ weight ``gate_w`` (0 for an empty slot).
   :func:`kernel_gate`, and counts its calls (one call enqueues the
   kernel's passes: 2 for the forward, 3 for dX, 1 for dW) in
   ``.launches`` (bf16) or ``.fp32_launches`` (fp32, the 3xTF32 mode).
+  bf16 dX and dW run on Hopper's wgmma with TMA-fed tiles; the forward
+  and the fp32 mode on mma.sync.
 - The dX pass hands dW what both Pallas passes recompute: ``h``, ``dh1``
   and ``dhg`` per slot, rounded to x's dtype (``inter``; in fp32 nothing
   is rounded). The dW pass takes them instead of recomputing them.
@@ -335,13 +337,15 @@ def moe_fwd_cuda(x, row_id, gate_w, w_in, w_gate, w_out, act_name):
 def moe_dx_cuda(x, row_id, gate_w, w_in, w_gate, w_out, g, act_name):
     """Launch the dX passes: ``(dx, dgw, inter)`` as
     :func:`moe_dx_plain`, except that an empty slot's ``inter`` rows and
-    ``dgw`` are 0 (the kernels skip the slot blocks that hold no token,
-    so ``inter`` starts zeroed)."""
+    ``dgw`` are 0 (the fp32 kernels skip the slot blocks that hold no
+    token, so ``inter`` starts zeroed there; the bf16 ones write the
+    zeros of such a block themselves)."""
     _check("moe_dx_cuda", x, row_id, gate_w, w_in, w_gate, w_out, act_name,
            g=g)
     E, cpad = row_id.shape
     H, D = w_in.shape[2], x.shape[1]
-    inter = [torch.zeros((E, cpad, H), dtype=x.dtype, device=x.device)
+    alloc = torch.zeros if x.dtype == torch.float32 else torch.empty
+    inter = [alloc((E, cpad, H), dtype=x.dtype, device=x.device)
              for _ in range(3 if w_gate is not None else 2)]
     dx = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
     dgw = torch.empty((E, cpad), dtype=torch.float32, device=x.device)

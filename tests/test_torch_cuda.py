@@ -680,14 +680,20 @@ def test_int8_engine_decode_step_kernels_vs_plain(cuda):
 
 # ---------------- the MoE kernels ----------------
 
-def _moe_inputs(cuda, T, E, D, H, seed=0, capfac=1.25, dtype="bfloat16"):
+def _moe_inputs(cuda, T, E, D, H, seed=0, capfac=1.25, dtype="bfloat16",
+                hot=False):
     """Routing (the plain chain, random keep) and grouped-GEMM inputs:
     x, g ~ N(0, 1), weights ~ N(0, 1/K) for a product over K (so every
-    product is O(1)), in ``dtype``; fp32 logits and uniforms."""
+    product is O(1)), in ``dtype``; fp32 logits and uniforms. ``hot``:
+    expert 0's logit raised by 50, so that every token's first choice is
+    expert 0 and its second copy is dropped (its keep threshold ~e^-50):
+    expert 0 holds every token (up to capacity), the others none."""
     from paddle_tpu_torch.distributed.moe import _slot_structures, _top2_parts
     from paddle_tpu_torch.ops.kernels import moe_grouped_gemm as GG
     g = torch.Generator(device=cuda).manual_seed(seed)
     logits = torch.randn((T, E), generator=g, device=cuda) * 1.5
+    if hot:
+        logits[:, 0] += 50.0
     u = torch.rand((T,), generator=g, device=cuda)
     cap = max(4, int(capfac * T * 2 / E))
     parts = _top2_parts(logits, cap, u=u)
@@ -750,7 +756,11 @@ def test_moe_routing_kernel_matches_plain(cuda, T, E, random_keep2):
 @pytest.mark.parametrize("T,E,D,H,capfac,act", [
     (1024, 4, 128, 64, 1.25, "silu"), (1024, 4, 128, 96, 1.0, "silu"),
     (2048, 8, 256, 704, 1.25, "silu"), (1024, 4, 128, 64, 0.3, "silu"),
-    (1024, 4, 128, 64, 1.25, "relu"), (1024, 16, 128, 32, 0.1, "silu")])
+    (1024, 4, 128, 64, 1.25, "relu"), (1024, 16, 128, 32, 0.1, "silu"),
+    # capacity 129 (cpad 256): every expert fills, and its last 128-slot
+    # block holds one token
+    (2048, 16, 128, 64, 129 / 256, "silu"),
+    (1024, 16, 256, 32, 1.25, "silu"), (1024, 16, 256, 96, 1.25, "relu")])
 def test_moe_grouped_kernels_match_plain(cuda, T, E, D, H, capfac, act,
                                          dtype):
     """Forward, dX and dW (dW from the kernel's own dX intermediates)
@@ -761,8 +771,25 @@ def test_moe_grouped_kernels_match_plain(cuda, T, E, D, H, capfac, act,
     within ``_fp32_rule`` of the plain fp32 versions. The dgw of empty
     slots is not compared; each launch repeated bitwise. ``relu`` runs
     the ungated FFN."""
+    _check_grouped(cuda, T, E, D, H, capfac, act, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("act", ["silu", "relu"])
+def test_moe_grouped_kernels_one_hot_expert(cuda, act, dtype):
+    """The same checks with one expert holding every token and the other
+    three empty (``_moe_inputs(hot=True)``, capacity 1024 = T): every
+    slot block of expert 0 full, every block of the others skipped."""
+    _check_grouped(cuda, 1024, 4, 128, 64, 2.0, act, dtype, hot=True)
+
+
+def _check_grouped(cuda, T, E, D, H, capfac, act, dtype, hot=False):
     from paddle_tpu_torch.ops.kernels import moe_grouped_gemm as GG
-    inp = _moe_inputs(cuda, T, E, D, H, seed=H, capfac=capfac, dtype=dtype)
+    inp = _moe_inputs(cuda, T, E, D, H, seed=H, capfac=capfac, dtype=dtype,
+                      hot=hot)
+    if hot:
+        held = (inp["row_id"] < T).sum(1)
+        assert held[0] == T and not held[1:].any()
     wg = inp["wg"] if act == "silu" else None
     args = (inp["x"], inp["row_id"], inp["gate_w"], inp["wi"], wg, inp["wo"])
     reset_launch_counts()

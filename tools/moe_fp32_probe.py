@@ -1,24 +1,30 @@
 #!/usr/bin/env python3
-"""A short first call for the grouped-GEMM MoE kernels' fp32 mode on a
-GPU: build ``moe_grouped_gemm.cu`` and ``moe_routing.cu`` (``ptxas``'s
-registers and spills per instantiation go to the file ``--report``
-names), then hold the fp32 forward, dX and dW against the plain versions
-in fp64 (``chip_smoke.moe_fp32_errors``: the flash fp32 rule per output,
-a bitwise repeat) at small shapes, gated silu and ungated relu, and the
-bf16 mode against its plain version (``chip_smoke.moe_errors``) at one.
+"""A short first call for the grouped-GEMM MoE kernels on a GPU: build
+``moe_grouped_gemm.cu`` and ``moe_routing.cu`` (``ptxas``'s registers and
+spills per instantiation go to the file ``--report`` names), then hold
+the fp32 forward, dX and dW against the plain versions in fp64
+(``chip_smoke.moe_fp32_errors``: the flash fp32 rule per output, a
+bitwise repeat) at small shapes, gated silu and ungated relu, and the
+bf16 mode against its plain version (``chip_smoke.moe_errors``) at
+``BF16``'s shapes: H past a 64 tile, D not a multiple of 128, the
+training shape.
 
     python3 tools/moe_fp32_probe.py [--report FILE] [--full]
-    python3 tools/moe_fp32_probe.py --times [--tree PATH]
+    python3 tools/moe_fp32_probe.py --times [--train] [--tree PATH]
 
 ``--full`` then runs ``chip_smoke.py``'s ``moe_fp32_kernels`` and
 ``moe_kernels`` phases (the slice's shapes, with their times).
 ``--times`` runs the timings alone: the forward, dX and dW at the
 Qwen2-MoE training shapes (T 8192, E 16, D 1024, cpad 1280; bf16 at H
 704 and, where the tree's kernels take fp32, fp32 at H 512), mean ms of
-100 calls between CUDA events, with the kernels of the checkout
+100 calls between CUDA events and each pass's device time by kernel name
+(a profiler trace of 20 calls), with the kernels of the checkout
 ``--tree`` names (built into its own ``build/kernels``), so that two
 trees can be compared on one card in one call, in turns. Prints one
-JSON line: the tree, the card, the times.
+JSON line: the tree, the card, the times. ``--train`` then runs
+``chip_smoke.py``'s ``train_moe`` and ``train_moe_profile`` phases (10
+steps of the ``qwen2_moe_fused`` configuration, then one profiled step)
+on that tree's package and kernels.
 """
 
 import argparse
@@ -35,6 +41,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SMALL = [  # (T, E, D, H, act)
     (1024, 4, 128, 64, "silu"), (1024, 4, 128, 96, "relu"),
     (2048, 8, 256, 512, "silu"), (1024, 16, 128, 32, "silu")]
+BF16 = [(1024, 4, 128, 96), (2048, 16, 192, 32), (8192, 16, 1024, 704)]
 
 
 def main(argv=None) -> int:
@@ -43,6 +50,7 @@ def main(argv=None) -> int:
         ROOT, "build", "moe_fp32_probe_ptxas.txt"))
     ap.add_argument("--full", action="store_true")
     ap.add_argument("--times", action="store_true")
+    ap.add_argument("--train", action="store_true")
     ap.add_argument("--tree", default=ROOT)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -55,7 +63,8 @@ def main(argv=None) -> int:
     S = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(S)
     if args.times:
-        return _times(S, args.tree, args.report)
+        rc = _times(S, args.tree, args.report)
+        return rc or (_train(S) if args.train else 0)
     from paddle_tpu_torch.ops.kernels import build
     from paddle_tpu_torch.ops.kernels import moe_grouped_gemm as GG
     from paddle_tpu_torch.ops.kernels import moe_routing as MR
@@ -69,6 +78,9 @@ def main(argv=None) -> int:
         for name, b in out.items():
             for fn, line in build.ptxas_report(b["log"]).items():
                 fh.write(f"{name}: {fn}: {line}\n")
+            fh.writelines(f"{name}: {line}\n" for line in
+                          b["log"].splitlines()
+                          if "arning" in line or "Performance" in line)
     failures = []
     gen = torch.Generator(device="cuda").manual_seed(0)
     for T, E, D, H, act in SMALL:
@@ -79,19 +91,19 @@ def main(argv=None) -> int:
             inp["wg"] if act == "silu" else None, inp["wo"], inp["g"], act)
         failures += res["failures"]
         print(json.dumps({"fp32": [T, E, D, H, act], **res}), flush=True)
-    inp = S.moe_inputs(torch, GG, MR, gen, T=1024, E=4, D=128, H=96)
-    res = S.moe_errors(torch, GG, inp["x"], inp["row_id"], inp["gate_w"],
-                       inp["wi"], inp["wg"], inp["wo"], inp["g"])
-    failures += res["failures"]
-    print(json.dumps({"bf16": [1024, 4, 128, 96, "silu"], **res}),
-          flush=True)
+    for T, E, D, H in BF16:
+        inp = S.moe_inputs(torch, GG, MR, gen, T=T, E=E, D=D, H=H)
+        res = S.moe_errors(torch, GG, inp["x"], inp["row_id"],
+                           inp["gate_w"], inp["wi"], inp["wg"], inp["wo"],
+                           inp["g"])
+        failures += [f"bf16 {[T, E, D, H]} {f}" for f in res["failures"]]
+        print(json.dumps({"bf16": [T, E, D, H, "silu"], **res}), flush=True)
     if failures:
         print(json.dumps({"failures": failures}), flush=True)
-        return 1
     if args.full:
         S.phase_moe_fp32_kernels(torch, MR, GG)
         S.phase_moe_kernels(torch, MR, GG)
-    return 0
+    return 1 if failures else 0
 
 
 def _times(S, tree, report):
@@ -108,7 +120,7 @@ def _times(S, tree, report):
             fh.write(f"--- {tree}\n{built['moe_grouped_gemm']['log']}\n")
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(S.SEED + 5)
-    ms = {}
+    ms, passes = {}, {}
     for dtype, H in (("bfloat16", 704), ("float32", S.MOE_FP32_H)):
         inp = S.moe_inputs(torch, GG, MR, gen, H=H, dtype=dtype)
         args = (inp["x"], inp["row_id"], inp["gate_w"], inp["wi"],
@@ -116,17 +128,39 @@ def _times(S, tree, report):
         if GG.kernel_gate(*args, "silu") is not None:
             continue            # a tree whose kernels take bf16 only
         _, _, inter = GG.moe_dx_cuda(*args, inp["g"], "silu")
-        ms[dtype] = {
-            "fwd": S._time_ms(torch, GG.moe_fwd_cuda, [args + ("silu",)]),
-            "dx": S._time_ms(torch, GG.moe_dx_cuda,
-                             [args + (inp["g"], "silu")]),
-            "dw": S._time_ms(torch, GG.moe_dw_cuda,
-                             [(inp["x"], inp["row_id"], inp["gate_w"],
-                               inp["g"], inter)])}
+        calls = {"fwd": (GG.moe_fwd_cuda, args + ("silu",)),
+                 "dx": (GG.moe_dx_cuda, args + (inp["g"], "silu")),
+                 "dw": (GG.moe_dw_cuda, (inp["x"], inp["row_id"],
+                                         inp["gate_w"], inp["g"], inter))}
+        ms[dtype] = {k: S._time_ms(torch, fn, [a])
+                     for k, (fn, a) in calls.items()}
+        passes[dtype] = {
+            k: {S._short_kernel_name(n): t for n, t in S._profile_steps(
+                torch, lambda: fn(*a), 20, top=None)["all_kernels_ms"]}
+            for k, (fn, a) in calls.items()}
         del inp, args, inter
         torch.cuda.empty_cache()
-    print(json.dumps({"tree": tree, "device": S._nvidia_smi(), "ms": ms}),
-          flush=True)
+    print(json.dumps({"tree": tree, "device": S._nvidia_smi(), "ms": ms,
+                      "device_ms_by_kernel": passes}), flush=True)
+    return 0
+
+
+def _train(S):
+    import numpy as np
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import Qwen2MoeConfig, Qwen2MoeForCausalLM
+    from paddle_tpu_torch.ops import kernels as K
+    from paddle_tpu_torch.ops.kernels import build
+    from paddle_tpu_torch.optimizer import AdamW
+    build.build_all()
+    cfg = S.moe_config(Qwen2MoeConfig, S.MOE_SEQ)
+    model = Qwen2MoeForCausalLM(cfg, device="cuda", seed=S.SEED)
+    batch = torch.tensor(np.random.default_rng(S.SEED).integers(
+        0, cfg.vocab_size, (S.MOE_BATCH, S.MOE_SEQ)), dtype=torch.int32,
+        device="cuda")
+    _, opt = S.phase_train_moe(torch, K, model, TrainStep, AdamW, batch,
+                               S._nvidia_smi())
+    S.phase_train_moe_profile(torch, model, opt, TrainStep, batch)
     return 0
 
 
