@@ -13,9 +13,10 @@ temporary directory, edits one kernel source there (the repository is
 never touched), and runs, in a child process on that copy, the checks
 of the fault's kind (the control runs every kind of the faults chosen):
 
-- flash: the flash kernel check of ``chip_smoke.py`` (``_flash_errors``)
-  at the training path's shape, q/k/v [4, 2048, 16, 128] bf16 causal,
-  and train parity (``train_parity_run``): three training steps of the
+- flash: the flash kernel check of ``chip_smoke.py`` (``_flash_errors``
+  with a bitwise repeat of the backward) at the training path's shape,
+  q/k/v [4, 2048, 16, 128] bf16 causal, and at ``FLASH_CASES`` (ragged,
+  sq != sk, BERT-Base's shape, scores far below 0), and train parity (``train_parity_run``): three training steps of the
   ``bench.py::_llama_flagship`` configuration through the kernels and
   inside ``plain_reference()``, from one state: the one the smoke's
   train phase leaves, 10 steps through the kernels on the fixed batch
@@ -82,6 +83,7 @@ import tempfile
 import numpy as np
 
 BWD, FWD = "flash_attention_bwd.cu", "flash_attention_fwd.cu"
+WGB = "flash_bwd_wgmma.cuh"
 ROUTE, GG = "moe_routing.cu", "moe_grouped_gemm.cu"
 PAGED = "paged_attention.cu"
 LN = "layer_norm.cu"
@@ -109,16 +111,71 @@ MUTANTS = {
         "dQ: the loop over k tiles stops one tile early (the diagonal "
         "tile, causal)",
         [(BWD, "for (int it = 0; jt < j_end; ++it) {",
-          "for (int it = 0; jt < j_end - 1; ++it) {")]),
+          "for (int it = 0; jt < j_end - 1; ++it) {")], "varlen"),
     "dkv_skips_first_q_tile": (
         "dK/dV: the loop over q tiles starts one tile past the diagonal",
         [(BWD, "const int i0 = first / BQ,",
-          "const int i0 = first / BQ + 1,")]),
+          "const int i0 = first / BQ + 1,")], "varlen"),
     "dkv_p_fp8": (
         "dK/dV: P rounded to fp8 e4m3 (not bf16) for dV += P^T dO",
         [(BWD, *FP8),
          (BWD, "          s[nt][i] = p;                                   // P^T",
-          "          s[nt][i] = float(__nv_fp8_e4m3(p));             // P^T")]),
+          "          s[nt][i] = float(__nv_fp8_e4m3(p));             // P^T")], "varlen"),
+    "bwd_stage_released_before_wait": (
+        "wgmma dQ and dK/dV: a stage goes back to the producer right after "
+        "the commit of the last wgmma group that reads it, before "
+        "wgmma.wait_group",
+        [(WGB, """      hop::wgmma_rs_chunk<1, NC>(acc, a, st, kAtom);  // dQ += dS K
+      hop::wg_commit();
+      hop::wg_wait<0>();
+    }
+    // release stage s: after the wg_wait<0> just above, which covers the
+    // S, dP and dQ += dS K groups, every group that read the stage
+    if (lane == 0) hop::mbar_arrive(hop::smem_u32(&empty[s]));""",
+          """      hop::wgmma_rs_chunk<1, NC>(acc, a, st, kAtom);  // dQ += dS K
+      hop::wg_commit();
+      if (lane == 0) hop::mbar_arrive(hop::smem_u32(&empty[s]));
+      hop::wg_wait<0>();
+    } else if (lane == 0) {
+      hop::mbar_arrive(hop::smem_u32(&empty[s]));
+    }"""),
+         (WGB, """      hop::wgmma_rs_chunk<1, NC>(dka, as, st, kAtom);        // dK += dS^T Q
+      hop::wg_commit();
+      hop::wg_wait<0>();
+    }
+    // release stage s: after the wg_wait<0> just above, which covers the
+    // S^T, dP^T, dV and dK groups, every group that read the stage (its
+    // lse and delta were read before them)
+    if (lane == 0) hop::mbar_arrive(hop::smem_u32(&empty[s]));""",
+          """      hop::wgmma_rs_chunk<1, NC>(dka, as, st, kAtom);        // dK += dS^T Q
+      hop::wg_commit();
+      if (lane == 0) hop::mbar_arrive(hop::smem_u32(&empty[s]));
+      hop::wg_wait<0>();
+    } else if (lane == 0) {
+      hop::mbar_arrive(hop::smem_u32(&empty[s]));
+    }""")]),
+    "dkv_diagonal_off_by_one": (
+        "wgmma dK/dV: the causal test of the diagonal tiles lets each "
+        "query see one key past its own (off + 1)",
+        [(WGB, """krow[i >> 1], sq,
+                                             sk, off, causal != 0);""",
+          """krow[i >> 1], sq,
+                                             sk, off + 1, causal != 0);""")]),
+    "dq_ds_without_delta": (
+        "wgmma dQ: dS = P dP scale, delta left out",
+        [(WGB, "sc[n][i] = sc[n][i] * (dp[n][i] - dlt[i >> 1]) * scale;",
+          "sc[n][i] = sc[n][i] * dp[n][i] * scale;")]),
+    "dq_b_transpose_flipped": (
+        "wgmma dQ: the transpose bit of B (K) in dQ += dS K flipped: K "
+        "read K-major from its MN-major tile",
+        [(WGB, "hop::wgmma_rs_chunk<1, NC>(acc, a, st, kAtom);  // dQ += dS K",
+          "hop::wgmma_rs_chunk<0, NC>(acc, a, st, kAtom);  // dQ += dS K")]),
+    "dq_ragged_keys_unmasked": (
+        "wgmma dQ: the tile past the last key is not tested, so its keys "
+        "(TMA's zeros) take P = exp(-lse)",
+        [(WGB, "const bool edge = (causal && k0 + 63 > r0 + off) || "
+               "k0 + 64 > sk;",
+          "const bool edge = causal && k0 + 63 > r0 + off;")]),
     "moe_scatter_keeps_one_copy": (
         "grouped forward: the scatter stores instead of adding, so a token "
         "row keeps one of its two experts' contributions",
@@ -302,9 +359,14 @@ def _flash_checks(torch, S, K, TrainStep, AdamW) -> tuple:
     gen = torch.Generator(device="cuda").manual_seed(S.SEED + 4)
     q, k, v, do = (torch.randn((b, s, h, d), generator=gen,
                                device="cuda").bfloat16() for _ in range(4))
-    flash = S._flash_errors(torch, F, q, k, v, do, d ** -0.5, True)
+    flash = S._flash_errors(torch, F, q, k, v, do, d ** -0.5, True,
+                            repeat=True)
     del q, k, v, do
     torch.cuda.empty_cache()
+    flash["cases"] = S.flash_case_errors(torch, F, gen)
+    flash["failures"] += [f"{list(c)}: {f}" for c, e in
+                          zip(S.FLASH_CASES, flash["cases"])
+                          for f in e["failures"]]
     cfg = S.flagship_config(LlamaConfig, S.TRAIN_SEQ)
     model = LlamaForCausalLM(cfg, device="cuda", seed=S.SEED)
     batch = torch.tensor(np.random.default_rng(S.SEED).integers(

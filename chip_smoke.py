@@ -11,7 +11,9 @@ Phases; any failure ends the run with a traceback and a non-zero exit:
 3. kernel vs plain — each kernel against its plain PyTorch version in
    bf16 at its path's shapes (RMSNorm and paged decode, fp and int8
    modes, at the serving shapes; flash forward, dQ and dK/dV at the
-   Llama training shape, plus ragged shapes; LayerNorm at the BERT
+   Llama training shape, plus ragged shapes, sq != sk, BERT-Base's shape
+   without a bias and scores far below 0 (``FLASH_CASES``), the backward
+   launched twice and bitwise equal; LayerNorm at the BERT
    training shape and a ragged one; the bias mode of the three flash
    kernels at the padded BERT shape with its key-padding mask, plus a
    dense [b, h, sq, sk] bias and a causal [sq, sk] one at a ragged
@@ -531,7 +533,8 @@ FLASH_ROW_RTOL, FLASH_ROW_ATOL, FLASH_FRO = 2 ** -7, 1e-3, 4e-3
 
 
 def _flash_errors(torch, F, q, k, v, do, scale, causal, bias=None,
-                  dropout_p=0.0, seed_arr=None, seg=None) -> dict:
+                  dropout_p=0.0, seed_arr=None, seg=None,
+                  repeat=False) -> dict:
     """Each flash kernel against its plain version on the same inputs
     (the backward kernels from the plain forward's lse and delta); with
     ``bias`` (fp32 ``[b|1, h|1, sq, sk]``) the kernels' bias mode, both
@@ -553,7 +556,8 @@ def _flash_errors(torch, F, q, k, v, do, scale, causal, bias=None,
     roundings and catches a systematic 1% error. lse (fp32 in both):
     1e-4 absolute — bf16 QK products are exact in fp32, only the order
     of the sums and exp2 vs exp differ. Rows that see no key must be
-    exact: out 0 and lse -1e30.
+    exact: out 0 and lse -1e30. With ``repeat`` the dQ and dK/dV kernels
+    run a second time and must give the same bits.
 
     Returns per output ``{"max_abs", "row", "fro"}`` (``row``: the worst
     row's error over its tolerance), ``lse`` and ``failures``, a list
@@ -567,10 +571,18 @@ def _flash_errors(torch, F, q, k, v, do, scale, causal, bias=None,
                                  *mode)
     got_dk, got_dv = F.flash_bwd_dkv_cuda(q, k, v, do, want_l, delta,
                                           scale, causal, *mode)
+    errs, failures = {}, []
+    if repeat:
+        again = (F.flash_bwd_dq_cuda(q, k, v, do, want_l, delta, scale,
+                                     causal, *mode),
+                 *F.flash_bwd_dkv_cuda(q, k, v, do, want_l, delta, scale,
+                                       causal, *mode))
+        if not all(torch.equal(a, b_) for a, b_ in
+                   zip(again, (got_dq, got_dk, got_dv))):
+            failures.append("a repeat of dQ or dK/dV differs")
     torch.cuda.synchronize()
     want_g = F.flash_block_grads_plain(q32, k32, v32, do32, want_l, delta,
                                        scale, causal, *mode)
-    errs, failures = {}, []
     for name, got, want in zip(("out", "dq", "dk", "dv"),
                                (got_o, got_dq, got_dk, got_dv),
                                (want_o,) + tuple(want_g)):
@@ -600,20 +612,60 @@ def _flash_errors(torch, F, q, k, v, do, scale, causal, bias=None,
     return errs
 
 
-def _flash_check(torch, F, *args, bias=None) -> dict:
-    errs = _flash_errors(torch, F, *args, bias=bias)
+def _flash_check(torch, F, *args, bias=None, repeat=False) -> dict:
+    errs = _flash_errors(torch, F, *args, bias=bias, repeat=repeat)
     if errs["failures"]:
         raise AssertionError(f"flash kernels differ from their plain "
                              f"versions: {errs}")
     return errs
 
 
+# The no-bias bf16 mode beside the training shape: (b, sq, sk, h, d,
+# causal, scores). A ragged length (s 1000: a 128-row block and a 64-key
+# tile past the end), causal with sq > sk (rows that see no key) and sq <
+# sk, BERT-Base's shape as train_bert runs it (non-causal, d 64), and a
+# ragged length where every 7th query scores far below 0 on every key
+# ("far": that query -32 in every element, the keys N(0, 1) + 1, so its
+# scaled scores lie near -256) and has a zero upstream gradient: a key
+# past the end, read as zeros, would take P = exp(0 - lse) = inf there
+# (and dS = inf * 0 = NaN) but for its mask. The zero gradient keeps
+# those rows' P and dS, rounded to bf16, out of the other rows' sums.
+FLASH_CASES = ((2, 1000, 1000, 4, 64, False, "random"),
+               (2, 1000, 700, 4, 64, True, "random"),
+               (2, 700, 1000, 4, 128, True, "random"),
+               (32, 512, 512, 12, 64, False, "random"),
+               (2, 1000, 1000, 4, 64, False, "far"))
+
+
+def flash_case_errors(torch, F, gen) -> list:
+    """``_flash_errors`` (with a bitwise repeat of the backward) on each
+    of ``FLASH_CASES``, inputs from ``gen``."""
+    out = []
+    for b, sq, sk, h, d, causal, scores in FLASH_CASES:
+        q, k, v, do = (torch.randn(shape, generator=gen, device="cuda")
+                       for shape in ((b, sq, h, d), (b, sk, h, d),
+                                     (b, sk, h, d), (b, sq, h, d)))
+        if scores == "far":
+            q[:, ::7] = -32.0
+            k += 1.0
+            do[:, ::7] = 0.0
+        q, k, v, do = (x.bfloat16() for x in (q, k, v, do))
+        out.append(_flash_errors(torch, F, q, k, v, do, d ** -0.5, causal,
+                                 repeat=True))
+        del q, k, v, do
+        torch.cuda.empty_cache()
+    return out
+
+
 def phase_flash(torch, F, shape=(4, 2048, 16, 128)) -> dict:
     """Flash forward, dQ and dK/dV at the training path's shape: q/k/v
     [4, 2048, 16, 128] bf16, causal (each of the 8 layers' attention),
-    then three ragged shapes (s 1000 non-causal at d 64; causal with
-    sq != sk both ways, off = -300 leaving rows that see no key, and
-    off = +300). Times at the path's shape: the kernel, its plain version
+    then ``FLASH_CASES`` (s 1000 non-causal at d 64; causal with sq != sk
+    both ways, off = -300 leaving rows that see no key, and off = +300;
+    BERT-Base's [32, 512, 12, 64] non-causal; s 1000 with every 7th
+    query far below 0), each backward launched twice and bitwise equal.
+    Times at
+    the path's shape: the kernel, its plain version
     (the backward's plain version computes dq, dk and dv together, so
     dQ and dK/dV report the same plain time), and as a yardstick only
     PyTorch's ``scaled_dot_product_attention(is_causal=True)`` forward
@@ -637,21 +689,20 @@ def phase_flash(torch, F, shape=(4, 2048, 16, 128)) -> dict:
         og = torch.nn.functional.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True)
         lib_bwd.append((og, qt, kt, vt, do.transpose(1, 2)))
-    errs = [_flash_check(torch, F, *sets[0][:4], scale, True)]
+    errs = [_flash_check(torch, F, *sets[0][:4], scale, True, repeat=True)]
     torch.cuda.empty_cache()
     with torch.no_grad():
         lib_out = torch.nn.functional.scaled_dot_product_attention(
             *lib_fwd[0], is_causal=True).transpose(1, 2)
     lib_err = (lib_out.float() - F.flash_fwd_plain(
         *sets[0][:3], scale, True)[0].float()).abs().max().item()
-    ragged = [(2, 1000, 1000, 4, 64, False), (2, 1000, 700, 4, 64, True),
-              (2, 700, 1000, 4, 128, True)]
-    for rb, rsq, rsk, rh, rd, rc in ragged:
-        errs.append(_flash_check(
-            torch, F, rand(rb, rsq, rh, rd), rand(rb, rsk, rh, rd),
-            rand(rb, rsk, rh, rd), rand(rb, rsq, rh, rd), rd ** -0.5, rc))
-    _emit("flash_ragged", [{"shape": list(r), "errors": e}
-                           for r, e in zip(ragged, errs[1:])])
+    errs += flash_case_errors(torch, F, gen)
+    _emit("flash_cases", [{"case": list(c), "errors": e}
+                          for c, e in zip(FLASH_CASES, errs[1:])])
+    failed = [e["failures"] for e in errs[1:] if e["failures"]]
+    if failed:
+        raise AssertionError(f"flash kernels differ from their plain "
+                             f"versions: {failed}")
 
     def sdpa_fwd(qt, kt, vt):
         with torch.no_grad():
@@ -3761,8 +3812,8 @@ def main(argv=None) -> int:
     ]
     for name, source, line in (
             ("flash_fwd", "flash_attention_fwd.cu", 242),
-            ("flash_dq", "flash_attention_bwd.cu", 558),
-            ("flash_dkv", "flash_attention_bwd.cu", 590)):
+            ("flash_dq", "flash_bwd_wgmma.cuh", 558),
+            ("flash_dkv", "flash_bwd_wgmma.cuh", 590)):
         row = flash[name]
         kernels.append({
             "name": name, "route": "cuda", "source": src + source,

@@ -14,6 +14,10 @@
 // ~0.2 GB of inputs and outputs (~60 us at 3.35 TB/s). fp32 products run
 // at 3xTF32's fp32-accurate 494.7 / 3 TFLOP/s at best.
 //
+// The plain bf16 mode (no bias, no dropout, no segment ids) runs the
+// wgmma / TMA kernels of flash_bwd_wgmma.cuh: launch_dq and launch_dkv
+// route it there. The design below is that of every other mode.
+//
 // Design. As in the JAX package, two kernels, each with one accumulator
 // that a block owns, so neither needs atomics and both are deterministic
 // run to run. The TPU kernels carry their accumulators across a sequential
@@ -84,6 +88,7 @@
 // never synchronise.
 
 #include "flash_common.cuh"
+#include "flash_bwd_wgmma.cuh"
 
 namespace {
 
@@ -562,12 +567,20 @@ int launch_dq(const void* q, const void* k, const void* v, const void* o,
               const void* seed, const void* const* seg, int b, int h, int sq,
               int sk, const int64_t* st, float scale, int causal,
               uint32_t thresh, float inv_keep, cudaStream_t stream) {
+  if constexpr (std::is_same<T, bf16>::value) {   // the plain bf16 mode
+    if (!bias && !seed && !seg[0])
+      return flash_wg::dq_launch<D>(q, k, v, o, lse, delta, dq, b, h, sq, sk,
+                                    st, scale, causal, stream);
+  }
   const size_t smem = sizeof(T) * (2 * kBQ + 4 * kBK) * Pitch<T, D>::LD;
+  decltype(&flash_bwd_dq_kernel<T, D, false, true, false>) plain = nullptr;
+  if constexpr (std::is_same<T, float>::value)
+    plain = flash_bwd_dq_kernel<T, D, false, false, false>;
   auto kern = seg[0] ? flash_bwd_dq_kernel<T, D, false, false, true>
               : bias ? (seed ? flash_bwd_dq_kernel<T, D, true, true, false>
                              : flash_bwd_dq_kernel<T, D, true, false, false>)
                      : (seed ? flash_bwd_dq_kernel<T, D, false, true, false>
-                             : flash_bwd_dq_kernel<T, D, false, false, false>);
+                             : plain);
   cudaError_t err = allow_smem(kern, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((sq + kBQ - 1) / kBQ, b * h);
@@ -591,15 +604,23 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* o,
                int b, int h, int sq, int sk, const int64_t* st, float scale,
                int causal, uint32_t thresh, float inv_keep,
                cudaStream_t stream) {
+  if constexpr (std::is_same<T, bf16>::value) {   // the plain bf16 mode
+    if (!bias && !seed && !seg[0])
+      return flash_wg::dkv_launch<D>(q, k, v, o, lse, delta, dk, dv, b, h, sq,
+                                     sk, st, scale, causal, stream);
+  }
   constexpr int BQ = DkvTile<D>::BQ;
   const size_t smem = sizeof(T) * (4 * BQ + 2 * kBK) * Pitch<T, D>::LD
                       + sizeof(float) * 4 * BQ;
+  decltype(&flash_bwd_dkv_kernel<T, D, BQ, false, true, false>) plain = nullptr;
+  if constexpr (std::is_same<T, float>::value)
+    plain = flash_bwd_dkv_kernel<T, D, BQ, false, false, false>;
   auto kern =
       seg[0] ? flash_bwd_dkv_kernel<T, D, BQ, false, false, true>
       : bias ? (seed ? flash_bwd_dkv_kernel<T, D, BQ, true, true, false>
                      : flash_bwd_dkv_kernel<T, D, BQ, true, false, false>)
              : (seed ? flash_bwd_dkv_kernel<T, D, BQ, false, true, false>
-                     : flash_bwd_dkv_kernel<T, D, BQ, false, false, false>);
+                     : plain);
   cudaError_t err = allow_smem(kern, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((sk + kBK - 1) / kBK, b * h);

@@ -21,6 +21,14 @@
 // wgmma.m64n64k16's fp32 accumulator: thread (warp w of its warpgroup, lane
 // l) holds d[n][i] at row 16 w + l / 4 + 8 (i / 2) and column 8 n + 2 (l % 4)
 // + (i % 2), the layout of mma.m16n8k16's C tiles.
+// An A operand from registers (the RS form, wgmma64_rs): a 64 x 16 bf16
+// tile, warp w holding rows 16 w.. as mma.m16n8k16's A fragment: a[0] =
+// (row l / 4, columns 2 (l % 4) + {0, 1}), a[1] the same 8 rows down, a[2]
+// and a[3] the same 8 columns right. So accumulator columns 16 kk.. of
+// one product are the A operand of k-step kk of the next, with no trip
+// through shared memory (acc_to_a).
+// Wider outputs (d 128 in the flash backward) are n64 pairs: one
+// accumulator and one MN-major B atom a 64-column half.
 //
 // Shared memory that threads write (st.shared, cp.async) is read by wgmma
 // and TMA through the async proxy, so a proxy fence (fence.proxy.async)
@@ -33,6 +41,7 @@
 #pragma once
 
 #include <cuda.h>          // CUtensorMap and its enums (types only)
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -89,6 +98,21 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   }
 }
 
+// Move registers between warpgroups (PTX setmaxnreg, sm_90a): every warp
+// of a warpgroup runs the same one. A producer that only issues TMA loads
+// gives its registers back (dec) and the consumers take them (inc, which
+// waits until the block's pool holds them). N is a multiple of 8 in [24,
+// 256]; the kernel's launch bounds set the count every thread starts at.
+template <int N>
+__device__ __forceinline__ void reg_dealloc() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(N));
+}
+
+template <int N>
+__device__ __forceinline__ void reg_alloc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(N));
+}
+
 // box of a 3-D tensor map at element coordinates (c0 innermost) into shared
 // memory at dst; completion counted in bytes on barrier bar
 __device__ __forceinline__ void tma_load3(uint32_t dst, const CUtensorMap* map,
@@ -99,6 +123,18 @@ __device__ __forceinline__ void tma_load3(uint32_t dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n"
       :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0),
          "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// the same for a 4-D tensor map
+__device__ __forceinline__ void tma_load4(uint32_t dst, const CUtensorMap* map,
+                                          uint32_t bar, int c0, int c1, int c2,
+                                          int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0),
+         "r"(c1), "r"(c2), "r"(c3)
       : "memory");
 }
 
@@ -196,6 +232,65 @@ __device__ __forceinline__ void wgmma_chunk(float (&d)[8][4], uint32_t a,
     wgmma64<TA, TB>(d, desc(a + ks * sa), desc(b + ks * sb));
 }
 
+// d[64 x 64] += A[64 x 16] B[16 x 64], A from registers (the RS form: the
+// A fragment above, bf16 pairs), B from shared memory by descriptor; TB: B
+// MN-major (1) or K-major (0). The registers of a must keep their values
+// until a wgmma.wait_group covers this product.
+template <int TB>
+__device__ __forceinline__ void wgmma64_rs(float (&d)[8][4],
+                                           const uint32_t (&a)[4],
+                                           uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1),
+        "n"(TB));
+}
+
+// A 64 x 64 fp32 accumulator as the bf16 A operand of the next product's
+// four k-steps (a[kk]: its columns 16 kk..16 kk + 15), rounded to nearest
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);   // .x = lo (low half)
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4][4],
+                                         const float (&d)[8][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    a[kk][0] = pack2(d[2 * kk][0], d[2 * kk][1]);
+    a[kk][1] = pack2(d[2 * kk][2], d[2 * kk][3]);
+    a[kk][2] = pack2(d[2 * kk + 1][0], d[2 * kk + 1][1]);
+    a[kk][3] = pack2(d[2 * kk + 1][2], d[2 * kk + 1][3]);
+  }
+}
+
+// d (NH 64-column halves) += A[64 x 64] B[64 x 64 NH], A from registers
+// (acc_to_a), B NH atoms `atom` bytes apart, each 64 rows of K running
+// along N: MN-major (TB 1), so the k-step of 16 moves each start by 16
+// rows, 2048 bytes
+template <int TB, int NH>
+__device__ __forceinline__ void wgmma_rs_chunk(float (&d)[NH][8][4],
+                                               const uint32_t (&a)[4][4],
+                                               uint32_t b, uint32_t atom) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int h = 0; h < NH; ++h)
+      wgmma64_rs<TB>(d[h], a[kk], desc(b + h * atom + kk * 2048));
+}
+
 // ---- host side ----
 
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
@@ -231,6 +326,33 @@ inline bool bf16_map3(CUtensorMap* m, const void* base, uint64_t n0,
   const cuuint32_t box[3] = {64, b1, 1};
   const cuuint32_t estr[3] = {1, 1, 1};
   return enc(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
+             dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A strided bf16 tensor of dims n[0..3] (n[0] contiguous) with the element
+// strides st[0..2] of dims 1-3 (a [b, s, h, d] view: n = {d, s, h, b}, st
+// = {s, h, b} strides), read in boxes of 64 x b1 x 1 x 1 elements,
+// 128B-swizzled; out-of-bounds elements read as zeros. TMA takes strides
+// that are positive multiples of 16 bytes and a 16-byte aligned base; a
+// dimension of size 1 is never stepped, so a stride of 0 there becomes the
+// packed one. A broadcast dimension (stride 0, size > 1) is refused.
+inline bool bf16_map4(CUtensorMap* m, const void* base, const uint64_t (&n)[4],
+                      const int64_t (&st)[3], uint32_t b1) {
+  const EncodeTiled enc = encoder();
+  if (!enc || reinterpret_cast<uintptr_t>(base) % 16) return false;
+  const cuuint64_t dims[4] = {n[0], n[1], n[2], n[3]};
+  cuuint64_t strides[3], packed = n[0] * 2;
+  for (int i = 0; i < 3; ++i) {
+    if (st[i] < 0 || (st[i] == 0 && n[i + 1] != 1) || (st[i] * 2) % 16)
+      return false;
+    strides[i] = st[i] ? (cuuint64_t)st[i] * 2 : packed;
+    packed *= n[i + 1];
+  }
+  const cuuint32_t box[4] = {64, b1, 1, 1};
+  const cuuint32_t estr[4] = {1, 1, 1, 1};
+  return enc(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
              dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
              CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;

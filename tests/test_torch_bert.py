@@ -70,6 +70,7 @@ from paddle_tpu_torch.models import (BertConfig, BertForPreTraining,
                                      export_numpy_state, load_numpy_state)
 from paddle_tpu_torch.ops.kernels import launch_counts
 from paddle_tpu_torch.optimizer import AdamW
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 TINY = dict(vocab_size=512, hidden_size=128, num_hidden_layers=2,
             num_attention_heads=2, intermediate_size=256,

@@ -25,7 +25,8 @@ Tolerances, each with its reason:
   operands where the plain versions keep fp32. A row-wise bound, not
   one from the whole output's largest value: in causal attention the
   first rows are far larger than the rest. lse 1e-4 absolute (exact
-  bf16 products, sums in another order).
+  bf16 products, sums in another order). The backward has no atomics,
+  so two launches on the same inputs are bitwise equal.
 - int8 paged attention (int8 codes with fp32 row scales), against the
   plain version on the same pools: fp32 q 2e-5 absolute (the core's
   arithmetic: K and V dequantized per element in fp32, q and the
@@ -74,6 +75,7 @@ from paddle_tpu_torch.quantization import (Int8ServingLinear, kv_quantize,
                                            quantize_for_serving,
                                            quantize_weight)
 from paddle_tpu_torch.serving import ServingEngine
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.cuda
 
@@ -255,6 +257,40 @@ def test_flash_kernels_match_plain(cuda, b, sq, sk, h, d, causal):
     assert (out.transpose(1, 2)[dead] == 0).all()
     live_err = (lse - want_l)[~dead].abs().max().item()
     assert live_err <= 1e-4, live_err
+
+
+@pytest.mark.parametrize("d,causal,scores", [
+    (64, True, "random"), (128, False, "random"), (64, False, "far"),
+    (128, True, "far")])
+def test_flash_backward_plain_mode_views_and_repeats(cuda, d, causal,
+                                                     scores):
+    """The plain bf16 backward (the wgmma kernels) on q, k, v, dO as views
+    of one [b, s, 4, h, d] tensor at a ragged length: against the plain
+    versions, and two launches bitwise equal. ``far``: every 7th query
+    scores far below 0 on every key and has a zero upstream gradient
+    (``chip_smoke.FLASH_CASES``), so a key past the end (TMA's zeros)
+    would take P = inf there but for its mask."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn((2, 333, 4, 3, d), generator=g, device=cuda)
+    if scores == "far":
+        x[:, ::7, 0] = -32.0
+        x[:, :, 1] += 1.0
+        x[:, ::7, 3] = 0.0
+    q, k, v, do = x.bfloat16().unbind(2)
+    assert not q.is_contiguous()
+    scale = d ** -0.5
+    q32, k32, v32, do32 = (t.float() for t in (q, k, v, do))
+    want_o, want_l = FA.flash_fwd_plain(q32, k32, v32, scale, causal)
+    delta = FA.flash_delta(do, want_o.bfloat16())
+    runs = [(FA.flash_bwd_dq_cuda(q, k, v, do, want_l, delta, scale, causal),
+             *FA.flash_bwd_dkv_cuda(q, k, v, do, want_l, delta, scale,
+                                    causal)) for _ in range(2)]
+    torch.cuda.synchronize()
+    want_g = FA.flash_block_grads_plain(q32, k32, v32, do32, want_l, delta,
+                                        scale, causal)
+    for got, again, want in zip(*runs, want_g):
+        assert torch.equal(got, again)
+        _assert_flash_close(got, want)
 
 
 def test_flash_kernels_take_strided_views(cuda):

@@ -31,6 +31,7 @@ import paddle_tpu.nn.functional as JF
 from paddle_tpu_torch.nn import Dropout
 from paddle_tpu_torch.nn import functional as F
 from paddle_tpu_torch.nn.functional.attention import _plain_attention
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 MODES = ("upscale_in_train", "downscale_in_infer")
 

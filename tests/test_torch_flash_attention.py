@@ -63,6 +63,7 @@ from paddle_tpu_torch.ops.kernels import (flash_bwd_dkv_cuda,
                                           flash_fwd_cuda, launch_counts)
 from paddle_tpu_torch.ops.kernels import flash_attention as T
 from paddle_tpu_torch.ops.kernels.philox import keep_mask
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}

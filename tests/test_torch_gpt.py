@@ -48,6 +48,7 @@ from paddle_tpu_torch.models import (GPTConfig, GPTForCausalLM,
 from paddle_tpu_torch.ops.kernels import flash_attention as T
 from paddle_tpu_torch.ops.kernels import launch_counts
 from paddle_tpu_torch.optimizer import AdamW
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 TINY = dict(vocab_size=512, hidden_size=64, num_hidden_layers=2,
             num_attention_heads=4, intermediate_size=256,

@@ -16,6 +16,7 @@ import sys
 import torch
 
 import pytest
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PKG = REPO / "paddle_tpu_torch"

@@ -14,6 +14,7 @@ import torch
 
 from paddle_tpu.serving.kv_cache import KVCachePool as JaxPool
 from paddle_tpu_torch.serving import KVCachePool, PoolExhaustedError
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 L, P, PS, KVH, D = 2, 9, 4, 2, 8
 

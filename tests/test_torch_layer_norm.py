@@ -36,6 +36,7 @@ from paddle_tpu_torch.nn import LayerNorm
 from paddle_tpu_torch.nn.functional import layer_norm
 from paddle_tpu_torch.ops.kernels import (launch_counts, layer_norm_cuda,
                                           layer_norm_plain)
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}

@@ -25,6 +25,7 @@ from paddle_tpu.models.llama import llama_tiny as jax_tiny
 from paddle_tpu.nn.module import functional_call
 from paddle_tpu_torch.models import (LlamaForCausalLM, llama_tiny,
                                      load_numpy_state)
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 
 def _pair(tie=False):

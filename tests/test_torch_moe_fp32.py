@@ -23,6 +23,7 @@ from paddle_tpu_torch.distributed.moe import TopKGate
 from paddle_tpu_torch.models import Qwen2MoeConfig
 from paddle_tpu_torch.nn import functional as F
 from paddle_tpu_torch.ops.kernels import moe_grouped_gemm as gg
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 

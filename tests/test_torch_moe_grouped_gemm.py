@@ -33,6 +33,7 @@ from paddle_tpu_torch.distributed import moe
 from paddle_tpu_torch.nn import functional as F
 from paddle_tpu_torch.ops.kernels import launch_counts
 from paddle_tpu_torch.ops.kernels import moe_grouped_gemm as gg
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}

@@ -27,6 +27,7 @@ from paddle_tpu_torch.distributed.moe import _top2_parts
 from paddle_tpu_torch.ops.kernels import launch_counts
 from paddle_tpu_torch.ops.kernels.moe_routing import (
     fused_routing_applicable, moe_routing_cuda, routing_plain)
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 NAMES = ("g1_idx", "g2_idx", "w1", "w2", "keep1", "keep2f", "p1", "p2",
          "aux")

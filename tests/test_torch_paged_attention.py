@@ -31,6 +31,7 @@ from paddle_tpu.ops.pallas.paged_attention import paged_attention_tpu
 from paddle_tpu_torch.nn.functional import (cached_prefill_attention,
                                              paged_attention_decode)
 from paddle_tpu_torch.ops.kernels import launch_counts, paged_attention_plain
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}

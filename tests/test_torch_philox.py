@@ -19,6 +19,7 @@ import torch
 
 from paddle_tpu_torch.ops.kernels.philox import (drop_threshold, keep_mask,
                                                  philox4x32)
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 M = 0xFFFFFFFF
 KAT = [  # (counter, key, output) of Random123's kat_vectors, philox4x32 10

@@ -61,6 +61,7 @@ from paddle_tpu_torch.models import (Qwen2MoeConfig, Qwen2MoeForCausalLM,
                                      export_numpy_state, load_numpy_state)
 from paddle_tpu_torch.ops.kernels import launch_counts
 from paddle_tpu_torch.optimizer import AdamW
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 B, S, STEPS, LR, EPS = 2, 512, 3, 1e-3, 1e-5
 MARGIN = 1e-6

@@ -19,6 +19,7 @@ from paddle_tpu.ops.pallas.fused_norm import fused_rms_norm
 from paddle_tpu_torch.nn import RMSNorm
 from paddle_tpu_torch.nn.functional import rms_norm
 from paddle_tpu_torch.ops.kernels import launch_counts
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}

@@ -32,6 +32,7 @@ from paddle_tpu.serving import ServingEngine as JaxEngine
 from paddle_tpu_torch.models import (LlamaForCausalLM, llama_tiny,
                                      load_numpy_state)
 from paddle_tpu_torch.serving import SamplingParams, ServingEngine
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 ENGINE = dict(num_pages=14, page_size=4, max_slots=3, prefill_chunk=5,
               max_pages_per_slot=12)

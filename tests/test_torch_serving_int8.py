@@ -54,6 +54,7 @@ from paddle_tpu_torch.serving import KVCachePool, ServingEngine
 from paddle_tpu_torch.serving import kv_cache as port_kv_cache
 from test_torch_paged_attention import _inputs
 from test_torch_serving import ENGINE, POISON_ENGINE, _drive
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 
 def _np(a):

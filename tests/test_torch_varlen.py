@@ -46,6 +46,7 @@ from paddle_tpu_torch.io import native_loader as TL
 from paddle_tpu_torch.nn.functional import flash_attn_unpadded
 from paddle_tpu_torch.ops.kernels import flash_attention as T
 from paddle_tpu_torch.ops.kernels import launch_counts
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}

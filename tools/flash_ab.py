@@ -3,21 +3,27 @@
 that two trees (a parent commit unpacked with ``git archive`` and the
 working tree) can be compared on one card in one call, in turns.
 
-    python3 tools/flash_ab.py [--tree PATH]
+    python3 tools/flash_ab.py [--tree PATH] [--train]
 
 ``--tree`` is the root of a checkout holding ``paddle_tpu_torch`` (default:
 this repository); its kernels are built into that tree's own
 ``build/kernels``. Modes and shapes: bf16 causal at the Llama training
-shape [4, 2048, 16, 128]; fp32 causal at GPT-2 small's [8, 1024, 12, 64];
-bf16 and fp32 with a key-padding bias (seeded lengths 128-512) at
-BERT-Base's [32, 512, 12, 64] non-causal; the dropout mode (p 0.1, one
+shape [4, 2048, 16, 128]; bf16 non-causal without a bias at BERT-Base's
+[32, 512, 12, 64] (``train_bert``'s path); fp32 causal at GPT-2 small's
+[8, 1024, 12, 64]; bf16 and fp32 with a key-padding bias (seeded lengths
+128-512) at BERT-Base's shape non-causal; the dropout mode (p 0.1, one
 key) in bf16 and fp32 at GPT-2's shape, and in bf16 with the bias at
-BERT's; the fp32 segment mode on ``bench.py::bench_llama``'s first
-packed host step ([1, 8760, 12, 64] causal, 8 documents). Each kernel's
-time is the mean of 100 launches between CUDA events, cycling three
-input sets (past the 50 MB L2), after 10 warm-up launches. Prints one JSON line: the tree, the card, the times in ms,
-and, when this run built the kernels, ``ptxas``'s registers and spills
-per instantiation.
+BERT's; the segment mode on ``bench.py::bench_llama``'s first packed
+host step, bf16 [1, 8760, 16, 128] and fp32 [1, 8760, 12, 64] causal, 8
+documents. Each kernel's time is the mean of 100 launches between CUDA
+events, cycling three input sets (past the 50 MB L2), after 10 warm-up
+launches. ``--train`` then runs ``chip_smoke.py``'s Llama ``train`` phase
+(``bench.py::_llama_flagship``, 10 steps) and one profiled step
+(``train_profile``: device time by category, idle share) on that tree's
+package, with this repository's ``chip_smoke.py`` as the harness. Prints
+one JSON line: the tree, the card, the times in ms, the train step's
+figures, and, when this run built the kernels, ``ptxas``'s registers and
+spills per instantiation.
 """
 
 import argparse
@@ -51,6 +57,7 @@ def _ms(fn, sets, iters=100, warmup=10):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", default=HERE)
+    ap.add_argument("--train", action="store_true")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("flash_ab: no CUDA device", file=sys.stderr)
@@ -77,6 +84,8 @@ def main(argv=None) -> int:
     for name, (b, s, h, d), dtype, causal, keypad, p in (
             ("bf16_llama", (4, 2048, 16, 128), torch.bfloat16, True, False,
              0.0),
+            ("bf16_bert", (32, 512, 12, 64), torch.bfloat16, False, False,
+             0.0),
             ("fp32_gpt2", (8, 1024, 12, 64), torch.float32, True, False,
              0.0),
             ("bf16_bert_bias", (32, 512, 12, 64), torch.bfloat16, False,
@@ -89,6 +98,8 @@ def main(argv=None) -> int:
              False, 0.1),
             ("bf16_bert_bias_drop", (32, 512, 12, 64), torch.bfloat16,
              False, True, 0.1),
+            ("bf16_varlen_seg", (1, len(ids), 16, 128), torch.bfloat16,
+             True, False, 0.0),
             ("fp32_varlen_seg", (1, len(ids), 12, 64), torch.float32, True,
              False, 0.0)):
         seg = F.seg_ids(ids, ids, "cuda") if name.endswith("seg") else None
@@ -121,9 +132,39 @@ def main(argv=None) -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
+    train = _train(smi) if args.train else None
     print(json.dumps({"tree": args.tree, "device": smi, "ms": times,
-                      "ptxas": report}), flush=True)
+                      "train": train, "ptxas": report}), flush=True)
     return 0
+
+
+def _train(smi) -> dict:
+    """The Llama train phase and one profiled step on the package that
+    ``main`` imported (the tree's), with this repository's harness."""
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.ops import kernels as K
+    from paddle_tpu_torch.ops.kernels import build
+    from paddle_tpu_torch.optimizer import AdamW
+    build.build_all(["rms_norm"])
+    spec = importlib.util.spec_from_file_location(
+        "repo_smoke", os.path.join(HERE, "chip_smoke.py"))
+    S = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(S)
+    cfg = S.flagship_config(LlamaConfig, S.TRAIN_SEQ)
+    model = LlamaForCausalLM(cfg, device="cuda", seed=S.SEED)
+    batch = torch.tensor(np.random.default_rng(S.SEED).integers(
+        0, cfg.vocab_size, (S.TRAIN_BATCH, S.TRAIN_SEQ)), dtype=torch.int32,
+        device="cuda")
+    train, opt = S.phase_train(torch, K, model, TrainStep, AdamW, batch, smi)
+    prof = S.phase_train_profile(torch, model, opt, TrainStep, batch)
+    del model, opt
+    torch.cuda.empty_cache()
+    return {"step_ms": train["step_ms"],
+            "median_step_ms": train["median_step_ms"], "mfu": train["mfu"],
+            "profile": {k: prof[k] for k in ("wall_ms", "device_ms",
+                                             "idle_share",
+                                             "device_ms_by_category")}}
 
 
 if __name__ == "__main__":
