@@ -9,7 +9,7 @@ drawn from the seed, and a padded 32 x 512 pretraining batch as
 ``train_bert_padded`` builds it (ids, labels and token-type splits drawn
 from the seed). One step's gradients through the plain versions in bf16
 are held against those of an fp32 copy of the same weights
-(``bert_fp32_grads``): per parameter, the relative L2 distance
+(``fp32_grads``): per parameter, the relative L2 distance
 (``bf16_noise``). Prints, per seed, the readings of each layer's
 attention projections, the parameters above half of
 ``BERT_PARITY``'s gradient limit (those ``train_parity_run`` holds to
@@ -46,8 +46,8 @@ def main(argv=None) -> int:
         model = BertForPreTraining(cfg, device="cuda", seed=seed)
         batch, n_inputs = S.bert_batch(torch, np, cfg, padded=True,
                                        seed=seed)
-        ref = S.bert_fp32_grads(torch, K, model, BertForPreTraining, batch,
-                                n_inputs)
+        ref = S.fp32_grads(torch, K, model, BertForPreTraining, batch,
+                           n_inputs, S._bert_loss)
         with K.plain_reference():
             out = model(*batch[:n_inputs])
             S._bert_loss(model)(out, *batch[n_inputs:]).backward()

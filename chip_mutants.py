@@ -35,9 +35,10 @@ of the fault's kind (the control runs every kind of the faults chosen):
   int8 weights, cut to ``INT8_LAYERS`` layers;
 - bert: the LayerNorm kernel check (``layer_norm_errors``) at the BERT
   training shape [16384, 768] bf16 with a random weight and bias, the
-  flash kernel check in the bias mode (``_flash_errors(bias=)``) with
-  ``train_bert_padded``'s key-padding mask at [32, 512, 12, 64] and with
-  a dense random [4, 8, 512, 512] bias, and BERT train parity
+  flash kernel check in the bias mode (``_flash_errors(bias=)``, the
+  backward repeated bitwise) with ``train_bert_padded``'s key-padding
+  mask at [32, 512, 12, 64] and with a dense random [4, 8, 512, 512]
+  bias, and BERT train parity
   (``bert_parity_run``: ``BERT_PARITY`` and the fp32 reference for the
   gradients bf16 cannot resolve) after 10 padded steps
   of ``bench_bert``'s configuration, as ``train_bert_padded`` leaves it;
@@ -47,10 +48,13 @@ of the fault's kind (the control runs every kind of the faults chosen):
   (``one_key_checks``), and ``entry()``'s fp32 train parity
   (``phase_entry_fp32``'s three steps at ``FP32_PARITY``);
 - dropout: the dropout kernel check at p 0.1 (``flash_fp32_errors`` at
-  GPT-2's shape in fp32, ``_flash_errors`` at the padded BERT shape in
-  bf16 with its key-padding mask, both given one key) and the GPT-2 train
-  parity of ``phase_train_gpt2_parity`` (fp32, dropout 0.1, the masks
-  drawn from one generator state) after 10 steps of ``train_gpt2``;
+  GPT-2's shape in fp32, ``_flash_errors`` with a bitwise repeat of the
+  backward at GPT-2's shape causal and at the padded BERT shape with its
+  key-padding mask in bf16, all given one key) and the bf16 dropout train
+  parity (``dropout_bf16_parity_run`` at ``DROP_BF16_PARITY``, the masks
+  drawn from one generator state) of both ``dropout_bf16_arms``, GPT-2
+  small and BERT-Base in bf16 at dropout 0.1, each after
+  ``DROP_BF16_STEPS`` steps;
 - moe_fp32: the fp32 grouped-GEMM kernel check (``moe_fp32_errors``:
   against fp64, within 2x the plain fp32 version's error plus the floor)
   at the fp32 slice's shapes (T 8192, E 16, D 1024, H 512), and the fp32
@@ -88,6 +92,7 @@ ROUTE, GG = "moe_routing.cu", "moe_grouped_gemm.cu"
 PAGED = "paged_attention.cu"
 LN = "layer_norm.cu"
 COMMON = "flash_common.cuh"
+PHILOX = "philox.cuh"
 HOP = "hopper.cuh"
 INT8_LAYERS = 4
 FP8 = ('#include "flash_common.cuh"',
@@ -163,8 +168,8 @@ MUTANTS = {
                                              sk, off + 1, causal != 0);""")]),
     "dq_ds_without_delta": (
         "wgmma dQ: dS = P dP scale, delta left out",
-        [(WGB, "sc[n][i] = sc[n][i] * (dp[n][i] - dlt[i >> 1]) * scale;",
-          "sc[n][i] = sc[n][i] * dp[n][i] * scale;")]),
+        [(WGB, "sc[n][i] = sc[n][i] * (dpk - dlt[i >> 1]) * scale;",
+          "sc[n][i] = sc[n][i] * dpk * scale;")]),
     "dq_b_transpose_flipped": (
         "wgmma dQ: the transpose bit of B (K) in dQ += dS K flipped: K "
         "read K-major from its MN-major tile",
@@ -243,11 +248,52 @@ MUTANTS = {
         "query row 0",
         [(FWD, "(int64_t)row[r] * b_sq;", "(int64_t)0 * b_sq;")], "bert"),
     "dkv_ignores_bias": (
-        "flash dK/dV, bias mode: P recomputed without the bias, while the "
+        "wgmma dK/dV, bias mode: P^T recomputed without the bias, while the "
         "forward and dQ apply it",
-        [(BWD, "__ldg(bkey[i >> 1] + (int64_t)(qs0 + c) * b_sq)\n"
-               "                                   * kLog2e", "0.f")],
+        [(WGB, "if constexpr (HAS_BIAS) lbt = fmaf(bt[n][i], flash::kLog2e, "
+               "lbt);", "")],
         "bert"),
+    "dq_bias_row0": (
+        "wgmma dQ, bias mode: every query row reads the bias of query row 0 "
+        "(invisible to a key-padding bias, constant over queries)",
+        [(WGB, "+ (int64_t)min(row[r], sq - 1) * md.b_sq",
+          "+ (int64_t)0 * md.b_sq")],
+        "bert"),
+    "bias_stage_released_before_wait": (
+        "wgmma dQ and dK/dV, bias mode only: a stage goes back to the "
+        "producer right after the commit of the last wgmma group that reads "
+        "it, before wgmma.wait_group",
+        [(WGB, """      hop::wgmma_rs_chunk<1, NC>(acc, a, st, kAtom);  // dQ += dS K
+      hop::wg_commit();
+      hop::wg_wait<0>();
+    }
+    // release stage s: after the wg_wait<0> just above, which covers the
+    // S, dP and dQ += dS K groups, every group that read the stage
+    if (lane == 0) hop::mbar_arrive(hop::smem_u32(&empty[s]));""",
+          """      hop::wgmma_rs_chunk<1, NC>(acc, a, st, kAtom);  // dQ += dS K
+      hop::wg_commit();
+      if (HAS_BIAS && lane == 0) hop::mbar_arrive(hop::smem_u32(&empty[s]));
+      hop::wg_wait<0>();
+      if (!HAS_BIAS && lane == 0) hop::mbar_arrive(hop::smem_u32(&empty[s]));
+    } else if (lane == 0) {
+      hop::mbar_arrive(hop::smem_u32(&empty[s]));
+    }"""),
+         (WGB, """      hop::wgmma_rs_chunk<1, NC>(dka, as, st, kAtom);        // dK += dS^T Q
+      hop::wg_commit();
+      hop::wg_wait<0>();
+    }
+    // release stage s: after the wg_wait<0> just above, which covers the
+    // S^T, dP^T, dV and dK groups, every group that read the stage (its
+    // lse and delta were read before them)
+    if (lane == 0) hop::mbar_arrive(hop::smem_u32(&empty[s]));""",
+          """      hop::wgmma_rs_chunk<1, NC>(dka, as, st, kAtom);        // dK += dS^T Q
+      hop::wg_commit();
+      if (HAS_BIAS && lane == 0) hop::mbar_arrive(hop::smem_u32(&empty[s]));
+      hop::wg_wait<0>();
+      if (!HAS_BIAS && lane == 0) hop::mbar_arrive(hop::smem_u32(&empty[s]));
+    } else if (lane == 0) {
+      hop::mbar_arrive(hop::smem_u32(&empty[s]));
+    }""")], "bert"),
     "fp32_operands_bf16": (
         "fp32 flash mode: every operand of the 3xTF32 products rounded to "
         "bf16 first",
@@ -256,10 +302,23 @@ MUTANTS = {
           "                                           uint32_t& lo) {\n"
           "  x = __bfloat162float(__float2bfloat16(x));\n")], "fp32"),
     "dkv_mask_col_shift": (
-        "dropout mode, dK/dV: the keep mask drawn with its key (column) "
-        "shifted by one, while the forward and dQ draw it right",
-        [(BWD, "drop_keep(bh, qs0 + c, krow[i >> 1], key0, key1,",
-          "drop_keep(bh, qs0 + c, krow[i >> 1] + 1, key0, key1,")],
+        "wgmma dK/dV, dropout mode: the keep mask drawn with its key (the "
+        "score's column) four on, the next Philox block, while the forward "
+        "and dQ draw it right",
+        [(WGB, "keep = flash::keep_bits_kq(bh, krow[0], krow[1],",
+          "keep = flash::keep_bits_kq(bh, krow[0] + 4, krow[1] + 4,")],
+        "dropout"),
+    "dkv_keep_word_wrong_lane": (
+        "dropout mode, dK/dV's lane exchange: each lane takes the keep word "
+        "of its neighbour's key (lane j ^ 1 of the four that share a block)",
+        [(PHILOX, "out |= ((w >> j) & 0x11111111u) << s;",
+          "out |= ((w >> (j ^ 1)) & 0x11111111u) << s;")],
+        "dropout"),
+    "dkv_dpt_unmasked": (
+        "wgmma dK/dV, dropout mode: P^T dropped for dV but dP^T not masked "
+        "(nor scaled) before dS^T",
+        [(WGB, "if constexpr (DROP) dpt = kept(dpt, keep, 4 * n + i, "
+               "md.inv_keep);", "")],
         "dropout"),
     "moe_fp32_dw_drops_hi_lo": (
         "fp32 grouped dW: its 3xTF32 products drop the hi*lo pass (A's hi "
@@ -478,11 +537,13 @@ def _bert_checks(torch, S, K, TrainStep, AdamW) -> tuple:
     keep = (torch.arange(s, device="cuda")[None, :] < lens[:, None])
     keypad = S._flash_errors(
         torch, F, q, k, v, do, d ** -0.5, False,
-        bias=F.attn_bias(keep[:, None, None, :].expand(b, 1, s, s), q, k))
+        bias=F.attn_bias(keep[:, None, None, :].expand(b, 1, s, s), q, k),
+        repeat=True)
     q, k, v, do = (rand(4, 512, 8, d) for _ in range(4))
     dense = torch.randn((4, 8, 512, 512), generator=gen, device="cuda") * 2
     dense = S._flash_errors(torch, F, q, k, v, do, d ** -0.5, False,
-                            bias=F.pad_bias(dense, 4, 8, 512, 512))
+                            bias=F.pad_bias(dense, 4, 8, 512, 512),
+                            repeat=True)
     check = {"layer_norm": ln, "flash_keypad": keypad,
              "flash_dense": dense,
              "failures": ln["failures"] + keypad["failures"]
@@ -526,7 +587,8 @@ def _fp32_checks(torch, S, K, TrainStep, AdamW) -> tuple:
 
 
 def _dropout_checks(torch, S, K, TrainStep, AdamW) -> tuple:
-    from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+    from paddle_tpu_torch.models import (BertConfig, BertForPreTraining,
+                                         GPTConfig, GPTForCausalLM)
     from paddle_tpu_torch.ops.kernels import flash_attention as F
     gen = torch.Generator(device="cuda").manual_seed(S.SEED + 13)
     seed = torch.tensor([S.SEED + 13, (1 << 31) + 5], dtype=torch.int64,
@@ -534,32 +596,38 @@ def _dropout_checks(torch, S, K, TrainStep, AdamW) -> tuple:
     q, k, v, do = S._flash_inputs(torch, gen, S.GPT2_SHAPE, torch.float32)
     fp32 = S.flash_fp32_errors(torch, F, q, k, v, do, 0.125, True, None,
                                S.DROP_P, seed)
+    q, k, v, do = S._flash_inputs(torch, gen, S.GPT2_SHAPE, torch.bfloat16)
+    gpt2 = S._flash_errors(torch, F, q, k, v, do, 0.125, True, None,
+                           S.DROP_P, seed, repeat=True)
     b, s = S.BERT_BATCH, S.BERT_SEQ
     q, k, v, do = S._flash_inputs(torch, gen, (b, s, 12, 64),
                                   torch.bfloat16)
     keep, _ = S._keypad(torch, np, s)
     bf16 = S._flash_errors(torch, F, q, k, v, do, 0.125, False,
                            F.attn_bias(keep.expand(b, 1, s, s), q, k),
-                           S.DROP_P, seed)
-    check = {"fp32_gpt2": fp32, "bf16_bert_keypad": bf16,
-             "failures": fp32["failures"] + bf16["failures"]}
+                           S.DROP_P, seed, repeat=True)
+    check = {"fp32_gpt2": fp32, "bf16_gpt2": gpt2, "bf16_bert_keypad": bf16,
+             "failures": fp32["failures"] + gpt2["failures"]
+             + bf16["failures"]}
     del q, k, v, do
     torch.cuda.empty_cache()
-    cfg = S.gpt2_config(GPTConfig)
-    model = GPTForCausalLM(cfg, device="cuda", seed=S.SEED)
-    batch = torch.tensor(np.random.default_rng(S.SEED).integers(
-        0, cfg.vocab_size, (S.GPT2_BATCH, S.GPT2_SEQ)), device="cuda")
-    opt = AdamW(learning_rate=S.TRAIN_LR, parameters=model)
-    step = TrainStep(model, opt, lambda logits, y: model.loss(logits, y))
-    for _ in range(S.GPT2_STEPS):
-        step(batch, batch)
-    state = model.generator.get_state()
-    parity = S.train_parity_run(
-        torch, K, model, opt, TrainStep, *S.causal_lm_args(model, batch),
-        kernels=S.GPT2_KERNELS, limits=S.FP32_PARITY,
-        reseed=lambda: model.generator.set_state(state))
-    del model, opt, step
-    torch.cuda.empty_cache()
+    parity = {"failures": []}
+    for (arm, model, cls, args, n_inputs, loss_of, _, mode,
+         _) in S.dropout_bf16_arms(torch, np, GPTConfig, GPTForCausalLM,
+                                   BertConfig, BertForPreTraining):
+        opt = AdamW(learning_rate=S.TRAIN_LR, parameters=model)
+        step = TrainStep(model, opt, loss_of(model), n_inputs=n_inputs)
+        for _ in range(S.DROP_BF16_STEPS):
+            step(*args)
+        parity[arm] = S.dropout_bf16_parity_run(
+            torch, K, model, opt, TrainStep, cls, args, n_inputs, loss_of,
+            S.DROP_BF16_PARITY[arm], tuple(f"flash_{k_}{mode}"
+                                           for k_ in ("fwd", "dq", "dkv")))
+        parity[arm].pop("grad_rel_l2")
+        parity["failures"] += [f"{arm}: {f}"
+                               for f in parity[arm]["failures"]]
+        del model, opt, step
+        torch.cuda.empty_cache()
     return check, parity
 
 

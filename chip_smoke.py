@@ -17,7 +17,8 @@ Phases; any failure ends the run with a traceback and a non-zero exit:
    training shape and a ragged one; the bias mode of the three flash
    kernels at the padded BERT shape with its key-padding mask, plus a
    dense [b, h, sq, sk] bias and a causal [sq, sk] one at a ragged
-   length, and their no-bias mode at the unpadded BERT shape; MoE
+   length (the backward launched twice and bitwise equal), and their
+   no-bias mode at the unpadded BERT shape; MoE
    routing and the grouped-GEMM forward, dX and dW at the Qwen2-MoE
    training shapes; ``moe_fp32_kernels``: their fp32 mode (3xTF32) at
    the fp32 slice's shapes (H 512) and both FFN kinds at a smaller one,
@@ -79,7 +80,8 @@ Phases; any failure ends the run with a traceback and a non-zero exit:
    MLM labels -100 on padding: the bias mode of the flash kernels), each
    with the report of phase 4 and its own launch counts; train parity
    (with an fp32 copy's gradients telling which gradients bf16 cannot
-   resolve) and one profiled step on the padded arm;
+   resolve) and one profiled step on the padded arm (each arm's flash
+   backward: the wgmma kernels in its mode alone);
 8b. entry_fp32 — ``__graft_entry__.py::entry()``'s fp32 Llama (4
    layers, hidden 512, 8 / 4 heads of 64, [2, 256] ids from
    ``default_rng(0)``): its eval forward on the card (4 fp32 flash
@@ -94,8 +96,12 @@ Phases; any failure ends the run with a traceback and a non-zero exit:
 8d. train_bert_defaults — BERT-Base at its own defaults (fp32, dropout
    0.1) on the padded batch: 3 steps (the fp32 bias + dropout mode, 12 a
    step), an eval forward and 2 steps at dropout 0 (the fp32 bias mode);
-   train_dropout_bf16 — 2 steps each of GPT-2 small and BERT-Base in
-   bf16 at dropout 0.1 (the bf16 dropout modes);
+   train_dropout_bf16 — 10 steps each of GPT-2 small and BERT-Base in
+   bf16 at dropout 0.1 (the bf16 dropout modes), one profiled step of
+   each (its flash backward: the wgmma kernels in the arm's mode, no
+   bf16 mma.sync kernel), and ``train_dropout_bf16_parity``: 3 steps
+   through the kernels and 3 inside ``plain_reference()`` from one
+   generator state, at ``DROP_BF16_PARITY``;
 9. slice parity — one decode step on one serving engine state, kernels
    vs plain versions (logits within ``SLICE_DLOGIT_LIMIT``, decisive
    rows equal, the kernels' launch counts);
@@ -874,7 +880,8 @@ def phase_flash_bias(torch, np, F) -> dict:
         lib_bwd.append((og, qt, kt, vt, do.transpose(1, 2)))
     bias0 = sets[0][6]
     assert bias0.stride(2) == 0     # converted once, never materialised
-    errs = [_flash_check(torch, F, *sets[0][:4], scale, False, bias=bias0)]
+    errs = [_flash_check(torch, F, *sets[0][:4], scale, False, bias=bias0,
+                         repeat=True)]
     no_bias = _flash_check(torch, F, *sets[0][:4], scale, False)
     _emit("kernel_vs_plain", {
         "name": "flash_bert_no_bias",
@@ -893,7 +900,7 @@ def phase_flash_bias(torch, np, F) -> dict:
         errs.append(_flash_check(
             torch, F, rand(rb, rs, rh, rd), rand(rb, rs, rh, rd),
             rand(rb, rs, rh, rd), rand(rb, rs, rh, rd), rd ** -0.5, rc,
-            bias=F.pad_bias(raw, rb, rh, rs, rs)))
+            bias=F.pad_bias(raw, rb, rh, rs, rs), repeat=True))
     _emit("flash_bias_extra", [{"shape": list(r), "bias": kind, "errors": e}
                                for (r, kind, _), e in zip(extra, errs[1:])])
     del dense, sq_sk
@@ -1848,7 +1855,7 @@ def train_parity_run(torch, K, model, opt, TrainStep, loss_fn, args,
                      n_inputs=1, kernels=FLASH_KERNELS,
                      limits=(PARITY_DLOSS, PARITY_GRAD_REL, PARITY_DPARAM),
                      reseed=None, probes=(), probe_limits=None,
-                     grad_ref=None) -> dict:
+                     grad_ref=None, unresolved_ratio=UNRESOLVED_RATIO) -> dict:
     """Three steps from one state (weights and optimizer state cloned)
     through the kernels, then the same three inside plain_reference().
 
@@ -1881,8 +1888,9 @@ def train_parity_run(torch, K, model, opt, TrainStep, loss_fn, args,
     the gradient limit from it in relative L2 (``bf16_noise``) is one
     that bf16 cannot resolve to that limit, so two bf16 runs cannot be
     held to it either: such a parameter (``unresolved``) is held instead
-    to lie no more than ``UNRESOLVED_RATIO`` times as far from the fp32
-    gradient as the plain version's gradient does, and is left out of
+    to lie no more than ``unresolved_ratio`` (``UNRESOLVED_RATIO``) times
+    as far from the fp32 gradient as the plain version's gradient does,
+    and is left out of
     the master-weight limit, since Adam turns a gradient of rounding
     noise into steps of +-lr whatever its size. Every other parameter
     stays under all three limits."""
@@ -1957,10 +1965,10 @@ def train_parity_run(torch, K, model, opt, TrainStep, loss_fn, args,
         failures.append(f"master weights {dparam} > {lim_param} apart")
     if unresolved:
         worst_u = max(unresolved, key=unresolved.get)
-        if not unresolved[worst_u] <= UNRESOLVED_RATIO:
+        if not unresolved[worst_u] <= unresolved_ratio:
             failures.append(f"gradient {worst_u} lies {unresolved[worst_u]}"
                             f" times as far from fp32 as the plain "
-                            f"version's > {UNRESOLVED_RATIO}")
+                            f"version's > {unresolved_ratio}")
     probe_rel = {kind: {n: ((pk[n][kind] - pp[n][kind]).norm()
                             / pp[n][kind].norm().clamp(min=1e-30)).item()
                         for n in pk} for kind in ("out", "dx")}
@@ -2779,19 +2787,41 @@ _MOE_CATEGORIES = (
     ("moe_routing", ("routing_kernel",)),) + _CATEGORIES
 
 
+def flash_bwd_kernels(names) -> list:
+    """The flash backward kernels among a profile's kernel names, each cut
+    to its template (the wgmma ``dq_wgmma_kernel<D, HAS_BIAS, DROP>`` and
+    ``dkv_wgmma_kernel<...>``, the mma.sync ``flash_bwd_*_kernel<T, ...>``)."""
+    return sorted({_short_kernel_name(n) for n in names
+                   if "dq_wgmma_kernel<" in n or "dkv_wgmma_kernel<" in n
+                   or "flash_bwd_" in n})
+
+
+def check_wgmma_backward(tag, kernels, mode) -> None:
+    """A profiled bf16 step's flash backward: exactly the wgmma dQ and
+    dK/dV kernels of ``mode`` (``"<64, true, false>"``: D, HAS_BIAS,
+    DROP), so no bf16 mma.sync ``flash_bwd_*_kernel``."""
+    want = [f"flash_wg::{k}_wgmma_kernel{mode}" for k in ("dkv", "dq")]
+    if kernels != want:
+        raise AssertionError(f"{tag}: the flash backward ran {kernels}, "
+                             f"not {want}")
+
+
 def _step_profile(torch, step_fn, model, opt, categories) -> dict:
     """One training step (``step_fn``) under the profiler: device time by
-    kernel category (``categories``, then "other"), the idle share, and
-    the AdamW update alone (its device time under the profiler and its
+    kernel category (``categories``, then "other"), the idle share, the
+    flash backward kernels that ran (``flash_bwd_kernels``), and the
+    AdamW update alone (its device time under the profiler and its
     CUDA-event time on this step's gradients); ``other_without_adamw``
     takes the update out of "other"."""
     out = _profile_steps(torch, step_fn, 1, top=None)
     cats = {name: 0.0 for name, _ in categories}
     cats["other"] = 0.0
-    for kname, ms in out.pop("all_kernels_ms"):
+    ranked = out.pop("all_kernels_ms")
+    for kname, ms in ranked:
         cat = next((name for name, keys in categories
                     if any(k_ in kname for k_ in keys)), "other")
         cats[cat] += ms
+    out["flash_bwd_kernels"] = flash_bwd_kernels(k for k, _ in ranked)
     params = dict(model.named_parameters())
     grads = {k: p.grad for k, p in params.items()}
     upd = _profile_steps(torch, lambda: opt.update(params, grads, opt.state,
@@ -2932,21 +2962,26 @@ def phase_train_bert(torch, K, model, TrainStep, AdamW, args, n_inputs,
 BERT_PARITY = (0.1, 0.15, PARITY_DPARAM)
 
 
-def bert_fp32_grads(torch, K, model, BertForPreTraining, args,
-                    n_inputs) -> dict:
-    """One step's gradients of an fp32 copy of ``model`` (its current
-    weights, exact in fp32) on ``args``, through the plain versions: the
-    reference ``train_parity_run`` measures bf16's own error against."""
+def fp32_grads(torch, K, model, cls, args, n_inputs, loss_of,
+               state=None) -> dict:
+    """One step's gradients of an fp32 copy of ``model`` (a ``cls``; its
+    current weights, exact in fp32) on ``args``, in training mode through
+    the plain versions, with ``loss_of(copy)`` as the loss: the reference
+    ``train_parity_run`` measures bf16's own error against. ``state``:
+    the generator state the copy draws its dropout masks and keys from."""
     cfg = dataclasses.replace(model.config, dtype="float32")
-    ref = BertForPreTraining(cfg, device="cuda", seed=None)
+    ref = cls(cfg, device=next(model.parameters()).device, seed=None)
     with torch.no_grad():
         for (k, p), (k32, p32) in zip(model.named_parameters(),
                                       ref.named_parameters()):
             assert k == k32
             p32.copy_(p.float())
+    if state is not None:
+        ref.generator.set_state(state)
+    ref.train()
     with K.plain_reference():
         out = ref(*args[:n_inputs])
-        _bert_loss(ref)(out, *args[n_inputs:]).backward()
+        loss_of(ref)(out, *args[n_inputs:]).backward()
     grads = {k: p.grad.detach().clone() for k, p in ref.named_parameters()}
     del ref, out
     torch.cuda.empty_cache()
@@ -2964,10 +2999,10 @@ def bert_noise_by_layer(noise: dict, n_layers: int) -> dict:
 def bert_parity_run(torch, K, model, opt, TrainStep, BertForPreTraining,
                     args, n_inputs) -> dict:
     """``train_parity_run`` on a BERT batch with ``BERT_PARITY`` and the
-    fp32 gradients of ``bert_fp32_grads`` as ``grad_ref``; see
+    fp32 gradients of ``fp32_grads`` as ``grad_ref``; see
     ``phase_train_bert_parity``."""
-    ref = bert_fp32_grads(torch, K, model, BertForPreTraining, args,
-                          n_inputs)
+    ref = fp32_grads(torch, K, model, BertForPreTraining, args, n_inputs,
+                     _bert_loss)
     out = train_parity_run(
         torch, K, model, opt, TrainStep, _bert_loss(model), args, n_inputs,
         kernels=BERT_PADDED_KERNELS, limits=BERT_PARITY, grad_ref=ref)
@@ -3026,15 +3061,21 @@ _BERT_CATEGORIES = (("layer_norm", ("layer_norm_fwd_kernel",)),
 
 
 def phase_train_bert_profile(torch, model, opt, TrainStep, args,
-                             n_inputs, tag="train_bert_profile") -> dict:
+                             n_inputs, tag="train_bert_profile",
+                             wgmma_mode=None) -> dict:
     """``_step_profile`` of one BERT training step (the padded arm; with
     ``tag`` ``train_bert_profile_unpadded`` the unpadded one), by
     category: the LayerNorm kernel, the flash kernels, GEMMs, AdamW,
-    everything else."""
+    everything else. ``wgmma_mode`` (``"<64, true, false>"``: the padded
+    arm's bias mode), when given: the step's flash backward must be the
+    wgmma dQ and dK/dV kernels of that mode alone
+    (``check_wgmma_backward``)."""
     step = TrainStep(model, opt, _bert_loss(model), n_inputs=n_inputs)
     out = _step_profile(torch, lambda: step(*args), model, opt,
                         _BERT_CATEGORIES)
     _emit(tag, out)
+    if wgmma_mode is not None:
+        check_wgmma_backward(tag, out["flash_bwd_kernels"], wgmma_mode)
     return out
 
 
@@ -3226,9 +3267,10 @@ DEFAULTS_STEPS = 3
 
 
 def _train_steps(torch, K, model, TrainStep, AdamW, args, n_inputs, loss_fn,
-                 n_steps) -> dict:
+                 n_steps) -> tuple:
     """``n_steps`` TrainSteps (AdamW lr 1e-4) on ``args``: the losses, the
-    median step time and the launch counters of these steps alone."""
+    step times and the launch counters of these steps alone; and the
+    optimizer."""
     opt = AdamW(learning_rate=TRAIN_LR, parameters=model)
     step = TrainStep(model, opt, loss_fn, n_inputs=n_inputs)
     torch.cuda.synchronize()
@@ -3242,7 +3284,7 @@ def _train_steps(torch, K, model, TrainStep, AdamW, args, n_inputs, loss_fn,
         times.append(time.perf_counter() - t0)
     return {"losses": losses, "step_ms": [t * 1e3 for t in times],
             "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
-            "launches": K.launch_counts()}
+            "launches": K.launch_counts()}, opt
 
 
 def phase_train_bert_defaults(torch, np, K, BertConfig, BertForPreTraining,
@@ -3261,9 +3303,9 @@ def phase_train_bert_defaults(torch, np, K, BertConfig, BertForPreTraining,
     L = cfg.num_hidden_layers
     out = {"config": cfg.__dict__, "params": model.num_params(),
            "batch": BERT_BATCH, "seq": BERT_SEQ, "card": smi}
-    out["defaults"] = _train_steps(torch, K, model, TrainStep, AdamW, args,
-                                   n_inputs, _bert_loss(model),
-                                   DEFAULTS_STEPS)
+    out["defaults"], _ = _train_steps(torch, K, model, TrainStep, AdamW,
+                                      args, n_inputs, _bert_loss(model),
+                                      DEFAULTS_STEPS)
     model.eval()
     K.reset_launch_counts()
     with torch.no_grad():
@@ -3274,8 +3316,9 @@ def phase_train_bert_defaults(torch, np, K, BertConfig, BertForPreTraining,
     nodrop = BertForPreTraining(BertConfig(hidden_dropout_prob=0.0,
                                            attention_probs_dropout_prob=0.0),
                                 device="cuda", seed=SEED)
-    out["no_dropout"] = _train_steps(torch, K, nodrop, TrainStep, AdamW,
-                                     args, n_inputs, _bert_loss(nodrop), 2)
+    out["no_dropout"], _ = _train_steps(torch, K, nodrop, TrainStep, AdamW,
+                                        args, n_inputs, _bert_loss(nodrop),
+                                        2)
     _emit("train_bert_defaults", out)
     failures = []
     for arm, n_steps, mode in (("defaults", DEFAULTS_STEPS, "_fp32_drop_bias"),
@@ -3300,48 +3343,138 @@ def phase_train_bert_defaults(torch, np, K, BertConfig, BertForPreTraining,
     return out
 
 
+def _lm_loss(model):
+    return lambda logits, y: model.loss(logits, y)
+
+
+def dropout_bf16_arms(torch, np, GPTConfig, GPTForCausalLM, BertConfig,
+                      BertForPreTraining):
+    """The two bf16 dropout arms, one model at a time: GPT-2 small with
+    ``dtype="bfloat16"`` (dropout 0.1, 8 x 1024 seeded ids) and BERT-Base
+    with ``dtype="bfloat16"`` at its dropout 0.1 on the padded batch.
+    Yields (arm, model, its class, TrainStep arguments, n_inputs, the
+    loss of a model, LayerNorm launches a step, the flash counters'
+    mode suffix, the wgmma backward's template arguments)."""
+    gcfg = gpt2_config(GPTConfig, dtype="bfloat16")
+    batch = torch.tensor(np.random.default_rng(SEED + 14).integers(
+        0, gcfg.vocab_size, (GPT2_BATCH, GPT2_SEQ)), device="cuda")
+    yield ("gpt2_bf16", GPTForCausalLM(gcfg, device="cuda", seed=SEED),
+           GPTForCausalLM, (batch, batch), 1, _lm_loss,
+           2 * gcfg.num_hidden_layers + 1, "_drop", "<64, false, true>")
+    del batch
+    torch.cuda.empty_cache()
+    bcfg = BertConfig(dtype="bfloat16")
+    args, n_inputs = bert_batch(torch, np, bcfg, padded=True)
+    yield ("bert_bf16", BertForPreTraining(bcfg, device="cuda", seed=SEED),
+           BertForPreTraining, args, n_inputs, _bert_loss,
+           2 * bcfg.num_hidden_layers + 2, "_drop_bias", "<64, true, true>")
+    del args
+    torch.cuda.empty_cache()
+
+
+# bf16 dropout train parity limits per arm, (|loss difference| a step,
+# every resolved gradient in relative L2, master weights, the unresolved
+# gradients' ratio), set as BERT_PARITY was, from the correct kernels'
+# readings (see phase_train_dropout_bf16), after DROP_BF16_STEPS steps.
+DROP_BF16_STEPS = 10
+DROP_BF16_PARITY = {"gpt2_bf16": (1e-2, 0.1, 4.5e-4, UNRESOLVED_RATIO),
+                    "bert_bf16": (0.05, 0.1, 4.5e-4, 4.0)}
+
+
+def dropout_bf16_parity_run(torch, K, model, opt, TrainStep, cls, args,
+                            n_inputs, loss_of, limits, kernels) -> dict:
+    """``train_parity_run`` at ``limits`` with the model's generator set
+    to one state before each run, so the kernels' and the plain run draw
+    the same nn-level dropout masks and the same Philox keys, and with the
+    gradients of an fp32 copy from that state (``fp32_grads``) as
+    ``grad_ref``."""
+    state = model.generator.get_state()
+    ref = fp32_grads(torch, K, model, cls, args, n_inputs, loss_of, state)
+    out = train_parity_run(
+        torch, K, model, opt, TrainStep, loss_of(model), args, n_inputs,
+        kernels=kernels, limits=limits[:3], grad_ref=ref,
+        reseed=lambda: model.generator.set_state(state),
+        unresolved_ratio=limits[3])
+    out.pop("bf16_noise")
+    return out
+
+
 def phase_train_dropout_bf16(torch, np, K, GPTConfig, GPTForCausalLM,
                              BertConfig, BertForPreTraining, TrainStep,
                              AdamW, smi) -> dict:
-    """The bf16 dropout modes on their paths: GPT-2 small with
-    ``dtype="bfloat16"`` (dropout 0.1, 2 steps on 8 x 1024 seeded ids: 12
-    of each bf16 dropout flash kernel a step) and BERT-Base with
-    ``dtype="bfloat16"`` at its dropout 0.1 on the padded batch (2 steps:
-    12 of each bf16 bias + dropout kernel a step); finite losses."""
-    out = {"card": smi}
-    gcfg = gpt2_config(GPTConfig, dtype="bfloat16")
-    model = GPTForCausalLM(gcfg, device="cuda", seed=SEED)
-    batch = torch.tensor(np.random.default_rng(SEED + 14).integers(
-        0, gcfg.vocab_size, (GPT2_BATCH, GPT2_SEQ)), device="cuda")
-    out["gpt2_bf16"] = _train_steps(
-        torch, K, model, TrainStep, AdamW, (batch, batch), 1,
-        lambda logits, y: model.loss(logits, y), 2)
-    del model, batch
-    torch.cuda.empty_cache()
-    bcfg = BertConfig(dtype="bfloat16")
-    model = BertForPreTraining(bcfg, device="cuda", seed=SEED)
-    args, n_inputs = bert_batch(torch, np, bcfg, padded=True)
-    out["bert_bf16"] = _train_steps(torch, K, model, TrainStep, AdamW, args,
-                                    n_inputs, _bert_loss(model), 2)
-    _emit("train_dropout_bf16", out)
-    failures = []
-    for arm, n_ln, mode, layers in (
-            ("gpt2_bf16", 2 * gcfg.num_hidden_layers + 1, "_drop",
-             gcfg.num_hidden_layers),
-            ("bert_bf16", 2 * bcfg.num_hidden_layers + 2, "_drop_bias",
-             bcfg.num_hidden_layers)):
-        want = _counts(K, layer_norm=n_ln * 2,
-                       **{f"flash_{k}{mode}": layers * 2
+    """The bf16 dropout modes on their paths (``dropout_bf16_arms``):
+    for each arm ``DROP_BF16_STEPS`` steps (finite losses; 12 of each
+    bf16 dropout flash kernel a step, GPT-2 without a bias and BERT with
+    its key-padding bias), one profiled step whose flash backward must be
+    the wgmma dQ
+    and dK/dV kernels in the arm's mode and no bf16 mma.sync kernel
+    (``check_wgmma_backward``), then ``train_dropout_bf16_parity``
+    (``dropout_bf16_parity_run``): 3 steps through the kernels and 3
+    inside ``plain_reference()`` from the state the profiled step
+    leaves, both from one generator state, at ``DROP_BF16_PARITY``.
+
+    Limits (``DROP_BF16_PARITY``), derived as ``BERT_PARITY``'s
+    (``phase_train_bert_parity``): a few times the differences of the
+    correct kernels. Their readings (NVIDIA H100 80GB HBM3, 700 W; after
+    3 and after 10 steps) were, GPT-2: |loss difference| 1.3e-3 and
+    2.1e-3 at a loss of ~80-100 (logits through the N(0, 1) tied
+    embedding round coarsely in bf16), gradients 0.025 and 0.038 in
+    relative L2 (``wpe``, the first block's MLP), master weights 2.4e-4
+    apart both times; BERT: 0.014 and 3.0e-3, 0.014 and 0.032, 3.4e-4 and
+    1.7e-4. Limits: |loss difference| 0.01 (GPT-2) and 0.05 (BERT) a
+    step, every resolved gradient 0.1. The master weights part most in
+    the word embeddings, whose rows of tokens outside the batch get only
+    the tied head's tiny gradient, whose sign bf16 rounding can flip, and
+    Adam moves such a weight by ~lr whatever its gradient's size; they
+    are held to 4.5e-4, three quarters of the 6 lr that three steps can
+    put between two runs (the Llama and BERT steps hold 1.5e-4, a
+    quarter). A parameter whose plain bf16 gradient lies more than half
+    the gradient limit from the fp32 copy's is held to that gradient
+    instead (``train_parity_run``'s ``grad_ref`` rule): BERT's key
+    biases, whose exact gradient is 0, lay 2.3 and 2.5 times as far from
+    it as the plain version's, so their ratio is held to 4 (GPT-2 has no
+    such parameter: ``UNRESOLVED_RATIO``)."""
+    out, parity, failures = {"card": smi}, {}, []
+    for (arm, model, cls, args, n_inputs, loss_of, n_ln, mode,
+         wgmma) in dropout_bf16_arms(torch, np, GPTConfig, GPTForCausalLM,
+                                     BertConfig, BertForPreTraining):
+        L = model.config.num_hidden_layers
+        out[arm], opt = _train_steps(torch, K, model, TrainStep, AdamW, args,
+                                     n_inputs, loss_of(model),
+                                     DROP_BF16_STEPS)
+        want = _counts(K, layer_norm=n_ln * DROP_BF16_STEPS,
+                       **{f"flash_{k}{mode}": L * DROP_BF16_STEPS
                           for k in ("fwd", "dq", "dkv")})
         if out[arm]["launches"] != want:
-            failures.append(f"{arm}: launch counters {out[arm]['launches']}"
-                            f" != {want}")
+            failures.append(f"{arm}: launch counters "
+                            f"{out[arm]['launches']} != {want}")
         if not all(math.isfinite(x) for x in out[arm]["losses"]):
             failures.append(f"{arm}: non-finite loss {out[arm]['losses']}")
+        step = TrainStep(model, opt, loss_of(model), n_inputs=n_inputs)
+        out[arm]["profile"] = _step_profile(
+            torch, lambda: step(*args), model, opt,
+            _BERT_CATEGORIES if arm.startswith("bert") else _GPT2_CATEGORIES)
+        try:
+            check_wgmma_backward(arm, out[arm]["profile"]["flash_bwd_kernels"],
+                                 wgmma)
+        except AssertionError as e:
+            failures.append(str(e))
+        parity[arm] = dropout_bf16_parity_run(
+            torch, K, model, opt, TrainStep, cls, args, n_inputs, loss_of,
+            DROP_BF16_PARITY[arm],
+            ("layer_norm",) + tuple(f"flash_{k}{mode}"
+                                    for k in ("fwd", "dq", "dkv")))
+        failures += [f"{arm} parity: {f}" for f in parity[arm]["failures"]]
+        for p in model.parameters():
+            p.grad = None
+        del model, opt, step
+        torch.cuda.empty_cache()
+    _emit("train_dropout_bf16", out)
+    _emit("train_dropout_bf16_parity", {
+        arm: {k: v for k, v in r.items() if k != "grad_rel_l2"}
+        for arm, r in parity.items()})
     if failures:
         raise AssertionError(f"train_dropout_bf16: {failures}")
-    del model, args
-    torch.cuda.empty_cache()
     return out
 
 
@@ -3690,7 +3823,8 @@ def main(argv=None) -> int:
                                        bert_args, n_inputs, smi,
                                        padded=False)
     phase_train_bert_profile(torch, model, opt, TrainStep, bert_args,
-                             n_inputs, "train_bert_profile_unpadded")
+                             n_inputs, "train_bert_profile_unpadded",
+                             "<64, false, false>")
     with torch.no_grad():   # the padded arm starts from the same weights
         for k, p in model.named_parameters():
             p.copy_(init[k])
@@ -3702,7 +3836,7 @@ def main(argv=None) -> int:
     phase_train_bert_parity(torch, K, model, opt, TrainStep,
                             BertForPreTraining, bert_args, n_inputs)
     phase_train_bert_profile(torch, model, opt, TrainStep, bert_args,
-                             n_inputs)
+                             n_inputs, wgmma_mode="<64, true, false>")
     for p in model.parameters():
         p.grad = None
     del model, opt, bert_args
@@ -3835,8 +3969,8 @@ def main(argv=None) -> int:
         "shape": ln[0]["shape"]})
     for name, source, line in (
             ("flash_fwd_bias", "flash_attention_fwd.cu", 242),
-            ("flash_dq_bias", "flash_attention_bwd.cu", 558),
-            ("flash_dkv_bias", "flash_attention_bwd.cu", 590)):
+            ("flash_dq_bias", "flash_bwd_wgmma.cuh", 558),
+            ("flash_dkv_bias", "flash_bwd_wgmma.cuh", 590)):
         row = flash_bias[name]
         kernels.append({
             "name": name, "route": "cuda", "source": src + source,
@@ -3869,10 +4003,12 @@ def main(argv=None) -> int:
             k: dropout_bf16["bert_bf16"]["launches"][f"flash_{k}_drop_bias"]
             for k in ("fwd", "dq", "dkv")}}
     for suffix, counts in mode_launches.items():
+        # the bf16 backward's modes run the wgmma kernels
+        bwd = ("flash_attention_bwd.cu" if suffix.startswith("_fp32")
+               else "flash_bwd_wgmma.cuh")
         for kind, source, line in (
                 ("fwd", "flash_attention_fwd.cu", 242),
-                ("dq", "flash_attention_bwd.cu", 558),
-                ("dkv", "flash_attention_bwd.cu", 590)):
+                ("dq", bwd, 558), ("dkv", bwd, 590)):
             name = f"flash_{kind}{suffix}"
             row = flash_modes[name]
             kernels.append({

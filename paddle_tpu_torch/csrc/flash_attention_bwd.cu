@@ -14,9 +14,11 @@
 // ~0.2 GB of inputs and outputs (~60 us at 3.35 TB/s). fp32 products run
 // at 3xTF32's fp32-accurate 494.7 / 3 TFLOP/s at best.
 //
-// The plain bf16 mode (no bias, no dropout, no segment ids) runs the
-// wgmma / TMA kernels of flash_bwd_wgmma.cuh: launch_dq and launch_dkv
-// route it there. The design below is that of every other mode.
+// Which modes live where. Every bf16 mode without segment ids (plain, bias,
+// dropout, bias with dropout) runs the wgmma / TMA kernels of
+// flash_bwd_wgmma.cuh: launch_dq and launch_dkv route it there. The mma.sync
+// kernels below keep the bf16 segment mode and every fp32 mode; the design
+// below is theirs.
 //
 // Design. As in the JAX package, two kernels, each with one accumulator
 // that a block owns, so neither needs atomics and both are deterministic
@@ -39,8 +41,8 @@
 // (K in dS K, dO in P^T dO, Q in dS^T Q) come from ldmatrix.trans on the
 // same row-major tiles, so nothing is transposed in memory. lse and delta
 // are read once per row.
-// Bias mode (HAS_BIAS, a template flag; the no-bias instantiations are the
-// kernels they were): as in the forward, an fp32 bias read through four
+// Bias mode (HAS_BIAS, a template flag; fp32 only here, bf16 in
+// flash_bwd_wgmma.cuh): as in the forward, an fp32 bias read through four
 // element strides and added to the fp32 score before P is recomputed, at
 // the point where _bwd_dq_kernel (:373) and _bwd_dkv_kernel (:437) add it
 // to (q k) * scale. dK/dV reads it in its transposed frame, bias[q, key]
@@ -53,10 +55,12 @@
 // 128 (PERF.md, ROADMAP C6). The tile sizes and
 // stages are the bf16 ones (shared memory: dQ 198 KB at d 128, dK/dV 133
 // KB, within the 227 KB a block may use).
-// Dropout mode (DROP, a template flag): each lane draws the keep bits of
-// the elements it holds (philox.cuh; dK/dV in its transposed frame, element
-// (query, key) for its (key row, q column)), as _bwd_dq_kernel (:376-385)
-// and _bwd_dkv_kernel (:440-458) regenerate the forward's mask: dP takes
+// Dropout mode (DROP, a template flag; fp32 only here): each lane draws
+// the keep bits of the elements it holds (philox.cuh; dK/dV in its
+// transposed frame, element (query, key) for its (key row, q column)),
+// one Philox block for each (dK/dV) or every second (dQ) element, as
+// _bwd_dq_kernel (:376-385) and _bwd_dkv_kernel (:440-458) regenerate the
+// forward's mask: dP takes
 // keep ? dP / (1 - p_drop) : 0 before dS = P * (dP - delta) * scale, and
 // dV takes the dropped, rescaled P. delta = rowsum(dO * out) of the
 // dropped output, as the wrapper's caller computes it.
@@ -567,20 +571,24 @@ int launch_dq(const void* q, const void* k, const void* v, const void* o,
               const void* seed, const void* const* seg, int b, int h, int sq,
               int sk, const int64_t* st, float scale, int causal,
               uint32_t thresh, float inv_keep, cudaStream_t stream) {
-  if constexpr (std::is_same<T, bf16>::value) {   // the plain bf16 mode
-    if (!bias && !seed && !seg[0])
-      return flash_wg::dq_launch<D>(q, k, v, o, lse, delta, dq, b, h, sq, sk,
-                                    st, scale, causal, stream);
+  constexpr bool kBf16 = std::is_same<T, bf16>::value;
+  if constexpr (kBf16) {   // every bf16 mode but the segment one
+    if (!seg[0])
+      return flash_wg::dq_launch<D>(
+          q, k, v, o, lse, delta, dq, b, h, sq, sk, st, scale, causal,
+          {static_cast<const float*>(bias), st[12], st[13], st[14], st[15],
+           static_cast<const int64_t*>(seed), thresh, inv_keep},
+          stream);
   }
   const size_t smem = sizeof(T) * (2 * kBQ + 4 * kBK) * Pitch<T, D>::LD;
-  decltype(&flash_bwd_dq_kernel<T, D, false, true, false>) plain = nullptr;
-  if constexpr (std::is_same<T, float>::value)
-    plain = flash_bwd_dq_kernel<T, D, false, false, false>;
-  auto kern = seg[0] ? flash_bwd_dq_kernel<T, D, false, false, true>
-              : bias ? (seed ? flash_bwd_dq_kernel<T, D, true, true, false>
-                             : flash_bwd_dq_kernel<T, D, true, false, false>)
-                     : (seed ? flash_bwd_dq_kernel<T, D, false, true, false>
-                             : plain);
+  auto kern = flash_bwd_dq_kernel<T, D, false, false, true>;   // segment ids
+  if constexpr (!kBf16) {
+    if (!seg[0])
+      kern = bias ? (seed ? flash_bwd_dq_kernel<T, D, true, true, false>
+                          : flash_bwd_dq_kernel<T, D, true, false, false>)
+                  : (seed ? flash_bwd_dq_kernel<T, D, false, true, false>
+                          : flash_bwd_dq_kernel<T, D, false, false, false>);
+  }
   cudaError_t err = allow_smem(kern, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((sq + kBQ - 1) / kBQ, b * h);
@@ -604,23 +612,27 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* o,
                int b, int h, int sq, int sk, const int64_t* st, float scale,
                int causal, uint32_t thresh, float inv_keep,
                cudaStream_t stream) {
-  if constexpr (std::is_same<T, bf16>::value) {   // the plain bf16 mode
-    if (!bias && !seed && !seg[0])
-      return flash_wg::dkv_launch<D>(q, k, v, o, lse, delta, dk, dv, b, h, sq,
-                                     sk, st, scale, causal, stream);
+  constexpr bool kBf16 = std::is_same<T, bf16>::value;
+  if constexpr (kBf16) {   // every bf16 mode but the segment one
+    if (!seg[0])
+      return flash_wg::dkv_launch<D>(
+          q, k, v, o, lse, delta, dk, dv, b, h, sq, sk, st, scale, causal,
+          {static_cast<const float*>(bias), st[12], st[13], st[14], st[15],
+           static_cast<const int64_t*>(seed), thresh, inv_keep},
+          stream);
   }
   constexpr int BQ = DkvTile<D>::BQ;
   const size_t smem = sizeof(T) * (4 * BQ + 2 * kBK) * Pitch<T, D>::LD
                       + sizeof(float) * 4 * BQ;
-  decltype(&flash_bwd_dkv_kernel<T, D, BQ, false, true, false>) plain = nullptr;
-  if constexpr (std::is_same<T, float>::value)
-    plain = flash_bwd_dkv_kernel<T, D, BQ, false, false, false>;
-  auto kern =
-      seg[0] ? flash_bwd_dkv_kernel<T, D, BQ, false, false, true>
-      : bias ? (seed ? flash_bwd_dkv_kernel<T, D, BQ, true, true, false>
-                     : flash_bwd_dkv_kernel<T, D, BQ, true, false, false>)
-             : (seed ? flash_bwd_dkv_kernel<T, D, BQ, false, true, false>
-                     : plain);
+  auto kern = flash_bwd_dkv_kernel<T, D, BQ, false, false, true>;   // seg
+  if constexpr (!kBf16) {
+    if (!seg[0])
+      kern = bias
+          ? (seed ? flash_bwd_dkv_kernel<T, D, BQ, true, true, false>
+                  : flash_bwd_dkv_kernel<T, D, BQ, true, false, false>)
+          : (seed ? flash_bwd_dkv_kernel<T, D, BQ, false, true, false>
+                  : flash_bwd_dkv_kernel<T, D, BQ, false, false, false>);
+  }
   cudaError_t err = allow_smem(kern, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((sk + kBK - 1) / kBK, b * h);

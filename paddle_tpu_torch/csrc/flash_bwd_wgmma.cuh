@@ -1,14 +1,15 @@
-// The bf16 flash backward's plain mode on Hopper (sm_90a): dQ and dK/dV on
-// wgmma, with every tile fed by TMA through an mbarrier ring.
+// The bf16 flash backward on Hopper (sm_90a): dQ and dK/dV on wgmma, with
+// every tile fed by TMA through an mbarrier ring.
 //
-// Replaces, for bf16 inputs with no bias, no dropout and no segment ids
-// (causal or not, d 64 or 128: the mode that Llama, Qwen2-MoE and BERT's
-// unpadded arm train with), the two pallas_calls of
-// paddle_tpu/ops/pallas/flash_attention.py::flash_block_grads: the dQ pass
-// (_bwd_dq_kernel, :329-389, called at :558) and the dK/dV pass
-// (_bwd_dkv_kernel, :392-463, called at :590). flash_attention_bwd.cu's
-// launchers route that mode here; its other modes keep the mma.sync
-// kernels there. With P recomputed from lse:
+// Replaces, for bf16 inputs without segment ids (causal or not, d 64 or
+// 128, with or without an additive bias and in-kernel dropout: the modes
+// that Llama, Qwen2-MoE, BERT and GPT-2 train with in bf16), the two
+// pallas_calls of paddle_tpu/ops/pallas/flash_attention.py::
+// flash_block_grads: the dQ pass (_bwd_dq_kernel, :329-389, called at
+// :558) and the dK/dV pass (_bwd_dkv_kernel, :392-463, called at :590).
+// flash_attention_bwd.cu's launchers route these modes here; the segment
+// mode and every fp32 mode keep the mma.sync kernels there. With P
+// recomputed from lse:
 //   dS = P * (dO V^T - delta) * scale, dQ = dS K, dK = dS^T Q, dV = P^T dO.
 //
 // Bound on the H100: operations. At the training path's shape (b 4, s 2048,
@@ -56,6 +57,29 @@
 // below names its wait). No atomics: each output row belongs to one
 // block, and the sums run in one fixed order, so results repeat bitwise.
 //
+// Bias mode (HAS_BIAS) and dropout mode (DROP): template flags, never
+// run-time branches (ptxas serialises every wgmma of a kernel around a
+// branch it cannot see through; PERF.md §6). Both act where
+// _bwd_dq_kernel (:373-385) and _bwd_dkv_kernel (:437-458) act.
+// - The bias is fp32, read through four element strides, any of them 0
+//   (BERT's key padding is [b, 1, 1, sk] expanded), so TMA cannot load it
+//   (bf16_map4 refuses a broadcast stride): each consumer lane reads its
+//   own elements with __ldg, dK/dV as bias[q, key] in its transposed
+//   frame, and issues a tile's loads right after the S and dP groups are
+//   committed, so their latency hides under the products. P = exp2(S
+//   scale log2e + bias log2e - lse log2e); a bias of -inf or -1e30, and a
+//   row that sees no key (lse clamped at -1e25), give P = 0 and no NaN.
+//   At d 128 a dK/dV consumer holds dK and dV in 128 registers, so it
+//   loads the bias one 8-column chunk ahead of the chunk it makes.
+// - Dropout: the keep bits of a tile are drawn in the same place, as
+//   integer work under the products, one Philox block per four elements
+//   (philox.cuh's lane exchanges), and packed in one register (bit 4 n +
+//   i for accumulator element [n][i]). dQ: dP takes keep ? dP / (1 - p) :
+//   0 before dS = P (dP - delta) scale. dK/dV: dV += (keep ? P^T / (1 -
+//   p) : 0) dO, dP^T is masked the same way, and dS^T takes the undropped
+//   P^T. delta = rowsum(dO * out) of the dropped output, as the wrapper's
+//   caller computes it.
+//
 // Arithmetic: as flash_attention_bwd.cu's bf16 mode: the products in fp32
 // from bf16 operands, P and dS rounded to bf16 as A operands.
 
@@ -93,12 +117,62 @@ __device__ __forceinline__ unsigned char* tiles() {
   return wg_smem + ((1024 - (hop::smem_u32(wg_smem) & 1023)) & 1023);
 }
 
+// The arguments of the bias and dropout modes: an fp32 bias, element (b,
+// h, q, k) at bias[b_sb b + b_sh h + b_sq q + b_sk k] (a broadcast
+// dimension: stride 0), and the Philox key (seed, offset) on the device
+// with its threshold and 1 / (1 - p)
+struct Mode {
+  const float* bias;
+  int64_t b_sb, b_sh, b_sq, b_sk;
+  const int64_t* seed;
+  uint32_t thresh;
+  float inv_keep;
+};
+
+// HAS_BIAS: the bias of accumulator chunk n, elements [n][i] at p[i >> 1]
+// + (8 n + (i & 1)) st, read where their column c0 + 8 n + (i & 1) lies
+// below `end` (0 past it, where P is masked)
+__device__ __forceinline__ void bias_chunk(float (&b)[4],
+                                           const float* const (&p)[2],
+                                           int64_t st, int n, int c0,
+                                           int end) {
+  const int c = c0 + 8 * n;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float* e = p[r] + (int64_t)(8 * n) * st;
+    b[2 * r] = c < end ? __ldg(e) : 0.f;
+    b[2 * r + 1] = c + 1 < end ? __ldg(e + st) : 0.f;
+  }
+}
+
+// DROP: x scaled by 1 / (1 - p) where bit `bit` of keep is set, else 0
+__device__ __forceinline__ float kept(float x, uint32_t keep, int bit,
+                                      float inv_keep) {
+  return (keep >> bit) & 1u ? x * inv_keep : 0.f;
+}
+
+// acc_to_a of the dropped accumulator: element [n][i] kept by bit 4 n + i
+__device__ __forceinline__ void acc_to_a_kept(uint32_t (&a)[4][4],
+                                              const float (&d)[8][4],
+                                              uint32_t keep, float ik) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int n = 2 * kk + h;
+      a[kk][2 * h] = hop::pack2(kept(d[n][0], keep, 4 * n, ik),
+                                kept(d[n][1], keep, 4 * n + 1, ik));
+      a[kk][2 * h + 1] = hop::pack2(kept(d[n][2], keep, 4 * n + 2, ik),
+                                    kept(d[n][3], keep, 4 * n + 3, ik));
+    }
+}
+
 // ---- dQ: block (batch*head, q tile); q rows q0.., 64 wg.. a consumer ----
-template <int D>
+template <int D, bool HAS_BIAS, bool DROP>
 __global__ void __launch_bounds__(kThreads, 1)
 dq_wgmma_kernel(const float* __restrict__ lse,
                 const float* __restrict__ delta, bf16* __restrict__ dq,
-                int H, int sq, int sk, float scale, int causal,
+                int H, int sq, int sk, float scale, int causal, const Mode md,
                 const __grid_constant__ CUtensorMap tm_q,
                 const __grid_constant__ CUtensorMap tm_k,
                 const __grid_constant__ CUtensorMap tm_v,
@@ -151,7 +225,7 @@ dq_wgmma_kernel(const float* __restrict__ lse,
   }
   hop::reg_alloc<240>();
 
-  const int warp = (tid >> 5) & 3, lane = tid & 31;
+  const int warp = (tid >> 5) & 3, lane = tid & 31, t = lane & 3;
   const int r0 = q0 + 64 * wg;                       // this consumer's rows
   const int row[2] = {r0 + 16 * warp + (lane >> 2),
                       r0 + 16 * warp + (lane >> 2) + 8};
@@ -164,6 +238,21 @@ dq_wgmma_kernel(const float* __restrict__ lse,
                        * flash::kLog2e
                  : 0.f;
     dlt[r] = ok ? delta[(int64_t)bh * sq + row[r]] : 0.f;
+  }
+  // HAS_BIAS: this lane's bias rows at its first column (a row past sq
+  // reads row sq - 1: it is never stored)
+  const float* brow[2] = {nullptr, nullptr};
+  if constexpr (HAS_BIAS) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      brow[r] = md.bias + bi * md.b_sb + hi * md.b_sh
+                + (int64_t)min(row[r], sq - 1) * md.b_sq
+                + (int64_t)(2 * t) * md.b_sk;
+  }
+  uint32_t key0 = 0, key1 = 0;                       // DROP: the Philox key
+  if constexpr (DROP) {
+    key0 = (uint32_t)md.seed[0];
+    key1 = (uint32_t)md.seed[1];
   }
   // the keys this consumer's rows can see lie below wkend
   const int wkend = causal ? min(sk, r0 + 64 + off) : sk;
@@ -193,6 +282,19 @@ dq_wgmma_kernel(const float* __restrict__ lse,
         hop::wgmma_chunk<0, 0>(dp, sO + c * 2 * kAtom + wg * kAtom,
                                st + kKV + c * kAtom);
       hop::wg_commit();
+      // under the products: the tile's bias loads and keep bits
+      float bb[8][4];
+      if constexpr (HAS_BIAS) {
+        const float* bp[2] = {brow[0] + (int64_t)k0 * md.b_sk,
+                              brow[1] + (int64_t)k0 * md.b_sk};
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+          bias_chunk(bb[n], bp, md.b_sk, n, k0 + 2 * t, sk);
+      }
+      uint32_t keep = 0;
+      if constexpr (DROP)
+        keep = flash::keep_bits_qk(bh, row[0], row[1], k0 + 2 * t, key0,
+                                   key1, md.thresh, lane);
       hop::wg_wait<1>();                        // S is done, dP runs on
       hop::acc_fence(sc);
       // the diagonal (causal) or the ragged end crosses this tile
@@ -202,19 +304,24 @@ dq_wgmma_kernel(const float* __restrict__ lse,
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           const int r = i >> 1;
-          const int col = k0 + 8 * n + 2 * (lane & 3) + (i & 1);
+          const int col = k0 + 8 * n + 2 * t + (i & 1);
           const bool vis = !edge
                            || flash::visible(row[r], col, sq, sk, off,
                                              causal != 0);
-          sc[n][i] = vis ? ex2(fmaf(sc[n][i], scale_log2, -lse2[r])) : 0.f;
+          float lb = -lse2[r];                  // (bias - lse) log2e
+          if constexpr (HAS_BIAS) lb = fmaf(bb[n][i], flash::kLog2e, lb);
+          sc[n][i] = vis ? ex2(fmaf(sc[n][i], scale_log2, lb)) : 0.f;
         }
       hop::wg_wait<0>();                        // dP is done
       hop::acc_fence(dp);
 #pragma unroll
       for (int n = 0; n < 8; ++n)
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
-          sc[n][i] = sc[n][i] * (dp[n][i] - dlt[i >> 1]) * scale;   // dS
+        for (int i = 0; i < 4; ++i) {
+          float dpk = dp[n][i];                 // dP of the dropped P
+          if constexpr (DROP) dpk = kept(dpk, keep, 4 * n + i, md.inv_keep);
+          sc[n][i] = sc[n][i] * (dpk - dlt[i >> 1]) * scale;   // dS
+        }
       uint32_t a[4][4];
       hop::acc_to_a(a, sc);
       hop::wg_fence();
@@ -237,19 +344,20 @@ dq_wgmma_kernel(const float* __restrict__ lse,
     for (int c = 0; c < NC; ++c)
 #pragma unroll
       for (int n = 0; n < 8; ++n)
-        flash::store2(drow + c * 64 + 8 * n + 2 * (lane & 3),
+        flash::store2(drow + c * 64 + 8 * n + 2 * t,
                       acc[c][n][2 * r], acc[c][n][2 * r + 1]);
   }
 }
 
 // ---- dK/dV: block (batch*head, key tile); keys k0.., 64 wg.. a consumer,
 // in the transposed frame (key rows x q columns) ----
-template <int D>
+template <int D, bool HAS_BIAS, bool DROP>
 __global__ void __launch_bounds__(kThreads, 1)
 dkv_wgmma_kernel(const float* __restrict__ lse,
                  const float* __restrict__ delta, bf16* __restrict__ dk,
                  bf16* __restrict__ dv, int H, int sq, int sk, float scale,
-                 int causal, const __grid_constant__ CUtensorMap tm_q,
+                 int causal, const Mode md,
+                 const __grid_constant__ CUtensorMap tm_q,
                  const __grid_constant__ CUtensorMap tm_k,
                  const __grid_constant__ CUtensorMap tm_v,
                  const __grid_constant__ CUtensorMap tm_o) {
@@ -259,6 +367,10 @@ dkv_wgmma_kernel(const float* __restrict__ lse,
   // Q, dO, then the rows' lse (base 2) and delta: 512 bytes, padded so
   // that the next stage's tiles stay 1024-byte aligned
   constexpr uint32_t kStage = 2 * kQO + 1024;
+  // HAS_BIAS: the chunks whose bias loads go before the wait on S^T; at d
+  // 128, where dK and dV hold 128 registers, one, and chunk n + 1's loads
+  // go out while chunk n is made (more spilled: ptxas, PERF.md §6)
+  constexpr int kPre = D == 64 ? 8 : 1;
   __shared__ uint64_t full[kStages], empty[kStages], kvbar;
   unsigned char* smem = tiles();
   const uint32_t base = hop::smem_u32(smem);
@@ -326,11 +438,26 @@ dkv_wgmma_kernel(const float* __restrict__ lse,
   }
   hop::reg_alloc<240>();
 
-  const int warp = (tid >> 5) & 3;
+  const int warp = (tid >> 5) & 3, t = lane & 3;
   const int kr0 = k0 + 64 * wg;                      // this consumer's keys
   const int krow[2] = {kr0 + 16 * warp + (lane >> 2),
                        kr0 + 16 * warp + (lane >> 2) + 8};
   const float scale_log2 = scale * flash::kLog2e;
+  // HAS_BIAS: this lane's bias columns bias[., key] at its first query (a
+  // key past sk reads key sk - 1: it is never stored)
+  const float* bkey[2] = {nullptr, nullptr};
+  if constexpr (HAS_BIAS) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      bkey[r] = md.bias + bi * md.b_sb + hi * md.b_sh
+                + (int64_t)min(krow[r], sk - 1) * md.b_sk
+                + (int64_t)(2 * t) * md.b_sq;
+  }
+  uint32_t key0 = 0, key1 = 0;                       // DROP: the Philox key
+  if constexpr (DROP) {
+    key0 = (uint32_t)md.seed[0];
+    key1 = (uint32_t)md.seed[1];
+  }
   float dka[NC][8][4], dva[NC][8][4];
 #pragma unroll
   for (int c = 0; c < NC; ++c) {
@@ -361,13 +488,31 @@ dkv_wgmma_kernel(const float* __restrict__ lse,
         hop::wgmma_chunk<0, 0>(dp, sV + c * 2 * kAtom + wg * kAtom,
                                st + kQO + c * kAtom);
       hop::wg_commit();
+      // under the products: the tile's bias loads and keep bits
+      float bt[8][4];                                // bias^T
+      const float* bq[2] = {nullptr, nullptr};
+      if constexpr (HAS_BIAS) {
+        bq[0] = bkey[0] + (int64_t)qs0 * md.b_sq;
+        bq[1] = bkey[1] + (int64_t)qs0 * md.b_sq;
+#pragma unroll
+        for (int n = 0; n < kPre; ++n)
+          bias_chunk(bt[n], bq, md.b_sq, n, qs0 + 2 * t, sq);
+      }
+      uint32_t keep = 0;
+      if constexpr (DROP)
+        keep = flash::keep_bits_kq(bh, krow[0], krow[1], qs0 + 2 * t, key0,
+                                   key1, md.thresh, lane);
       hop::wg_wait<1>();                        // S^T is done, dP^T runs on
       hop::acc_fence(sc);
       const bool edge = (causal && qs0 < kr0 + 63 - off) || kr0 + 64 > sk
                         || qs0 + 64 > sq;
 #pragma unroll
       for (int n = 0; n < 8; ++n) {
-        const int c2 = 8 * n + 2 * (lane & 3);       // q rows c2, c2 + 1
+        if constexpr (HAS_BIAS && kPre < 8) {
+          if (n + kPre < 8)
+            bias_chunk(bt[n + kPre], bq, md.b_sq, n + kPre, qs0 + 2 * t, sq);
+        }
+        const int c2 = 8 * n + 2 * t;                // q rows c2, c2 + 1
         const float2 l2 = *reinterpret_cast<const float2*>(stat + c2);
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
@@ -375,13 +520,16 @@ dkv_wgmma_kernel(const float* __restrict__ lse,
           const bool vis = !edge
                            || flash::visible(qs0 + c2 + odd, krow[i >> 1], sq,
                                              sk, off, causal != 0);
-          sc[n][i] = vis ? ex2(fmaf(sc[n][i], scale_log2,
-                                    -(odd ? l2.y : l2.x)))
-                         : 0.f;                                      // P^T
+          float lbt = -(odd ? l2.y : l2.x);     // (bias^T - lse) log2e
+          if constexpr (HAS_BIAS) lbt = fmaf(bt[n][i], flash::kLog2e, lbt);
+          sc[n][i] = vis ? ex2(fmaf(sc[n][i], scale_log2, lbt)) : 0.f;  // P^T
         }
       }
       uint32_t ap[4][4], as[4][4];
-      hop::acc_to_a(ap, sc);
+      if constexpr (DROP)
+        acc_to_a_kept(ap, sc, keep, md.inv_keep);   // the dropped P^T
+      else
+        hop::acc_to_a(ap, sc);
       hop::wg_fence();
       hop::wgmma_rs_chunk<1, NC>(dva, ap, st + kQO, kAtom);  // dV += P^T dO
       hop::wg_commit();
@@ -389,12 +537,15 @@ dkv_wgmma_kernel(const float* __restrict__ lse,
       hop::acc_fence(dp);
 #pragma unroll
       for (int n = 0; n < 8; ++n) {
-        const int c2 = 8 * n + 2 * (lane & 3);
+        const int c2 = 8 * n + 2 * t;
         const float2 dl = *reinterpret_cast<const float2*>(stat + 64 + c2);
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
-          dp[n][i] = sc[n][i] * (dp[n][i] - ((i & 1) ? dl.y : dl.x))
+        for (int i = 0; i < 4; ++i) {
+          float dpt = dp[n][i];                 // dP^T of the dropped P^T
+          if constexpr (DROP) dpt = kept(dpt, keep, 4 * n + i, md.inv_keep);
+          dp[n][i] = sc[n][i] * (dpt - ((i & 1) ? dl.y : dl.x))
                      * scale;                                        // dS^T
+        }
       }
       hop::acc_to_a(as, dp);
       hop::wg_fence();
@@ -421,7 +572,7 @@ dkv_wgmma_kernel(const float* __restrict__ lse,
     for (int c = 0; c < NC; ++c)
 #pragma unroll
       for (int n = 0; n < 8; ++n) {
-        const int col = c * 64 + 8 * n + 2 * (lane & 3);
+        const int col = c * 64 + 8 * n + 2 * t;
         flash::store2(dk + o + col, dka[c][n][2 * r], dka[c][n][2 * r + 1]);
         flash::store2(dv + o + col, dva[c][n][2 * r], dva[c][n][2 * r + 1]);
       }
@@ -456,19 +607,22 @@ template <int D>
 int dq_launch(const void* q, const void* k, const void* v, const void* o,
               const void* lse, const void* delta, void* dq, int b, int h,
               int sq, int sk, const int64_t* st, float scale, int causal,
-              cudaStream_t stream) {
+              const Mode& md, cudaStream_t stream) {
   constexpr int NC = D / 64;
   const int tiles_y = (sq + kRows - 1) / kRows;
   CUtensorMap m[4];
   if (tiles_y > 65535 || !maps<D>(m, q, k, v, o, b, h, sq, sk, st, kRows, 64))
     return (int)cudaErrorInvalidValue;
   const size_t smem = 2 * NC * 2 * kAtom + kStages * 2 * NC * kAtom + 1024;
-  auto kern = dq_wgmma_kernel<D>;
+  auto kern = md.bias ? (md.seed ? dq_wgmma_kernel<D, true, true>
+                                 : dq_wgmma_kernel<D, true, false>)
+                      : (md.seed ? dq_wgmma_kernel<D, false, true>
+                                 : dq_wgmma_kernel<D, false, false>);
   cudaError_t err = flash::allow_smem(kern, smem);
   if (err != cudaSuccess) return (int)err;
   kern<<<dim3(b * h, tiles_y), kThreads, smem, stream>>>(
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<bf16*>(dq), h, sq, sk, scale, causal, m[0], m[1], m[2],
+      static_cast<bf16*>(dq), h, sq, sk, scale, causal, md, m[0], m[1], m[2],
       m[3]);
   return (int)cudaGetLastError();
 }
@@ -477,7 +631,7 @@ template <int D>
 int dkv_launch(const void* q, const void* k, const void* v, const void* o,
                const void* lse, const void* delta, void* dk, void* dv, int b,
                int h, int sq, int sk, const int64_t* st, float scale,
-               int causal, cudaStream_t stream) {
+               int causal, const Mode& md, cudaStream_t stream) {
   constexpr int NC = D / 64;
   const int tiles_y = (sk + kRows - 1) / kRows;
   CUtensorMap m[4];
@@ -485,13 +639,16 @@ int dkv_launch(const void* q, const void* k, const void* v, const void* o,
     return (int)cudaErrorInvalidValue;
   const size_t smem =
       2 * NC * 2 * kAtom + kStages * (2 * NC * kAtom + 1024) + 1024;
-  auto kern = dkv_wgmma_kernel<D>;
+  auto kern = md.bias ? (md.seed ? dkv_wgmma_kernel<D, true, true>
+                                 : dkv_wgmma_kernel<D, true, false>)
+                      : (md.seed ? dkv_wgmma_kernel<D, false, true>
+                                 : dkv_wgmma_kernel<D, false, false>);
   cudaError_t err = flash::allow_smem(kern, smem);
   if (err != cudaSuccess) return (int)err;
   kern<<<dim3(b * h, tiles_y), kThreads, smem, stream>>>(
       static_cast<const float*>(lse), static_cast<const float*>(delta),
       static_cast<bf16*>(dk), static_cast<bf16*>(dv), h, sq, sk, scale,
-      causal, m[0], m[1], m[2], m[3]);
+      causal, md, m[0], m[1], m[2], m[3]);
   return (int)cudaGetLastError();
 }
 

@@ -1,7 +1,7 @@
 """Kernels 3-5: flash attention forward, dQ and dK/dV (CUDA,
 ``csrc/flash_attention_fwd.cu`` and ``csrc/flash_attention_bwd.cu``,
-whose plain bf16 mode, no bias, dropout or segment ids, runs the wgmma
-kernels of ``csrc/flash_bwd_wgmma.cuh``).
+whose bf16 modes without segment ids, with or without a bias and
+dropout, run the wgmma kernels of ``csrc/flash_bwd_wgmma.cuh``).
 
 Replaces ``paddle_tpu/ops/pallas/flash_attention.py``: ``_fwd`` (its
 ``pallas_call`` at :242) and the two ``pallas_call``s of

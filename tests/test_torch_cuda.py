@@ -473,7 +473,8 @@ def test_layer_norm_raises_outside_its_gate(cuda):
 def _bias(kind, b, h, sq, sk, device, seed=0):
     """A key-padding mask as BERT's (bool [b, 1, 1, sk] converted by
     ``attn_bias``: a stride-0 view), a dense fp32 [b, h, sq, sk] bias with
-    one query row that sees no key, or an fp32 [sq, sk] bias."""
+    one query row that sees no key (``dense_inf``: and -inf at every 11th
+    key from key 3), or an fp32 [sq, sk] bias."""
     g = torch.Generator(device=device).manual_seed(seed)
     if kind == "keypad":
         lens = torch.randint(sq // 4, sk + 1, (b,), generator=g,
@@ -482,9 +483,12 @@ def _bias(kind, b, h, sq, sk, device, seed=0):
         return FA.attn_bias(keep[:, None, None, :].expand(b, 1, sq, sk),
                             torch.empty((b, sq, h, 1)),
                             torch.empty((b, sk, h, 1)))
-    shape = (b, h, sq, sk) if kind == "dense" else (sq, sk)
+    dense = kind.startswith("dense")
+    shape = (b, h, sq, sk) if dense else (sq, sk)
     m = torch.randn(shape, generator=g, device=device) * 2
-    if kind == "dense":
+    if kind == "dense_inf":
+        m[..., 3::11] = float("-inf")
+    if dense:
         m[0, -1, 7] = -1e30
     return FA.pad_bias(m, b, h, sq, sk)
 
@@ -496,6 +500,10 @@ def _bias(kind, b, h, sq, sk, device, seed=0):
     (1, 333, 517, 2, 64, False, "dense"),
     (1, 1000, 1000, 2, 128, True, "2d"),
     (2, 700, 1000, 2, 64, True, "2d"),
+    (2, 333, 333, 2, 128, False, "keypad"),
+    (1, 700, 1000, 2, 128, True, "keypad"),
+    (2, 1000, 700, 2, 64, True, "dense_inf"),
+    (2, 130, 130, 2, 128, False, "dense_inf"),
 ])
 def test_flash_bias_kernels_match_plain(cuda, b, sq, sk, h, d, causal, kind):
     q, k, v, do = _flash_inputs(b, sq, sk, h, d, "bfloat16", cuda, seed=1)
@@ -521,7 +529,7 @@ def test_flash_bias_kernels_match_plain(cuda, b, sq, sk, h, d, causal, kind):
     dead = want_l <= -1e29
     assert torch.equal(lse <= -1e29, dead)
     assert (out.transpose(1, 2)[dead] == 0).all()
-    if kind == "dense":
+    if kind.startswith("dense"):
         assert dead[0, -1, 7]
     live_err = (lse - want_l)[~dead].abs().max().item()
     assert live_err <= 1e-4, live_err
@@ -1081,8 +1089,11 @@ def _bias_of(kind, b, h, sq, sk, q, k, device):
         keep[-1, ..., sk // 3 if kind == "keypad" else 1:] = False
         return FA.attn_bias(keep.expand(b, 1, sq, sk), q, k)
     g = torch.Generator(device=device).manual_seed(7)
-    return FA.pad_bias(torch.randn((b, h, sq, sk), generator=g,
-                                   device=device) * 2, b, h, sq, sk)
+    m = torch.randn((b, h, sq, sk), generator=g, device=device) * 2
+    if kind == "dead":     # -inf entries and a row that sees no key
+        m[..., 3::11] = float("-inf")
+        m[0, -1, 7] = -1e30
+    return FA.pad_bias(m, b, h, sq, sk)
 
 
 @pytest.mark.parametrize("b,sq,sk,h,d,causal,bias", [
@@ -1110,19 +1121,26 @@ def test_flash_fp32_kernels_against_fp64(cuda, b, sq, sk, h, d, causal,
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("bias", [None, "keypad"])
-def test_flash_dropout_kernels_match_plain(cuda, dtype, bias):
+@pytest.mark.parametrize("bias", [None, "keypad", "dead"])
+@pytest.mark.parametrize("shape", [(2, 320, 320, 3, 64),
+                                   (1, 700, 1000, 2, 128),
+                                   (2, 1000, 700, 2, 128)])
+def test_flash_dropout_kernels_match_plain(cuda, dtype, bias, shape):
     """The dropout mode (p 0.1) against the plain versions on one key,
     so on one Philox mask: fp32 by the fp32 rule against fp64, bf16 by
     the bf16 rule against the fp32 plain versions; two launches on one
-    key bitwise equal; another key another output."""
-    b, s, h, d, p = 2, 320, 3, 64, 0.1
-    q, k, v, do = _flash_inputs(b, s, s, h, d, dtype, cuda, seed=6)
+    key bitwise equal (the backward too); another key another output.
+    d 64 and 128, ragged lengths with sq != sk both ways; causal without
+    a bias, else non-causal with a key-padding bias or a dense one that
+    holds -inf entries and a query row that sees no key (``dead``)."""
+    b, sq, sk, h, d = shape
+    p = 0.1
+    q, k, v, do = _flash_inputs(b, sq, sk, h, d, dtype, cuda, seed=6)
     causal = bias is None
     scale = d ** -0.5
     seed = torch.tensor([2024, (1 << 32) - 7], dtype=torch.int64,
                         device=cuda)
-    mask = _bias_of(bias, b, h, s, s, q, k, cuda)
+    mask = _bias_of(bias, b, h, sq, sk, q, k, cuda)
     mode = (mask, p, seed)
     reset_launch_counts()
     if dtype == "float32":
@@ -1147,6 +1165,13 @@ def test_flash_dropout_kernels_match_plain(cuda, dtype, bias):
                                          for n in ("fwd", "dq", "dkv")})
     again, lse = FA.flash_fwd_cuda(q, k, v, scale, causal, *mode)
     assert torch.equal(again, out)
+    delta = FA.flash_delta(do, out)
+    first, second = ((FA.flash_bwd_dq_cuda(q, k, v, do, lse, delta, scale,
+                                           causal, *mode),)
+                     + FA.flash_bwd_dkv_cuda(q, k, v, do, lse, delta, scale,
+                                             causal, *mode)
+                     for _ in range(2))
+    assert all(torch.equal(x, y) for x, y in zip(first, second))
     other, _ = FA.flash_fwd_cuda(q, k, v, scale, causal, mask, p,
                                  seed + 1)
     assert not torch.equal(other, out)

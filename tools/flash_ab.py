@@ -3,14 +3,15 @@
 that two trees (a parent commit unpacked with ``git archive`` and the
 working tree) can be compared on one card in one call, in turns.
 
-    python3 tools/flash_ab.py [--tree PATH] [--train]
+    python3 tools/flash_ab.py [--tree PATH] [--train] [--steps]
 
 ``--tree`` is the root of a checkout holding ``paddle_tpu_torch`` (default:
 this repository); its kernels are built into that tree's own
 ``build/kernels``. Modes and shapes: bf16 causal at the Llama training
 shape [4, 2048, 16, 128]; bf16 non-causal without a bias at BERT-Base's
-[32, 512, 12, 64] (``train_bert``'s path); fp32 causal at GPT-2 small's
-[8, 1024, 12, 64]; bf16 and fp32 with a key-padding bias (seeded lengths
+[32, 512, 12, 64] (``train_bert``'s path); fp32 and bf16 causal at GPT-2
+small's [8, 1024, 12, 64] (bf16: the dropout rows' no-dropout twin); bf16
+and fp32 with a key-padding bias (seeded lengths
 128-512) at BERT-Base's shape non-causal; the dropout mode (p 0.1, one
 key) in bf16 and fp32 at GPT-2's shape, and in bf16 with the bias at
 BERT's; the segment mode on ``bench.py::bench_llama``'s first packed
@@ -20,10 +21,15 @@ events, cycling three input sets (past the 50 MB L2), after 10 warm-up
 launches. ``--train`` then runs ``chip_smoke.py``'s Llama ``train`` phase
 (``bench.py::_llama_flagship``, 10 steps) and one profiled step
 (``train_profile``: device time by category, idle share) on that tree's
-package, with this repository's ``chip_smoke.py`` as the harness. Prints
-one JSON line: the tree, the card, the times in ms, the train step's
-figures, and, when this run built the kernels, ``ptxas``'s registers and
-spills per instantiation.
+package, with this repository's ``chip_smoke.py`` as the harness.
+``--steps`` runs, the same way, the two steps that the bf16 bias and
+dropout backward carry: ``train_bert_padded`` (BERT-Base bf16 on the
+padded batch, 10 steps: the bias mode) and the GPT-2 small bf16 arm of
+``train_dropout_bf16`` at dropout 0.1 (10 steps: the dropout mode), each
+with one profiled step (device time by category, idle share, the flash
+backward kernels that ran). Prints one JSON line: the tree, the card,
+the times in ms, the steps' figures, and, when this run built the
+kernels, ``ptxas``'s registers and spills per instantiation.
 """
 
 import argparse
@@ -58,6 +64,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", default=HERE)
     ap.add_argument("--train", action="store_true")
+    ap.add_argument("--steps", action="store_true")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("flash_ab: no CUDA device", file=sys.stderr)
@@ -87,6 +94,8 @@ def main(argv=None) -> int:
             ("bf16_bert", (32, 512, 12, 64), torch.bfloat16, False, False,
              0.0),
             ("fp32_gpt2", (8, 1024, 12, 64), torch.float32, True, False,
+             0.0),
+            ("bf16_gpt2", (8, 1024, 12, 64), torch.bfloat16, True, False,
              0.0),
             ("bf16_bert_bias", (32, 512, 12, 64), torch.bfloat16, False,
              True, 0.0),
@@ -133,9 +142,67 @@ def main(argv=None) -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
     train = _train(smi) if args.train else None
+    steps = _steps(smi) if args.steps else None
     print(json.dumps({"tree": args.tree, "device": smi, "ms": times,
-                      "train": train, "ptxas": report}), flush=True)
+                      "train": train, "steps": steps, "ptxas": report}),
+          flush=True)
     return 0
+
+
+def _harness():
+    """This repository's ``chip_smoke.py`` (whatever tree ``main``
+    imported the package from)."""
+    spec = importlib.util.spec_from_file_location(
+        "repo_smoke", os.path.join(HERE, "chip_smoke.py"))
+    S = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(S)
+    return S
+
+
+def _profile_figures(prof) -> dict:
+    return {k: prof[k] for k in ("wall_ms", "device_ms", "idle_share",
+                                 "device_ms_by_category",
+                                 "flash_bwd_kernels") if k in prof}
+
+
+def _steps(smi) -> dict:
+    """``train_bert_padded`` and the GPT-2 bf16 dropout arm, each with
+    one profiled step, on the package that ``main`` imported."""
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import (BertConfig, BertForPreTraining,
+                                         GPTConfig, GPTForCausalLM)
+    from paddle_tpu_torch.ops import kernels as K
+    from paddle_tpu_torch.ops.kernels import build
+    from paddle_tpu_torch.optimizer import AdamW
+    build.build_all(["layer_norm"])
+    S = _harness()
+    cfg = S.bert_config(BertConfig)
+    model = BertForPreTraining(cfg, device="cuda", seed=S.SEED)
+    args, n_inputs = S.bert_batch(torch, np, cfg, padded=True)
+    train, opt = S.phase_train_bert(torch, K, model, TrainStep, AdamW, args,
+                                    n_inputs, smi, padded=True)
+    prof = S.phase_train_bert_profile(torch, model, opt, TrainStep, args,
+                                      n_inputs)
+    out = {"train_bert_padded": {
+        "step_ms": train["step_ms"],
+        "median_step_ms": train["median_step_ms"],
+        "profile": _profile_figures(prof)}}
+    del model, opt, args
+    torch.cuda.empty_cache()
+    arm, model, _, args, n_inputs, loss_of, *_ = next(S.dropout_bf16_arms(
+        torch, np, GPTConfig, GPTForCausalLM, BertConfig,
+        BertForPreTraining))
+    res, opt = S._train_steps(torch, K, model, TrainStep, AdamW, args,
+                              n_inputs, loss_of(model), S.BERT_STEPS)
+    step = TrainStep(model, opt, loss_of(model), n_inputs=n_inputs)
+    prof = S._step_profile(torch, lambda: step(*args), model, opt,
+                           S._GPT2_CATEGORIES)
+    out[arm] = {"step_ms": res["step_ms"],
+                "median_step_ms": float(np.median(res["step_ms"][2:])),
+                "profile": _profile_figures(prof)}
+    del model, opt, step, args
+    torch.cuda.empty_cache()
+    return out
 
 
 def _train(smi) -> dict:
@@ -147,10 +214,7 @@ def _train(smi) -> dict:
     from paddle_tpu_torch.ops.kernels import build
     from paddle_tpu_torch.optimizer import AdamW
     build.build_all(["rms_norm"])
-    spec = importlib.util.spec_from_file_location(
-        "repo_smoke", os.path.join(HERE, "chip_smoke.py"))
-    S = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(S)
+    S = _harness()
     cfg = S.flagship_config(LlamaConfig, S.TRAIN_SEQ)
     model = LlamaForCausalLM(cfg, device="cuda", seed=S.SEED)
     batch = torch.tensor(np.random.default_rng(S.SEED).integers(

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""A short first call for the bf16 flash backward's plain mode on a GPU
-(``csrc/flash_bwd_wgmma.cuh``: dQ and dK/dV on wgmma, fed by TMA).
+"""A short first call for the bf16 flash backward on a GPU
+(``csrc/flash_bwd_wgmma.cuh``: dQ and dK/dV on wgmma, fed by TMA, in
+their plain, bias, dropout and bias + dropout modes).
 
     python3 tools/flash_bwd_probe.py [--report FILE] [--times] [--big]
 
@@ -8,16 +9,26 @@ Builds the two flash sources (``ptxas``'s registers and spills per
 instantiation, and ``nvcc``'s warnings, go to the file ``--report``
 names), then holds the three flash kernels against their plain versions
 with ``chip_smoke.py``'s flash check (``_flash_errors``: each row within
-2**-7 of its largest magnitude + 1e-3, relative Frobenius error <= 4e-3)
-at small shapes that take every branch of the new kernels: d 64 and 128,
-causal and not, ragged lengths (s 1, 63, 130, 1000), causal with sq > sk
-(rows that see no key) and sq < sk, one q tile of a 128-row block past
-the end, and q, k, v, dO as strided views of one fused [b, s, 4, h, d]
-tensor; each backward launched twice, bitwise equal. ``--big`` adds
-BERT-Base's [32, 512, 12, 64] non-causal and the Llama training shape
-[4, 2048, 16, 128] causal. ``--times`` times dQ and dK/dV at those two
-shapes (CUDA events, 100 calls cycling three input sets past the L2).
-Prints one JSON line.
+2**-7 of its largest magnitude + 1e-3, relative Frobenius error <= 4e-3;
+the backward launched twice, bitwise equal) at small shapes that take
+every branch of the kernels: d 64 and 128, causal and not, ragged
+lengths (s 1, 63, 130, 1000), causal with sq > sk (rows that see no key)
+and sq < sk, one q tile of a 128-row block past the end, and q, k, v, dO
+as strided views of one fused [b, s, 4, h, d] tensor. Each shape runs in
+every mode: plain; ``keypad``, a key-padding bias as BERT's (bool [b, 1,
+1, sk] through ``attn_bias``: stride 0 on heads and queries, seeded
+lengths from 2 to sk); ``dense``, a random fp32 [b, h, sq, sk] bias with
+-inf at every 11th key from key 3 and one query row of -1e30 (a row that
+sees no key); ``drop``, dropout p 0.1 on one Philox key; and
+``keypad_drop`` and ``dense_drop``. With one key (sk 1) every row's
+dS = P (dP - delta) is 0 in exact arithmetic (P = 1, dP = delta), so dq
+and dk are 0 and held by the row rule alone: their relative Frobenius
+error is a ratio of roundings. ``--big`` adds BERT-Base's [32, 512,
+12, 64] non-causal (plain, keypad, keypad_drop) and the Llama training
+shape [4, 2048, 16, 128] causal (plain, drop). ``--times`` times dQ and
+dK/dV (CUDA events, 100 calls cycling three input sets past the L2) at
+the Llama shape (plain), BERT-Base's (plain, keypad, keypad_drop) and
+GPT-2 small's [8, 1024, 12, 64] causal (drop). Prints one JSON line.
 """
 
 import argparse
@@ -38,7 +49,11 @@ SMALL = [   # (b, sq, sk, h, d, causal)
     (2, 700, 1000, 4, 128, True), (1, 63, 63, 2, 128, True),
     (1, 1, 1, 2, 64, False), (1, 1, 300, 2, 128, True),
     (1, 300, 1, 2, 64, True), (3, 200, 200, 2, 128, True)]
-BIG = [(32, 512, 512, 12, 64, False), (4, 2048, 2048, 16, 128, True)]
+BERT, LLAMA = (32, 512, 512, 12, 64, False), (4, 2048, 2048, 16, 128, True)
+GPT2 = (8, 1024, 1024, 12, 64, True)
+BIG = [(BERT, ("plain", "keypad", "keypad_drop")), (LLAMA, ("plain", "drop"))]
+TIMES = [(LLAMA, "plain"), (BERT, "plain"), (BERT, "keypad"),
+         (BERT, "keypad_drop"), (GPT2, "drop")]
 
 
 def _smoke():
@@ -59,24 +74,42 @@ def _inputs(gen, b, sq, sk, h, d, fused):
         rand(b, sq, h, d)
 
 
-def _check(S, F, gen, shape, fused=False):
+MODES = ("plain", "keypad", "dense", "drop", "keypad_drop", "dense_drop")
+DROP_P = 0.1
+
+
+def _mode(F, gen, mode, q, k, seed):
+    """(bias, dropout_p, seed_arr) of ``mode`` for these q and k."""
+    b, sq, h, _ = q.shape
+    sk = k.shape[1]
+    bias = None
+    if mode.startswith("keypad"):
+        lens = torch.randint(min(2, sk), sk + 1, (b,), generator=gen,
+                             device="cuda")
+        keep = torch.arange(sk, device="cuda")[None, :] < lens[:, None]
+        bias = F.attn_bias(keep[:, None, None, :].expand(b, 1, sq, sk), q, k)
+    elif mode.startswith("dense"):
+        m = torch.randn((b, h, sq, sk), generator=gen, device="cuda") * 2
+        m[..., 3::11] = float("-inf")
+        m[0, 0, -1] = -1e30                  # a row that sees no key
+        bias = F.pad_bias(m, b, h, sq, sk)
+    p = DROP_P if mode.endswith("drop") else 0.0
+    return bias, p, seed if p else None
+
+
+def _check(S, F, gen, shape, mode, seed, fused=False):
     b, sq, sk, h, d, causal = shape
     q, k, v, do = _inputs(gen, b, sq, sk, h, d, fused)
-    scale = d ** -0.5
-    errs = S._flash_errors(torch, F, q, k, v, do, scale, causal)
-    out, lse = F.flash_fwd_plain(q.float(), k.float(), v.float(), scale,
-                                 causal)
-    delta = F.flash_delta(do, out.to(q.dtype))
-    runs = [(F.flash_bwd_dq_cuda(q, k, v, do, lse, delta, scale, causal),
-             *F.flash_bwd_dkv_cuda(q, k, v, do, lse, delta, scale, causal))
-            for _ in range(2)]
-    torch.cuda.synchronize()
-    if not all(torch.equal(x, y) for x, y in zip(*runs)):
-        errs["failures"].append("a repeat differs")
-    return {"shape": list(shape), "fused": fused,
+    errs = S._flash_errors(torch, F, q, k, v, do, d ** -0.5, causal,
+                           *_mode(F, gen, mode, q, k, seed), repeat=True)
+    failures = errs["failures"]
+    if sk == 1:   # dq = dk = 0 exactly: their relative error is 0 / 0
+        failures = [f for f in failures if not f.startswith(
+            ("dq: relative Frobenius", "dk: relative Frobenius"))]
+    return {"shape": list(shape), "mode": mode, "fused": fused,
             "row": {o: errs[o]["row"] for o in ("dq", "dk", "dv")},
             "fro": {o: errs[o]["fro"] for o in ("dq", "dk", "dv")},
-            "failures": errs["failures"]}
+            "failures": failures}
 
 
 def _ms(fn, sets, iters=100, warmup=10):
@@ -93,17 +126,21 @@ def _ms(fn, sets, iters=100, warmup=10):
     return e0.elapsed_time(e1) / iters
 
 
-def _times(F, gen, shape):
+def _times(F, gen, shape, mode, seed):
     b, sq, sk, h, d, causal = shape
     sets = []
     for _ in range(3):
         q, k, v, do = _inputs(gen, b, sq, sk, h, d, False)
-        out, lse = F.flash_fwd_cuda(q, k, v, d ** -0.5, causal)
-        sets.append((q, k, v, do, lse, F.flash_delta(do, out)))
+        bias, p, key = _mode(F, gen, mode, q, k, seed)
+        out, lse = F.flash_fwd_cuda(q, k, v, d ** -0.5, causal, bias, p,
+                                    key)
+        sets.append((q, k, v, do, lse, F.flash_delta(do, out), bias))
     sc = d ** -0.5
-    return {"dq": _ms(lambda *a: F.flash_bwd_dq_cuda(*a, sc, causal), sets),
-            "dkv": _ms(lambda *a: F.flash_bwd_dkv_cuda(*a, sc, causal),
-                       sets)}
+    tail = (p, key)
+    return {"dq": _ms(lambda *a: F.flash_bwd_dq_cuda(*a[:6], sc, causal,
+                                                     a[6], *tail), sets),
+            "dkv": _ms(lambda *a: F.flash_bwd_dkv_cuda(*a[:6], sc, causal,
+                                                       a[6], *tail), sets)}
 
 
 def main(argv=None) -> int:
@@ -135,14 +172,19 @@ def main(argv=None) -> int:
               if "wgmma" in name}
     S = _smoke()
     gen = torch.Generator(device="cuda").manual_seed(5)
-    checks = [_check(S, F, gen, shape) for shape in SMALL]
-    checks += [_check(S, F, gen, (2, 300, 300, 3, d, c), fused=True)
-               for d in (64, 128) for c in (True, False)]
+    seed = torch.tensor([7, 11], dtype=torch.int64, device="cuda")
+    checks = [_check(S, F, gen, shape, mode, seed)
+              for shape in SMALL for mode in MODES]
+    checks += [_check(S, F, gen, (2, 300, 300, 3, d, c), mode, seed,
+                      fused=True)
+               for d in (64, 128) for c in (True, False) for mode in MODES]
     if args.big:
-        checks += [_check(S, F, gen, shape) for shape in BIG]
-        torch.cuda.empty_cache()
-    times = ({f"{shape}": _times(F, gen, shape) for shape in BIG}
-             if args.times else None)
+        for shape, modes in BIG:
+            checks += [_check(S, F, gen, shape, mode, seed)
+                       for mode in modes]
+            torch.cuda.empty_cache()
+    times = ({f"{shape} {mode}": _times(F, gen, shape, mode, seed)
+              for shape, mode in TIMES} if args.times else None)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
