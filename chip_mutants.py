@@ -87,7 +87,7 @@ import tempfile
 import numpy as np
 
 BWD, FWD = "flash_attention_bwd.cu", "flash_attention_fwd.cu"
-WGB = "flash_bwd_wgmma.cuh"
+WGB, WGF = "flash_bwd_wgmma.cuh", "flash_fwd_wgmma.cuh"
 ROUTE, GG = "moe_routing.cu", "moe_grouped_gemm.cu"
 PAGED = "paged_attention.cu"
 LN = "layer_norm.cu"
@@ -97,21 +97,55 @@ HOP = "hopper.cuh"
 INT8_LAYERS = 4
 FP8 = ('#include "flash_common.cuh"',
        '#include "flash_common.cuh"\n#include <cuda_fp8.h>')
+FP8_WGF = ('#include "flash_bwd_wgmma.cuh"',
+           '#include "flash_bwd_wgmma.cuh"\n#include <cuda_fp8.h>')
 
 # name -> (what it does, [(source, old text, new text), ...][, kind]);
 # the kind is "flash" unless given
 MUTANTS = {
     "fwd_rows_from_512_x1.07": (
-        "forward: output rows from 512 on scaled by 1.07 (a systematic 7% "
-        "error where causal rows are small)",
-        [(FWD, "const float l_safe = l == 0.f ? 1.f : l;",
+        "wgmma forward: output rows from 512 on scaled by 1.07 (a "
+        "systematic 7% error where causal rows are small)",
+        [(WGF, "const float l_safe = l == 0.f ? 1.f : l;",
           "const float l_safe = (l == 0.f ? 1.f : l) / "
           "(row[r] >= 512 ? 1.07f : 1.f);")]),
     "fwd_p_fp8": (
-        "forward: P rounded to fp8 e4m3 (not bf16) for the P V product",
-        [(FWD, *FP8),
-         (FWD, "        s[nt][i] = p;\n",
-          "        s[nt][i] = float(__nv_fp8_e4m3(p));\n")]),
+        "wgmma forward: P rounded to fp8 e4m3 (not bf16) for the P V "
+        "product",
+        [(WGF, *FP8_WGF),
+         (WGF, "        s[n][i] = p;\n",
+          "        s[n][i] = float(__nv_fp8_e4m3(p));\n")]),
+    "fwd_diagonal_unmasked": (
+        "wgmma forward: the tiles that cross the causal diagonal are not "
+        "tested, so each query sees the keys past its own in that tile",
+        [(WGF, "const bool edge = (causal && k0 + 63 > r0 + off) || "
+               "k0 + 64 > sk;",
+          "const bool edge = k0 + 64 > sk;")]),
+    "fwd_o_not_rescaled": (
+        "wgmma forward: O is not rescaled by alpha when the running max "
+        "rises",
+        [(WGF, """          o[c][n][0] *= alpha[0];
+          o[c][n][1] *= alpha[0];
+          o[c][n][2] *= alpha[1];
+          o[c][n][3] *= alpha[1];
+""", "")]),
+    "fwd_lse_without_log_l": (
+        "wgmma forward: lse written as the running max alone, without "
+        "log l",
+        [(WGF, "(m_r[r] + log2f(l)) * flash::kLn2", "m_r[r] * flash::kLn2")]),
+    "fwd_stage_released_before_wait": (
+        "wgmma forward: a stage goes back to the producer right after the "
+        "commit of the P V group that reads it, before wgmma.wait_group",
+        [(WGF, """      hop::wg_commit();
+      hop::wg_wait<1>();                      // S is done, P V runs on""",
+          """      hop::wg_commit();
+      if (lane == 0) hop::mbar_arrive(hop::smem_u32(&empty[sp]));
+      hop::wg_wait<1>();                      // S is done, P V runs on"""),
+         (WGF, """      if (lane == 0) hop::mbar_arrive(hop::smem_u32(&empty[sp]));
+#pragma unroll
+      for (int c = 0; c < NC; ++c)            // O *= alpha""",
+          """#pragma unroll
+      for (int c = 0; c < NC; ++c)            // O *= alpha""")]),
     "dq_drops_last_k_tile": (
         "dQ: the loop over k tiles stops one tile early (the diagonal "
         "tile, causal)",
@@ -182,17 +216,33 @@ MUTANTS = {
                "k0 + 64 > sk;",
           "const bool edge = causal && k0 + 63 > r0 + off;")]),
     "moe_scatter_keeps_one_copy": (
-        "grouped forward: the scatter stores instead of adding, so a token "
-        "row keeps one of its two experts' contributions",
-        [(GG, "      atomicAdd(out + (int64_t)rows[r] * d.D + dt * kT "
-              "+ acc_col(lane, n, i),\n                acc[n][i] * gw[r]);",
-          "      out[(int64_t)rows[r] * d.D + dt * kT + acc_col(lane, n, i)]"
-          " =\n                acc[n][i] * gw[r];")], "moe"),
+        "grouped forward (bf16): the scatter stores instead of adding, so a "
+        "token row keeps one of its two experts' contributions",
+        [(GG, "        atomicAdd(reinterpret_cast<float2*>(\n"
+              "                      dx + (int64_t)row * d.D + dt * 64 + "
+              "acc_col(lane, n, i)),\n"
+              "                  make_float2(ay[n][i] * w, ay[n][i + 1] * w));",
+          "        *reinterpret_cast<float2*>(\n"
+          "            dx + (int64_t)row * d.D + dt * 64 + acc_col(lane, n, i))"
+          " =\n"
+          "                  make_float2(ay[n][i] * w, ay[n][i + 1] * w);")],
+        "moe"),
+    "moe_fwd_act_on_h1": (
+        "grouped forward (bf16), pass 1: the activation applied to h1 (x "
+        "W_in) instead of hg (x W_gate) in the gated FFN",
+        [(GG, "hv[j] = GATED ? act_f(d.act, hg) * h1 : act_f(d.act, h1);",
+          "hv[j] = GATED ? act_f(d.act, h1) * h1 : act_f(d.act, h1);")],
+        "moe"),
+    "moe_fwd_gate_weight_wg0": (
+        "grouped forward (bf16), pass 2: warpgroup 1's rows scattered with "
+        "warpgroup 0's gate weights",
+        [(GG, "const float w = gw[r];", "const float w = gw[r % 64];")],
+        "moe"),
     "moe_dx_drops_gate_branch": (
         "grouped dX (bf16): dx takes dh1 W_in^T only, without dhg "
         "W_gate^T",
-        [(GG, "    if constexpr (GATED) {   // dhg W_gate^T into the same "
-              "accumulator",
+        [(GG, "    if constexpr (!FWD && GATED) {   // dhg W_gate^T into the "
+              "same accumulator",
           "    if constexpr (false) {   // dhg W_gate^T into the same "
           "accumulator")],
         "moe"),
@@ -223,10 +273,10 @@ MUTANTS = {
               "  if ((threadIdx.x & 31) == 0) hop::mbar_arrive(ring.e(k));\n"
               "  hop::proxy_fence();"),
          (GG, "    hop::mbar_wait(ring.f(k), Ring<S>::parity(k));\n"
-              "    const uint32_t st = base + (k % S) * P2::BYTES;",
+              "    const uint32_t st = base + (k % S) * L::BYTES;",
           "    hop::mbar_wait(ring.f(k), Ring<S>::parity(k));\n"
           "    if (lane == 0) hop::mbar_arrive(ring.e(k));\n"
-          "    const uint32_t st = base + (k % S) * P2::BYTES;")], "moe"),
+          "    const uint32_t st = base + (k % S) * L::BYTES;")], "moe"),
     "moe_routing_top2_not_after_top1": (
         "routing: count1 reported as 0, so the top-2 claims take slots "
         "from position 0, on top of the top-1 claims instead of after them",
@@ -244,9 +294,15 @@ MUTANTS = {
         [(LN, "v[j][e] = v[j][e] * inv * wf[e] + bf[e];",
           "v[j][e] = v[j][e] * inv * wf[e];")], "bert"),
     "fwd_bias_ignores_query_stride": (
-        "flash forward, bias mode: every query row reads the bias of "
-        "query row 0",
-        [(FWD, "(int64_t)row[r] * b_sq;", "(int64_t)0 * b_sq;")], "bert"),
+        "wgmma forward, bias mode: every query row reads the bias of query "
+        "row 0 (invisible to a key-padding bias, constant over queries)",
+        [(WGF, "(int64_t)min(q0 + r, sq - 1) * md.b_sq\n"
+               "                               + (valid",
+          "(int64_t)0 * md.b_sq\n                               + (valid"),
+         (WGF, "(int64_t)min(q0 + r, sq - 1) * md.b_sq\n"
+               "                               + (ok",
+          "(int64_t)0 * md.b_sq\n                               + (ok")],
+        "bert"),
     "dkv_ignores_bias": (
         "wgmma dK/dV, bias mode: P^T recomputed without the bias, while the "
         "forward and dQ apply it",
@@ -340,26 +396,22 @@ MUTANTS = {
     "moe_fp32_dx_wgate_bf16_map": (
         "fp32 grouped dX: the transposed W_gate fragment (an [n][k] tile) "
         "read with the bf16 fragment's index map (lane (g, t) takes k 2t "
-        "and 2t + 1, where the tf32 fragment takes t and t + 4); bf16 and "
-        "the W_in product unchanged",
+        "and 2t + 1, where the tf32 fragment takes t and t + 4); the W_in "
+        "product unchanged",
         [(GG, "      load_dense(sbt, w_gate + e * DH, d.H, dt * kT, d.D, k0, "
               "d.H);\n      wait_tiles();\n"
               "      mma_chunk<false, false>(adx, sa, sbt, warp, lane);",
           "      load_dense(sbt, w_gate + e * DH, d.H, dt * kT, d.D, k0, "
           "d.H);\n      wait_tiles();\n"
-          "      if constexpr (std::is_same<X, float>::value) {\n"
-          "        constexpr int LD = Tile<float>::LD;\n"
-          "        for (int kk = 0; kk < kT; kk += 8) {\n"
-          "          const flash::FragA a = flash::frag_a<LD>(sa, warp * 16,"
-          " kk, lane);\n"
-          "          for (int n = 0; n < 8; ++n) {\n"
-          "            const float* p = sbt + (n * 8 + (lane >> 2)) * LD + kk"
+          "      for (int kk = 0; kk < kT; kk += 8) {\n"
+          "        constexpr int LD = Tile::LD;\n"
+          "        const flash::FragA a = flash::frag_a<LD>(sa, warp * 16, kk,"
+          " lane);\n"
+          "        for (int n = 0; n < 8; ++n) {\n"
+          "          const float* p = sbt + (n * 8 + (lane >> 2)) * LD + kk"
           " + 2 * (lane & 3);\n"
-          "            flash::mma3(adx[n], a, p[0], p[1]);\n"
-          "          }\n"
+          "          flash::mma3(adx[n], a, p[0], p[1]);\n"
           "        }\n"
-          "      } else {\n"
-          "        mma_chunk<false, false>(adx, sa, sbt, warp, lane);\n"
           "      }")], "moe_fp32"),
     "c6_repair_reverted": (
         "fp32 flash backward: dP = dO V^T back to three 3xTF32 passes (no "

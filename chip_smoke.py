@@ -12,15 +12,18 @@ Phases; any failure ends the run with a traceback and a non-zero exit:
    bf16 at its path's shapes (RMSNorm and paged decode, fp and int8
    modes, at the serving shapes; flash forward, dQ and dK/dV at the
    Llama training shape, plus ragged shapes, sq != sk, BERT-Base's shape
-   without a bias and scores far below 0 (``FLASH_CASES``), the backward
-   launched twice and bitwise equal; LayerNorm at the BERT
+   without a bias, scores far below 0 and q, k, v as views of one fused
+   tensor (``FLASH_CASES``), each launched twice and bitwise equal;
+   LayerNorm at the BERT
    training shape and a ragged one; the bias mode of the three flash
    kernels at the padded BERT shape with its key-padding mask, plus a
    dense [b, h, sq, sk] bias and a causal [sq, sk] one at a ragged
    length (the backward launched twice and bitwise equal), and their
    no-bias mode at the unpadded BERT shape; MoE
    routing and the grouped-GEMM forward, dX and dW at the Qwen2-MoE
-   training shapes; ``moe_fp32_kernels``: their fp32 mode (3xTF32) at
+   training shapes, after ``MOE_EDGES`` (a padded capacity not a
+   multiple of the 128-slot block with the ungated relu FFN, and slot
+   blocks with no token); ``moe_fp32_kernels``: their fp32 mode (3xTF32) at
    the fp32 slice's shapes (H 512) and both FFN kinds at a smaller one,
    against fp64 within 2x the plain fp32 version's error plus a floor,
    each launched twice for a bitwise repeat;
@@ -59,7 +62,10 @@ Phases; any failure ends the run with a traceback and a non-zero exit:
 5. train parity — three steps from one state through the kernels and
    again inside ``plain_reference()``: per-step |loss difference|, the
    first step's gradients, and the parameters after step 3;
-6. train profile — one training step under ``torch.profiler``;
+6. train profile — one training step under ``torch.profiler``; its
+   flash forward must be the wgmma kernel alone (``check_wgmma_forward``,
+   also in ``train_moe_profile`` with the grouped forward's wgmma passes,
+   and in both BERT arms' profiles);
 7. train_moe, train_moe_parity, train_moe_profile — phases 4-6 for the
    JAX package's ``qwen2_moe_fused`` configuration (8 sparse layers of 16
    experts, top-2, full width, bf16, batch 8 x seq 1024), with
@@ -562,8 +568,8 @@ def _flash_errors(torch, F, q, k, v, do, scale, causal, bias=None,
     roundings and catches a systematic 1% error. lse (fp32 in both):
     1e-4 absolute — bf16 QK products are exact in fp32, only the order
     of the sums and exp2 vs exp differ. Rows that see no key must be
-    exact: out 0 and lse -1e30. With ``repeat`` the dQ and dK/dV kernels
-    run a second time and must give the same bits.
+    exact: out 0 and lse -1e30. With ``repeat`` the forward, dQ and dK/dV
+    kernels run a second time and must give the same bits.
 
     Returns per output ``{"max_abs", "row", "fro"}`` (``row``: the worst
     row's error over its tolerance), ``lse`` and ``failures``, a list
@@ -579,6 +585,9 @@ def _flash_errors(torch, F, q, k, v, do, scale, causal, bias=None,
                                           scale, causal, *mode)
     errs, failures = {}, []
     if repeat:
+        out2, lse2 = F.flash_fwd_cuda(q, k, v, scale, causal, *mode)
+        if not (torch.equal(out2, got_o) and torch.equal(lse2, got_l)):
+            failures.append("a repeat of the forward differs")
         again = (F.flash_bwd_dq_cuda(q, k, v, do, want_l, delta, scale,
                                      causal, *mode),
                  *F.flash_bwd_dkv_cuda(q, k, v, do, want_l, delta, scale,
@@ -636,11 +645,14 @@ def _flash_check(torch, F, *args, bias=None, repeat=False) -> dict:
 # past the end, read as zeros, would take P = exp(0 - lse) = inf there
 # (and dS = inf * 0 = NaN) but for its mask. The zero gradient keeps
 # those rows' P and dS, rounded to bf16, out of the other rows' sums.
+# "fused": q, k, v and dO as strided views of one [b, s, 4, h, d] tensor
+# (a fused QKV projection), read through their strides by TMA.
 FLASH_CASES = ((2, 1000, 1000, 4, 64, False, "random"),
                (2, 1000, 700, 4, 64, True, "random"),
                (2, 700, 1000, 4, 128, True, "random"),
                (32, 512, 512, 12, 64, False, "random"),
-               (2, 1000, 1000, 4, 64, False, "far"))
+               (2, 1000, 1000, 4, 64, False, "far"),
+               (2, 1000, 1000, 4, 128, True, "fused"))
 
 
 def flash_case_errors(torch, F, gen) -> list:
@@ -648,9 +660,13 @@ def flash_case_errors(torch, F, gen) -> list:
     of ``FLASH_CASES``, inputs from ``gen``."""
     out = []
     for b, sq, sk, h, d, causal, scores in FLASH_CASES:
-        q, k, v, do = (torch.randn(shape, generator=gen, device="cuda")
-                       for shape in ((b, sq, h, d), (b, sk, h, d),
-                                     (b, sk, h, d), (b, sq, h, d)))
+        if scores == "fused":
+            q, k, v, do = torch.randn((b, sq, 4, h, d), generator=gen,
+                                      device="cuda").bfloat16().unbind(2)
+        else:
+            q, k, v, do = (torch.randn(shape, generator=gen, device="cuda")
+                           for shape in ((b, sq, h, d), (b, sk, h, d),
+                                         (b, sk, h, d), (b, sq, h, d)))
         if scores == "far":
             q[:, ::7] = -32.0
             k += 1.0
@@ -669,7 +685,8 @@ def phase_flash(torch, F, shape=(4, 2048, 16, 128)) -> dict:
     then ``FLASH_CASES`` (s 1000 non-causal at d 64; causal with sq != sk
     both ways, off = -300 leaving rows that see no key, and off = +300;
     BERT-Base's [32, 512, 12, 64] non-causal; s 1000 with every 7th
-    query far below 0), each backward launched twice and bitwise equal.
+    query far below 0; q, k, v and dO as views of one fused tensor), each
+    kernel launched twice and bitwise equal.
     Times at
     the path's shape: the kernel, its plain version
     (the backward's plain version computes dq, dk and dv together, so
@@ -2036,17 +2053,23 @@ _CATEGORIES = (("flash", ("flash_",)), ("rms_norm", ("rms_norm",)),
                ("gemm", ("nvjet", "gemm", "xmma", "cutlass", "cublas")))
 
 
-def phase_train_profile(torch, model, opt, TrainStep, batch) -> dict:
+def phase_train_profile(torch, model, opt, TrainStep, batch,
+                        fwd_mode=None) -> dict:
     """Where a training step's time goes: one step under the profiler,
     its device time by kernel category (flash kernels, RMSNorm kernel,
     GEMMs, everything else: elementwise, casts, reductions, the loss and
-    the optimizer), and the optimizer update alone, timed by CUDA events
-    on that step's gradients."""
+    the optimizer), the flash kernels that ran, and the optimizer update
+    alone, timed by CUDA events on that step's gradients. ``fwd_mode``
+    (``"<128, false>"``), when given: the step's flash forward must be the
+    wgmma kernel of that mode alone (``check_wgmma_forward``)."""
     step = TrainStep(model, opt, lambda logits, y: model.loss(logits, y))
     out = _profile_steps(torch, lambda: step(batch, batch), 1, top=None)
     cats = {name: 0.0 for name, _ in _CATEGORIES}
     cats["other"] = 0.0
-    for kname, ms in out.pop("all_kernels_ms"):
+    ranked = out.pop("all_kernels_ms")
+    out["flash_fwd_kernels"] = flash_fwd_kernels(k_ for k_, _ in ranked)
+    out["flash_bwd_kernels"] = flash_bwd_kernels(k_ for k_, _ in ranked)
+    for kname, ms in ranked:
         cat = next((name for name, keys in _CATEGORIES
                     if any(k_ in kname for k_ in keys)), "other")
         cats[cat] += ms
@@ -2061,6 +2084,8 @@ def phase_train_profile(torch, model, opt, TrainStep, batch) -> dict:
     torch.cuda.synchronize()
     out["optimizer_update_ms"] = start.elapsed_time(end)
     _emit("train_profile", out)
+    if fwd_mode is not None:
+        check_wgmma_forward("train_profile", out, fwd_mode)
     return out
 
 
@@ -2189,18 +2214,22 @@ def routing_errors(torch, MR, logits, u) -> dict:
             "errors": errs, "failures": failures}
 
 
-def moe_errors(torch, GG, x, row_id, gate_w, wi, wg, wo, g) -> dict:
+def moe_errors(torch, GG, x, row_id, gate_w, wi, wg, wo, g,
+               act="silu") -> dict:
     """Each grouped-GEMM kernel against its plain version on the same
     inputs (dW from the kernel's own dX intermediates, so each kernel is
     held alone), by ``_row_errors`` with the flash rule; each kernel
     launched twice must give bitwise equal results. The dgw and h of an
     empty slot are not compared: the Pallas kernels compute them from
-    row T - 1, the CUDA kernels leave 0."""
-    out = GG.moe_fwd_cuda(x, row_id, gate_w, wi, wg, wo, "silu")
-    out2 = GG.moe_fwd_cuda(x, row_id, gate_w, wi, wg, wo, "silu")
-    dx, dgw, inter = GG.moe_dx_cuda(x, row_id, gate_w, wi, wg, wo, g, "silu")
+    row T - 1, the CUDA kernels leave 0. ``act`` "relu" runs the ungated
+    FFN (``wg`` unused)."""
+    if act == "relu":
+        wg = None
+    out = GG.moe_fwd_cuda(x, row_id, gate_w, wi, wg, wo, act)
+    out2 = GG.moe_fwd_cuda(x, row_id, gate_w, wi, wg, wo, act)
+    dx, dgw, inter = GG.moe_dx_cuda(x, row_id, gate_w, wi, wg, wo, g, act)
     dx2, dgw2, inter2 = GG.moe_dx_cuda(x, row_id, gate_w, wi, wg, wo, g,
-                                       "silu")
+                                       act)
     dws = GG.moe_dw_cuda(x, row_id, gate_w, g, inter)
     dws2 = GG.moe_dw_cuda(x, row_id, gate_w, g, inter)
     torch.cuda.synchronize()
@@ -2209,32 +2238,34 @@ def moe_errors(torch, GG, x, row_id, gate_w, wi, wg, wo, g) -> dict:
     repeat = {"fwd": torch.equal(out, out2),
               "dx": torch.equal(dx, dx2) and torch.equal(dgw * occupied,
                                                          dgw2 * occupied),
-              "dw": all(torch.equal(a, b) for a, b in zip(dws, dws2))}
+              "dw": all(a is None and b is None or torch.equal(a, b)
+                        for a, b in zip(dws, dws2))}
     failures += [f"{k}: a second launch differs" for k, v in repeat.items()
                  if not v]
     errs = {}
-    want = GG.moe_fwd_plain(x, row_id, gate_w, wi, wg, wo, "silu")
+    want = GG.moe_fwd_plain(x, row_id, gate_w, wi, wg, wo, act)
     errs["out"] = _row_errors(torch, out, want)
     del want
     wdx, wdgw, winter = GG.moe_dx_plain(x, row_id, gate_w, wi, wg, wo, g,
-                                        "silu")   # winter: h rounded
+                                        act)   # winter: h rounded
     errs["dx"] = _row_errors(torch, dx, wdx)
     errs["dgw"] = _row_errors(torch, dgw * occupied, wdgw * occupied)
     del winter
-    want_h = GG._forward_parts(x, row_id, wi, wg, "silu")[3]   # fp32
+    want_h = GG._forward_parts(x, row_id, wi, wg, act)[3]   # fp32
     errs["h"] = _row_errors(torch, inter[0] * occupied[..., None],
                             want_h * occupied[..., None])
     del wdx, wdgw, want_h
     for name, got, want in zip(("dw_in", "dw_gate", "dw_out"), dws,
                                GG.moe_dw_plain(x, row_id, gate_w, g, inter)):
-        errs[name] = _row_errors(torch, got, want)
+        if want is not None:
+            errs[name] = _row_errors(torch, got, want)
     for name, err in errs.items():
         failures += _fails(name, err)
     return {"errors": errs, "bitwise_repeat": repeat, "failures": failures}
 
 
 def moe_inputs(torch, GG, MR, gen, T=MOE_BATCH * MOE_SEQ, E=16, D=1024,
-               H=704, dtype="bfloat16"):
+               H=704, dtype="bfloat16", cap=None, hot=False):
     """Inputs of the MoE kernels at the training path's shapes: fp32
     logits ~ N(0, 1.5^2) (the router's scale at init) plus a per-expert
     offset rising from 0 to 1.5, so that, as in training, some experts
@@ -2244,12 +2275,17 @@ def moe_inputs(torch, GG, MR, gen, T=MOE_BATCH * MOE_SEQ, E=16, D=1024,
     packing, capacity 1280); x and g ~ N(0, 1) and weights ~ N(0, 1/K)
     for a product over K, so every product is O(1) and the tolerances'
     1e-3 absolute term is small beside it; all in ``dtype`` but the
-    logits."""
+    logits. ``cap`` overrides the capacity; ``hot`` raises expert 0's
+    logit by 50, so that it takes every token's first copy (up to its
+    capacity) and the second copies are dropped (keep threshold ~e^-50):
+    the other experts hold no token."""
     from paddle_tpu_torch.distributed import moe as M
     logits = (torch.randn((T, E), generator=gen, device="cuda") * 1.5
               + torch.linspace(0.0, 1.5, E, device="cuda"))
+    if hot:
+        logits[:, 0] += 50.0
     u = torch.rand((T,), generator=gen, device="cuda")
-    cap = int(1.25 * T * 2 / E)
+    cap = int(1.25 * T * 2 / E) if cap is None else cap
     with torch.no_grad():
         parts = M._top2_parts(logits, cap, u=u)
         idx = torch.stack(parts[:2], 1)
@@ -2280,9 +2316,36 @@ def _short_kernel_name(name: str) -> str:
     return name.removeprefix("void ").strip()[:60]
 
 
+# The grouped kernels' edges, small: (T, E, D, H, capacity, act, hot). A
+# capacity of 38 (cpad 40, not a multiple of the 128-slot block) with the
+# ungated relu FFN; one expert holding every token (``hot``) and three
+# holding none, so whole 128-slot blocks are empty, at H 704 (11 tiles of
+# 64, not a power of 2) and D 256.
+MOE_EDGES = ((1024, 16, 128, 96, 38, "relu", False),
+             (1024, 4, 256, 704, 1024, "silu", True))
+
+
+def moe_edge_errors(torch, GG, MR, gen) -> list:
+    """``moe_errors`` on each of ``MOE_EDGES``, inputs from ``gen``."""
+    out = []
+    for T, E, D, H, cap, act, hot in MOE_EDGES:
+        inp = moe_inputs(torch, GG, MR, gen, T=T, E=E, D=D, H=H, cap=cap,
+                         hot=hot)
+        held = (inp["row_id"] < T).sum(1)
+        res = moe_errors(torch, GG, inp["x"], inp["row_id"], inp["gate_w"],
+                         inp["wi"], inp["wg"], inp["wo"], inp["g"], act)
+        if hot and not (held[0] == T and not held[1:].any()):
+            res["failures"].append(f"hot: expert loads {held.tolist()}")
+        out.append({"case": [T, E, D, H, cap, act, hot],
+                    "cpad": inp["cpad"], **res})
+        del inp
+    return out
+
+
 def phase_moe_kernels(torch, MR, GG) -> dict:
     """The routing kernel and the three grouped-GEMM kernels at the
     Qwen2-MoE training shapes (T 8192, E 16, D 1024, H 704, cpad 1280),
+    after ``MOE_EDGES`` (each with the checks below but the times),
     bf16 (fp32 logits): each against its plain version (routing by
     ROUTE_*; the grouped kernels by the flash rule, each row within
     2**-7 of its largest magnitude + 1e-3 and 4e-3 in relative Frobenius
@@ -2293,6 +2356,8 @@ def phase_moe_kernels(torch, MR, GG) -> dict:
     buffers, without the gathers (none for routing). For the grouped
     kernels also the device time of each pass (and memset) by kernel
     name, from the profiler (``device_ms_by_kernel``)."""
+    edges = moe_edge_errors(
+        torch, GG, MR, torch.Generator(device="cuda").manual_seed(SEED + 6))
     gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
     inp = moe_inputs(torch, GG, MR, gen)
     T, E = inp["logits"].shape
@@ -2303,8 +2368,10 @@ def phase_moe_kernels(torch, MR, GG) -> dict:
             inp["wo"])
     grouped = moe_errors(torch, GG, *args, inp["g"])
     failures = route.pop("failures") + grouped.pop("failures")
+    failures += [f"{e['case']}: {f}" for e in edges for f in e["failures"]]
     _emit("moe_kernel_check", {"routing": route, "grouped": grouped,
-                               "occupied_slots": n, "slots": E * cpad})
+                               "edges": edges, "occupied_slots": n,
+                               "slots": E * cpad})
     if failures:
         raise AssertionError(f"MoE kernels differ from their plain "
                              f"versions: {failures}")
@@ -2796,6 +2863,50 @@ def flash_bwd_kernels(names) -> list:
                    or "flash_bwd_" in n})
 
 
+def flash_fwd_kernels(names) -> list:
+    """The flash forward kernels among a profile's kernel names, each cut
+    to its template (the wgmma ``fwd_wgmma_kernel<D, HAS_BIAS>``, the
+    mma.sync ``flash_fwd_kernel<T, ...>``)."""
+    return sorted({_short_kernel_name(n) for n in names
+                   if "fwd_wgmma_kernel<" in n or "flash_fwd_kernel<" in n})
+
+
+_GROUPED = _MOE_CATEGORIES[0][1]
+
+
+def grouped_kernels(names) -> list:
+    """The grouped-GEMM kernels among a profile's kernel names, each cut
+    to its template."""
+    return sorted({_short_kernel_name(n) for n in names
+                   if any(k_ in n for k_ in _GROUPED)})
+
+
+# the bf16 grouped forward: pass 1 (h) of either FFN kind, and pass 2
+GROUPED_FWD = ("dx_h_wgmma_kernel<true, true>",
+               "dx_h_wgmma_kernel<false, true>",
+               "dx_out_wgmma_kernel<false, true>")
+
+
+def check_wgmma_forward(tag, prof, mode, grouped=False) -> None:
+    """A profiled bf16 step's flash forward: exactly the wgmma kernel of
+    ``mode`` (``"<64, true>"``: D, HAS_BIAS), so no bf16 mma.sync
+    ``flash_fwd_kernel``. With ``grouped``, its grouped forward: the
+    wgmma pass 1 and pass 2 (``GROUPED_FWD``), and no first-design
+    ``expert_h_kernel`` or ``fwd_out_kernel``."""
+    want = [f"flash_wg::fwd_wgmma_kernel{mode}"]
+    if prof["flash_fwd_kernels"] != want:
+        raise AssertionError(f"{tag}: the flash forward ran "
+                             f"{prof['flash_fwd_kernels']}, not {want}")
+    if grouped:
+        ran = prof["grouped_kernels"]
+        fwd = [k_ for k_ in ran if k_ in GROUPED_FWD]
+        old = [k_ for k_ in ran if k_.startswith(("expert_h_kernel",
+                                                  "fwd_out_kernel"))]
+        if len(fwd) != 2 or "dx_out_wgmma_kernel<false, true>" not in fwd \
+                or old:
+            raise AssertionError(f"{tag}: the grouped forward ran {ran}")
+
+
 def check_wgmma_backward(tag, kernels, mode) -> None:
     """A profiled bf16 step's flash backward: exactly the wgmma dQ and
     dK/dV kernels of ``mode`` (``"<64, true, false>"``: D, HAS_BIAS,
@@ -2809,7 +2920,8 @@ def check_wgmma_backward(tag, kernels, mode) -> None:
 def _step_profile(torch, step_fn, model, opt, categories) -> dict:
     """One training step (``step_fn``) under the profiler: device time by
     kernel category (``categories``, then "other"), the idle share, the
-    flash backward kernels that ran (``flash_bwd_kernels``), and the
+    flash and grouped-GEMM kernels that ran (``flash_bwd_kernels``,
+    ``flash_fwd_kernels``, ``grouped_kernels``), and the
     AdamW update alone (its device time under the profiler and its
     CUDA-event time on this step's gradients); ``other_without_adamw``
     takes the update out of "other"."""
@@ -2822,6 +2934,8 @@ def _step_profile(torch, step_fn, model, opt, categories) -> dict:
                     if any(k_ in kname for k_ in keys)), "other")
         cats[cat] += ms
     out["flash_bwd_kernels"] = flash_bwd_kernels(k for k, _ in ranked)
+    out["flash_fwd_kernels"] = flash_fwd_kernels(k for k, _ in ranked)
+    out["grouped_kernels"] = grouped_kernels(k for k, _ in ranked)
     params = dict(model.named_parameters())
     grads = {k: p.grad for k, p in params.items()}
     upd = _profile_steps(torch, lambda: opt.update(params, grads, opt.state,
@@ -2840,14 +2954,18 @@ def _step_profile(torch, step_fn, model, opt, categories) -> dict:
 
 
 def phase_train_moe_profile(torch, model, opt, TrainStep, batch,
-                            tag="train_moe_profile") -> dict:
+                            tag="train_moe_profile", fwd_mode=None) -> dict:
     """``_step_profile`` of one MoE training step, by category: the MoE
     expert kernels, the routing kernel, flash, RMSNorm, GEMMs, AdamW,
-    everything else."""
+    everything else. ``fwd_mode`` (``"<64, false>"``), when given: the
+    step's flash forward must be the wgmma kernel of that mode alone and
+    its grouped forward the wgmma passes (``check_wgmma_forward``)."""
     step = TrainStep(model, opt, lambda logits, y: model.loss(logits, y))
     out = _step_profile(torch, lambda: step(batch, batch), model, opt,
                         _MOE_CATEGORIES)
     _emit(tag, out)
+    if fwd_mode is not None:
+        check_wgmma_forward(tag, out, fwd_mode, grouped=True)
     return out
 
 
@@ -3062,20 +3180,24 @@ _BERT_CATEGORIES = (("layer_norm", ("layer_norm_fwd_kernel",)),
 
 def phase_train_bert_profile(torch, model, opt, TrainStep, args,
                              n_inputs, tag="train_bert_profile",
-                             wgmma_mode=None) -> dict:
+                             wgmma_mode=None, fwd_mode=None) -> dict:
     """``_step_profile`` of one BERT training step (the padded arm; with
     ``tag`` ``train_bert_profile_unpadded`` the unpadded one), by
     category: the LayerNorm kernel, the flash kernels, GEMMs, AdamW,
     everything else. ``wgmma_mode`` (``"<64, true, false>"``: the padded
     arm's bias mode), when given: the step's flash backward must be the
     wgmma dQ and dK/dV kernels of that mode alone
-    (``check_wgmma_backward``)."""
+    (``check_wgmma_backward``); ``fwd_mode`` (``"<64, true>"``): its
+    flash forward must be the wgmma kernel of that mode alone
+    (``check_wgmma_forward``)."""
     step = TrainStep(model, opt, _bert_loss(model), n_inputs=n_inputs)
     out = _step_profile(torch, lambda: step(*args), model, opt,
                         _BERT_CATEGORIES)
     _emit(tag, out)
     if wgmma_mode is not None:
         check_wgmma_backward(tag, out["flash_bwd_kernels"], wgmma_mode)
+    if fwd_mode is not None:
+        check_wgmma_forward(tag, out, fwd_mode)
     return out
 
 
@@ -3766,7 +3888,8 @@ def main(argv=None) -> int:
         device="cuda")
     train, opt = phase_train(torch, K, model, TrainStep, AdamW, batch, smi)
     phase_train_parity(torch, K, model, opt, TrainStep, batch)
-    phase_train_profile(torch, model, opt, TrainStep, batch)
+    train_prof = phase_train_profile(torch, model, opt, TrainStep, batch,
+                                     "<128, false>")
     for p in model.parameters():
         p.grad = None
     del model, opt
@@ -3785,7 +3908,8 @@ def main(argv=None) -> int:
     train_moe, opt = phase_train_moe(torch, K, model, TrainStep, AdamW,
                                      batch, smi)
     phase_train_moe_parity(torch, K, model, opt, TrainStep, batch)
-    phase_train_moe_profile(torch, model, opt, TrainStep, batch)
+    moe_prof = phase_train_moe_profile(torch, model, opt, TrainStep, batch,
+                                       fwd_mode="<64, false>")
     for p in model.parameters():
         p.grad = None
     del model, opt
@@ -3824,7 +3948,7 @@ def main(argv=None) -> int:
                                        padded=False)
     phase_train_bert_profile(torch, model, opt, TrainStep, bert_args,
                              n_inputs, "train_bert_profile_unpadded",
-                             "<64, false, false>")
+                             "<64, false, false>", "<64, false>")
     with torch.no_grad():   # the padded arm starts from the same weights
         for k, p in model.named_parameters():
             p.copy_(init[k])
@@ -3835,8 +3959,9 @@ def main(argv=None) -> int:
         padded=True)
     phase_train_bert_parity(torch, K, model, opt, TrainStep,
                             BertForPreTraining, bert_args, n_inputs)
-    phase_train_bert_profile(torch, model, opt, TrainStep, bert_args,
-                             n_inputs, wgmma_mode="<64, true, false>")
+    bert_prof = phase_train_bert_profile(
+        torch, model, opt, TrainStep, bert_args, n_inputs,
+        wgmma_mode="<64, true, false>", fwd_mode="<64, true>")
     for p in model.parameters():
         p.grad = None
     del model, opt, bert_args
@@ -3944,8 +4069,13 @@ def main(argv=None) -> int:
          "library_ms": paged_int8["library_ms"],
          "shape": paged_int8["shape"]},
     ]
+    # the instantiations that the profiled steps ran
+    ran = {"flash_fwd": train_prof["flash_fwd_kernels"],
+           "flash_fwd_bias": bert_prof["flash_fwd_kernels"],
+           "moe_fwd": [k_ for k_ in moe_prof["grouped_kernels"]
+                       if k_ in GROUPED_FWD]}
     for name, source, line in (
-            ("flash_fwd", "flash_attention_fwd.cu", 242),
+            ("flash_fwd", "flash_fwd_wgmma.cuh", 242),
             ("flash_dq", "flash_bwd_wgmma.cuh", 558),
             ("flash_dkv", "flash_bwd_wgmma.cuh", 590)):
         row = flash[name]
@@ -3956,7 +4086,8 @@ def main(argv=None) -> int:
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
-            "shape": row["shape"]})
+            "shape": row["shape"], **({"kernels": ran[name]}
+                                      if name in ran else {})})
     kernels.append({
         "name": "layer_norm", "route": "cuda",
         "source": src + "layer_norm.cu",
@@ -3968,7 +4099,7 @@ def main(argv=None) -> int:
         "bound_by": ln[0]["bound_by"], "library_ms": ln[0]["library_ms"],
         "shape": ln[0]["shape"]})
     for name, source, line in (
-            ("flash_fwd_bias", "flash_attention_fwd.cu", 242),
+            ("flash_fwd_bias", "flash_fwd_wgmma.cuh", 242),
             ("flash_dq_bias", "flash_bwd_wgmma.cuh", 558),
             ("flash_dkv_bias", "flash_bwd_wgmma.cuh", 590)):
         row = flash_bias[name]
@@ -3979,7 +4110,8 @@ def main(argv=None) -> int:
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
-            "shape": row["shape"]})
+            "shape": row["shape"], **({"kernels": ran[name]}
+                                      if name in ran else {})})
     # the fp32 and dropout modes, launches from the phase whose path runs
     # each: entry_fp32 (its forward and 3 kernel training steps),
     # train_gpt2, train_bert_defaults (its arms), train_dropout_bf16
@@ -4051,7 +4183,8 @@ def main(argv=None) -> int:
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
-            "shape": row["shape"]})
+            "shape": row["shape"], **({"kernels": ran[name]}
+                                      if name in ran else {})})
     for name, line in (("moe_fwd_fp32", "moe_grouped_gemm.py:263"),
                        ("moe_dx_fp32", "moe_grouped_gemm.py:371"),
                        ("moe_dw_fp32", "moe_grouped_gemm.py:485")):

@@ -36,10 +36,11 @@
 //   order; dW gives each block one output tile of one expert's dW and
 //   loops over that expert's slots: no atomics there.
 //
-// bf16 dX and dW (dx_h_wgmma_kernel, dx_out_wgmma_kernel, dw_wgmma_kernel):
-// Hopper's wgmma.m64n64k16 on 128B-swizzled shared tiles (hopper.cuh),
-// fed by a ring of 3 or 4 stages with full / empty mbarriers. A block
-// (one an SM: the ring takes 169-225 KB of shared memory) is two consumer
+// bf16 forward, dX and dW (dx_h_wgmma_kernel, dx_out_wgmma_kernel, each
+// with a FWD mode, and dw_wgmma_kernel): Hopper's wgmma.m64n64k16 on
+// 128B-swizzled shared tiles (hopper.cuh), fed by a ring of 3 or 4 stages
+// with full / empty mbarriers. A block (one an SM: the ring takes 97-225
+// KB of shared memory) is two consumer
 // warpgroups (64 rows each: 128 slots in dX, 128 D columns in dW) and a
 // producer. The dense operands (the expert weights; h, dh1 and dhg in [E,
 // cpad, H]) come by TMA, whose zero fill covers H = 704 = 11 x 64, H 32
@@ -54,9 +55,15 @@
 // - dX pass 1 (block: 128 slots x 64 H columns, 4 stages): x W_in,
 //   x W_gate and dy W_out^T over K = D, three 64 x 64 accumulators a
 //   warpgroup, then h, dh1, dhg; a block without tokens writes their zeros.
+//   The forward's pass 1 (FWD, 4 stages of 6 tiles): 128
+//   slots x 128 H columns, x W_in and x W_gate alone (no g gather, no
+//   W_out tile), writing h; setmaxnreg gives the gatherers' registers to
+//   the consumers (four 64 x 64 accumulators a warpgroup).
 // - dX pass 2 (128 slots x 64 D columns, every operand by TMA, 3 stages):
 //   dh1 W_in^T + dhg W_gate^T and y = h W_out over K = H; dx by float2
 //   atomicAdd, and this D tile's share of <g, y> for dgw_reduce_kernel.
+//   The forward's pass 2 (FWD, 4 stages): y = h W_out alone, then
+//   out[row] += gate_w y by float2 atomicAdd.
 // - dW (128 D columns x 64 H columns of one expert, 3 stages): x^T dh1,
 //   x^T dhg and dW_out^T's transpose h^T dy over the expert's 64-slot
 //   chunks up to the last that holds a token (a chunk without tokens
@@ -68,21 +75,19 @@
 // bytes a clock and reread the gathered rows for every 64 columns; the
 // ring's loads (gathers most) set the pace. Wider tiles (m64n128) and a
 // persistent grid were tried and measured slower (PERF.md).
-// The fp32 mode (3xTF32) and the bf16 forward keep the first design: 64 x
-// 64 output tiles, 4 warps, cp.async tile loads waited whole before each
-// chunk's products, mma.sync (bf16 m16n8k16 with ldmatrix; fp32 the 3xTF32
-// product of flash_common.cuh on m16n8k8 .tf32, fragments from plain
-// shared loads, one index map per orientation; fp32 tiles take LD = 64 + 4
+// The fp32 mode (3xTF32) keeps the first design: 64 x 64 output tiles, 4
+// warps, cp.async tile loads waited whole before each chunk's products,
+// mma.sync (the 3xTF32 product of flash_common.cuh on m16n8k8 .tf32,
+// fragments from plain shared loads, one index map per orientation;
+// fp32 tiles take LD = 64 + 4
 // floats a row and dynamic shared memory: the backward's first pass holds
 // five tiles, 87 KB). H need only be a multiple of 32 there: tiles past H
-// are zero-filled on load and not stored. Their move to wgmma is later
-// work (PERF.md).
+// are zero-filled on load and not stored. Its move to wgmma is later work
+// (PERF.md).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
-
-#include <type_traits>
 
 #include "flash_common.cuh"
 #include "hopper.cuh"
@@ -94,17 +99,14 @@ using flash::bf16;
 constexpr int kT = 64;            // tile edge (slots, D or H)
 constexpr int kThreads = 128;     // 4 warps, 16 output rows each
 
-// Shared tile geometry of element type X: LD elements a row (16-byte rows;
-// bf16 rows 8 apart in banks for ldmatrix, fp32 rows 4 apart), 16-byte
-// chunks of kPer elements.
-template <typename X>
+// Shared tile geometry of the first design's fp32 kernels: LD floats a
+// row (16-byte rows, 4 apart in banks), 16-byte chunks of kPer floats.
 struct Tile {
-  static constexpr bool kF32 = std::is_same<X, float>::value;
-  static constexpr int LD = kF32 ? kT + 4 : kT + 8;
+  static constexpr int LD = kT + 4;
   static constexpr int kElems = kT * LD;
-  static constexpr int kPer = 16 / sizeof(X);
+  static constexpr int kPer = 4;
   static constexpr int kChunks = kT / kPer;
-  static constexpr size_t bytes(int n) { return sizeof(X) * kElems * n; }
+  static constexpr size_t bytes(int n) { return sizeof(float) * kElems * n; }
 };
 
 struct Dims {
@@ -122,8 +124,6 @@ __device__ __forceinline__ float dact_f(int act, float v) {
   }
   return v > 0.f ? 1.f : 0.f;
 }
-
-__device__ __forceinline__ float to_f(float v) { return v; }
 
 // The N slots of block sb of expert e: their token rows (-1 for an empty
 // slot or one past cpad) and combine weights, in shared memory. Returns
@@ -156,11 +156,10 @@ __device__ __forceinline__ bool slot_rows(const int* row_id,
 
 // A 64 x 64 tile from 64 gathered global rows (rows[r] < 0: zeros),
 // columns col0.., columns >= ncol zero-filled.
-template <typename X>
-__device__ __forceinline__ void load_gather(X* dst, const X* src, int ld,
-                                            const int* rows, int col0,
-                                            int ncol) {
-  using G = Tile<X>;
+__device__ __forceinline__ void load_gather(float* dst, const float* src,
+                                            int ld, const int* rows,
+                                            int col0, int ncol) {
+  using G = Tile;
   for (unsigned i = threadIdx.x; i < kT * G::kChunks; i += kThreads) {
     const int r = i / G::kChunks, c = (i % G::kChunks) * G::kPer;
     const int row = rows[r];
@@ -173,11 +172,10 @@ __device__ __forceinline__ void load_gather(X* dst, const X* src, int ld,
 
 // A 64 x 64 tile of global rows row0.. (rows >= nrow and columns >= ncol
 // zero-filled).
-template <typename X>
-__device__ __forceinline__ void load_dense(X* dst, const X* src, int64_t ld,
-                                           int row0, int nrow, int col0,
-                                           int ncol) {
-  using G = Tile<X>;
+__device__ __forceinline__ void load_dense(float* dst, const float* src,
+                                           int64_t ld, int row0, int nrow,
+                                           int col0, int ncol) {
+  using G = Tile;
   for (unsigned i = threadIdx.x; i < kT * G::kChunks; i += kThreads) {
     const int r = i / G::kChunks, c = (i % G::kChunks) * G::kPer;
     const bool ok = row0 + r < nrow && col0 + c < ncol;
@@ -192,7 +190,7 @@ __device__ __forceinline__ void load_dense(X* dst, const X* src, int64_t ld,
 __device__ __forceinline__ void load_dy(float* dst, const float* g, int D,
                                         const int* rows, const float* gw,
                                         int col0) {
-  using G = Tile<float>;
+  using G = Tile;
   for (unsigned i = threadIdx.x; i < kT * G::kChunks; i += kThreads) {
     const int r = i / G::kChunks, c = (i % G::kChunks) * G::kPer;
     const int row = rows[r];
@@ -214,34 +212,12 @@ __device__ __forceinline__ void wait_tiles() {
   __syncthreads();
 }
 
-// acc[64 x 64 warp slice] += A[64 x 64] B[64 x 64] over one 64-deep chunk.
-// Warp w owns output rows 16w..16w+15 and all 64 columns (8 n-tiles).
-// A_T: A is stored [k][m] (else [m][k]); B_T: B is stored [k][n] (else
-// [n][k]). bf16 takes the forward's orientation only (A [m][k], B [k][n]
-// through ldmatrix.trans): its dX and dW run the wgmma kernels below.
-template <bool A_T, bool B_T>
-__device__ __forceinline__ void mma_chunk(float (&acc)[8][4], const bf16* As,
-                                          const bf16* Bs, int warp,
-                                          int lane) {
-  static_assert(!A_T && B_T, "bf16 mma_chunk: the forward's orientation");
-  constexpr int LD = Tile<bf16>::LD;
-#pragma unroll
-  for (int kk = 0; kk < kT; kk += 16) {
-    uint32_t a[4];
-    flash::ldsm_x4(a, flash::a_addr<LD>(As, warp * 16, kk, lane));
-#pragma unroll
-    for (int np = 0; np < 4; ++np) {
-      uint32_t b[4];
-      flash::ldsm_x4_t(b, flash::a_addr<LD>(Bs, kk, np * 16, lane));
-      flash::mma(acc[2 * np], a, b[0], b[1]);
-      flash::mma(acc[2 * np + 1], a, b[2], b[3]);
-    }
-  }
-}
-
-// The same on fp32 tiles, 3xTF32 on mma.m16n8k8 (8 k-steps). A [m][k]
-// with B [n][k] is flash::nt_product_f32; the transposed layouts read
-// the tf32 fragments (flash_common.cuh: lane (g, t) takes A (g, t),
+// acc[64 x 64 warp slice] += A[64 x 64] B[64 x 64] over one 64-deep chunk
+// of fp32 tiles (the bf16 passes run the wgmma kernels below). Warp w owns
+// output rows 16w..16w+15 and all 64 columns (8 n-tiles). A_T: A is stored
+// [k][m] (else [m][k]); B_T: B is stored [k][n] (else [n][k]). 3xTF32 on
+// mma.m16n8k8 (8 k-steps). A [m][k] with B [n][k] is
+// flash::nt_product_f32; the transposed layouts read the tf32 fragments (flash_common.cuh: lane (g, t) takes A (g, t),
 // (g+8, t), (g, t+4), (g+8, t+4) and B (k t, n g), (k t+4, n g)) as
 //   A [k][m]: As[(kk + t) * LD + r0 + g] and +8 columns, +4 rows;
 //   B [k][n]: Bs[(kk + t) * LD + 8n + g] and +4 rows.
@@ -250,7 +226,7 @@ __device__ __forceinline__ void mma_chunk(float (&acc)[8][4],
                                           const float* As, const float* Bs,
                                           int warp, int lane) {
   static_assert(B_T || !A_T, "an [k][m] A meets only a [k][n] B");
-  constexpr int LD = Tile<float>::LD;
+  constexpr int LD = Tile::LD;
   const int g = lane >> 2, t = lane & 3, r0 = warp * 16;
   if constexpr (!B_T) {
     flash::nt_product_f32<8, kT, LD>(acc, As, r0, Bs, lane);
@@ -289,41 +265,39 @@ __device__ __forceinline__ int acc_col(int lane, int n, int i) {
   return n * 8 + (lane & 3) * 2 + (i & 1);
 }
 
-// n shared tiles of type X from dynamic shared memory
-template <typename X>
-__device__ __forceinline__ X* smem_tiles() {
+// the fp32 shared tiles in dynamic shared memory
+__device__ __forceinline__ float* smem_tiles() {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  return reinterpret_cast<X*>(smem_raw);
+  return reinterpret_cast<float*>(smem_raw);
 }
 
-// ---- pass 1 of the forward (bf16, fp32) and of fp32 dX: the expert's
+// ---- pass 1 of the fp32 forward and of fp32 dX: the expert's
 // H-side products ----
 // Block (jt, sb, e): slots sb*64.., H columns jt*64... K runs over D.
 // Forward: h. Backward: h, dh1, dhg (and dh from dy W_out^T).
 // Shared: tiles sx, swi, swg (+ sdy, swo for BWD).
-template <typename X, bool BWD>
+template <bool BWD>
 __global__ void __launch_bounds__(kThreads) expert_h_kernel(
-    const X* __restrict__ x, const int* __restrict__ row_id,
-    const float* __restrict__ gate_w, const X* __restrict__ w_in,
-    const X* __restrict__ w_gate, const X* __restrict__ w_out,
-    const X* __restrict__ g, X* __restrict__ h_out, X* __restrict__ dh1_out,
-    X* __restrict__ dhg_out, Dims d) {
-  static_assert(!BWD || Tile<X>::kF32, "bf16 dX runs dx_h_wgmma_kernel");
-  constexpr int kE = Tile<X>::kElems;
-  X* sx = smem_tiles<X>();
-  X* swi = sx + kE;
-  X* swg = swi + kE;
-  X* sdy = swg + kE;
-  X* swo = sdy + kE;
+    const float* __restrict__ x, const int* __restrict__ row_id,
+    const float* __restrict__ gate_w, const float* __restrict__ w_in,
+    const float* __restrict__ w_gate, const float* __restrict__ w_out,
+    const float* __restrict__ g, float* __restrict__ h_out,
+    float* __restrict__ dh1_out, float* __restrict__ dhg_out, Dims d) {
+  constexpr int kE = Tile::kElems;
+  float* sx = smem_tiles();
+  float* swi = sx + kE;
+  float* swg = swi + kE;
+  float* sdy = swg + kE;
+  float* swo = sdy + kE;
   __shared__ int rows[kT];
   __shared__ float gw[kT];
   const int jt = blockIdx.x, sb = blockIdx.y, e = blockIdx.z;
   if (!slot_rows(row_id, gate_w, e, sb, d, rows, gw)) return;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int64_t DH = (int64_t)d.D * d.H;
-  const X* wi = w_in + e * DH;
-  const X* wg = d.gated ? w_gate + e * DH : nullptr;
-  const X* wo = w_out + e * DH;
+  const float* wi = w_in + e * DH;
+  const float* wg = d.gated ? w_gate + e * DH : nullptr;
+  const float* wo = w_out + e * DH;
   float a1[8][4], ag[8][4], adh[8][4];
   zero(a1);
   zero(ag);
@@ -370,23 +344,22 @@ __global__ void __launch_bounds__(kThreads) expert_h_kernel(
     }
 }
 
-// ---- pass 2 of the forward: y = h W_out, out[row] += gate_w * y ----
+// ---- pass 2 of the fp32 forward: y = h W_out, out[row] += gate_w * y ----
 // Block (dt, sb, e): slots sb*64.., D columns dt*64... K runs over H.
 // Shared: tiles sh, swo.
-template <typename X>
 __global__ void __launch_bounds__(kThreads) fwd_out_kernel(
     const int* __restrict__ row_id, const float* __restrict__ gate_w,
-    const X* __restrict__ w_out, const X* __restrict__ h,
+    const float* __restrict__ w_out, const float* __restrict__ h,
     float* __restrict__ out, Dims d) {
-  X* sh = smem_tiles<X>();
-  X* swo = sh + Tile<X>::kElems;
+  float* sh = smem_tiles();
+  float* swo = sh + Tile::kElems;
   __shared__ int rows[kT];
   __shared__ float gw[kT];
   const int dt = blockIdx.x, sb = blockIdx.y, e = blockIdx.z;
   if (!slot_rows(row_id, gate_w, e, sb, d, rows, gw)) return;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const X* wo = w_out + (int64_t)e * d.H * d.D;
-  const X* hb = h + (int64_t)e * d.cpad * d.H;
+  const float* wo = w_out + (int64_t)e * d.H * d.D;
+  const float* hb = h + (int64_t)e * d.cpad * d.H;
   float acc[8][4];
   zero(acc);
   for (int k0 = 0; k0 < d.H; k0 += kT) {
@@ -411,17 +384,15 @@ __global__ void __launch_bounds__(kThreads) fwd_out_kernel(
 // h W_out for this D tile's share of dgw = <g[row], y> (written per tile,
 // summed in a fixed order by dgw_reduce_kernel). Block (dt, sb, e); K over
 // H. Shared: tiles sa, sbt.
-template <typename X>
 __global__ void __launch_bounds__(kThreads) dx_out_kernel(
     const int* __restrict__ row_id, const float* __restrict__ gate_w,
-    const X* __restrict__ w_in, const X* __restrict__ w_gate,
-    const X* __restrict__ w_out, const X* __restrict__ g,
-    const X* __restrict__ h, const X* __restrict__ dh1,
-    const X* __restrict__ dhg, float* __restrict__ dx,
+    const float* __restrict__ w_in, const float* __restrict__ w_gate,
+    const float* __restrict__ w_out, const float* __restrict__ g,
+    const float* __restrict__ h, const float* __restrict__ dh1,
+    const float* __restrict__ dhg, float* __restrict__ dx,
     float* __restrict__ part, Dims d) {
-  static_assert(Tile<X>::kF32, "bf16 dX runs dx_out_wgmma_kernel");
-  X* sa = smem_tiles<X>();
-  X* sbt = sa + Tile<X>::kElems;
+  float* sa = smem_tiles();
+  float* sbt = sa + Tile::kElems;
   __shared__ int rows[kT];
   __shared__ float gw[kT];
   const int dt = blockIdx.x, sb = blockIdx.y, e = blockIdx.z;
@@ -466,7 +437,7 @@ __global__ void __launch_bounds__(kThreads) dx_out_kernel(
       if (rows[r] < 0) continue;
       const int64_t o = (int64_t)rows[r] * d.D + dt * kT + acc_col(lane, n, i);
       atomicAdd(dx + o, adx[n][i]);
-      dot[i >> 1] += to_f(g[o]) * ay[n][i];
+      dot[i >> 1] += g[o] * ay[n][i];
     }
 #pragma unroll
   for (int j = 0; j < 2; ++j) {
@@ -490,18 +461,16 @@ __global__ void dgw_reduce_kernel(const float* __restrict__ part,
 // slots. Blocks [0, nd * nj): dW_in and dW_gate tile (dt, jt) = x^T
 // [dh1 | dhg]; blocks [nd * nj, 2 nd * nj): dW_out tile (jt, dt) = h^T dy.
 // Shared: tiles sa, sb1, sb2.
-template <typename X>
 __global__ void __launch_bounds__(kThreads) dw_kernel(
-    const X* __restrict__ x, const int* __restrict__ row_id,
-    const float* __restrict__ gate_w, const X* __restrict__ g,
-    const X* __restrict__ h, const X* __restrict__ dh1,
-    const X* __restrict__ dhg, X* __restrict__ dwi, X* __restrict__ dwg,
-    X* __restrict__ dwo, Dims d) {
-  static_assert(Tile<X>::kF32, "bf16 dW runs dw_wgmma_kernel");
-  constexpr int kE = Tile<X>::kElems;
-  X* sa = smem_tiles<X>();
-  X* sb1 = sa + kE;
-  X* sb2 = sb1 + kE;
+    const float* __restrict__ x, const int* __restrict__ row_id,
+    const float* __restrict__ gate_w, const float* __restrict__ g,
+    const float* __restrict__ h, const float* __restrict__ dh1,
+    const float* __restrict__ dhg, float* __restrict__ dwi,
+    float* __restrict__ dwg, float* __restrict__ dwo, Dims d) {
+  constexpr int kE = Tile::kElems;
+  float* sa = smem_tiles();
+  float* sb1 = sa + kE;
+  float* sb2 = sb1 + kE;
   __shared__ int rows[kT];
   __shared__ float gw[kT];
   const int e = blockIdx.y;
@@ -574,12 +543,25 @@ struct P1 {
   enum : uint32_t { X = 0, G = 2 * kTile, WI = 4 * kTile, WG = 5 * kTile,
                     WO = 6 * kTile, BYTES = 7 * kTile, STAGES = 4 };
 };
+// The forward's pass 1: x rows [128 slots][64 d] (gathered); W_in, W_gate
+// [64 d][128 j] as two [64][64] tiles each (MN-major B). No g, no W_out: a
+// stage of 6 tiles, 4 deep.
+struct P1F {
+  enum : uint32_t { X = 0, G = 0, WI = 2 * kTile, WG = 4 * kTile, WO = 0,
+                    BYTES = 6 * kTile, STAGES = 4 };
+};
 // dX pass 2: dh1, dhg, h [128 slots][64 j] (K-major A); W_in, W_gate [64
 // d][64 j] (K-major B), W_out [64 j][64 d] (MN-major B).
 struct P2 {
   enum : uint32_t { DH1 = 0, DHG = 2 * kTile, H = 4 * kTile, WI = 6 * kTile,
                     WG = 7 * kTile, WO = 8 * kTile, BYTES = 9 * kTile,
                     STAGES = 3 };
+};
+// The forward's pass 2: h [128 slots][64 j] (K-major A), W_out [64 j][64 d]
+// (MN-major B).
+struct P2F {
+  enum : uint32_t { DH1 = 0, DHG = 0, H = 0, WI = 0, WG = 0, WO = 2 * kTile,
+                    BYTES = 3 * kTile, STAGES = 4 };
 };
 // dW: x and g rows [64 slots][128 d] as two [64][64] tiles (MN-major A of
 // x^T; g becomes the MN-major B dy); dh1, dhg, h [64 slots][64 j] (MN-major
@@ -658,12 +640,15 @@ __device__ __forceinline__ void make_dy(unsigned char* tile, const float* gw,
   hop::bar_sync(1 + wg, 128);
 }
 
-// ---- dX pass 1: h, dh1, dhg. Block (jt, sb, e): slots sb*128.., H
-// columns jt*64..; K = D in 64-deep chunks. Consumer warpgroup wg takes
-// slots 64 wg.. of the block. GATED is d.gated as a compile-time branch:
-// ptxas serialises the wgmmas of a kernel whose products sit under a
-// run-time one.
-template <bool GATED>
+// ---- pass 1 of dX (h, dh1, dhg) and, with FWD, of the forward (h).
+// Block (jt, sb, e): slots sb*128.., H columns jt*BJ..; K = D in 64-deep
+// chunks. Consumer warpgroup wg takes slots 64 wg.. of the block. GATED is
+// d.gated as a compile-time branch: ptxas serialises the wgmmas of a kernel
+// whose products sit under a run-time one. FWD drops the g gather, the
+// W_out tile and the dy W_out^T product, writes h alone, and takes 128 H
+// columns a block (BJ), two 64-column halves, so that each gathered x row
+// feeds twice the products (with 64 the gathers set its pace: PERF.md).
+template <bool GATED, bool FWD>
 __global__ void __launch_bounds__(kConsumers + kGatherers, 1)
     dx_h_wgmma_kernel(const bf16* __restrict__ x,
                       const int* __restrict__ row_id,
@@ -673,21 +658,25 @@ __global__ void __launch_bounds__(kConsumers + kGatherers, 1)
                       Dims d, const __grid_constant__ CUtensorMap tm_wi,
                       const __grid_constant__ CUtensorMap tm_wg,
                       const __grid_constant__ CUtensorMap tm_wo) {
-  constexpr int S = P1::STAGES;
+  using L = typename std::conditional<FWD, P1F, P1>::type;
+  constexpr int S = L::STAGES;
+  constexpr int NJ = FWD ? 2 : 1, BJ = 64 * NJ;   // H columns a block
   __shared__ Ring<S> ring;
   __shared__ int rows[kM];
   __shared__ float gw[kM];
   const int jt = blockIdx.x, sb = blockIdx.y, e = blockIdx.z;
   const int tid = threadIdx.x;
   if (!slot_rows<kM>(row_id, gate_w, e, sb, d, rows, gw)) {
-    for (int i = tid; i < kM * 8; i += blockDim.x) {   // zero h, dh1, dhg
-      const int s = sb * kM + (i >> 3), c = jt * 64 + (i & 7) * 8;
+    for (int i = tid; i < kM * BJ / 8; i += blockDim.x) {   // zero them
+      const int s = sb * kM + i / (BJ / 8), c = jt * BJ + i % (BJ / 8) * 8;
       if (s >= d.cpad || c >= d.H) continue;
       const int64_t o = ((int64_t)e * d.cpad + s) * d.H + c;
       const uint4 z = make_uint4(0, 0, 0, 0);
       *reinterpret_cast<uint4*>(h_out + o) = z;
-      *reinterpret_cast<uint4*>(dh1_out + o) = z;
-      if constexpr (GATED) *reinterpret_cast<uint4*>(dhg_out + o) = z;
+      if constexpr (!FWD) {
+        *reinterpret_cast<uint4*>(dh1_out + o) = z;
+        if constexpr (GATED) *reinterpret_cast<uint4*>(dhg_out + o) = z;
+      }
     }
     return;
   }
@@ -697,75 +686,107 @@ __global__ void __launch_bounds__(kConsumers + kGatherers, 1)
   __syncthreads();
   const int nk = d.D / 64;
   if (tid >= kConsumers) {                       // the producer warpgroup
+    if constexpr (FWD) hop::reg_dealloc<56>();
     const int t = tid - kConsumers;
+    constexpr uint32_t kTma = (NJ * (GATED ? 2 : 1) + (FWD ? 0 : 1)) * kTile;
     for (int k = 0; k < nk; ++k) {
       hop::mbar_wait(ring.e(k), Ring<S>::parity(k) ^ 1);
-      const uint32_t st = base + (k % S) * P1::BYTES, full = ring.f(k);
+      const uint32_t st = base + (k % S) * L::BYTES, full = ring.f(k);
       if (t == 0) {
-        hop::mbar_arrive_tx(full, (GATED ? 3 : 2) * kTile);
-        hop::tma_load3(st + P1::WI, &tm_wi, full, jt * 64, k * 64, e);
-        if constexpr (GATED) hop::tma_load3(st + P1::WG, &tm_wg, full, jt * 64, k * 64, e);
-        hop::tma_load3(st + P1::WO, &tm_wo, full, k * 64, jt * 64, e);
+        hop::mbar_arrive_tx(full, kTma);
+        for (int h = 0; h < NJ; ++h) {
+          hop::tma_load3(st + L::WI + h * kTile, &tm_wi, full,
+                         jt * BJ + h * 64, k * 64, e);
+          if constexpr (GATED)
+            hop::tma_load3(st + L::WG + h * kTile, &tm_wg, full,
+                           jt * BJ + h * 64, k * 64, e);
+        }
+        if constexpr (!FWD) hop::tma_load3(st + L::WO, &tm_wo, full, k * 64, jt * 64, e);
       }
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
         const int idx = t + kGatherers * i, r = idx >> 3, c = idx & 7;
         const int row = rows[r];
         const int64_t o = (int64_t)(row < 0 ? 0 : row) * d.D + k * 64 + c * 8;
-        hop::cp16(st + P1::X + hop::swz(r, c), x + o, row < 0 ? 0 : 16);
-        hop::cp16(st + P1::G + hop::swz(r, c), g + o, row < 0 ? 0 : 16);
+        hop::cp16(st + L::X + hop::swz(r, c), x + o, row < 0 ? 0 : 16);
+        if constexpr (!FWD)
+          hop::cp16(st + L::G + hop::swz(r, c), g + o, row < 0 ? 0 : 16);
       }
       hop::cp_arrive(full);
     }
     return;
   }
+  if constexpr (FWD) hop::reg_alloc<224>();
   const int wg = tid >> 7, t = tid & 127, warp = (tid >> 5) & 3,
             lane = tid & 31;
-  float a1[8][4], ag[8][4], adh[8][4];
-  zero(a1);
-  zero(ag);
+  float a1[NJ][8][4], ag[NJ][8][4], adh[8][4];
+#pragma unroll
+  for (int h = 0; h < NJ; ++h) {
+    zero(a1[h]);
+    zero(ag[h]);
+  }
   zero(adh);
   for (int k = 0; k < nk; ++k) {
     wait_gathered(ring, k);
-    const uint32_t st = base + (k % S) * P1::BYTES;
-    const uint32_t xa = st + P1::X + wg * kTile, ga = st + P1::G + wg * kTile;
-    make_dy(tiles + (ga - base), gw + 64 * wg, wg, t);
+    const uint32_t st = base + (k % S) * L::BYTES;
+    const uint32_t xa = st + L::X + wg * kTile, ga = st + L::G + wg * kTile;
+    if constexpr (!FWD) make_dy(tiles + (ga - base), gw + 64 * wg, wg, t);
     hop::wg_fence();
-    hop::wgmma_chunk<0, 1>(a1, xa, st + P1::WI);
-    if constexpr (GATED) hop::wgmma_chunk<0, 1>(ag, xa, st + P1::WG);
-    hop::wgmma_chunk<0, 0>(adh, ga, st + P1::WO);
+#pragma unroll
+    for (int h = 0; h < NJ; ++h) {
+      hop::wgmma_chunk<0, 1>(a1[h], xa, st + L::WI + h * kTile);
+      if constexpr (GATED)
+        hop::wgmma_chunk<0, 1>(ag[h], xa, st + L::WG + h * kTile);
+    }
+    if constexpr (!FWD) hop::wgmma_chunk<0, 0>(adh, ga, st + L::WO);
     drain_chunk(ring, k, lane);
   }
-  hop::acc_fence(a1);
-  hop::acc_fence(ag);
+#pragma unroll
+  for (int h = 0; h < NJ; ++h) {
+    hop::acc_fence(a1[h]);
+    hop::acc_fence(ag[h]);
+  }
   hop::acc_fence(adh);
+#pragma unroll
+  for (int h = 0; h < NJ; ++h)
 #pragma unroll
   for (int n = 0; n < 8; ++n)
 #pragma unroll
     for (int i = 0; i < 4; i += 2) {
       const int s = sb * kM + 64 * wg + acc_row(warp, lane, i);
-      const int c = jt * 64 + acc_col(lane, n, i);
+      const int c = jt * BJ + 64 * h + acc_col(lane, n, i);
       if (s >= d.cpad || c >= d.H) continue;
       const int64_t o = ((int64_t)e * d.cpad + s) * d.H + c;
       float hv[2], d1[2], dg[2];
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
-        const float h1 = a1[n][i + j], hg = ag[n][i + j], dh = adh[n][i + j];
+        const float h1 = a1[h][n][i + j], hg = ag[h][n][i + j],
+                    dh = adh[n][i + j];
+        if constexpr (FWD) {   // h = act(hg) * h1, or act(h1)
+          hv[j] = GATED ? act_f(d.act, hg) * h1 : act_f(d.act, h1);
+          continue;
+        }
         const float act = act_f(d.act, GATED ? hg : h1);
         hv[j] = GATED ? act * h1 : act;
         d1[j] = GATED ? dh * act : dh * dact_f(d.act, h1);
         dg[j] = GATED ? dh * h1 * dact_f(d.act, hg) : 0.f;
       }
       flash::store2(h_out + o, hv[0], hv[1]);
-      flash::store2(dh1_out + o, d1[0], d1[1]);
-      if constexpr (GATED) flash::store2(dhg_out + o, dg[0], dg[1]);
+      if constexpr (!FWD) {
+        flash::store2(dh1_out + o, d1[0], d1[1]);
+        if constexpr (GATED) flash::store2(dhg_out + o, dg[0], dg[1]);
+      }
     }
 }
 
-// ---- dX pass 2: dx[row] += dh1 W_in^T + dhg W_gate^T, y = h W_out and
-// this D tile's share of dgw. Block (dt, sb, e): slots sb*128.., D columns
-// dt*64..; K = H. Every operand comes by TMA: the producer is one thread.
-template <bool GATED>
+// ---- pass 2 of dX: dx[row] += dh1 W_in^T + dhg W_gate^T, y = h W_out
+// and this D tile's share of dgw; with FWD, of the forward: y = h W_out
+// alone and out[row] += gate_w y (out in dx's place; no g, no part, no
+// dh1, dhg, W_in, W_gate). Block (dt, sb, e): slots sb*128.., D
+// columns dt*64..; K = H. Every operand comes by TMA: the producer is one
+// thread. (128 D columns a block measured no faster in the forward: its
+// operands all come by TMA, PERF.md.)
+template <bool GATED, bool FWD>
 __global__ void __launch_bounds__(kConsumers + 32, 1) dx_out_wgmma_kernel(
     const int* __restrict__ row_id, const float* __restrict__ gate_w,
     const bf16* __restrict__ g, float* __restrict__ dx,
@@ -776,16 +797,18 @@ __global__ void __launch_bounds__(kConsumers + 32, 1) dx_out_wgmma_kernel(
     const __grid_constant__ CUtensorMap tm_dh1,
     const __grid_constant__ CUtensorMap tm_dhg,
     const __grid_constant__ CUtensorMap tm_h) {
-  constexpr int S = P2::STAGES;
+  using L = typename std::conditional<FWD, P2F, P2>::type;
+  constexpr int S = L::STAGES;
   __shared__ Ring<S> ring;
   __shared__ int rows[kM];
   __shared__ float gw[kM];
   const int dt = blockIdx.x, sb = blockIdx.y, e = blockIdx.z;
   const int tid = threadIdx.x;
-  float* prow = part + (int64_t)dt * d.E * d.cpad + (int64_t)e * d.cpad;
+  float* prow = FWD ? nullptr
+                    : part + (int64_t)dt * d.E * d.cpad + (int64_t)e * d.cpad;
   if (!slot_rows<kM>(row_id, gate_w, e, sb, d, rows, gw)) {
     const int s = sb * kM + tid;
-    if (tid < kM && s < d.cpad) prow[s] = 0.f;
+    if (!FWD && tid < kM && s < d.cpad) prow[s] = 0.f;
     return;
   }
   unsigned char* tiles = ring_tiles();
@@ -795,17 +818,17 @@ __global__ void __launch_bounds__(kConsumers + 32, 1) dx_out_wgmma_kernel(
   const int nk = (d.H + 63) / 64;
   if (tid >= kConsumers) {                             // the producer
     if (tid != kConsumers) return;
-    const uint32_t bytes = (GATED ? 3 : 2) * 3 * kTile;
+    const uint32_t bytes = (FWD ? 1 : GATED ? 3 : 2) * 3 * kTile;
     for (int k = 0; k < nk; ++k) {
       hop::mbar_wait(ring.e(k), Ring<S>::parity(k) ^ 1);
-      const uint32_t st = base + (k % S) * P2::BYTES, full = ring.f(k);
+      const uint32_t st = base + (k % S) * L::BYTES, full = ring.f(k);
       hop::mbar_arrive_tx(full, bytes);
-      hop::tma_load3(st + P2::DH1, &tm_dh1, full, k * 64, sb * kM, e);
-      if constexpr (GATED) hop::tma_load3(st + P2::DHG, &tm_dhg, full, k * 64, sb * kM, e);
-      hop::tma_load3(st + P2::H, &tm_h, full, k * 64, sb * kM, e);
-      hop::tma_load3(st + P2::WI, &tm_wi, full, k * 64, dt * 64, e);
-      if constexpr (GATED) hop::tma_load3(st + P2::WG, &tm_wg, full, k * 64, dt * 64, e);
-      hop::tma_load3(st + P2::WO, &tm_wo, full, dt * 64, k * 64, e);
+      if constexpr (!FWD) hop::tma_load3(st + L::DH1, &tm_dh1, full, k * 64, sb * kM, e);
+      if constexpr (!FWD && GATED) hop::tma_load3(st + L::DHG, &tm_dhg, full, k * 64, sb * kM, e);
+      hop::tma_load3(st + L::H, &tm_h, full, k * 64, sb * kM, e);
+      if constexpr (!FWD) hop::tma_load3(st + L::WI, &tm_wi, full, k * 64, dt * 64, e);
+      if constexpr (!FWD && GATED) hop::tma_load3(st + L::WG, &tm_wg, full, k * 64, dt * 64, e);
+      hop::tma_load3(st + L::WO, &tm_wo, full, dt * 64, k * 64, e);
     }
     return;
   }
@@ -815,17 +838,32 @@ __global__ void __launch_bounds__(kConsumers + 32, 1) dx_out_wgmma_kernel(
   zero(ay);
   for (int k = 0; k < nk; ++k) {
     hop::mbar_wait(ring.f(k), Ring<S>::parity(k));
-    const uint32_t st = base + (k % S) * P2::BYTES;
+    const uint32_t st = base + (k % S) * L::BYTES;
     hop::wg_fence();
-    hop::wgmma_chunk<0, 0>(adx, st + P2::DH1 + wg * kTile, st + P2::WI);
-    if constexpr (GATED) {   // dhg W_gate^T into the same accumulator
-      hop::wgmma_chunk<0, 0>(adx, st + P2::DHG + wg * kTile, st + P2::WG);
+    if constexpr (!FWD)
+      hop::wgmma_chunk<0, 0>(adx, st + L::DH1 + wg * kTile, st + L::WI);
+    if constexpr (!FWD && GATED) {   // dhg W_gate^T into the same accumulator
+      hop::wgmma_chunk<0, 0>(adx, st + L::DHG + wg * kTile, st + L::WG);
     }
-    hop::wgmma_chunk<0, 1>(ay, st + P2::H + wg * kTile, st + P2::WO);
+    hop::wgmma_chunk<0, 1>(ay, st + L::H + wg * kTile, st + L::WO);
     drain_chunk(ring, k, lane);
   }
   hop::acc_fence(adx);
   hop::acc_fence(ay);
+  if constexpr (FWD) {   // out[row] += gate_w y, at most two adds onto 0
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; i += 2) {
+        const int r = 64 * wg + acc_row(warp, lane, i), row = rows[r];
+        if (row < 0) continue;
+        const float w = gw[r];
+        atomicAdd(reinterpret_cast<float2*>(
+                      dx + (int64_t)row * d.D + dt * 64 + acc_col(lane, n, i)),
+                  make_float2(ay[n][i] * w, ay[n][i + 1] * w));
+      }
+    return;
+  }
   float dot[2] = {0.f, 0.f};        // rows lane / 4 and + 8 of this warp
 #pragma unroll
   for (int n = 0; n < 8; ++n)
@@ -996,34 +1034,31 @@ bool dims_ok(const Dims& d) {
          (d.cpad + kT - 1) / kT <= 65535 && (d.act == 0 || d.act == 1);
 }
 
-// launch kern with `tiles` shared tiles of X after raising its dynamic
+// launch kern with `tiles` fp32 shared tiles after raising its dynamic
 // shared memory limit where that is above 48 KB
-template <typename X, typename Kern, typename... Args>
+template <typename Kern, typename... Args>
 cudaError_t launch(Kern kern, int tiles, dim3 grid, cudaStream_t stream,
                    Args... args) {
-  const size_t smem = Tile<X>::bytes(tiles);
+  const size_t smem = Tile::bytes(tiles);
   cudaError_t err = flash::allow_smem(kern, smem);
   if (err != cudaSuccess) return err;
   kern<<<grid, kThreads, smem, stream>>>(args...);
   return cudaGetLastError();
 }
 
-template <typename X>
-int fwd(const void* x, const int* row_id, const float* gate_w,
-        const void* w_in, const void* w_gate, const void* w_out, void* h,
-        float* out, const Dims& d, cudaStream_t stream) {
+// fp32 forward (the bf16 one is fwd_bf16)
+int fwd_f32(const void* x, const int* row_id, const float* gate_w,
+            const void* w_in, const void* w_gate, const void* w_out, void* h,
+            float* out, const Dims& d, cudaStream_t stream) {
+  using CF = const float*;
   const int n_sb = (d.cpad + kT - 1) / kT;
-  cudaError_t err = launch<X>(
-      expert_h_kernel<X, false>, 3, dim3((d.H + kT - 1) / kT, n_sb, d.E),
-      stream, static_cast<const X*>(x), row_id, gate_w,
-      static_cast<const X*>(w_in), static_cast<const X*>(w_gate),
-      static_cast<const X*>(w_out), static_cast<const X*>(nullptr),
-      static_cast<X*>(h), static_cast<X*>(nullptr), static_cast<X*>(nullptr),
-      d);
+  cudaError_t err = launch(
+      expert_h_kernel<false>, 3, dim3((d.H + kT - 1) / kT, n_sb, d.E),
+      stream, CF(x), row_id, gate_w, CF(w_in), CF(w_gate), CF(w_out),
+      CF(nullptr), static_cast<float*>(h), nullptr, nullptr, d);
   if (err != cudaSuccess) return err;
-  return launch<X>(fwd_out_kernel<X>, 2, dim3(d.D / kT, n_sb, d.E), stream,
-                   row_id, gate_w, static_cast<const X*>(w_out),
-                   static_cast<const X*>(h), out, d);
+  return launch(fwd_out_kernel, 2, dim3(d.D / kT, n_sb, d.E), stream, row_id,
+                gate_w, CF(w_out), CF(h), out, d);
 }
 
 // dgw from the partial sums of n_tiles D tiles, in a fixed order
@@ -1035,40 +1070,37 @@ cudaError_t reduce_dgw(const float* part, float* dgw, int n_tiles,
   return cudaGetLastError();
 }
 
-template <typename X>
-int dx(const void* x, const int* row_id, const float* gate_w,
-       const void* w_in, const void* w_gate, const void* w_out,
-       const void* g, void* h, void* dh1, void* dhg, float* dxo, float* dgw,
-       float* part, const Dims& d, cudaStream_t stream) {
+// fp32 dX (the bf16 one is dx_bf16)
+int dx_f32(const void* x, const int* row_id, const float* gate_w,
+           const void* w_in, const void* w_gate, const void* w_out,
+           const void* g, void* h, void* dh1, void* dhg, float* dxo,
+           float* dgw, float* part, const Dims& d, cudaStream_t stream) {
+  using CF = const float*;
   const int n_sb = (d.cpad + kT - 1) / kT;
-  cudaError_t err = launch<X>(
-      expert_h_kernel<X, true>, 5, dim3((d.H + kT - 1) / kT, n_sb, d.E),
-      stream, static_cast<const X*>(x), row_id, gate_w,
-      static_cast<const X*>(w_in), static_cast<const X*>(w_gate),
-      static_cast<const X*>(w_out), static_cast<const X*>(g),
-      static_cast<X*>(h), static_cast<X*>(dh1), static_cast<X*>(dhg), d);
+  cudaError_t err = launch(
+      expert_h_kernel<true>, 5, dim3((d.H + kT - 1) / kT, n_sb, d.E),
+      stream, CF(x), row_id, gate_w, CF(w_in), CF(w_gate), CF(w_out), CF(g),
+      static_cast<float*>(h), static_cast<float*>(dh1),
+      static_cast<float*>(dhg), d);
   if (err != cudaSuccess) return err;
-  err = launch<X>(dx_out_kernel<X>, 2, dim3(d.D / kT, n_sb, d.E), stream,
-                  row_id, gate_w, static_cast<const X*>(w_in),
-                  static_cast<const X*>(w_gate),
-                  static_cast<const X*>(w_out), static_cast<const X*>(g),
-                  static_cast<const X*>(h), static_cast<const X*>(dh1),
-                  static_cast<const X*>(dhg), dxo, part, d);
+  err = launch(dx_out_kernel, 2, dim3(d.D / kT, n_sb, d.E), stream, row_id,
+               gate_w, CF(w_in), CF(w_gate), CF(w_out), CF(g), CF(h),
+               CF(dh1), CF(dhg), dxo, part, d);
   if (err != cudaSuccess) return err;
   return reduce_dgw(part, dgw, d.D / kT, d, stream);
 }
 
-template <typename X>
-int dw(const void* x, const int* row_id, const float* gate_w, const void* g,
-       const void* h, const void* dh1, const void* dhg, void* dwi, void* dwg,
-       void* dwo, const Dims& d, cudaStream_t stream) {
+// fp32 dW (the bf16 one is dw_bf16)
+int dw_f32(const void* x, const int* row_id, const float* gate_w,
+           const void* g, const void* h, const void* dh1, const void* dhg,
+           void* dwi, void* dwg, void* dwo, const Dims& d,
+           cudaStream_t stream) {
+  using CF = const float*;
   const int tiles = 2 * (d.D / kT) * ((d.H + kT - 1) / kT);
-  return launch<X>(dw_kernel<X>, 3, dim3(tiles, d.E), stream,
-                   static_cast<const X*>(x), row_id, gate_w,
-                   static_cast<const X*>(g), static_cast<const X*>(h),
-                   static_cast<const X*>(dh1), static_cast<const X*>(dhg),
-                   static_cast<X*>(dwi), static_cast<X*>(dwg),
-                   static_cast<X*>(dwo), d);
+  return launch(dw_kernel, 3, dim3(tiles, d.E), stream, CF(x), row_id,
+                gate_w, CF(g), CF(h), CF(dh1), CF(dhg),
+                static_cast<float*>(dwi), static_cast<float*>(dwg),
+                static_cast<float*>(dwo), d);
 }
 
 // a wgmma kernel: `threads` threads and the ring's dynamic shared memory
@@ -1099,21 +1131,55 @@ int dx_bf16(const void* x, const int* row_id, const float* gate_w,
     return cudaErrorInvalidValue;
   const int n_sb = (d.cpad + kM - 1) / kM;
   cudaError_t err = launch_ring(
-      d.gated ? dx_h_wgmma_kernel<true> : dx_h_wgmma_kernel<false>,
+      d.gated ? dx_h_wgmma_kernel<true, false>
+              : dx_h_wgmma_kernel<false, false>,
       dim3((d.H + 63) / 64, n_sb, d.E),
       kConsumers + kGatherers, P1::BYTES, P1::STAGES, stream,
       static_cast<const bf16*>(x), row_id, gate_w,
       static_cast<const bf16*>(g), static_cast<bf16*>(h),
       static_cast<bf16*>(dh1), static_cast<bf16*>(dhg), d, m_wi, m_wg, m_wo);
   if (err != cudaSuccess) return err;
-  err = launch_ring(d.gated ? dx_out_wgmma_kernel<true>
-                            : dx_out_wgmma_kernel<false>,
+  err = launch_ring(d.gated ? dx_out_wgmma_kernel<true, false>
+                            : dx_out_wgmma_kernel<false, false>,
                     dim3(d.D / 64, n_sb, d.E),
                     kConsumers + 32, P2::BYTES, P2::STAGES, stream, row_id, gate_w,
                     static_cast<const bf16*>(g), dxo, part, d, m_wi, m_wg,
                     m_wo, m_dh1, m_dhg, m_h);
   if (err != cudaSuccess) return err;
   return reduce_dgw(part, dgw, d.D / 64, d, stream);
+}
+
+// bf16 forward: the tensor maps of the weights (boxes 64 x 64) and of h
+// (64 x 128 slots), then pass 1 (h) and pass 2 (out += gate_w h W_out)
+int fwd_bf16(const void* x, const int* row_id, const float* gate_w,
+             const void* w_in, const void* w_gate, const void* w_out,
+             void* h, float* out, const Dims& d, cudaStream_t stream) {
+  CUtensorMap m_wi, m_wg = {}, m_wo, m_h, none = {};
+  const uint64_t E = d.E;
+  if (!hop::bf16_map3(&m_wi, w_in, d.H, d.D, E, 64) ||
+      (d.gated && !hop::bf16_map3(&m_wg, w_gate, d.H, d.D, E, 64)) ||
+      !hop::bf16_map3(&m_wo, w_out, d.D, d.H, E, 64) ||
+      !hop::bf16_map3(&m_h, h, d.H, d.cpad, E, kM))
+    return cudaErrorInvalidValue;
+  const int n_sb = (d.cpad + kM - 1) / kM;
+  cudaError_t err = launch_ring(
+      d.gated ? dx_h_wgmma_kernel<true, true>
+              : dx_h_wgmma_kernel<false, true>,
+      dim3((d.H + 127) / 128, n_sb, d.E), kConsumers + kGatherers,
+      P1F::BYTES, P1F::STAGES, stream, static_cast<const bf16*>(x), row_id,
+      gate_w,
+      static_cast<const bf16*>(nullptr), static_cast<bf16*>(h),
+      static_cast<bf16*>(nullptr), static_cast<bf16*>(nullptr), d, m_wi,
+      m_wg, none);
+  if (err != cudaSuccess) return err;
+  // pass 2 is one kernel for both FFN kinds: its template flag GATED only
+  // selects dX's dhg product, so the forward instantiates it ungated
+  return launch_ring(dx_out_wgmma_kernel<false, true>,
+                     dim3(d.D / 64, n_sb, d.E), kConsumers + 32, P2F::BYTES,
+                     P2F::STAGES, stream, row_id, gate_w,
+                     static_cast<const bf16*>(nullptr), out,
+                     static_cast<float*>(nullptr), d, none, none, m_wo, none,
+                     none, m_h);
 }
 
 // bf16 dW: the tensor maps of h, dh1, dhg (boxes 64 x 64 slots), one launch
@@ -1150,11 +1216,11 @@ extern "C" int moe_fwd_launch(const void* x, const int* row_id,
   const Dims d{T, D, H, E, cpad, act, gated};
   if (!dims_ok(d) || (gated && !w_gate)) return cudaErrorInvalidValue;
   if (dtype == 1)
-    return fwd<bf16>(x, row_id, gate_w, w_in, w_gate, w_out, h, out, d,
-                     stream);
+    return fwd_bf16(x, row_id, gate_w, w_in, w_gate, w_out, h, out, d,
+                    stream);
   if (dtype == 0)
-    return fwd<float>(x, row_id, gate_w, w_in, w_gate, w_out, h, out, d,
-                      stream);
+    return fwd_f32(x, row_id, gate_w, w_in, w_gate, w_out, h, out, d,
+                   stream);
   return cudaErrorInvalidValue;
 }
 
@@ -1172,8 +1238,8 @@ extern "C" int moe_dx_launch(const void* x, const int* row_id,
     return dx_bf16(x, row_id, gate_w, w_in, w_gate, w_out, g, h, dh1, dhg,
                    dxo, dgw, part, d, stream);
   if (dtype == 0)
-    return dx<float>(x, row_id, gate_w, w_in, w_gate, w_out, g, h, dh1, dhg,
-                     dxo, dgw, part, d, stream);
+    return dx_f32(x, row_id, gate_w, w_in, w_gate, w_out, g, h, dh1, dhg,
+                  dxo, dgw, part, d, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -1190,7 +1256,7 @@ extern "C" int moe_dw_launch(const void* x, const int* row_id,
     return dw_bf16(x, row_id, gate_w, g, h, dh1, dhg, dwi, dwg, dwo, d,
                    stream);
   if (dtype == 0)
-    return dw<float>(x, row_id, gate_w, g, h, dh1, dhg, dwi, dwg, dwo, d,
-                     stream);
+    return dw_f32(x, row_id, gate_w, g, h, dh1, dhg, dwi, dwg, dwo, d,
+                  stream);
   return cudaErrorInvalidValue;
 }

@@ -535,6 +535,103 @@ def test_flash_bias_kernels_match_plain(cuda, b, sq, sk, h, d, causal, kind):
     assert live_err <= 1e-4, live_err
 
 
+@pytest.mark.parametrize("b,sq,sk,h,d,causal,kind", [
+    (2, 1000, 1000, 3, 128, True, None),       # sq not a multiple of 128
+    (2, 333, 517, 2, 64, True, None),          # causal, sk > sq
+    (2, 700, 300, 2, 128, True, None),         # rows that see no key
+    (1, 1, 300, 2, 64, False, None),           # one query
+    (2, 300, 300, 3, 128, True, "fused"),      # views of one fused qkv
+    (2, 200, 200, 2, 64, False, "fused"),
+    (2, 384, 384, 4, 64, False, "dense"),      # a fully masked bias row
+    (2, 1000, 700, 2, 128, True, "dense_inf"),
+    (2, 130, 130, 2, 64, False, "keypad"),
+])
+def test_flash_bf16_forward_edges_repeat(cuda, b, sq, sk, h, d, causal,
+                                         kind):
+    """The bf16 forward (the wgmma kernel, plain and bias modes) at its
+    edges against ``flash_fwd_plain``, and two launches bitwise equal.
+    ``fused``: q, k, v as strided views of one [b, s, 3, h, d] tensor."""
+    if kind == "fused":
+        g = torch.Generator(device=cuda).manual_seed(4)
+        q, k, v = torch.randn((b, sq, 3, h, d), generator=g,
+                              device=cuda).bfloat16().unbind(2)
+        assert not q.is_contiguous()
+        bias = None
+    else:
+        q, k, v, _ = _flash_inputs(b, sq, sk, h, d, "bfloat16", cuda, seed=2)
+        bias = None if kind is None else _bias(kind, b, h, sq, sk, cuda)
+    scale = d ** -0.5
+    reset_launch_counts()
+    runs = [FA.flash_fwd_cuda(q, k, v, scale, causal, bias)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    name = "flash_fwd" if bias is None else "flash_fwd_bias"
+    assert launch_counts() == _counts(**{name: 2})
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert torch.equal(runs[0][1], runs[1][1])
+    out, lse = runs[0]
+    want_o, want_l = FA.flash_fwd_plain(q.float(), k.float(), v.float(),
+                                        scale, causal, bias)
+    _assert_flash_close(out, want_o)
+    dead = want_l <= -1e29
+    assert torch.equal(lse <= -1e29, dead)
+    assert (out.transpose(1, 2)[dead] == 0).all()
+    if causal and sq > sk or kind in ("dense", "dense_inf"):
+        assert dead.any()
+    live_err = (lse - want_l)[~dead].abs().max().item()
+    assert live_err <= 1e-4, live_err
+
+
+def test_flash_bf16_forward_raises_outside_its_gate(cuda):
+    """The bf16 forward takes d 64 or 128 and 16-byte strides (ValueError
+    from the gate), and what TMA can map: a k broadcast over the batch
+    (stride 0 at size 2) passes the gate and the launch raises."""
+    q, k, v, _ = _flash_inputs(2, 256, 256, 2, 64, "bfloat16", cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        FA.flash_fwd_cuda(*(torch.zeros((1, 256, 2, 96), device=cuda)
+                            .bfloat16() for _ in range(3)), 0.1, True)
+    wide = torch.zeros((2, 256, 2, 68), device=cuda).bfloat16()[..., :64]
+    with pytest.raises(ValueError, match="multiples of 8"):
+        FA.flash_fwd_cuda(wide, wide, wide, 0.125, True)
+    kb = k[:1].expand(2, -1, -1, -1)
+    assert kb.stride(0) == 0
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        FA.flash_fwd_cuda(q, kb, v, 0.125, True)
+    out, _ = FA.flash_fwd_cuda(q, k, v, 0.125, True)   # still launches
+    assert torch.isfinite(out.float()).all()
+
+
+@pytest.mark.parametrize("T,E,D,H,cap,act,hot", [
+    (1024, 16, 128, 96, 38, "relu", False),     # cpad 40, ungated
+    (1024, 16, 128, 64, 100, "silu", False),    # cpad 104
+    (1024, 4, 256, 704, 1024, "silu", True),    # whole blocks empty
+    (1024, 4, 128, 96, 1024, "relu", True),
+])
+def test_moe_bf16_forward_edges_repeat(cuda, T, E, D, H, cap, act, hot):
+    """The bf16 grouped forward (the wgmma passes) at its edges against
+    ``moe_fwd_plain``, and two launches bitwise equal: a capacity whose
+    padded size is not a multiple of the 128-slot block, the ungated
+    relu FFN, and one expert holding every token while the others hold
+    none (``hot``: 128-slot blocks without a token, whose h rows the
+    kernel zeroes)."""
+    from paddle_tpu_torch.ops.kernels import moe_grouped_gemm as GG
+    inp = _moe_inputs(cuda, T, E, D, H, seed=H + 1, capfac=cap * E / (2 * T),
+                      hot=hot)
+    cpad = inp["row_id"].shape[1]
+    assert cpad % 128 or hot
+    if hot:
+        held = (inp["row_id"] < T).sum(1)
+        assert held[0] == T and not held[1:].any()
+    wg = inp["wg"] if act == "silu" else None
+    args = (inp["x"], inp["row_id"], inp["gate_w"], inp["wi"], wg, inp["wo"])
+    reset_launch_counts()
+    outs = [GG.moe_fwd_cuda(*args, act) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert launch_counts() == _counts(moe_fwd=2)
+    assert torch.equal(outs[0], outs[1])
+    _assert_flash_close(outs[0], GG.moe_fwd_plain(*args, act))
+
+
 def test_flash_attention_mask_routes_to_the_bias_mode(cuda):
     """``flash_attention(attn_mask=bool)`` launches the bias mode of all
     three kernels once each and no no-bias mode; the mask gets no

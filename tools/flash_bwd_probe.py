@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
-"""A short first call for the bf16 flash backward on a GPU
+"""A short first call for the bf16 flash kernels on a GPU: the backward
 (``csrc/flash_bwd_wgmma.cuh``: dQ and dK/dV on wgmma, fed by TMA, in
-their plain, bias, dropout and bias + dropout modes).
+their plain, bias, dropout and bias + dropout modes) and the forward
+(``csrc/flash_fwd_wgmma.cuh`` in the plain and bias modes; dropout keeps
+the mma.sync kernel of ``flash_attention_fwd.cu``).
 
     python3 tools/flash_bwd_probe.py [--report FILE] [--times] [--big]
 
@@ -10,7 +12,8 @@ instantiation, and ``nvcc``'s warnings, go to the file ``--report``
 names), then holds the three flash kernels against their plain versions
 with ``chip_smoke.py``'s flash check (``_flash_errors``: each row within
 2**-7 of its largest magnitude + 1e-3, relative Frobenius error <= 4e-3;
-the backward launched twice, bitwise equal) at small shapes that take
+lse within 1e-4, rows that see no key exact; every kernel launched
+twice, bitwise equal) at small shapes that take
 every branch of the kernels: d 64 and 128, causal and not, ragged
 lengths (s 1, 63, 130, 1000), causal with sq > sk (rows that see no key)
 and sq < sk, one q tile of a 128-row block past the end, and q, k, v, dO
@@ -25,8 +28,9 @@ dS = P (dP - delta) is 0 in exact arithmetic (P = 1, dP = delta), so dq
 and dk are 0 and held by the row rule alone: their relative Frobenius
 error is a ratio of roundings. ``--big`` adds BERT-Base's [32, 512,
 12, 64] non-causal (plain, keypad, keypad_drop) and the Llama training
-shape [4, 2048, 16, 128] causal (plain, drop). ``--times`` times dQ and
-dK/dV (CUDA events, 100 calls cycling three input sets past the L2) at
+shape [4, 2048, 16, 128] causal (plain, drop). ``--times`` times the
+forward, dQ and dK/dV (CUDA events, 100 calls cycling three input sets
+past the L2) at
 the Llama shape (plain), BERT-Base's (plain, keypad, keypad_drop) and
 GPT-2 small's [8, 1024, 12, 64] causal (drop). Prints one JSON line.
 """
@@ -107,8 +111,9 @@ def _check(S, F, gen, shape, mode, seed, fused=False):
         failures = [f for f in failures if not f.startswith(
             ("dq: relative Frobenius", "dk: relative Frobenius"))]
     return {"shape": list(shape), "mode": mode, "fused": fused,
-            "row": {o: errs[o]["row"] for o in ("dq", "dk", "dv")},
-            "fro": {o: errs[o]["fro"] for o in ("dq", "dk", "dv")},
+            "row": {o: errs[o]["row"] for o in ("out", "dq", "dk", "dv")},
+            "fro": {o: errs[o]["fro"] for o in ("out", "dq", "dk", "dv")},
+            "lse": errs["lse"],
             "failures": failures}
 
 
@@ -137,7 +142,9 @@ def _times(F, gen, shape, mode, seed):
         sets.append((q, k, v, do, lse, F.flash_delta(do, out), bias))
     sc = d ** -0.5
     tail = (p, key)
-    return {"dq": _ms(lambda *a: F.flash_bwd_dq_cuda(*a[:6], sc, causal,
+    return {"fwd": _ms(lambda *a: F.flash_fwd_cuda(*a[:3], sc, causal, a[6],
+                                                   *tail), sets),
+            "dq": _ms(lambda *a: F.flash_bwd_dq_cuda(*a[:6], sc, causal,
                                                      a[6], *tail), sets),
             "dkv": _ms(lambda *a: F.flash_bwd_dkv_cuda(*a[:6], sc, causal,
                                                        a[6], *tail), sets)}

@@ -7,7 +7,8 @@ the fp32 forward, dX and dW against the plain versions in fp64
 bitwise repeat) at small shapes, gated silu and ungated relu, and the
 bf16 mode against its plain version (``chip_smoke.moe_errors``) at
 ``BF16``'s shapes: H past a 64 tile, D not a multiple of 128, the
-training shape.
+training shape, and ``chip_smoke.MOE_EDGES`` (cpad 40 with ungated relu;
+one expert holding every token, so whole 128-slot blocks are empty).
 
     python3 tools/moe_fp32_probe.py [--report FILE] [--full]
     python3 tools/moe_fp32_probe.py --times [--train] [--tree PATH]
@@ -98,6 +99,9 @@ def main(argv=None) -> int:
                            inp["g"])
         failures += [f"bf16 {[T, E, D, H]} {f}" for f in res["failures"]]
         print(json.dumps({"bf16": [T, E, D, H, "silu"], **res}), flush=True)
+    for res in S.moe_edge_errors(torch, GG, MR, gen):
+        failures += [f"bf16 {res['case']} {f}" for f in res["failures"]]
+        print(json.dumps({"bf16_edge": res}), flush=True)
     if failures:
         print(json.dumps({"failures": failures}), flush=True)
     if args.full:
