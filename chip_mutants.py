@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Plant known faults in the flash attention, MoE, int8 paged and
-LayerNorm kernels, in the flash bias, fp32, dropout and segment modes and
-in the grouped-GEMM kernels' fp32 mode, and
+LayerNorm kernels, in the flash bias, fp32 (the mma.sync kernels and the
+TF32 wgmma backward), dropout and segment modes and in the grouped-GEMM
+kernels' fp32 mode, and
 show which of ``chip_smoke.py``'s checks catch each one (a mutation
 check, on one GPU).
 
@@ -44,8 +45,9 @@ of the fault's kind (the control runs every kind of the faults chosen):
   of ``bench_bert``'s configuration, as ``train_bert_padded`` leaves it;
 - fp32: the fp32 flash kernel check (``flash_fp32_errors``: against fp64,
   within 2x the plain fp32 version's error plus the floor) at GPT-2
-  small's shape [8, 1024, 12, 64] causal and at rows that see one key
-  (``one_key_checks``), and ``entry()``'s fp32 train parity
+  small's shape [8, 1024, 12, 64] causal, at rows that see one key
+  (``one_key_checks``) and at a long causal sequence
+  (``long_chain_check``), and ``entry()``'s fp32 train parity
   (``phase_entry_fp32``'s three steps at ``FP32_PARITY``);
 - dropout: the dropout kernel check at p 0.1 (``flash_fp32_errors`` at
   GPT-2's shape in fp32, ``_flash_errors`` with a bitwise repeat of the
@@ -88,6 +90,7 @@ import numpy as np
 
 BWD, FWD = "flash_attention_bwd.cu", "flash_attention_fwd.cu"
 WGB, WGF = "flash_bwd_wgmma.cuh", "flash_fwd_wgmma.cuh"
+TF32 = "flash_bwd_tf32.cuh"
 ROUTE, GG = "moe_routing.cu", "moe_grouped_gemm.cu"
 PAGED = "paged_attention.cu"
 LN = "layer_norm.cu"
@@ -352,7 +355,8 @@ MUTANTS = {
     }""")], "bert"),
     "fp32_operands_bf16": (
         "fp32 flash mode: every operand of the 3xTF32 products rounded to "
-        "bf16 first",
+        "bf16 first (split_tf32: the mma.sync kernels' fragments and the "
+        "TF32 wgmma kernels' split tiles and A fragments alike)",
         [(COMMON, "                                           uint32_t& lo) "
                   "{\n",
           "                                           uint32_t& lo) {\n"
@@ -415,11 +419,90 @@ MUTANTS = {
           "      }")], "moe_fp32"),
     "c6_repair_reverted": (
         "fp32 flash backward: dP = dO V^T back to three 3xTF32 passes (no "
-        "lo*lo), the product before the ROADMAP C6 repair",
+        "lo*lo), the product before the ROADMAP C6 repair, in the mma.sync "
+        "and the TF32 wgmma kernels",
         [(BWD, "nt_product_f32<kBK / 8, D, LD, mma4>(dp,",
           "nt_product_f32<kBK / 8, D, LD, mma3>(dp,"),
          (BWD, "nt_product_f32<BQ / 8, D, LD, mma4>(dp,",
-          "nt_product_f32<BQ / 8, D, LD, mma3>(dp,")],
+          "nt_product_f32<BQ / 8, D, LD, mma3>(dp,"),
+         (TF32, "constexpr int first = FOUR ? 0 : 1;",
+          "constexpr int first = 1;")],
+        "fp32"),
+    "tf32_dq_drops_hi_lo": (
+        "TF32 wgmma dQ: dQ += dS K drops its hi*lo pass (dS's hi times "
+        "K^T's lo); dK/dV keeps all three",
+        [(TF32, """      product_rs(part, ahi, alo, st + 4 * kTile, st + 4 * kTile + kTrans);
+      hop::wg_commit();                          // dQ's part = dS K""",
+          """      hop::wgmma64_tf32_rs<false>(part, alo[0],
+                                  hop::desc(st + 4 * kTile));
+      for (int kk = 1; kk < 4; ++kk)
+        hop::wgmma64_tf32_rs(part, alo[kk],
+                             hop::desc(st + 4 * kTile + kk * 32));
+      for (int kk = 0; kk < 4; ++kk)
+        hop::wgmma64_tf32_rs(part, ahi[kk],
+                             hop::desc(st + 4 * kTile + kk * 32));
+      hop::wg_commit();                          // dQ's part = dS K""")],
+        "fp32"),
+    "tf32_kt_unrenamed": (
+        "TF32 wgmma dQ: the transposed K copy written in the natural key "
+        "order, not the renamed one of the RS A fragment (dS's columns "
+        "2t, 2t + 1 meet K^T's keys t, t + 4)",
+        [(TF32, "const int kcol = renamed(lane);", "const int kcol = lane;")],
+        "fp32"),
+    "tf32_dk_part_into_running": (
+        "TF32 wgmma dK/dV: dK's three passes summed into the running dK "
+        "accumulator on the tensor cores instead of a fresh one added on "
+        "the CUDA cores (a truncating chain over every q tile)",
+        [(TF32, """    hop::wg_fence();
+    product_rs(part, ahi, alo, st + 4 * kTile, st + 4 * kTile + kTrans);
+    hop::wg_commit();                            // dK's part = dS^T Q
+    hop::wg_wait<0>();
+    hop::acc_fence(part);
+    add_to(dka, part);""",
+          """    hop::wg_fence();
+    for (int kk = 0; kk < 4; ++kk)
+      hop::wgmma64_tf32_rs(dka, alo[kk], hop::desc(st + 4 * kTile + kk * 32));
+    for (int kk = 0; kk < 4; ++kk)
+      hop::wgmma64_tf32_rs(dka, ahi[kk],
+                           hop::desc(st + 4 * kTile + kTrans + kk * 32));
+    for (int kk = 0; kk < 4; ++kk)
+      hop::wgmma64_tf32_rs(dka, ahi[kk], hop::desc(st + 4 * kTile + kk * 32));
+    hop::wg_commit();                            // dK's part = dS^T Q
+    hop::wg_wait<0>();
+    hop::acc_fence(dka);""")],
+        "fp32"),
+    "tf32_dkv_keep_word_wrong_lane": (
+        "TF32 wgmma dK/dV, dropout mode: each lane takes the keep word of "
+        "lane ^ 4 (the next key row of its quad) after the exchange",
+        [(TF32, """      keep = flash::keep_bits_kq<4>(bh, krow[0], krow[1], qs0 + 2 * t, key0,
+                                    key1, md.thresh, lane);""",
+          """      keep = __shfl_xor_sync(0xffffffffu, flash::keep_bits_kq<4>(
+          bh, krow[0], krow[1], qs0 + 2 * t, key0, key1, md.thresh, lane),
+          4);""")],
+        "dropout"),
+    "tf32_stage_released_before_wait": (
+        "TF32 wgmma dQ and dK/dV: a stage goes back to the producer right "
+        "after the commit of the last wgmma group that reads it, before "
+        "wgmma.wait_group",
+        [(TF32, """      hop::wg_commit();                          // dQ's part = dS K
+      hop::wg_wait<0>();""",
+          """      hop::wg_commit();                          // dQ's part = dS K
+      if (lane == 0) hop::mbar_arrive(hop::smem_u32(&empty[s]));
+      hop::wg_wait<0>();"""),
+         (TF32, """    // release stage s (K, V and their split and transposed copies): after
+    // the wg_wait<0> just above, which covers the S, dP and dS K groups,
+    // every group that read the stage
+    if (lane == 0) hop::mbar_arrive(hop::smem_u32(&empty[s]));""",
+          """    else if (lane == 0) hop::mbar_arrive(hop::smem_u32(&empty[s]));"""),
+         (TF32, """    hop::wg_commit();                            // dK's part = dS^T Q
+    hop::wg_wait<0>();""",
+          """    hop::wg_commit();                            // dK's part = dS^T Q
+    if (lane == 0) hop::mbar_arrive(hop::smem_u32(&empty[s]));
+    hop::wg_wait<0>();"""),
+         (TF32, """    // release the stage (Q, dO, their split and transposed copies, lse
+    // and delta): after the wg_wait<0> just above, which covers the S^T,
+    // dP^T, dV and dK groups, every group that read it
+    if (lane == 0) hop::mbar_arrive(hop::smem_u32(&empty[s]));""", "")],
         "fp32"),
     "dkv_ignores_seg": (
         "segment mode, dK/dV: the segment test inside a live tile dropped "
@@ -626,6 +709,7 @@ def _fp32_checks(torch, S, K, TrainStep, AdamW) -> tuple:
                                          True)}
     del q, k, v, do
     check.update(S.one_key_checks(torch, np, F))
+    check["long_chain"] = S.long_chain_check(torch, F, gen)
     check["failures"] = [f"{n}: {f}" for n, c in check.items()
                          for f in c["failures"]]
     torch.cuda.empty_cache()

@@ -33,7 +33,8 @@ Phases; any failure ends the run with a traceback and a non-zero exit:
    BERT-Base's shapes, with and without a bias, causal and not, d 64 and
    128, each output within 2x the plain fp32 version's error plus a
    stated floor, and at rows that see one key (a 1-token segment and a
-   key-padding mask leaving one key, d 128: ROADMAP C6);
+   key-padding mask leaving one key, d 128; at d 64, where the backward
+   runs the TF32 wgmma kernels, sk 1 and causal sq > sk: ROADMAP C6);
    ``flash_dropout``: the dropout mode (p 0.1), bf16 and
    fp32, with and without a bias, on one Philox key with its plain
    version, two launches bitwise equal; ``flash_varlen``: the segment
@@ -76,7 +77,8 @@ Phases; any failure ends the run with a traceback and a non-zero exit:
    is printed), through the fp32 modes of the flash and grouped-GEMM
    kernels only; parity at ``FP32_PARITY`` with each MoE layer's own
    output and input gradient, and routing decisions that may differ only
-   below ``ROUTE_MARGIN``;
+   below ``ROUTE_MARGIN``; the profiled step's flash backward must be
+   the plain TF32 wgmma kernels alone;
 8. train_bert, train_bert_padded, train_bert_parity, train_bert_profile
    — ``bench.py::bench_bert``'s configuration (BERT-Base at full width
    and depth, bf16, AdamW lr 1e-4, batch 32 x seq 512): 10 steps of
@@ -92,13 +94,15 @@ Phases; any failure ends the run with a traceback and a non-zero exit:
    layers, hidden 512, 8 / 4 heads of 64, [2, 256] ids from
    ``default_rng(0)``): its eval forward on the card (4 fp32 flash
    launches) against ``plain_reference()``, then 3 fp32 training steps
-   of train parity;
+   of train parity and one profiled step (the plain TF32 wgmma backward
+   alone);
 8c. train_gpt2, train_gpt2_parity, train_gpt2_profile — GPT-2 small at
    its published defaults (``paddle_tpu/models/gpt.py``: fp32, dropout
    0.1, 12 layers of 12 heads of 64, 124,475,904 parameters), b 8 x s
    1024, AdamW lr 1e-4: phase 4's report for 10 steps (the fp32 dropout
    flash kernels 12 a step, LayerNorm 25), 3 steps of parity at dropout
-   0.1 from one generator state, one profiled step;
+   0.1 from one generator state, one profiled step (its flash backward:
+   the TF32 wgmma dropout kernels alone);
 8d. train_bert_defaults — BERT-Base at its own defaults (fp32, dropout
    0.1) on the padded batch: 3 steps (the fp32 bias + dropout mode, 12 a
    step), an eval forward and 2 steps at dropout 0 (the fp32 bias mode);
@@ -1219,13 +1223,16 @@ ONE_KEY_LENS = (64, 64, 63, 65, 1, 127, 32)
 
 
 def one_key_checks(torch, np, F) -> dict:
-    """``flash_fp32_errors`` at rows that see one key (ROADMAP C6), fp32,
-    d 128, non-causal: their dS = P (dP - delta) is 0 in exact arithmetic,
-    so their dq and that key's dk are dP's rounding alone. The segment
-    mode at ``ONE_KEY_LENS`` (a 1-token segment) on the inputs of
+    """``flash_fp32_errors`` at rows that see one key (ROADMAP C6), fp32:
+    their dS = P (dP - delta) is 0 in exact arithmetic, so their dq and
+    that key's dk are dP's rounding alone. At d 128, non-causal, the
+    segment mode at ``ONE_KEY_LENS`` (a 1-token segment) on the inputs of
     ``test_flash_seg_kernels_match_plain[touching-float32-128-False]``
     (seed 8), where three-pass dP missed the rule, and the bias mode with
-    a key-padding mask that leaves batch element 1 one key."""
+    a key-padding mask that leaves batch element 1 one key. At d 64, the
+    plain mode (the TF32 wgmma backward): non-causal with one key (sk 1,
+    every row), and causal with sq 600 > sk 400 (rows 0-199 see no key,
+    row 200 one)."""
     gen = torch.Generator(device="cuda").manual_seed(8)
     ids = np.repeat(np.arange(len(ONE_KEY_LENS)), ONE_KEY_LENS)
     q, k, v, do = _flash_inputs(torch, gen, (2, len(ids), 2, 128),
@@ -1239,7 +1246,25 @@ def one_key_checks(torch, np, F) -> dict:
     out["one_key_keypad"] = flash_fp32_errors(
         torch, F, q, k, v, do, 128 ** -0.5, False,
         F.attn_bias(keep1[:, None, None, :].expand(2, 1, 200, 200), q, k))
+    for name, sq, sk, causal in (("one_key_d64_sk1", 256, 1, False),
+                                 ("one_key_d64_causal", 600, 400, True)):
+        q, do = _flash_inputs(torch, gen, (4, sq, 4, 64), torch.float32)[:2]
+        k, v = _flash_inputs(torch, gen, (4, sk, 4, 64), torch.float32)[:2]
+        out[name] = flash_fp32_errors(torch, F, q, k, v, do, 0.125, causal)
     return out
+
+
+LONG_CHAIN_SHAPE = (1, 8192, 2, 64)
+
+
+def long_chain_check(torch, F, gen) -> dict:
+    """``flash_fp32_errors`` at a long causal fp32 sequence,
+    ``LONG_CHAIN_SHAPE``: dQ's sum over keys and dK/dV's over queries run
+    256 tiles of 32, where a sum kept on the tensor cores drifts (they
+    truncate; PR 6) by more than the rule's floor, as a 1024-row one
+    does not (PERF.md §6, PR 14)."""
+    q, k, v, do = _flash_inputs(torch, gen, LONG_CHAIN_SHAPE, torch.float32)
+    return flash_fp32_errors(torch, F, q, k, v, do, 0.125, True)
 
 
 def phase_flash_fp32(torch, np, F) -> dict:
@@ -1250,11 +1275,12 @@ def phase_flash_fp32(torch, np, F) -> dict:
     BERT-Base's ([32, 512, 12, 64] non-causal) without and with
     ``train_bert_padded``'s key-padding mask, at d 128 a causal
     [2, 1024, 8, 128] with a random fp32 [sq, sk] bias and a ragged
-    non-causal [2, 1000, 4, 128], and two cases of rows that see one key
-    (d 128, non-causal): the segment mode at ``ONE_KEY_LENS`` and a
-    key-padding mask that leaves one key. Times (``_mode_rows``, the bound at the
-    3xTF32 rate) at GPT-2's shape for the no-bias mode and at the padded
-    BERT shape for the bias mode; the yardstick is
+    non-causal [2, 1000, 4, 128], the cases of rows that see one key
+    (``one_key_checks``: d 128 with segment ids or a bias, d 64 plain),
+    and a long causal sequence (``long_chain_check``). Times
+    (``_mode_rows``, the bound at the 3xTF32 rate) at GPT-2's shape for
+    the no-bias mode and at the padded BERT shape for the bias mode; the
+    yardstick is
     ``scaled_dot_product_attention`` in fp32."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
     keep, lens = _keypad(torch, np, BERT_SEQ)
@@ -1285,6 +1311,8 @@ def phase_flash_fp32(torch, np, F) -> dict:
         del q, k, v, do, bias
         torch.cuda.empty_cache()
     checks.update(one_key_checks(torch, np, F))
+    checks["long_chain"] = long_chain_check(torch, F, gen)
+    torch.cuda.empty_cache()
     _emit("flash_fp32_checks", checks)
     failures = {n: c["failures"] for n, c in checks.items() if c["failures"]}
     if failures:
@@ -2856,10 +2884,13 @@ _MOE_CATEGORIES = (
 
 def flash_bwd_kernels(names) -> list:
     """The flash backward kernels among a profile's kernel names, each cut
-    to its template (the wgmma ``dq_wgmma_kernel<D, HAS_BIAS, DROP>`` and
-    ``dkv_wgmma_kernel<...>``, the mma.sync ``flash_bwd_*_kernel<T, ...>``)."""
+    to its template (the bf16 wgmma ``dq_wgmma_kernel<D, HAS_BIAS, DROP>``
+    and ``dkv_wgmma_kernel<...>``, the fp32 TF32 wgmma
+    ``dq_tf32_kernel<DROP>`` and ``dkv_tf32_kernel<DROP>``, the mma.sync
+    ``flash_bwd_*_kernel<T, ...>``)."""
     return sorted({_short_kernel_name(n) for n in names
                    if "dq_wgmma_kernel<" in n or "dkv_wgmma_kernel<" in n
+                   or "dq_tf32_kernel<" in n or "dkv_tf32_kernel<" in n
                    or "flash_bwd_" in n})
 
 
@@ -2917,6 +2948,17 @@ def check_wgmma_backward(tag, kernels, mode) -> None:
                              f"not {want}")
 
 
+def check_fp32_backward(tag, kernels, drop) -> None:
+    """A profiled fp32 step's flash backward (d 64, no bias): exactly the
+    TF32 wgmma dQ and dK/dV kernels of its mode (``drop``: the dropout
+    instantiations), so no fp32 mma.sync ``flash_bwd_*_kernel``."""
+    mode = "<true>" if drop else "<false>"
+    want = [f"flash_tf32::{k}_tf32_kernel{mode}" for k in ("dkv", "dq")]
+    if kernels != want:
+        raise AssertionError(f"{tag}: the fp32 flash backward ran {kernels}, "
+                             f"not {want}")
+
+
 def _step_profile(torch, step_fn, model, opt, categories) -> dict:
     """One training step (``step_fn``) under the profiler: device time by
     kernel category (``categories``, then "other"), the idle share, the
@@ -2954,18 +2996,23 @@ def _step_profile(torch, step_fn, model, opt, categories) -> dict:
 
 
 def phase_train_moe_profile(torch, model, opt, TrainStep, batch,
-                            tag="train_moe_profile", fwd_mode=None) -> dict:
+                            tag="train_moe_profile", fwd_mode=None,
+                            fp32=False) -> dict:
     """``_step_profile`` of one MoE training step, by category: the MoE
     expert kernels, the routing kernel, flash, RMSNorm, GEMMs, AdamW,
     everything else. ``fwd_mode`` (``"<64, false>"``), when given: the
     step's flash forward must be the wgmma kernel of that mode alone and
-    its grouped forward the wgmma passes (``check_wgmma_forward``)."""
+    its grouped forward the wgmma passes (``check_wgmma_forward``).
+    ``fp32``: its flash backward must be the plain TF32 wgmma kernels
+    alone (``check_fp32_backward``)."""
     step = TrainStep(model, opt, lambda logits, y: model.loss(logits, y))
     out = _step_profile(torch, lambda: step(batch, batch), model, opt,
                         _MOE_CATEGORIES)
     _emit(tag, out)
     if fwd_mode is not None:
         check_wgmma_forward(tag, out, fwd_mode, grouped=True)
+    if fp32:
+        check_fp32_backward(tag, out["flash_bwd_kernels"], drop=False)
     return out
 
 
@@ -3242,7 +3289,9 @@ def phase_entry_fp32(torch, np, K, LlamaConfig, LlamaForCausalLM,
     ``ENTRY_DLOGIT_LIMIT``; then 3 fp32 ``TrainStep``s (AdamW lr 1e-4),
     through the kernels and inside ``plain_reference()`` from one state
     (``train_parity_run`` at ``FP32_PARITY``: the fp32 flash forward, dQ
-    and dK/dV must launch)."""
+    and dK/dV must launch), and one profiled step (``_step_profile``:
+    device time by category; its flash backward must be the plain TF32
+    wgmma kernels alone, ``check_fp32_backward``)."""
     cfg = entry_config(LlamaConfig)
     model = LlamaForCausalLM(cfg, device="cuda", seed=0)
     model.eval()
@@ -3263,13 +3312,20 @@ def phase_entry_fp32(torch, np, K, LlamaConfig, LlamaForCausalLM,
     parity = train_parity_run(torch, K, model, opt, TrainStep,
                               *causal_lm_args(model, ids),
                               kernels=FP32_KERNELS, limits=FP32_PARITY)
+    loss_fn, args = causal_lm_args(model, ids)
+    step = TrainStep(model, opt, loss_fn)
+    prof = _step_profile(torch, lambda: step(*args), model, opt, _CATEGORIES)
     out = {"config": cfg.__dict__, "params": model.num_params(),
            "logits_shape": list(logits.shape), "dtype": str(logits.dtype),
            "finite": bool(torch.isfinite(logits).all()),
            "max_abs_dlogit": dlogit, "dlogit_limit": ENTRY_DLOGIT_LIMIT,
            "forward_launches": launches,
-           "parity": {k: v for k, v in parity.items() if k != "grad_rel_l2"}}
+           "parity": {k: v for k, v in parity.items() if k != "grad_rel_l2"},
+           "profile": {k: prof[k] for k in (
+               "wall_ms", "device_ms", "idle_share", "device_ms_by_category",
+               "flash_bwd_kernels")}}
     _emit("entry_fp32", out)
+    check_fp32_backward("entry_fp32", prof["flash_bwd_kernels"], drop=False)
     failures = list(parity["failures"])
     if launches != want:
         failures.append(f"forward launch counters {launches} != {want}")
@@ -3377,11 +3433,15 @@ _GPT2_CATEGORIES = (("flash", ("flash_",)),
 
 def phase_train_gpt2_profile(torch, model, opt, TrainStep, batch) -> dict:
     """``_step_profile`` of one GPT-2 training step, by category: the
-    flash kernels, LayerNorm, GEMMs, AdamW, everything else."""
+    flash kernels, LayerNorm, GEMMs, AdamW, everything else. Its flash
+    backward must be the TF32 wgmma dropout kernels alone
+    (``check_fp32_backward``)."""
     step = TrainStep(model, opt, lambda logits, y: model.loss(logits, y))
     out = _step_profile(torch, lambda: step(batch, batch), model, opt,
                         _GPT2_CATEGORIES)
     _emit("train_gpt2_profile", out)
+    check_fp32_backward("train_gpt2_profile", out["flash_bwd_kernels"],
+                        drop=True)
     return out
 
 
@@ -3927,8 +3987,9 @@ def main(argv=None) -> int:
         torch, K, model, TrainStep, AdamW, batch, smi, tag="train_moe_fp32",
         cut=MOE_FP32_CUT)
     phase_train_moe_fp32_parity(torch, K, model, opt, TrainStep, batch)
-    phase_train_moe_profile(torch, model, opt, TrainStep, batch,
-                            tag="train_moe_fp32_profile")
+    moe_fp32_prof = phase_train_moe_profile(
+        torch, model, opt, TrainStep, batch, tag="train_moe_fp32_profile",
+        fp32=True)
     for p in model.parameters():
         p.grad = None
     del model, opt
@@ -3981,7 +4042,8 @@ def main(argv=None) -> int:
     train_gpt2, opt = phase_train_gpt2(torch, np, K, model, TrainStep,
                                        AdamW, batch, smi)
     phase_train_gpt2_parity(torch, K, model, opt, TrainStep, batch)
-    phase_train_gpt2_profile(torch, model, opt, TrainStep, batch)
+    gpt2_prof = phase_train_gpt2_profile(torch, model, opt, TrainStep,
+                                         batch)
     for p in model.parameters():
         p.grad = None
     del model, opt, batch
@@ -4134,9 +4196,14 @@ def main(argv=None) -> int:
         "_drop_bias": {
             k: dropout_bf16["bert_bf16"]["launches"][f"flash_{k}_drop_bias"]
             for k in ("fwd", "dq", "dkv")}}
+    # the fp32 backward's instantiations that the profiled steps ran
+    ran_fp32 = {"_fp32": moe_fp32_prof["flash_bwd_kernels"],
+                "_fp32_drop": gpt2_prof["flash_bwd_kernels"]}
     for suffix, counts in mode_launches.items():
-        # the bf16 backward's modes run the wgmma kernels
-        bwd = ("flash_attention_bwd.cu" if suffix.startswith("_fp32")
+        # the bf16 backward's modes run the wgmma kernels, the fp32 ones
+        # without a bias the TF32 wgmma kernels
+        bwd = ("flash_bwd_tf32.cuh" if suffix in ran_fp32
+               else "flash_attention_bwd.cu" if suffix.startswith("_fp32")
                else "flash_bwd_wgmma.cuh")
         for kind, source, line in (
                 ("fwd", "flash_attention_fwd.cu", 242),
@@ -4150,7 +4217,10 @@ def main(argv=None) -> int:
                 "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                 "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                 "bound_by": row["bound_by"], "library_ms": row["library_ms"],
-                "shape": row["shape"]})
+                "shape": row["shape"], **(
+                    {"kernels": [k_ for k_ in ran_fp32[suffix]
+                                 if k_.split("::")[-1].startswith(kind)]}
+                    if kind != "fwd" and suffix in ran_fp32 else {})})
     # the segment mode: launches from varlen_packed, the slice's path
     for suffix in ("_seg", "_fp32_seg"):
         for kind, source, line in (

@@ -30,6 +30,21 @@
 // Wider outputs (d 128 in the flash backward) are n64 pairs: one
 // accumulator and one MN-major B atom a 64-column half.
 //
+// fp32 tiles (TF32 wgmma, flash_bwd_tf32.cuh) use the same format: a row
+// of an atom holds 32 floats, so a d-64 row is two atoms (f32_map4 loads
+// boxes of 32 columns). TF32's k-step of 8 is 32 bytes, as bf16's of 16,
+// so desc() and the K-major steps hold unchanged. TF32 wgmma has no
+// transpose bit (PTX allows imm-trans-a/b for f16 and bf16 only): both
+// operands are K-major, and an operand needed with its other index
+// contiguous is written transposed by threads. The tf32 RS A fragment (a
+// 64 x 8 tile, four b32 registers, warp w rows 16 w..) is mma.m16n8k8's:
+// a[0] = (row l / 4, column l % 4), a[1] 8 rows down, a[2] and a[3] the
+// same 4 columns right. An accumulator's chunk n holds columns 8 n + 2 (l
+// % 4) + {0, 1}, so it feeds a k-step with its 8 columns renamed: column
+// 2 t is the fragment's t and 2 t + 1 its t + 4 (A = {d[n][0], d[n][2],
+// d[n][1], d[n][3]}), and the B operand's k rows are written in that
+// order.
+//
 // Shared memory that threads write (st.shared, cp.async) is read by wgmma
 // and TMA through the async proxy, so a proxy fence (fence.proxy.async)
 // must lie between the writes and the reads, or wgmma reads stale data
@@ -192,9 +207,10 @@ __device__ __forceinline__ void wg_wait() {
 }
 
 // keep the compiler from moving accumulator accesses across a wgmma wait
-__device__ __forceinline__ void acc_fence(float (&d)[8][4]) {
+template <int NN>
+__device__ __forceinline__ void acc_fence(float (&d)[NN][4]) {
 #pragma unroll
-  for (int n = 0; n < 8; ++n)
+  for (int n = 0; n < NN; ++n)
 #pragma unroll
     for (int i = 0; i < 4; ++i) asm volatile("" : "+f"(d[n][i]) :: "memory");
 }
@@ -291,6 +307,59 @@ __device__ __forceinline__ void wgmma_rs_chunk(float (&d)[NH][8][4],
       wgmma64_rs<TB>(d[h], a[kk], desc(b + h * atom + kk * 2048));
 }
 
+// d[64 x 32] (+)= A[64 x 8] B[8 x 32], tf32 operands from shared memory
+// by descriptor (both K-major), fp32 accumulator. ACC false: d = A B, the
+// old d neither read nor added (scale-d 0), so a fresh accumulator needs
+// no zeroing (zeroing that ptxas hoisted into earlier products' windows
+// cost registers).
+template <bool ACC = true>
+__device__ __forceinline__ void wgmma32_tf32(float (&d)[4][4], uint64_t a,
+                                             uint64_t b) {
+#define HOP_WGMMA32_TF32(C)                                                  \
+  asm volatile(                                                             \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"                          \
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "                 \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "   \
+      "%15}, %16, %17, p, 1, 1;\n}\n"                                        \
+      : C(d[0][0]), C(d[0][1]), C(d[0][2]), C(d[0][3]), C(d[1][0]),          \
+        C(d[1][1]), C(d[1][2]), C(d[1][3]), C(d[2][0]), C(d[2][1]),          \
+        C(d[2][2]), C(d[2][3]), C(d[3][0]), C(d[3][1]), C(d[3][2]),          \
+        C(d[3][3])                                                           \
+      : "l"(a), "l"(b), "r"(ACC ? 1 : 0))
+  if constexpr (ACC) HOP_WGMMA32_TF32("+f");
+  else HOP_WGMMA32_TF32("=f");
+#undef HOP_WGMMA32_TF32
+}
+
+// d[64 x 64] (+)= A[64 x 8] B[8 x 64], A from registers (the tf32
+// fragment above), B K-major from shared memory by descriptor; ACC as
+// above. The registers of a must keep their values until a
+// wgmma.wait_group covers this product.
+template <bool ACC = true>
+__device__ __forceinline__ void wgmma64_tf32_rs(float (&d)[8][4],
+                                                const uint32_t (&a)[4],
+                                                uint64_t b) {
+#define HOP_WGMMA64_TF32_RS(C)                                               \
+  asm volatile(                                                             \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                          \
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "                 \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "   \
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "    \
+      "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"        \
+      : C(d[0][0]), C(d[0][1]), C(d[0][2]), C(d[0][3]), C(d[1][0]),          \
+        C(d[1][1]), C(d[1][2]), C(d[1][3]), C(d[2][0]), C(d[2][1]),          \
+        C(d[2][2]), C(d[2][3]), C(d[3][0]), C(d[3][1]), C(d[3][2]),          \
+        C(d[3][3]), C(d[4][0]), C(d[4][1]), C(d[4][2]), C(d[4][3]),          \
+        C(d[5][0]), C(d[5][1]), C(d[5][2]), C(d[5][3]), C(d[6][0]),          \
+        C(d[6][1]), C(d[6][2]), C(d[6][3]), C(d[7][0]), C(d[7][1]),          \
+        C(d[7][2]), C(d[7][3])                                               \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),                  \
+        "r"(ACC ? 1 : 0))
+  if constexpr (ACC) HOP_WGMMA64_TF32_RS("+f");
+  else HOP_WGMMA64_TF32_RS("=f");
+#undef HOP_WGMMA64_TF32_RS
+}
+
 // ---- host side ----
 
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
@@ -338,24 +407,39 @@ inline bool bf16_map3(CUtensorMap* m, const void* base, uint64_t n0,
 // that are positive multiples of 16 bytes and a 16-byte aligned base; a
 // dimension of size 1 is never stepped, so a stride of 0 there becomes the
 // packed one. A broadcast dimension (stride 0, size > 1) is refused.
-inline bool bf16_map4(CUtensorMap* m, const void* base, const uint64_t (&n)[4],
+// (the map of either element type: `es` bytes an element, 128 / es of
+// them a box row)
+inline bool map4_128b(CUtensorMap* m, CUtensorMapDataType type, uint32_t es,
+                      const void* base, const uint64_t (&n)[4],
                       const int64_t (&st)[3], uint32_t b1) {
   const EncodeTiled enc = encoder();
   if (!enc || reinterpret_cast<uintptr_t>(base) % 16) return false;
   const cuuint64_t dims[4] = {n[0], n[1], n[2], n[3]};
-  cuuint64_t strides[3], packed = n[0] * 2;
+  cuuint64_t strides[3], packed = n[0] * es;
   for (int i = 0; i < 3; ++i) {
-    if (st[i] < 0 || (st[i] == 0 && n[i + 1] != 1) || (st[i] * 2) % 16)
+    if (st[i] < 0 || (st[i] == 0 && n[i + 1] != 1) || (st[i] * es) % 16)
       return false;
-    strides[i] = st[i] ? (cuuint64_t)st[i] * 2 : packed;
+    strides[i] = st[i] ? (cuuint64_t)st[i] * es : packed;
     packed *= n[i + 1];
   }
-  const cuuint32_t box[4] = {64, b1, 1, 1};
+  const cuuint32_t box[4] = {128 / es, b1, 1, 1};
   const cuuint32_t estr[4] = {1, 1, 1, 1};
-  return enc(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
-             dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
-             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+  return enc(m, type, 4, const_cast<void*>(base), dims, strides, box, estr,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+inline bool bf16_map4(CUtensorMap* m, const void* base, const uint64_t (&n)[4],
+                      const int64_t (&st)[3], uint32_t b1) {
+  return map4_128b(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, base, n, st, b1);
+}
+
+// The same for an fp32 tensor: boxes of 32 x b1 x 1 x 1 elements (a box
+// row is one 128-byte swizzle row, so a d-64 row takes two boxes).
+inline bool f32_map4(CUtensorMap* m, const void* base, const uint64_t (&n)[4],
+                     const int64_t (&st)[3], uint32_t b1) {
+  return map4_128b(m, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, base, n, st, b1);
 }
 
 }  // namespace hop

@@ -16,7 +16,8 @@
 // lanes; each lane draws one block a chunk and the lanes trade words by
 // shuffle, so every block is drawn once. Both return bit 4 n + i for the
 // lane's element (n, i), i = 2 * (row g + 8) + (odd column), the order of
-// the accumulator's registers.
+// the accumulator's registers, for the first NC chunks (8: an m64n64
+// tile; 4: the 32 columns of the fp32 backward's m64n32 tiles).
 
 #pragma once
 
@@ -75,10 +76,11 @@ __device__ __forceinline__ uint32_t keep_nibble(uint4 w, uint32_t thresh) {
 
 // Rows are queries (row0, row1: the lane's two), columns keys (col0: the
 // key of the lane's chunk-0 column, 2 t past the tile's first key, a
-// multiple of 64). Lanes t and t ^ 1 hold the four
+// multiple of 4). Lanes t and t ^ 1 hold the four
 // keys of one block: the even lane draws row0's block and keeps words 0, 1,
 // the odd lane row1's and keeps words 2, 3, and each hands its partner the
 // other two words.
+template <int NC = 8>
 __device__ __forceinline__ uint32_t keep_bits_qk(int bh, int row0, int row1,
                                                  int col0, uint32_t k0,
                                                  uint32_t k1, uint32_t thresh,
@@ -87,7 +89,7 @@ __device__ __forceinline__ uint32_t keep_bits_qk(int bh, int row0, int row1,
   const uint32_t row = (uint32_t)(odd ? row1 : row0);
   uint32_t all = 0;
 #pragma unroll
-  for (int n = 0; n < 8; ++n)
+  for (int n = 0; n < NC; ++n)
     all |= keep_nibble(philox4x32_10((uint32_t)(col0 + 8 * n) >> 2, row,
                                      (uint32_t)bh, 0u, k0, k1),
                        thresh) << (4 * n);
@@ -107,6 +109,7 @@ __device__ __forceinline__ uint32_t keep_bits_qk(int bh, int row0, int row1,
 // same queries, so they need four blocks a chunk (two queries by two key
 // rows): lane j draws the block of its element i = j (query q0 + 8 n + (j &
 // 1), key row j >> 1), whose word c belongs to lane c's element i = j.
+template <int NC = 8>
 __device__ __forceinline__ uint32_t keep_bits_kq(int bh, int key0, int key1,
                                                  int q0, uint32_t k0,
                                                  uint32_t k1, uint32_t thresh,
@@ -116,7 +119,7 @@ __device__ __forceinline__ uint32_t keep_bits_kq(int bh, int key0, int key1,
   const int q = q0 + (j & 1);
   uint32_t all = 0;
 #pragma unroll
-  for (int n = 0; n < 8; ++n)
+  for (int n = 0; n < NC; ++n)
     all |= keep_nibble(philox4x32_10(blk, (uint32_t)(q + 8 * n),
                                      (uint32_t)bh, 0u, k0, k1),
                        thresh) << (4 * n);

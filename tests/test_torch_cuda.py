@@ -1217,6 +1217,49 @@ def test_flash_fp32_kernels_against_fp64(cuda, b, sq, sk, h, d, causal,
                                          for n in ("fwd", "dq", "dkv")})
 
 
+@pytest.mark.parametrize("drop", [False, True])
+@pytest.mark.parametrize("b,sq,sk,h,causal,fused", [
+    (8, 1, 1, 16, False, False), (2, 63, 63, 2, True, False),
+    (2, 130, 130, 3, False, False), (2, 130, 130, 3, True, True),
+    (2, 260, 200, 2, True, False), (1, 200, 330, 2, True, False),
+    (2, 333, 333, 3, False, True)])
+def test_flash_fp32_d64_tf32_backward(cuda, b, sq, sk, h, causal, fused,
+                                      drop):
+    """fp32 at d 64 without a bias or segment ids: the TF32 wgmma dQ and
+    dK/dV (``csrc/flash_bwd_tf32.cuh``) against fp64 by ``_fp32_rule``,
+    plain and dropout (p 0.1, one key): s 1, 63 (a ragged ring tile), 130,
+    sq != sk both ways (causal [260, 200]: rows 0-59 see no key, row 60
+    one), and q, k, v, dO as views of one fused [b, s, 4, h, 64] tensor;
+    two launches bitwise equal. At s 1 every row's dq and dk are 0 in
+    exact arithmetic, so both sides' errors are roundings of dP - delta,
+    whole ulps apart: 128 rows (b 8, h 16), so that the rule compares
+    their spread (with 4 rows a kernel 2 ulps off where the plain version
+    was 1 read as 2x)."""
+    if fused:
+        g = torch.Generator(device=cuda).manual_seed(9)
+        q, k, v, do = torch.randn((b, sq, 4, h, 64), generator=g,
+                                  device=cuda).unbind(2)
+        assert not q.is_contiguous()
+    else:
+        q, k, v, do = _flash_inputs(b, sq, sk, h, 64, "float32", cuda,
+                                    seed=9)
+    seed = torch.tensor([77, 5], dtype=torch.int64, device=cuda)
+    mode = (None, 0.1, seed) if drop else (None, 0.0, None)
+    reset_launch_counts()
+    _fp32_check(q, k, v, do, 0.125, causal, *mode)
+    sfx = "_fp32" + ("_drop" if drop else "")
+    assert launch_counts() == _counts(**{f"flash_{n}{sfx}": 1
+                                         for n in ("fwd", "dq", "dkv")})
+    out, lse = FA.flash_fwd_cuda(q, k, v, 0.125, causal, *mode)
+    delta = FA.flash_delta(do, out)
+    first, second = ((FA.flash_bwd_dq_cuda(q, k, v, do, lse, delta, 0.125,
+                                           causal, *mode),)
+                     + FA.flash_bwd_dkv_cuda(q, k, v, do, lse, delta, 0.125,
+                                             causal, *mode)
+                     for _ in range(2))
+    assert all(torch.equal(x, y) for x, y in zip(first, second))
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("bias", [None, "keypad", "dead"])
 @pytest.mark.parametrize("shape", [(2, 320, 320, 3, 64),

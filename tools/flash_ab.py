@@ -22,12 +22,13 @@ launches. ``--train`` then runs ``chip_smoke.py``'s Llama ``train`` phase
 (``bench.py::_llama_flagship``, 10 steps) and one profiled step
 (``train_profile``: device time by category, idle share) on that tree's
 package, with this repository's ``chip_smoke.py`` as the harness.
-``--steps`` runs, the same way, the two steps that the bf16 bias and
-dropout backward carry: ``train_bert_padded`` (BERT-Base bf16 on the
-padded batch, 10 steps: the bias mode) and the GPT-2 small bf16 arm of
-``train_dropout_bf16`` at dropout 0.1 (10 steps: the dropout mode), each
-with one profiled step (device time by category, idle share, the flash
-backward kernels that ran). Prints one JSON line: the tree, the card,
+``--steps`` runs, the same way, the steps that the bias and dropout
+backward carry: ``train_bert_padded`` (BERT-Base bf16 on the padded
+batch, 10 steps: the bf16 bias mode), the GPT-2 small bf16 arm of
+``train_dropout_bf16`` at dropout 0.1 (10 steps: the bf16 dropout mode)
+and ``train_gpt2`` (GPT-2 small at its defaults, fp32 at dropout 0.1,
+10 steps: the fp32 dropout mode), each with one profiled step (device
+time by category, idle share, the flash backward kernels that ran). Prints one JSON line: the tree, the card,
 the times in ms, the steps' figures, and, when this run built the
 kernels, ``ptxas``'s registers and spills per instantiation.
 """
@@ -166,8 +167,9 @@ def _profile_figures(prof) -> dict:
 
 
 def _steps(smi) -> dict:
-    """``train_bert_padded`` and the GPT-2 bf16 dropout arm, each with
-    one profiled step, on the package that ``main`` imported."""
+    """``train_bert_padded``, the GPT-2 bf16 dropout arm and
+    ``train_gpt2``, each with one profiled step, on the package that
+    ``main`` imported."""
     from paddle_tpu_torch.jit import TrainStep
     from paddle_tpu_torch.models import (BertConfig, BertForPreTraining,
                                          GPTConfig, GPTForCausalLM)
@@ -201,6 +203,21 @@ def _steps(smi) -> dict:
                 "median_step_ms": float(np.median(res["step_ms"][2:])),
                 "profile": _profile_figures(prof)}
     del model, opt, step, args
+    torch.cuda.empty_cache()
+    model = GPTForCausalLM(S.gpt2_config(GPTConfig), device="cuda",
+                           seed=S.SEED)
+    batch = torch.tensor(np.random.default_rng(S.SEED).integers(
+        0, model.config.vocab_size, (S.GPT2_BATCH, S.GPT2_SEQ)),
+        device="cuda")
+    train, opt = S.phase_train_gpt2(torch, np, K, model, TrainStep, AdamW,
+                                    batch, smi)
+    step = TrainStep(model, opt, lambda logits, y: model.loss(logits, y))
+    prof = S._step_profile(torch, lambda: step(batch, batch), model, opt,
+                           S._GPT2_CATEGORIES)
+    out["train_gpt2"] = {"step_ms": train["step_ms"],
+                         "median_step_ms": train["median_step_ms"],
+                         "profile": _profile_figures(prof)}
+    del model, opt, step, batch
     torch.cuda.empty_cache()
     return out
 

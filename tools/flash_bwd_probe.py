@@ -6,6 +6,7 @@ their plain, bias, dropout and bias + dropout modes) and the forward
 the mma.sync kernel of ``flash_attention_fwd.cu``).
 
     python3 tools/flash_bwd_probe.py [--report FILE] [--times] [--big]
+    python3 tools/flash_bwd_probe.py --fp32 [--report FILE] [--times] [--big]
 
 Builds the two flash sources (``ptxas``'s registers and spills per
 instantiation, and ``nvcc``'s warnings, go to the file ``--report``
@@ -33,6 +34,22 @@ forward, dQ and dK/dV (CUDA events, 100 calls cycling three input sets
 past the L2) at
 the Llama shape (plain), BERT-Base's (plain, keypad, keypad_drop) and
 GPT-2 small's [8, 1024, 12, 64] causal (drop). Prints one JSON line.
+
+``--fp32`` does the same for the fp32 dQ and dK/dV on TF32 wgmma
+(``csrc/flash_bwd_tf32.cuh``, d 64 without a bias or segment ids:
+``dq_tf32_kernel<DROP>``, ``dkv_tf32_kernel<DROP>``): ``ptxas``'s
+registers and spills of those four instantiations (a spill fails the
+run), then ``chip_smoke.py``'s fp32 rule (``flash_fp32_errors``: each
+output within 2x the plain fp32 version's error from fp64 plus 2**-16 /
+2**-18) and a bitwise repeat of the backward, in the plain and dropout
+modes, at ``FP32_SMALL`` (s 1, 63, 130, 1000; causal and not; sq != sk
+both ways, with rows that see no key and rows that see one key; at sk 1
+dq and dk are 0 exactly and their errors roundings of 0, so as in the
+bf16 check only dv is held to the rule there: ``chip_smoke.py``'s
+``one_key_checks`` hold a whole [4, 256, 4, 64] sk-1 batch to it) and on
+strided views of one fused tensor; ``--big`` adds GPT-2 small's,
+``train_moe_fp32``'s and ``entry()``'s shapes; ``--times`` times dQ and
+dK/dV at GPT-2 small's shape in both modes.
 """
 
 import argparse
@@ -58,6 +75,16 @@ GPT2 = (8, 1024, 1024, 12, 64, True)
 BIG = [(BERT, ("plain", "keypad", "keypad_drop")), (LLAMA, ("plain", "drop"))]
 TIMES = [(LLAMA, "plain"), (BERT, "plain"), (BERT, "keypad"),
          (BERT, "keypad_drop"), (GPT2, "drop")]
+# fp32 at d 64 (b, sq, sk, h, d, causal): one key for every row (sk 1),
+# ragged ends, 128-row q tiles past the end, sq > sk causal (rows 0..59
+# see no key, row 60 one) and sq < sk
+FP32_SMALL = [(1, 1, 1, 2, 64, False), (2, 200, 1, 2, 64, False),
+              (1, 63, 63, 2, 64, True), (2, 130, 130, 3, 64, False),
+              (2, 130, 130, 3, 64, True), (2, 260, 200, 2, 64, True),
+              (1, 300, 1, 2, 64, True), (1, 1, 300, 2, 64, True),
+              (2, 1000, 700, 4, 64, True), (2, 700, 1000, 4, 64, True),
+              (2, 1000, 1000, 4, 64, False)]
+FP32_BIG = [GPT2, (8, 1024, 1024, 16, 64, True), (2, 256, 256, 8, 64, True)]
 
 
 def _smoke():
@@ -68,9 +95,9 @@ def _smoke():
     return mod
 
 
-def _inputs(gen, b, sq, sk, h, d, fused):
+def _inputs(gen, b, sq, sk, h, d, fused, dtype=torch.bfloat16):
     def rand(*shape):
-        return torch.randn(shape, generator=gen, device="cuda").bfloat16()
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
     if fused:       # views of one [b, s, 4, h, d] tensor, as GPT's QKV
         x = rand(b, sq, 4, h, d)
         return x[:, :, 0], x[:, :, 1], x[:, :, 2], x[:, :, 3]
@@ -117,6 +144,34 @@ def _check(S, F, gen, shape, mode, seed, fused=False):
             "failures": failures}
 
 
+def _check_fp32(S, F, gen, shape, drop, seed, fused=False):
+    """``flash_fp32_errors`` and a bitwise repeat of dQ and dK/dV."""
+    b, sq, sk, h, d, causal = shape
+    q, k, v, do = _inputs(gen, b, sq, sk, h, d, fused, torch.float32)
+    mode = (None, DROP_P, seed) if drop else (None, 0.0, None)
+    errs = S.flash_fp32_errors(torch, F, q, k, v, do, d ** -0.5, causal,
+                               *mode)
+    out, lse = F.flash_fwd_cuda(q, k, v, d ** -0.5, causal, *mode)
+    delta = F.flash_delta(do, out)
+    g = [(F.flash_bwd_dq_cuda(q, k, v, do, lse, delta, d ** -0.5, causal,
+                              *mode),)
+         + F.flash_bwd_dkv_cuda(q, k, v, do, lse, delta, d ** -0.5, causal,
+                                *mode) for _ in range(2)]
+    failures = list(errs["failures"])
+    if sk == 1:   # dq = dk = 0 exactly: their errors are roundings of 0
+        failures = [f for f in failures if not f.startswith(("dq:", "dk:"))]
+    if not all(torch.equal(x, y) for x, y in zip(*g)):
+        failures.append("two launches differ")
+    return {"shape": list(shape), "drop": drop, "fused": fused,
+            "row": {o: errs[o]["kernel"]["row"] for o in ("dq", "dk", "dv")},
+            "plain_row": {o: errs[o]["plain"]["row"]
+                          for o in ("dq", "dk", "dv")},
+            "fro": {o: errs[o]["kernel"]["fro"] for o in ("dq", "dk", "dv")},
+            "plain_fro": {o: errs[o]["plain"]["fro"]
+                          for o in ("dq", "dk", "dv")},
+            "failures": failures}
+
+
 def _ms(fn, sets, iters=100, warmup=10):
     for i in range(warmup):
         fn(*sets[i % len(sets)])
@@ -131,11 +186,11 @@ def _ms(fn, sets, iters=100, warmup=10):
     return e0.elapsed_time(e1) / iters
 
 
-def _times(F, gen, shape, mode, seed):
+def _times(F, gen, shape, mode, seed, dtype=torch.bfloat16):
     b, sq, sk, h, d, causal = shape
     sets = []
     for _ in range(3):
-        q, k, v, do = _inputs(gen, b, sq, sk, h, d, False)
+        q, k, v, do = _inputs(gen, b, sq, sk, h, d, False, dtype)
         bias, p, key = _mode(F, gen, mode, q, k, seed)
         out, lse = F.flash_fwd_cuda(q, k, v, d ** -0.5, causal, bias, p,
                                     key)
@@ -156,6 +211,7 @@ def main(argv=None) -> int:
         ROOT, "build", "flash_bwd_probe_ptxas.txt"))
     ap.add_argument("--times", action="store_true")
     ap.add_argument("--big", action="store_true")
+    ap.add_argument("--fp32", action="store_true")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("flash_bwd_probe: no CUDA device", file=sys.stderr)
@@ -175,11 +231,13 @@ def main(argv=None) -> int:
     if built is None:
         print(log[-6000:], file=sys.stderr)
         return 1
-    report = {name: line for name, line in build.ptxas_report(log).items()
-              if "wgmma" in name}
     S = _smoke()
     gen = torch.Generator(device="cuda").manual_seed(5)
     seed = torch.tensor([7, 11], dtype=torch.int64, device="cuda")
+    if args.fp32:
+        return _fp32(args, S, F, build.ptxas_report(log), gen, seed)
+    report = {name: line for name, line in build.ptxas_report(log).items()
+              if "wgmma" in name}
     checks = [_check(S, F, gen, shape, mode, seed)
               for shape in SMALL for mode in MODES]
     checks += [_check(S, F, gen, (2, 300, 300, 3, d, c), mode, seed,
@@ -199,6 +257,33 @@ def main(argv=None) -> int:
     print(json.dumps({"device": smi, "ptxas": report, "checks": checks,
                       "times_ms": times, "failed": len(failed)}), flush=True)
     return 1 if failed else 0
+
+
+def _fp32(args, S, F, ptxas, gen, seed) -> int:
+    report = {n: line for n, line in ptxas.items() if "tf32_kernel" in n}
+    spills = [n for n, line in report.items()
+              if "0 bytes spill stores" not in line
+              or "0 bytes spill loads" not in line]
+    checks = [_check_fp32(S, F, gen, shape, drop, seed)
+              for shape in FP32_SMALL for drop in (False, True)]
+    checks += [_check_fp32(S, F, gen, (2, 300, 300, 3, 64, c), drop, seed,
+                           fused=True)
+               for c in (True, False) for drop in (False, True)]
+    if args.big:
+        for shape in FP32_BIG:
+            checks += [_check_fp32(S, F, gen, shape, drop, seed)
+                       for drop in (False, True)]
+            torch.cuda.empty_cache()
+    times = ({mode: _times(F, gen, GPT2, mode, seed, torch.float32)
+              for mode in ("plain", "drop")} if args.times else None)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    failed = [c for c in checks if c["failures"]]
+    print(json.dumps({"device": smi, "ptxas": report, "spills": spills,
+                      "checks": checks, "times_ms": times,
+                      "failed": len(failed)}), flush=True)
+    return 1 if failed or spills or len(report) != 4 else 0
 
 
 if __name__ == "__main__":
