@@ -45,14 +45,18 @@ of the fault's kind (the control runs every kind of the faults chosen):
   of ``bench_bert``'s configuration, as ``train_bert_padded`` leaves it;
 - fp32: the fp32 flash kernel check (``flash_fp32_errors``: against fp64,
   within 2x the plain fp32 version's error plus the floor) at GPT-2
-  small's shape [8, 1024, 12, 64] causal, at rows that see one key
-  (``one_key_checks``) and at a long causal sequence
-  (``long_chain_check``), and ``entry()``'s fp32 train parity
-  (``phase_entry_fp32``'s three steps at ``FP32_PARITY``);
+  small's shape [8, 1024, 12, 64] causal, at the padded BERT shape
+  [32, 512, 12, 64] with its key-padding mask, at [4, 512, 8, 64] with
+  a dense random bias (``dense_bias``: -inf entries, a row of -1e30), at
+  rows that see one key (``one_key_checks``, with a bias at d 64 and
+  128) and at a long causal sequence (``long_chain_check``), and
+  ``entry()``'s fp32 train parity (``phase_entry_fp32``'s three steps
+  at ``FP32_PARITY``);
 - dropout: the dropout kernel check at p 0.1 (``flash_fp32_errors`` at
-  GPT-2's shape in fp32, ``_flash_errors`` with a bitwise repeat of the
-  backward at GPT-2's shape causal and at the padded BERT shape with its
-  key-padding mask in bf16, all given one key) and the bf16 dropout train
+  GPT-2's shape and at the padded BERT shape with its key-padding mask
+  in fp32, ``_flash_errors`` with a bitwise repeat of the backward at
+  GPT-2's shape causal and at the padded BERT shape in bf16, all given
+  one key) and the bf16 dropout train
   parity (``dropout_bf16_parity_run`` at ``DROP_BF16_PARITY``, the masks
   drawn from one generator state) of both ``dropout_bf16_arms``, GPT-2
   small and BERT-Base in bf16 at dropout 0.1, each after
@@ -504,6 +508,50 @@ MUTANTS = {
     // dP^T, dV and dK groups, every group that read it
     if (lane == 0) hop::mbar_arrive(hop::smem_u32(&empty[s]));""", "")],
         "fp32"),
+    "tf32_dkv_bias_untransposed": (
+        "TF32 wgmma dK/dV, bias mode: its (key row, q column) element reads "
+        "bias[key, q], the bias in dQ's frame, not bias[q, key]",
+        [(TF32, """                + (int64_t)min(krow[r], sk - 1) * md.b_sk
+                + (int64_t)(2 * t) * md.b_sq;""",
+          """                + (int64_t)min(krow[r], sk - 1) * md.b_sq
+                + (int64_t)(2 * t) * md.b_sk;"""),
+         (TF32, """      const float* bq[2] = {bkey[0] + (int64_t)qs0 * md.b_sq,
+                            bkey[1] + (int64_t)qs0 * md.b_sq};""",
+          """      const float* bq[2] = {bkey[0] + (int64_t)qs0 * md.b_sk,
+                            bkey[1] + (int64_t)qs0 * md.b_sk};"""),
+         (TF32, "flash_wg::bias_chunk(bt[n], bq, md.b_sq, n, "
+                "qs0 + 2 * t, sq);",
+          "flash_wg::bias_chunk(bt[n], bq, md.b_sk, n, qs0 + 2 * t, sq);")],
+        "fp32"),
+    "tf32_bias_without_log2e": (
+        "TF32 wgmma dQ and dK/dV, bias mode: the bias added to the base-2 "
+        "exponent as it is, without its log2(e) factor",
+        [(TF32, "if constexpr (HAS_BIAS) lb = fmaf(bb[n][i], flash::kLog2e, "
+                "lb);",
+          "if constexpr (HAS_BIAS) lb = bb[n][i] + lb;"),
+         (TF32, "if constexpr (HAS_BIAS) lbt = fmaf(bt[n][i], flash::kLog2e, "
+                "lbt);",
+          "if constexpr (HAS_BIAS) lbt = bt[n][i] + lbt;")],
+        "fp32"),
+    "tf32_dq_bias_row0": (
+        "TF32 wgmma dQ, bias mode: a lane's second row (row + 8) reads its "
+        "first row's bias",
+        [(TF32, """      brow[r] = md.bias + bi * md.b_sb + hi * md.b_sh
+                + (int64_t)min(row[r], sq - 1) * md.b_sq""",
+          """      brow[r] = md.bias + bi * md.b_sb + hi * md.b_sh
+                + (int64_t)min(row[0], sq - 1) * md.b_sq""")],
+        "fp32"),
+    "tf32_lse_unclamped": (
+        "TF32 wgmma dQ and dK/dV: lse read without its clamp at -1e25, so "
+        "a row whose bias is -1e30 throughout (lse -1e30) takes (bias - "
+        "lse) log2e as a rounding residue, not -1e30: P = inf",
+        [(TF32, "lse2[r] = ok ? fmaxf(lse[(int64_t)bh * sq + row[r]], "
+                "flash::kClamp)",
+          "lse2[r] = ok ? fmaxf(lse[(int64_t)bh * sq + row[r]], "
+          "-3.0e38f)"),
+         (TF32, "l2 = fmaxf(lse[(int64_t)bh * sq + q], flash::kClamp)",
+          "l2 = fmaxf(lse[(int64_t)bh * sq + q], -3.0e38f)")],
+        "fp32"),
     "dkv_ignores_seg": (
         "segment mode, dK/dV: the segment test inside a live tile dropped "
         "(a key row takes the queries of every segment its tile meets), "
@@ -707,6 +755,15 @@ def _fp32_checks(torch, S, K, TrainStep, AdamW) -> tuple:
     q, k, v, do = S._flash_inputs(torch, gen, S.GPT2_SHAPE, torch.float32)
     check = {"gpt2": S.flash_fp32_errors(torch, F, q, k, v, do, 0.125,
                                          True)}
+    b, s = S.BERT_BATCH, S.BERT_SEQ
+    keep, _ = S._keypad(torch, np, s)
+    q, k, v, do = S._flash_inputs(torch, gen, (b, s, 12, 64), torch.float32)
+    check["bert_keypad"] = S.flash_fp32_errors(
+        torch, F, q, k, v, do, 0.125, False,
+        F.attn_bias(keep.expand(b, 1, s, s), q, k))
+    q, k, v, do = S._flash_inputs(torch, gen, (4, 512, 8, 64), torch.float32)
+    check["dense_d64"] = S.flash_fp32_errors(
+        torch, F, q, k, v, do, 0.125, False, S.dense_bias(torch, F, gen, q, k))
     del q, k, v, do
     check.update(S.one_key_checks(torch, np, F))
     check["long_chain"] = S.long_chain_check(torch, F, gen)
@@ -742,9 +799,14 @@ def _dropout_checks(torch, S, K, TrainStep, AdamW) -> tuple:
     bf16 = S._flash_errors(torch, F, q, k, v, do, 0.125, False,
                            F.attn_bias(keep.expand(b, 1, s, s), q, k),
                            S.DROP_P, seed, repeat=True)
+    q, k, v, do = S._flash_inputs(torch, gen, (b, s, 12, 64), torch.float32)
+    fp32_bert = S.flash_fp32_errors(torch, F, q, k, v, do, 0.125, False,
+                                    F.attn_bias(keep.expand(b, 1, s, s), q,
+                                                k), S.DROP_P, seed)
     check = {"fp32_gpt2": fp32, "bf16_gpt2": gpt2, "bf16_bert_keypad": bf16,
+             "fp32_bert_keypad": fp32_bert,
              "failures": fp32["failures"] + gpt2["failures"]
-             + bf16["failures"]}
+             + bf16["failures"] + fp32_bert["failures"]}
     del q, k, v, do
     torch.cuda.empty_cache()
     parity = {"failures": []}

@@ -105,7 +105,10 @@ Phases; any failure ends the run with a traceback and a non-zero exit:
    the TF32 wgmma dropout kernels alone);
 8d. train_bert_defaults — BERT-Base at its own defaults (fp32, dropout
    0.1) on the padded batch: 3 steps (the fp32 bias + dropout mode, 12 a
-   step), an eval forward and 2 steps at dropout 0 (the fp32 bias mode);
+   step) and one profiled step (its flash backward: the TF32 wgmma bias
+   + dropout kernels alone), an eval forward and 2 steps at dropout 0
+   (the fp32 bias mode) with one profiled step (the TF32 wgmma bias
+   kernels alone);
    train_dropout_bf16 — 10 steps each of GPT-2 small and BERT-Base in
    bf16 at dropout 0.1 (the bf16 dropout modes), one profiled step of
    each (its flash backward: the wgmma kernels in the arm's mode, no
@@ -1229,10 +1232,11 @@ def one_key_checks(torch, np, F) -> dict:
     segment mode at ``ONE_KEY_LENS`` (a 1-token segment) on the inputs of
     ``test_flash_seg_kernels_match_plain[touching-float32-128-False]``
     (seed 8), where three-pass dP missed the rule, and the bias mode with
-    a key-padding mask that leaves batch element 1 one key. At d 64, the
-    plain mode (the TF32 wgmma backward): non-causal with one key (sk 1,
-    every row), and causal with sq 600 > sk 400 (rows 0-199 see no key,
-    row 200 one)."""
+    a key-padding mask that leaves batch element 1 one key. At d 64 (the
+    TF32 wgmma backward), the plain mode non-causal with one key (sk 1,
+    every row) and causal with sq 600 > sk 400 (rows 0-199 see no key,
+    row 200 one), and the bias mode with a key-padding mask that leaves
+    batch element 1 one key (``one_key_keypad_d64``)."""
     gen = torch.Generator(device="cuda").manual_seed(8)
     ids = np.repeat(np.arange(len(ONE_KEY_LENS)), ONE_KEY_LENS)
     q, k, v, do = _flash_inputs(torch, gen, (2, len(ids), 2, 128),
@@ -1251,7 +1255,23 @@ def one_key_checks(torch, np, F) -> dict:
         q, do = _flash_inputs(torch, gen, (4, sq, 4, 64), torch.float32)[:2]
         k, v = _flash_inputs(torch, gen, (4, sk, 4, 64), torch.float32)[:2]
         out[name] = flash_fp32_errors(torch, F, q, k, v, do, 0.125, causal)
+    q, k, v, do = _flash_inputs(torch, gen, (2, 200, 2, 64), torch.float32)
+    out["one_key_keypad_d64"] = flash_fp32_errors(
+        torch, F, q, k, v, do, 0.125, False,
+        F.attn_bias(keep1[:, None, None, :].expand(2, 1, 200, 200), q, k))
     return out
+
+
+def dense_bias(torch, F, gen, q, k):
+    """A dense random fp32 bias [b, h, sq, sk] for q and k (N(0, 4)), with
+    -inf at every 11th key from key 3 and a last query row of -1e30 in
+    batch element 0, head 0 (a row that sees no key)."""
+    b, sq, h, _ = q.shape
+    sk = k.shape[1]
+    m = torch.randn((b, h, sq, sk), generator=gen, device="cuda") * 2
+    m[..., 3::11] = float("-inf")
+    m[0, 0, -1] = -1e30
+    return F.pad_bias(m, b, h, sq, sk)
 
 
 LONG_CHAIN_SHAPE = (1, 8192, 2, 64)
@@ -1275,9 +1295,12 @@ def phase_flash_fp32(torch, np, F) -> dict:
     BERT-Base's ([32, 512, 12, 64] non-causal) without and with
     ``train_bert_padded``'s key-padding mask, at d 128 a causal
     [2, 1024, 8, 128] with a random fp32 [sq, sk] bias and a ragged
-    non-causal [2, 1000, 4, 128], the cases of rows that see one key
-    (``one_key_checks``: d 128 with segment ids or a bias, d 64 plain),
-    and a long causal sequence (``long_chain_check``). Times
+    non-causal [2, 1000, 4, 128], at d 64 a non-causal [4, 512, 8, 64]
+    with a dense random fp32 [4, 8, 512, 512] bias (``dense_bias``: it
+    varies over queries, so a bias read in the wrong frame cannot pass as
+    the key-padding one can), the cases of rows that see one key
+    (``one_key_checks``: d 128 with segment ids or a bias, d 64 plain and
+    with a bias), and a long causal sequence (``long_chain_check``). Times
     (``_mode_rows``, the bound at the 3xTF32 rate) at GPT-2's shape for
     the no-bias mode and at the padded BERT shape for the bias mode; the
     yardstick is
@@ -1301,7 +1324,9 @@ def phase_flash_fp32(torch, np, F) -> dict:
              ("bert_keypad", (BERT_BATCH, BERT_SEQ, 12, 64), False,
               keypad_bias),
              ("d128_causal_bias", (2, 1024, 8, 128), True, sq_sk_bias),
-             ("d128_ragged", (2, 1000, 4, 128), False, None)]
+             ("d128_ragged", (2, 1000, 4, 128), False, None),
+             ("dense_d64", (4, 512, 8, 64), False,
+              lambda q, k: dense_bias(torch, F, gen, q, k))]
     checks = {}
     for name, shape, causal, bias_of in cases:
         q, k, v, do = _flash_inputs(torch, gen, shape, torch.float32)
@@ -1330,7 +1355,7 @@ def phase_flash_fp32(torch, np, F) -> dict:
         torch, F, "_fp32_bias", _mode_sets(torch, F, gen, shape,
                                            torch.float32, False, 0.125,
                                            keypad_bias),
-        0.125, False, 0.0, keep, [checks["bert_keypad"],
+        0.125, False, 0.0, keep, [checks["bert_keypad"], checks["dense_d64"],
                                   checks["d128_causal_bias"]],
         _kernel_err, shape, FP32_TOLERANCE, kept=[int(x) for x in lens]))
     torch.cuda.empty_cache()
@@ -2886,7 +2911,8 @@ def flash_bwd_kernels(names) -> list:
     """The flash backward kernels among a profile's kernel names, each cut
     to its template (the bf16 wgmma ``dq_wgmma_kernel<D, HAS_BIAS, DROP>``
     and ``dkv_wgmma_kernel<...>``, the fp32 TF32 wgmma
-    ``dq_tf32_kernel<DROP>`` and ``dkv_tf32_kernel<DROP>``, the mma.sync
+    ``dq_tf32_kernel<HAS_BIAS, DROP>`` and ``dkv_tf32_kernel<...>``, the
+    mma.sync
     ``flash_bwd_*_kernel<T, ...>``)."""
     return sorted({_short_kernel_name(n) for n in names
                    if "dq_wgmma_kernel<" in n or "dkv_wgmma_kernel<" in n
@@ -2948,11 +2974,12 @@ def check_wgmma_backward(tag, kernels, mode) -> None:
                              f"not {want}")
 
 
-def check_fp32_backward(tag, kernels, drop) -> None:
-    """A profiled fp32 step's flash backward (d 64, no bias): exactly the
-    TF32 wgmma dQ and dK/dV kernels of its mode (``drop``: the dropout
-    instantiations), so no fp32 mma.sync ``flash_bwd_*_kernel``."""
-    mode = "<true>" if drop else "<false>"
+def check_fp32_backward(tag, kernels, drop, bias=False) -> None:
+    """A profiled fp32 step's flash backward (d 64): exactly the TF32
+    wgmma dQ and dK/dV kernels of its mode (``bias``, ``drop``: the
+    ``<HAS_BIAS, DROP>`` instantiations), so no fp32 mma.sync
+    ``flash_bwd_*_kernel``."""
+    mode = f"<{str(bias).lower()}, {str(drop).lower()}>"
     want = [f"flash_tf32::{k}_tf32_kernel{mode}" for k in ("dkv", "dq")]
     if kernels != want:
         raise AssertionError(f"{tag}: the fp32 flash backward ran {kernels}, "
@@ -3475,19 +3502,25 @@ def phase_train_bert_defaults(torch, np, K, BertConfig, BertForPreTraining,
     attention dropout 0.1, full width and depth) on ``train_bert_padded``'s
     batch: 3 steps, each launching 12 of each fp32 flash kernel in its
     bias + dropout mode (``_flash_bias_drop``) and 26 LayerNorm, with
-    finite losses; then the same weights evaluated (eval mode: the fp32
-    bias-mode forward, 12) and 2 steps of ``bench_bert``'s dropout 0 at
-    the default fp32 (the fp32 bias mode without dropout, 12 of each a
-    step)."""
+    finite losses, and one profiled step (``profile``: device time by
+    category, idle share; its flash backward must be the TF32 wgmma
+    ``<true, true>`` kernels alone, ``check_fp32_backward``); then the
+    same weights evaluated (eval mode: the fp32 bias-mode forward, 12)
+    and 2 steps of ``bench_bert``'s dropout 0 at the default fp32 (the
+    fp32 bias mode without dropout, 12 of each a step) and one profiled
+    step of that arm (``no_dropout_profile``: the ``<true, false>``
+    kernels alone)."""
     cfg = BertConfig()
     model = BertForPreTraining(cfg, device="cuda", seed=SEED)
     args, n_inputs = bert_batch(torch, np, cfg, padded=True)
     L = cfg.num_hidden_layers
     out = {"config": cfg.__dict__, "params": model.num_params(),
            "batch": BERT_BATCH, "seq": BERT_SEQ, "card": smi}
-    out["defaults"], _ = _train_steps(torch, K, model, TrainStep, AdamW,
-                                      args, n_inputs, _bert_loss(model),
-                                      DEFAULTS_STEPS)
+    out["defaults"], opt = _train_steps(torch, K, model, TrainStep, AdamW,
+                                        args, n_inputs, _bert_loss(model),
+                                        DEFAULTS_STEPS)
+    out["profile"] = bert_defaults_profile(torch, model, opt, TrainStep,
+                                           args, n_inputs, drop=True)
     model.eval()
     K.reset_launch_counts()
     with torch.no_grad():
@@ -3498,9 +3531,11 @@ def phase_train_bert_defaults(torch, np, K, BertConfig, BertForPreTraining,
     nodrop = BertForPreTraining(BertConfig(hidden_dropout_prob=0.0,
                                            attention_probs_dropout_prob=0.0),
                                 device="cuda", seed=SEED)
-    out["no_dropout"], _ = _train_steps(torch, K, nodrop, TrainStep, AdamW,
-                                        args, n_inputs, _bert_loss(nodrop),
-                                        2)
+    out["no_dropout"], opt = _train_steps(torch, K, nodrop, TrainStep,
+                                          AdamW, args, n_inputs,
+                                          _bert_loss(nodrop), 2)
+    out["no_dropout_profile"] = bert_defaults_profile(
+        torch, nodrop, opt, TrainStep, args, n_inputs, drop=False)
     _emit("train_bert_defaults", out)
     failures = []
     for arm, n_steps, mode in (("defaults", DEFAULTS_STEPS, "_fp32_drop_bias"),
@@ -3520,8 +3555,24 @@ def phase_train_bert_defaults(torch, np, K, BertConfig, BertForPreTraining,
         failures.append("eval: non-finite MLM logits")
     if failures:
         raise AssertionError(f"train_bert_defaults: {failures}")
-    del model, nodrop
+    del model, nodrop, opt
     torch.cuda.empty_cache()
+    return out
+
+
+def bert_defaults_profile(torch, model, opt, TrainStep, args, n_inputs,
+                          drop) -> dict:
+    """``_step_profile`` of one fp32 BERT training step (an arm of
+    ``train_bert_defaults``) by ``_BERT_CATEGORIES``; its flash backward
+    must be the TF32 wgmma bias kernels of the arm's mode alone
+    (``check_fp32_backward``: ``<true, drop>``)."""
+    step = TrainStep(model, opt, _bert_loss(model), n_inputs=n_inputs)
+    out = _step_profile(torch, lambda: step(*args), model, opt,
+                        _BERT_CATEGORIES)
+    check_fp32_backward("train_bert_defaults" + ("" if drop else
+                                                 "_no_dropout")
+                        + "_profile", out["flash_bwd_kernels"], drop=drop,
+                        bias=True)
     return out
 
 
@@ -4198,12 +4249,15 @@ def main(argv=None) -> int:
             for k in ("fwd", "dq", "dkv")}}
     # the fp32 backward's instantiations that the profiled steps ran
     ran_fp32 = {"_fp32": moe_fp32_prof["flash_bwd_kernels"],
-                "_fp32_drop": gpt2_prof["flash_bwd_kernels"]}
+                "_fp32_drop": gpt2_prof["flash_bwd_kernels"],
+                "_fp32_bias": bert_defaults["no_dropout_profile"][
+                    "flash_bwd_kernels"],
+                "_fp32_drop_bias": bert_defaults["profile"][
+                    "flash_bwd_kernels"]}
     for suffix, counts in mode_launches.items():
         # the bf16 backward's modes run the wgmma kernels, the fp32 ones
-        # without a bias the TF32 wgmma kernels
+        # (d 64 on these paths) the TF32 wgmma kernels
         bwd = ("flash_bwd_tf32.cuh" if suffix in ran_fp32
-               else "flash_attention_bwd.cu" if suffix.startswith("_fp32")
                else "flash_bwd_wgmma.cuh")
         for kind, source, line in (
                 ("fwd", "flash_attention_fwd.cu", 242),

@@ -16,11 +16,11 @@
 //
 // Which modes live where, by mode and shape alone (launch_dq, launch_dkv):
 // every bf16 mode without segment ids (plain, bias, dropout, bias with
-// dropout) runs the wgmma / TMA kernels of flash_bwd_wgmma.cuh; fp32 at d
-// 64 without segment ids and without a bias (plain, dropout) the TF32
-// wgmma kernels of flash_bwd_tf32.cuh. The mma.sync kernels below keep the
-// bf16 segment mode, fp32 with a bias, fp32 at d 128 and the fp32 segment
-// mode; the design below is theirs.
+// dropout) runs the wgmma / TMA kernels of flash_bwd_wgmma.cuh; every fp32
+// mode at d 64 without segment ids (the same four) the TF32 wgmma kernels
+// of flash_bwd_tf32.cuh. The mma.sync kernels below keep the bf16 segment
+// mode, every fp32 mode at d 128 and the fp32 segment mode; the design
+// below is theirs.
 //
 // Design. As in the JAX package, two kernels, each with one accumulator
 // that a block owns, so neither needs atomics and both are deterministic
@@ -43,14 +43,14 @@
 // (K in dS K, dO in P^T dO, Q in dS^T Q) come from ldmatrix.trans on the
 // same row-major tiles, so nothing is transposed in memory. lse and delta
 // are read once per row.
-// Bias mode (HAS_BIAS, a template flag; fp32 only here, bf16 in
-// flash_bwd_wgmma.cuh): as in the forward, an fp32 bias read through four
-// element strides and added to the fp32 score before P is recomputed, at
-// the point where _bwd_dq_kernel (:373) and _bwd_dkv_kernel (:437) add it
-// to (q k) * scale. dK/dV reads it in its transposed frame, bias[q, key]
-// for its (key row, q column) elements.
-// fp32 mode (T = float; at d 64 with a bias or segment ids only, see
-// above): the same loops on 3xTF32 products
+// Bias mode (HAS_BIAS, a template flag; fp32 at d 128 only here, the rest
+// in flash_bwd_wgmma.cuh and flash_bwd_tf32.cuh): as in the forward, an
+// fp32 bias read through four element strides and added to the fp32 score
+// before P is recomputed, at the point where _bwd_dq_kernel (:373) and
+// _bwd_dkv_kernel (:437) add it to (q k) * scale. dK/dV reads it in its
+// transposed frame, bias[q, key] for its (key row, q column) elements.
+// fp32 mode (T = float; at d 64 with segment ids only, see above): the
+// same loops on 3xTF32 products
 // (flash_common.cuh) over fp32 tiles with LD = D + 4; dP = dO V^T takes
 // a fourth pass, lo*lo (mma4): a row that sees one key has dS = P (dP -
 // delta) = 0 in exact arithmetic, so its dq and its key's dk are dP's
@@ -58,8 +58,8 @@
 // 128 (PERF.md, ROADMAP C6). The tile sizes and
 // stages are the bf16 ones (shared memory: dQ 198 KB at d 128, dK/dV 133
 // KB, within the 227 KB a block may use).
-// Dropout mode (DROP, a template flag; here fp32 with a bias, or at d
-// 128): each lane draws
+// Dropout mode (DROP, a template flag; here fp32 at d 128): each lane
+// draws
 // the keep bits of the elements it holds (philox.cuh; dK/dV in its
 // transposed frame, element (query, key) for its (key row, q column)),
 // one Philox block for each (dK/dV) or every second (dQ) element, as
@@ -585,23 +585,19 @@ int launch_dq(const void* q, const void* k, const void* v, const void* o,
     if (!seg[0])
       return flash_wg::dq_launch<D>(q, k, v, o, lse, delta, dq, b, h, sq, sk,
                                     st, scale, causal, md, stream);
-  } else if constexpr (D == 64) {   // fp32 plain and dropout
-    if (!seg[0] && !bias)
+  } else if constexpr (D == 64) {   // every fp32 mode at d 64 but segments
+    if (!seg[0])
       return flash_tf32::dq_launch(q, k, v, o, lse, delta, dq, b, h, sq, sk,
                                    st, scale, causal, md, stream);
   }
   const size_t smem = sizeof(T) * (2 * kBQ + 4 * kBK) * Pitch<T, D>::LD;
   auto kern = flash_bwd_dq_kernel<T, D, false, false, true>;   // segment ids
-  if constexpr (!kBf16) {
-    if (!seg[0]) {
-      kern = seed ? flash_bwd_dq_kernel<T, D, true, true, false>
-                  : flash_bwd_dq_kernel<T, D, true, false, false>;
-      if constexpr (D == 128) {
-        if (!bias)
-          kern = seed ? flash_bwd_dq_kernel<T, D, false, true, false>
-                      : flash_bwd_dq_kernel<T, D, false, false, false>;
-      }
-    }
+  if constexpr (!kBf16 && D == 128) {   // fp32 at d 128, every mode
+    if (!seg[0])
+      kern = bias ? (seed ? flash_bwd_dq_kernel<T, D, true, true, false>
+                          : flash_bwd_dq_kernel<T, D, true, false, false>)
+                  : (seed ? flash_bwd_dq_kernel<T, D, false, true, false>
+                          : flash_bwd_dq_kernel<T, D, false, false, false>);
   }
   cudaError_t err = allow_smem(kern, smem);
   if (err != cudaSuccess) return (int)err;
@@ -635,8 +631,8 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* o,
     if (!seg[0])
       return flash_wg::dkv_launch<D>(q, k, v, o, lse, delta, dk, dv, b, h, sq,
                                      sk, st, scale, causal, md, stream);
-  } else if constexpr (D == 64) {   // fp32 plain and dropout
-    if (!seg[0] && !bias)
+  } else if constexpr (D == 64) {   // every fp32 mode at d 64 but segments
+    if (!seg[0])
       return flash_tf32::dkv_launch(q, k, v, o, lse, delta, dk, dv, b, h, sq,
                                     sk, st, scale, causal, md, stream);
   }
@@ -644,16 +640,13 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* o,
   const size_t smem = sizeof(T) * (4 * BQ + 2 * kBK) * Pitch<T, D>::LD
                       + sizeof(float) * 4 * BQ;
   auto kern = flash_bwd_dkv_kernel<T, D, BQ, false, false, true>;   // seg
-  if constexpr (!kBf16) {
-    if (!seg[0]) {
-      kern = seed ? flash_bwd_dkv_kernel<T, D, BQ, true, true, false>
-                  : flash_bwd_dkv_kernel<T, D, BQ, true, false, false>;
-      if constexpr (D == 128) {
-        if (!bias)
-          kern = seed ? flash_bwd_dkv_kernel<T, D, BQ, false, true, false>
-                      : flash_bwd_dkv_kernel<T, D, BQ, false, false, false>;
-      }
-    }
+  if constexpr (!kBf16 && D == 128) {   // fp32 at d 128, every mode
+    if (!seg[0])
+      kern = bias
+          ? (seed ? flash_bwd_dkv_kernel<T, D, BQ, true, true, false>
+                  : flash_bwd_dkv_kernel<T, D, BQ, true, false, false>)
+          : (seed ? flash_bwd_dkv_kernel<T, D, BQ, false, true, false>
+                  : flash_bwd_dkv_kernel<T, D, BQ, false, false, false>);
   }
   cudaError_t err = allow_smem(kern, smem);
   if (err != cudaSuccess) return (int)err;

@@ -2,15 +2,15 @@
 // on TF32 wgmma with the 3xTF32 split, every tile fed by TMA through an
 // mbarrier ring.
 //
-// Replaces, for fp32 inputs at d 64 without segment ids and without a bias
-// (causal or not, with or without in-kernel dropout: the modes that GPT-2,
-// entry()'s Llama and the fp32 Qwen2-MoE train with), the two pallas_calls
-// of paddle_tpu/ops/pallas/flash_attention.py::flash_block_grads: the dQ
-// pass (_bwd_dq_kernel, :329-389, called at :558) and the dK/dV pass
+// Replaces, for fp32 inputs at d 64 without segment ids (causal or not,
+// with or without an additive bias and in-kernel dropout: the modes that
+// GPT-2, entry()'s Llama, the fp32 Qwen2-MoE and BERT at its defaults
+// train with), the two pallas_calls of
+// paddle_tpu/ops/pallas/flash_attention.py::flash_block_grads: the dQ pass
+// (_bwd_dq_kernel, :329-389, called at :558) and the dK/dV pass
 // (_bwd_dkv_kernel, :392-463, called at :590). flash_attention_bwd.cu's
-// launchers route these modes here; fp32 with a bias, fp32 at d 128 and
-// the segment mode keep the mma.sync kernels there. With P recomputed from
-// lse:
+// launchers route these modes here; fp32 at d 128 and the segment mode
+// keep the mma.sync kernels there. With P recomputed from lse:
 //   dS = P * (dO V^T - delta) * scale, dQ = dS K, dK = dS^T Q, dV = P^T dO;
 // with dropout, dP and dV's P take keep ? x / (1 - p) : 0 and dS takes the
 // undropped P (flash_attention_bwd.cu's dropout mode).
@@ -83,6 +83,16 @@
 // before its own (under the other consumer's); they are the bits the
 // fp32 mma.sync forward draws element by element. dK/dV masks dV's P^T
 // fragments by them and applies 1 / (1 - p) to dV once, at the end.
+// Bias (HAS_BIAS): a template flag too, acting where _bwd_dq_kernel
+// (:373) and _bwd_dkv_kernel (:437) add it. The bias is fp32 with four
+// element strides, any of them 0 (BERT's key padding is [b, 1, 1, sk]
+// expanded), so TMA cannot load it, and dQ's 224 KB leave no room to stage
+// it: each consumer lane reads its 16 elements of a tile with __ldg right
+// after the S and dP groups are committed (flash_wg::bias_chunk), so the
+// loads' latency hides under the products; dK/dV reads bias[q, key] for
+// its (key row, q column) elements. P = exp2(S scale log2e + bias log2e -
+// lse log2e), (bias - lse) log2e one fma; a bias of -inf or -1e30, and a
+// row that sees no key (lse clamped at -1e25), give P = 0 and no NaN.
 
 #pragma once
 
@@ -332,7 +342,7 @@ __device__ __forceinline__ void add_to(float (&acc)[8][4],
 }
 
 // ---- dQ: block (batch*head, q tile); q rows q0.., 64 wg.. a consumer ----
-template <bool DROP>
+template <bool HAS_BIAS, bool DROP>
 __global__ void __launch_bounds__(kThreads, 1)
 dq_tf32_kernel(const float* __restrict__ lse,
                const float* __restrict__ delta, float* __restrict__ dq,
@@ -428,6 +438,16 @@ dq_tf32_kernel(const float* __restrict__ lse,
                  : 0.f;
     dlt[r] = ok ? delta[(int64_t)bh * sq + row[r]] : 0.f;
   }
+  // HAS_BIAS: this lane's bias rows at its first column (a row past sq
+  // reads row sq - 1: it is never stored)
+  const float* brow[2] = {nullptr, nullptr};
+  if constexpr (HAS_BIAS) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      brow[r] = md.bias + bi * md.b_sb + hi * md.b_sh
+                + (int64_t)min(row[r], sq - 1) * md.b_sq
+                + (int64_t)(2 * t) * md.b_sk;
+  }
   uint32_t key0 = 0, key1 = 0;                       // DROP: the Philox key
   if constexpr (DROP) {
     key0 = (uint32_t)md.seed[0];
@@ -450,7 +470,16 @@ dq_tf32_kernel(const float* __restrict__ lse,
       // S = Q K^T, dP = dO V^T (its first half)
       products_s_dp(sc, dp, dph, aQ, st, aO, st + 2 * kTile, kAtomQ, kQ,
                     kTile);
-      uint32_t keep = 0;                         // under the products
+      // under the products: the tile's bias loads and keep bits
+      float bb[4][4];
+      if constexpr (HAS_BIAS) {
+        const float* bp[2] = {brow[0] + (int64_t)k0 * md.b_sk,
+                              brow[1] + (int64_t)k0 * md.b_sk};
+#pragma unroll
+        for (int n = 0; n < 4; ++n)
+          flash_wg::bias_chunk(bb[n], bp, md.b_sk, n, k0 + 2 * t, sk);
+      }
+      uint32_t keep = 0;
       if constexpr (DROP)
         keep = flash::keep_bits_qk<4>(bh, row[0], row[1], k0 + 2 * t, key0,
                                       key1, md.thresh, lane);
@@ -467,7 +496,9 @@ dq_tf32_kernel(const float* __restrict__ lse,
           const bool vis = !edge
                            || flash::visible(row[r], col, sq, sk, off,
                                              causal != 0);
-          sc[n][i] = vis ? exp2f(fmaf(sc[n][i], scale_log2, -lse2[r])) : 0.f;
+          float lb = -lse2[r];                   // (bias - lse) log2e
+          if constexpr (HAS_BIAS) lb = fmaf(bb[n][i], flash::kLog2e, lb);
+          sc[n][i] = vis ? exp2f(fmaf(sc[n][i], scale_log2, lb)) : 0.f;
         }
       hop::wg_wait<0>();                       // dP's first batch is done
       products_dp_rest(dp, dph, aO, st + 2 * kTile, kAtomQ);
@@ -508,7 +539,7 @@ dq_tf32_kernel(const float* __restrict__ lse,
 // ---- dK/dV: block (batch*head, key tile); keys k0..k0 + 63, in the
 // transposed frame (key rows x q columns); consumer c takes the q tiles
 // j = c mod 2 ----
-template <bool DROP>
+template <bool HAS_BIAS, bool DROP>
 __global__ void __launch_bounds__(kThreads, 1)
 dkv_tf32_kernel(const float* __restrict__ lse,
                 const float* __restrict__ delta, float* __restrict__ dk,
@@ -615,6 +646,16 @@ dkv_tf32_kernel(const float* __restrict__ lse,
   const int krow[2] = {k0 + 16 * warp + (lane >> 2),
                        k0 + 16 * warp + (lane >> 2) + 8};
   const float scale_log2 = scale * flash::kLog2e;
+  // HAS_BIAS: this lane's bias columns bias[., key] at its first query (a
+  // key past sk reads key sk - 1: it is never stored)
+  const float* bkey[2] = {nullptr, nullptr};
+  if constexpr (HAS_BIAS) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      bkey[r] = md.bias + bi * md.b_sb + hi * md.b_sh
+                + (int64_t)min(krow[r], sk - 1) * md.b_sk
+                + (int64_t)(2 * t) * md.b_sq;
+  }
   uint32_t key0 = 0, key1 = 0;                       // DROP: the Philox key
   if constexpr (DROP) {
     key0 = (uint32_t)md.seed[0];
@@ -643,6 +684,16 @@ dkv_tf32_kernel(const float* __restrict__ lse,
     // S^T = K Q^T, dP^T = V dO^T (its first half)
     products_s_dp(sc, dp, dph, sK, st, sV, st + 2 * kTile, kAtomK, kKV,
                   kTile);
+    // under the products: the tile's bias^T loads, all 16 before the wait
+    // (one chunk ahead of the chunk being made was 4% slower: PERF.md §6)
+    float bt[4][4];
+    if constexpr (HAS_BIAS) {
+      const float* bq[2] = {bkey[0] + (int64_t)qs0 * md.b_sq,
+                            bkey[1] + (int64_t)qs0 * md.b_sq};
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+        flash_wg::bias_chunk(bt[n], bq, md.b_sq, n, qs0 + 2 * t, sq);
+    }
     hop::wg_wait<1>();                           // S^T is done, dP^T runs on
     hop::acc_fence(sc);
     const bool edge = (causal && qs0 < k0 + 63 - off) || k0 + 64 > sk
@@ -657,9 +708,9 @@ dkv_tf32_kernel(const float* __restrict__ lse,
         const bool vis = !edge
                          || flash::visible(qs0 + c2 + odd, krow[i >> 1], sq,
                                            sk, off, causal != 0);
-        sc[n][i] = vis ? exp2f(fmaf(sc[n][i], scale_log2,
-                                    -(odd ? l2.y : l2.x)))
-                       : 0.f;                    // P^T
+        float lbt = -(odd ? l2.y : l2.x);        // (bias^T - lse) log2e
+        if constexpr (HAS_BIAS) lbt = fmaf(bt[n][i], flash::kLog2e, lbt);
+        sc[n][i] = vis ? exp2f(fmaf(sc[n][i], scale_log2, lbt)) : 0.f;  // P^T
       }
     }
     // P^T's tf32 split, dV's A operand; its fp32 value is hi + lo from
@@ -781,7 +832,10 @@ inline int dq_launch(const void* q, const void* k, const void* v,
     return (int)cudaErrorInvalidValue;
   const size_t smem = 4 * 128 * 256 + kStages * (4 * kTile + 2 * kTrans)
                       + 1024;
-  auto kern = md.seed ? dq_tf32_kernel<true> : dq_tf32_kernel<false>;
+  auto kern = md.bias ? (md.seed ? dq_tf32_kernel<true, true>
+                                 : dq_tf32_kernel<true, false>)
+                      : (md.seed ? dq_tf32_kernel<false, true>
+                                 : dq_tf32_kernel<false, false>);
   cudaError_t err = flash::allow_smem(kern, smem);
   if (err != cudaSuccess) return (int)err;
   kern<<<dim3(b * h, tiles_y), kThreads, smem, stream>>>(
@@ -802,7 +856,10 @@ inline int dkv_launch(const void* q, const void* k, const void* v,
     return (int)cudaErrorInvalidValue;
   const size_t smem =
       4 * 64 * 256 + kStages * (4 * kTile + 4 * kTrans + 1024) + 1024;
-  auto kern = md.seed ? dkv_tf32_kernel<true> : dkv_tf32_kernel<false>;
+  auto kern = md.bias ? (md.seed ? dkv_tf32_kernel<true, true>
+                                 : dkv_tf32_kernel<true, false>)
+                      : (md.seed ? dkv_tf32_kernel<false, true>
+                                 : dkv_tf32_kernel<false, false>);
   cudaError_t err = flash::allow_smem(kern, smem);
   if (err != cudaSuccess) return (int)err;
   kern<<<dim3(b * h, tiles_y), kThreads, smem, stream>>>(

@@ -2,8 +2,8 @@
 ``csrc/flash_attention_fwd.cu`` and ``csrc/flash_attention_bwd.cu``,
 whose bf16 modes without segment ids, with or without a bias and
 dropout, run the wgmma kernels of ``csrc/flash_bwd_wgmma.cuh``, and
-whose fp32 modes at head_dim 64 without a bias or segment ids, with or
-without dropout, the TF32 wgmma kernels of ``csrc/flash_bwd_tf32.cuh``).
+whose fp32 modes at head_dim 64 without segment ids, with or without a
+bias and dropout, the TF32 wgmma kernels of ``csrc/flash_bwd_tf32.cuh``).
 
 Replaces ``paddle_tpu/ops/pallas/flash_attention.py``: ``_fwd`` (its
 ``pallas_call`` at :242) and the two ``pallas_call``s of

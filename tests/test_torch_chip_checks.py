@@ -1,0 +1,71 @@
+"""The card-side checks' own logic, on the CPU.
+
+``chip_smoke.py`` holds each profiled training step to the flash
+backward instantiations of its mode (``check_fp32_backward``,
+``check_wgmma_backward``, from the profiler's kernel names through
+``flash_bwd_kernels``), and ``chip_mutants.py`` plants each of its
+faults by replacing one piece of text of a kernel source, which must
+occur there exactly once. Both run only on the card; these tests pin
+them here, so that a renamed instantiation or an edited source cannot
+leave a check that passes every step or a fault that no longer plants.
+"""
+
+import importlib.util
+from pathlib import Path
+
+import pytest
+
+from torch_one_thread import one_torch_thread  # noqa: F401
+
+REPO = Path(__file__).resolve().parents[1]
+CSRC = REPO / "paddle_tpu_torch" / "csrc"
+
+
+def _load(name):
+    spec = importlib.util.spec_from_file_location(name, REPO / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+S = _load("chip_smoke")
+M = _load("chip_mutants")
+
+# profiler names of the fp32 backward's instantiations, as CUPTI gives them
+_ARGS = "(float const*, float const*, float*, int, int, int, float, int)"
+
+
+def _names(bias, drop):
+    b, d = str(bias).lower(), str(drop).lower()
+    return [f"void flash_tf32::{k}_tf32_kernel<{b}, {d}>{_ARGS}"
+            for k in ("dq", "dkv")] + ["void layer_norm_fwd_kernel<float>()"]
+
+
+@pytest.mark.parametrize("bias", [False, True])
+@pytest.mark.parametrize("drop", [False, True])
+def test_fp32_backward_check_takes_its_mode_alone(bias, drop):
+    """A step that ran the TF32 kernels of its mode passes; one that ran
+    another mode's, or an fp32 mma.sync kernel beside them, fails."""
+    S.check_fp32_backward("t", S.flash_bwd_kernels(_names(bias, drop)),
+                          drop=drop, bias=bias)
+    for other in ((not bias, drop), (bias, not drop)):
+        with pytest.raises(AssertionError):
+            S.check_fp32_backward("t", S.flash_bwd_kernels(_names(*other)),
+                                  drop=drop, bias=bias)
+    mma = ("void (anonymous namespace)::flash_bwd_dq_kernel<float, 64, "
+           "true, true, false>(float const*)")
+    with pytest.raises(AssertionError):
+        S.check_fp32_backward(
+            "t", S.flash_bwd_kernels(_names(bias, drop) + [mma]), drop=drop,
+            bias=bias)
+
+
+@pytest.mark.parametrize("name", sorted(M.MUTANTS))
+def test_mutant_plants_once(name):
+    """Each planted fault's text occurs exactly once in its source, and
+    its replacement differs from it (``chip_mutants._copy`` refuses
+    anything else on the card)."""
+    for source, old, new in M.MUTANTS[name][1]:
+        text = (CSRC / source).read_text()
+        assert text.count(old) == 1, (source, old)
+        assert new != old

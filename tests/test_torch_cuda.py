@@ -1189,7 +1189,7 @@ def _bias_of(kind, b, h, sq, sk, q, k, device):
     m = torch.randn((b, h, sq, sk), generator=g, device=device) * 2
     if kind == "dead":     # -inf entries and a row that sees no key
         m[..., 3::11] = float("-inf")
-        m[0, -1, 7] = -1e30
+        m[0, -1, min(7, sq - 1)] = -1e30
     return FA.pad_bias(m, b, h, sq, sk)
 
 
@@ -1200,6 +1200,7 @@ def _bias_of(kind, b, h, sq, sk, q, k, device):
     (2, 333, 333, 3, 64, False, "keypad"),
     (1, 512, 512, 2, 128, False, "dense"),
     (2, 200, 200, 2, 128, False, "one_key"),
+    (2, 200, 200, 2, 64, False, "one_key"),
 ])
 def test_flash_fp32_kernels_against_fp64(cuda, b, sq, sk, h, d, causal,
                                          bias):
@@ -1207,7 +1208,8 @@ def test_flash_fp32_kernels_against_fp64(cuda, b, sq, sk, h, d, causal,
     of the plain fp32 versions, ragged lengths and sq != sk included.
     ``one_key``: a key-padding mask that leaves every row of the last
     batch element one key, whose dS = P (dP - delta) is 0 in exact
-    arithmetic, so its dq and that key's dk are dP's rounding alone."""
+    arithmetic, so its dq and that key's dk are dP's rounding alone (d
+    128: the mma.sync backward; d 64: the TF32 wgmma one)."""
     q, k, v, do = _flash_inputs(b, sq, sk, h, d, "float32", cuda, seed=5)
     reset_launch_counts()
     _fp32_check(q, k, v, do, d ** -0.5, causal,
@@ -1217,6 +1219,7 @@ def test_flash_fp32_kernels_against_fp64(cuda, b, sq, sk, h, d, causal,
                                          for n in ("fwd", "dq", "dkv")})
 
 
+@pytest.mark.parametrize("bias", [None, "keypad", "dense", "dead"])
 @pytest.mark.parametrize("drop", [False, True])
 @pytest.mark.parametrize("b,sq,sk,h,causal,fused", [
     (8, 1, 1, 16, False, False), (2, 63, 63, 2, True, False),
@@ -1224,17 +1227,20 @@ def test_flash_fp32_kernels_against_fp64(cuda, b, sq, sk, h, d, causal,
     (2, 260, 200, 2, True, False), (1, 200, 330, 2, True, False),
     (2, 333, 333, 3, False, True)])
 def test_flash_fp32_d64_tf32_backward(cuda, b, sq, sk, h, causal, fused,
-                                      drop):
-    """fp32 at d 64 without a bias or segment ids: the TF32 wgmma dQ and
-    dK/dV (``csrc/flash_bwd_tf32.cuh``) against fp64 by ``_fp32_rule``,
-    plain and dropout (p 0.1, one key): s 1, 63 (a ragged ring tile), 130,
-    sq != sk both ways (causal [260, 200]: rows 0-59 see no key, row 60
-    one), and q, k, v, dO as views of one fused [b, s, 4, h, 64] tensor;
-    two launches bitwise equal. At s 1 every row's dq and dk are 0 in
-    exact arithmetic, so both sides' errors are roundings of dP - delta,
-    whole ulps apart: 128 rows (b 8, h 16), so that the rule compares
-    their spread (with 4 rows a kernel 2 ulps off where the plain version
-    was 1 read as 2x)."""
+                                      drop, bias):
+    """fp32 at d 64 without segment ids: the TF32 wgmma dQ and dK/dV
+    (``csrc/flash_bwd_tf32.cuh``) against fp64 by ``_fp32_rule``, plain
+    and dropout (p 0.1, one key), without a bias and with one
+    (``_bias_of``: a key-padding mask, a dense random [b, h, sq, sk] one,
+    and a dense one with -inf entries and a -1e30 row, ``dead``): s 1, 63
+    (a ragged ring tile), 130, sq != sk both ways (causal [260, 200]: rows
+    0-59 see no key, row 60 one), and q, k, v, dO as views of one fused
+    [b, s, 4, h, 64] tensor; two launches bitwise equal, and exactly one
+    launch of each kernel counted in the mode's counter. At s 1 every
+    row's dq and dk are 0 in exact arithmetic, so both sides' errors are
+    roundings of dP - delta, whole ulps apart: 128 rows (b 8, h 16), so
+    that the rule compares their spread (with 4 rows a kernel 2 ulps off
+    where the plain version was 1 read as 2x)."""
     if fused:
         g = torch.Generator(device=cuda).manual_seed(9)
         q, k, v, do = torch.randn((b, sq, 4, h, 64), generator=g,
@@ -1244,10 +1250,11 @@ def test_flash_fp32_d64_tf32_backward(cuda, b, sq, sk, h, causal, fused,
         q, k, v, do = _flash_inputs(b, sq, sk, h, 64, "float32", cuda,
                                     seed=9)
     seed = torch.tensor([77, 5], dtype=torch.int64, device=cuda)
-    mode = (None, 0.1, seed) if drop else (None, 0.0, None)
+    mask = _bias_of(bias, b, h, sq, sk, q, k, cuda)
+    mode = (mask, 0.1, seed) if drop else (mask, 0.0, None)
     reset_launch_counts()
     _fp32_check(q, k, v, do, 0.125, causal, *mode)
-    sfx = "_fp32" + ("_drop" if drop else "")
+    sfx = "_fp32" + ("_drop" if drop else "") + ("_bias" if bias else "")
     assert launch_counts() == _counts(**{f"flash_{n}{sfx}": 1
                                          for n in ("fwd", "dq", "dkv")})
     out, lse = FA.flash_fwd_cuda(q, k, v, 0.125, causal, *mode)

@@ -3,7 +3,8 @@
 that two trees (a parent commit unpacked with ``git archive`` and the
 working tree) can be compared on one card in one call, in turns.
 
-    python3 tools/flash_ab.py [--tree PATH] [--train] [--steps]
+    python3 tools/flash_ab.py [--tree PATH] [--rows NAME ...] [--train]
+                              [--steps]
 
 ``--tree`` is the root of a checkout holding ``paddle_tpu_torch`` (default:
 this repository); its kernels are built into that tree's own
@@ -13,12 +14,16 @@ shape [4, 2048, 16, 128]; bf16 non-causal without a bias at BERT-Base's
 small's [8, 1024, 12, 64] (bf16: the dropout rows' no-dropout twin); bf16
 and fp32 with a key-padding bias (seeded lengths
 128-512) at BERT-Base's shape non-causal; the dropout mode (p 0.1, one
-key) in bf16 and fp32 at GPT-2's shape, and in bf16 with the bias at
-BERT's; the segment mode on ``bench.py::bench_llama``'s first packed
+key) in bf16 and fp32 at GPT-2's shape, and in bf16 and fp32 with the
+bias at BERT's; the segment mode on ``bench.py::bench_llama``'s first packed
 host step, bf16 [1, 8760, 16, 128] and fp32 [1, 8760, 12, 64] causal, 8
 documents. Each kernel's time is the mean of 100 launches between CUDA
 events, cycling three input sets (past the 50 MB L2), after 10 warm-up
-launches. ``--train`` then runs ``chip_smoke.py``'s Llama ``train`` phase
+launches; ``--rows`` times the rows named, in that order (each row's
+inputs are the same whatever runs before it), and the card's SM clock,
+temperature and power draw are read before and after each row (``gpu``
+in the output), so that a row slower for the card's state shows it.
+``--train`` then runs ``chip_smoke.py``'s Llama ``train`` phase
 (``bench.py::_llama_flagship``, 10 steps) and one profiled step
 (``train_profile``: device time by category, idle share) on that tree's
 package, with this repository's ``chip_smoke.py`` as the harness.
@@ -27,8 +32,11 @@ backward carry: ``train_bert_padded`` (BERT-Base bf16 on the padded
 batch, 10 steps: the bf16 bias mode), the GPT-2 small bf16 arm of
 ``train_dropout_bf16`` at dropout 0.1 (10 steps: the bf16 dropout mode)
 and ``train_gpt2`` (GPT-2 small at its defaults, fp32 at dropout 0.1,
-10 steps: the fp32 dropout mode), each with one profiled step (device
-time by category, idle share, the flash backward kernels that ran). Prints one JSON line: the tree, the card,
+10 steps: the fp32 dropout mode) and the defaults arm of
+``train_bert_defaults`` (BERT-Base at its own defaults, fp32 at dropout
+0.1, on the padded batch, 10 steps: the fp32 bias + dropout mode), each
+with one profiled step (device time by category, idle share, the flash
+backward kernels that ran). Prints one JSON line: the tree, the card,
 the times in ms, the steps' figures, and, when this run built the
 kernels, ``ptxas``'s registers and spills per instantiation.
 """
@@ -45,6 +53,34 @@ import torch
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PACKED = (1762, 1490, 825, 1537, 558, 463, 297, 1828)   # bench_llama's
+BERT, GPT2 = (32, 512, 12, 64), (8, 1024, 12, 64)
+# name: (shape, dtype, causal, key-padding bias, dropout p); a row's inputs
+# come from a generator seeded with its place here, whatever rows run
+ROWS = {
+    "bf16_llama": ((4, 2048, 16, 128), torch.bfloat16, True, False, 0.0),
+    "bf16_bert": (BERT, torch.bfloat16, False, False, 0.0),
+    "fp32_gpt2": (GPT2, torch.float32, True, False, 0.0),
+    "bf16_gpt2": (GPT2, torch.bfloat16, True, False, 0.0),
+    "bf16_bert_bias": (BERT, torch.bfloat16, False, True, 0.0),
+    "fp32_bert_bias": (BERT, torch.float32, False, True, 0.0),
+    "bf16_gpt2_drop": (GPT2, torch.bfloat16, True, False, 0.1),
+    "fp32_gpt2_drop": (GPT2, torch.float32, True, False, 0.1),
+    "bf16_bert_bias_drop": (BERT, torch.bfloat16, False, True, 0.1),
+    "fp32_bert_bias_drop": (BERT, torch.float32, False, True, 0.1),
+    "bf16_varlen_seg": ((1, sum(PACKED), 16, 128), torch.bfloat16, True,
+                        False, 0.0),
+    "fp32_varlen_seg": ((1, sum(PACKED), 12, 64), torch.float32, True,
+                        False, 0.0),
+}
+
+
+def _gpu_state() -> str:
+    """The card's SM clock (MHz), temperature (C) and power draw (W) now,
+    as ``nvidia-smi`` reads them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,temperature.gpu,power.draw",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60).stdout.strip()
 
 
 def _ms(fn, sets, iters=100, warmup=10):
@@ -66,6 +102,9 @@ def main(argv=None) -> int:
     ap.add_argument("--tree", default=HERE)
     ap.add_argument("--train", action="store_true")
     ap.add_argument("--steps", action="store_true")
+    ap.add_argument("--rows", nargs="+", choices=list(ROWS),
+                    help="the rows to time, in this order (default: every "
+                         "row, in ROWS' order)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("flash_ab: no CUDA device", file=sys.stderr)
@@ -85,33 +124,13 @@ def main(argv=None) -> int:
     spec.loader.exec_module(repo_build)
     report = {f"{name}:{fn}": line for name, b in built.items()
               for fn, line in repo_build.ptxas_report(b["log"]).items()}
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    times = {}
+    times, gpu = {}, {}
     seed = torch.tensor([7, 11], dtype=torch.int64, device="cuda")
     ids = np.repeat(np.arange(len(PACKED)), PACKED)
-    for name, (b, s, h, d), dtype, causal, keypad, p in (
-            ("bf16_llama", (4, 2048, 16, 128), torch.bfloat16, True, False,
-             0.0),
-            ("bf16_bert", (32, 512, 12, 64), torch.bfloat16, False, False,
-             0.0),
-            ("fp32_gpt2", (8, 1024, 12, 64), torch.float32, True, False,
-             0.0),
-            ("bf16_gpt2", (8, 1024, 12, 64), torch.bfloat16, True, False,
-             0.0),
-            ("bf16_bert_bias", (32, 512, 12, 64), torch.bfloat16, False,
-             True, 0.0),
-            ("fp32_bert_bias", (32, 512, 12, 64), torch.float32, False,
-             True, 0.0),
-            ("bf16_gpt2_drop", (8, 1024, 12, 64), torch.bfloat16, True,
-             False, 0.1),
-            ("fp32_gpt2_drop", (8, 1024, 12, 64), torch.float32, True,
-             False, 0.1),
-            ("bf16_bert_bias_drop", (32, 512, 12, 64), torch.bfloat16,
-             False, True, 0.1),
-            ("bf16_varlen_seg", (1, len(ids), 16, 128), torch.bfloat16,
-             True, False, 0.0),
-            ("fp32_varlen_seg", (1, len(ids), 12, 64), torch.float32, True,
-             False, 0.0)):
+    for name in args.rows or ROWS:
+        (b, s, h, d), dtype, causal, keypad, p = ROWS[name]
+        gen = torch.Generator(device="cuda").manual_seed(
+            list(ROWS).index(name))
         seg = F.seg_ids(ids, ids, "cuda") if name.endswith("seg") else None
         mode = (p, seed if p else None, seg)
         sets = []
@@ -130,6 +149,7 @@ def main(argv=None) -> int:
                                         *mode)
             sets.append((q, k, v, do, lse, F.flash_delta(do, out), bias))
         sc = d ** -0.5
+        gpu[name] = {"before": _gpu_state()}
         times[name] = {
             "fwd": _ms(lambda *a: F.flash_fwd_cuda(*a[:3], sc, causal, a[6],
                                                    *mode), sets),
@@ -137,6 +157,7 @@ def main(argv=None) -> int:
                                                      a[6], *mode), sets),
             "dkv": _ms(lambda *a: F.flash_bwd_dkv_cuda(*a[:6], sc, causal,
                                                        a[6], *mode), sets)}
+        gpu[name]["after"] = _gpu_state()
         del sets
         torch.cuda.empty_cache()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -145,8 +166,8 @@ def main(argv=None) -> int:
     train = _train(smi) if args.train else None
     steps = _steps(smi) if args.steps else None
     print(json.dumps({"tree": args.tree, "device": smi, "ms": times,
-                      "train": train, "steps": steps, "ptxas": report}),
-          flush=True)
+                      "gpu": gpu, "train": train, "steps": steps,
+                      "ptxas": report}), flush=True)
     return 0
 
 
@@ -167,9 +188,9 @@ def _profile_figures(prof) -> dict:
 
 
 def _steps(smi) -> dict:
-    """``train_bert_padded``, the GPT-2 bf16 dropout arm and
-    ``train_gpt2``, each with one profiled step, on the package that
-    ``main`` imported."""
+    """``train_bert_padded``, the GPT-2 bf16 dropout arm, ``train_gpt2``
+    and ``train_bert_defaults``' defaults arm, each with one profiled
+    step, on the package that ``main`` imported."""
     from paddle_tpu_torch.jit import TrainStep
     from paddle_tpu_torch.models import (BertConfig, BertForPreTraining,
                                          GPTConfig, GPTForCausalLM)
@@ -218,6 +239,20 @@ def _steps(smi) -> dict:
                          "median_step_ms": train["median_step_ms"],
                          "profile": _profile_figures(prof)}
     del model, opt, step, batch
+    torch.cuda.empty_cache()
+    cfg = BertConfig()          # fp32, dropout 0.1
+    model = BertForPreTraining(cfg, device="cuda", seed=S.SEED)
+    args, n_inputs = S.bert_batch(torch, np, cfg, padded=True)
+    res, opt = S._train_steps(torch, K, model, TrainStep, AdamW, args,
+                              n_inputs, S._bert_loss(model), S.BERT_STEPS)
+    step = TrainStep(model, opt, S._bert_loss(model), n_inputs=n_inputs)
+    prof = S._step_profile(torch, lambda: step(*args), model, opt,
+                           S._BERT_CATEGORIES)
+    out["train_bert_defaults"] = {
+        "step_ms": res["step_ms"],
+        "median_step_ms": float(np.median(res["step_ms"][2:])),
+        "profile": _profile_figures(prof)}
+    del model, opt, step, args
     torch.cuda.empty_cache()
     return out
 

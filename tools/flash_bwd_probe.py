@@ -36,20 +36,22 @@ the Llama shape (plain), BERT-Base's (plain, keypad, keypad_drop) and
 GPT-2 small's [8, 1024, 12, 64] causal (drop). Prints one JSON line.
 
 ``--fp32`` does the same for the fp32 dQ and dK/dV on TF32 wgmma
-(``csrc/flash_bwd_tf32.cuh``, d 64 without a bias or segment ids:
-``dq_tf32_kernel<DROP>``, ``dkv_tf32_kernel<DROP>``): ``ptxas``'s
-registers and spills of those four instantiations (a spill fails the
-run), then ``chip_smoke.py``'s fp32 rule (``flash_fp32_errors``: each
-output within 2x the plain fp32 version's error from fp64 plus 2**-16 /
-2**-18) and a bitwise repeat of the backward, in the plain and dropout
-modes, at ``FP32_SMALL`` (s 1, 63, 130, 1000; causal and not; sq != sk
-both ways, with rows that see no key and rows that see one key; at sk 1
-dq and dk are 0 exactly and their errors roundings of 0, so as in the
-bf16 check only dv is held to the rule there: ``chip_smoke.py``'s
-``one_key_checks`` hold a whole [4, 256, 4, 64] sk-1 batch to it) and on
-strided views of one fused tensor; ``--big`` adds GPT-2 small's,
-``train_moe_fp32``'s and ``entry()``'s shapes; ``--times`` times dQ and
-dK/dV at GPT-2 small's shape in both modes.
+(``csrc/flash_bwd_tf32.cuh``, d 64 without segment ids:
+``dq_tf32_kernel<HAS_BIAS, DROP>``, ``dkv_tf32_kernel<HAS_BIAS,
+DROP>``): ``ptxas``'s registers and spills of those eight
+instantiations (a spill fails the run), then ``chip_smoke.py``'s fp32
+rule (``flash_fp32_errors``: each output within 2x the plain fp32
+version's error from fp64 plus 2**-16 / 2**-18) and a bitwise repeat of
+the backward, in the six modes above, at ``FP32_SMALL`` (s 1, 63, 130,
+1000; causal and not; sq != sk both ways, with rows that see no key and
+rows that see one key; at sk 1 dq and dk are 0 exactly and their errors
+roundings of 0, so as in the bf16 check only dv is held to the rule
+there: ``chip_smoke.py``'s ``one_key_checks`` hold a whole [4, 256, 4,
+64] sk-1 batch to it) and on strided views of one fused tensor;
+``--big`` adds GPT-2 small's, ``train_moe_fp32``'s and ``entry()``'s
+shapes (plain, drop) and BERT-Base's (plain, keypad, keypad_drop);
+``--times`` times dQ and dK/dV at GPT-2 small's shape (plain, drop) and
+at BERT-Base's (plain, keypad, keypad_drop).
 """
 
 import argparse
@@ -84,7 +86,12 @@ FP32_SMALL = [(1, 1, 1, 2, 64, False), (2, 200, 1, 2, 64, False),
               (1, 300, 1, 2, 64, True), (1, 1, 300, 2, 64, True),
               (2, 1000, 700, 4, 64, True), (2, 700, 1000, 4, 64, True),
               (2, 1000, 1000, 4, 64, False)]
-FP32_BIG = [GPT2, (8, 1024, 1024, 16, 64, True), (2, 256, 256, 8, 64, True)]
+FP32_BIG = [(GPT2, ("plain", "drop")),
+            ((8, 1024, 1024, 16, 64, True), ("plain", "drop")),
+            ((2, 256, 256, 8, 64, True), ("plain", "drop")),
+            (BERT, ("plain", "keypad", "keypad_drop"))]
+FP32_TIMES = [(GPT2, "plain"), (GPT2, "drop"), (BERT, "plain"),
+              (BERT, "keypad"), (BERT, "keypad_drop")]
 
 
 def _smoke():
@@ -144,11 +151,12 @@ def _check(S, F, gen, shape, mode, seed, fused=False):
             "failures": failures}
 
 
-def _check_fp32(S, F, gen, shape, drop, seed, fused=False):
-    """``flash_fp32_errors`` and a bitwise repeat of dQ and dK/dV."""
+def _check_fp32(S, F, gen, shape, name, seed, fused=False):
+    """``flash_fp32_errors`` and a bitwise repeat of dQ and dK/dV in mode
+    ``name`` (one of ``MODES``)."""
     b, sq, sk, h, d, causal = shape
     q, k, v, do = _inputs(gen, b, sq, sk, h, d, fused, torch.float32)
-    mode = (None, DROP_P, seed) if drop else (None, 0.0, None)
+    mode = _mode(F, gen, name, q, k, seed)
     errs = S.flash_fp32_errors(torch, F, q, k, v, do, d ** -0.5, causal,
                                *mode)
     out, lse = F.flash_fwd_cuda(q, k, v, d ** -0.5, causal, *mode)
@@ -162,7 +170,7 @@ def _check_fp32(S, F, gen, shape, drop, seed, fused=False):
         failures = [f for f in failures if not f.startswith(("dq:", "dk:"))]
     if not all(torch.equal(x, y) for x, y in zip(*g)):
         failures.append("two launches differ")
-    return {"shape": list(shape), "drop": drop, "fused": fused,
+    return {"shape": list(shape), "mode": name, "fused": fused,
             "row": {o: errs[o]["kernel"]["row"] for o in ("dq", "dk", "dv")},
             "plain_row": {o: errs[o]["plain"]["row"]
                           for o in ("dq", "dk", "dv")},
@@ -264,18 +272,19 @@ def _fp32(args, S, F, ptxas, gen, seed) -> int:
     spills = [n for n, line in report.items()
               if "0 bytes spill stores" not in line
               or "0 bytes spill loads" not in line]
-    checks = [_check_fp32(S, F, gen, shape, drop, seed)
-              for shape in FP32_SMALL for drop in (False, True)]
-    checks += [_check_fp32(S, F, gen, (2, 300, 300, 3, 64, c), drop, seed,
+    checks = [_check_fp32(S, F, gen, shape, mode, seed)
+              for shape in FP32_SMALL for mode in MODES]
+    checks += [_check_fp32(S, F, gen, (2, 300, 300, 3, 64, c), mode, seed,
                            fused=True)
-               for c in (True, False) for drop in (False, True)]
+               for c in (True, False) for mode in MODES]
     if args.big:
-        for shape in FP32_BIG:
-            checks += [_check_fp32(S, F, gen, shape, drop, seed)
-                       for drop in (False, True)]
+        for shape, modes in FP32_BIG:
+            checks += [_check_fp32(S, F, gen, shape, mode, seed)
+                       for mode in modes]
             torch.cuda.empty_cache()
-    times = ({mode: _times(F, gen, GPT2, mode, seed, torch.float32)
-              for mode in ("plain", "drop")} if args.times else None)
+    times = ({f"{shape} {mode}": _times(F, gen, shape, mode, seed,
+                                        torch.float32)
+              for shape, mode in FP32_TIMES} if args.times else None)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
@@ -283,7 +292,7 @@ def _fp32(args, S, F, ptxas, gen, seed) -> int:
     print(json.dumps({"device": smi, "ptxas": report, "spills": spills,
                       "checks": checks, "times_ms": times,
                       "failed": len(failed)}), flush=True)
-    return 1 if failed or spills or len(report) != 4 else 0
+    return 1 if failed or spills or len(report) != 8 else 0
 
 
 if __name__ == "__main__":
