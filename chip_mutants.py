@@ -104,8 +104,8 @@ HOP = "hopper.cuh"
 INT8_LAYERS = 4
 FP8 = ('#include "flash_common.cuh"',
        '#include "flash_common.cuh"\n#include <cuda_fp8.h>')
-FP8_WGF = ('#include "flash_bwd_wgmma.cuh"',
-           '#include "flash_bwd_wgmma.cuh"\n#include <cuda_fp8.h>')
+FP8_WGF = ('#include "flash_wg_common.cuh"',
+           '#include "flash_wg_common.cuh"\n#include <cuda_fp8.h>')
 
 # name -> (what it does, [(source, old text, new text), ...][, kind]);
 # the kind is "flash" unless given
@@ -144,10 +144,10 @@ MUTANTS = {
         "wgmma forward: a stage goes back to the producer right after the "
         "commit of the P V group that reads it, before wgmma.wait_group",
         [(WGF, """      hop::wg_commit();
-      hop::wg_wait<1>();                      // S is done, P V runs on""",
+      draw(k0);                               // S and P V in flight""",
           """      hop::wg_commit();
       if (lane == 0) hop::mbar_arrive(hop::smem_u32(&empty[sp]));
-      hop::wg_wait<1>();                      // S is done, P V runs on"""),
+      draw(k0);                               // S and P V in flight"""),
          (WGF, """      if (lane == 0) hop::mbar_arrive(hop::smem_u32(&empty[sp]));
 #pragma unroll
       for (int c = 0; c < NC; ++c)            // O *= alpha""",
@@ -383,6 +383,30 @@ MUTANTS = {
         "(nor scaled) before dS^T",
         [(WGB, "if constexpr (DROP) dpt = kept(dpt, keep, 4 * n + i, "
                "md.inv_keep);", "")],
+        "dropout"),
+    "fwd_drop_l_from_dropped_p": (
+        "wgmma forward, dropout mode: the row sums l take the dropped P "
+        "(keep ? P / (1 - p) : 0), not the undropped one",
+        [(WGF, "        rs[i >> 1] += p;\n",
+          "        rs[i >> 1] += DROP ? kept(p, keep, 4 * n + i, md.inv_keep)"
+          " : p;\n")],
+        "dropout"),
+    "fwd_keep_rows_swapped": (
+        "wgmma forward, dropout mode: the keep bits drawn with the lane's "
+        "two query rows swapped",
+        [(WGF, "keep_bits_qk<8>(bh, row[0], row[1],",
+          "keep_bits_qk<8>(bh, row[1], row[0],")],
+        "dropout"),
+    "fwd_keep_col_shift": (
+        "wgmma forward, dropout mode: the keep bits drawn with the key "
+        "column four on (k0 + 2 t + 4), the next Philox block",
+        [(WGF, "row[1], k0 + 2 * t, key0,", "row[1], k0 + 2 * t + 4, key0,")],
+        "dropout"),
+    "fwd_drop_unscaled": (
+        "wgmma forward, dropout mode: the kept P not scaled by 1 / (1 - p) "
+        "for P V",
+        [(WGF, "acc_to_a_kept(a, sc, keep, md.inv_keep);",
+          "acc_to_a_kept(a, sc, keep, 1.f);")],
         "dropout"),
     "moe_fp32_dw_drops_hi_lo": (
         "fp32 grouped dW: its 3xTF32 products drop the hi*lo pass (A's hi "
@@ -810,7 +834,7 @@ def _dropout_checks(torch, S, K, TrainStep, AdamW) -> tuple:
     del q, k, v, do
     torch.cuda.empty_cache()
     parity = {"failures": []}
-    for (arm, model, cls, args, n_inputs, loss_of, _, mode,
+    for (arm, model, cls, args, n_inputs, loss_of, _, mode, _,
          _) in S.dropout_bf16_arms(torch, np, GPTConfig, GPTForCausalLM,
                                    BertConfig, BertForPreTraining):
         opt = AdamW(learning_rate=S.TRAIN_LR, parameters=model)

@@ -36,8 +36,8 @@ Phases; any failure ends the run with a traceback and a non-zero exit:
    key-padding mask leaving one key, d 128; at d 64, where the backward
    runs the TF32 wgmma kernels, sk 1 and causal sq > sk: ROADMAP C6);
    ``flash_dropout``: the dropout mode (p 0.1), bf16 and
-   fp32, with and without a bias, on one Philox key with its plain
-   version, two launches bitwise equal; ``flash_varlen``: the segment
+   fp32, with and without a bias, d 64 and 128, on one Philox key with
+   its plain version, two launches bitwise equal; ``flash_varlen``: the segment
    mode (packed sequences) on ``bench_llama``'s first packed host step,
    8 documents, 8,760 tokens, bf16 [8760, 16, 128] causal and not, fp32
    [8760, 12, 64] causal against fp64, and a cross-attention batch with
@@ -111,8 +111,8 @@ Phases; any failure ends the run with a traceback and a non-zero exit:
    kernels alone);
    train_dropout_bf16 — 10 steps each of GPT-2 small and BERT-Base in
    bf16 at dropout 0.1 (the bf16 dropout modes), one profiled step of
-   each (its flash backward: the wgmma kernels in the arm's mode, no
-   bf16 mma.sync kernel), and ``train_dropout_bf16_parity``: 3 steps
+   each (its flash forward and backward: the wgmma kernels in the arm's
+   mode, no bf16 mma.sync kernel), and ``train_dropout_bf16_parity``: 3 steps
    through the kernels and 3 inside ``plain_reference()`` from one
    generator state, at ``DROP_BF16_PARITY``;
 9. slice parity — one decode step on one serving engine state, kernels
@@ -1369,7 +1369,8 @@ def phase_flash_dropout(torch, np, F, K) -> dict:
     mask: fp32 at GPT-2's shape (causal) and at the padded BERT shape
     (key-padding mask), and a ragged causal [2, 1000, 4, 128], held by
     ``flash_fp32_errors``'s rule against fp64 with the same mask; bf16 at
-    the same two shapes, held by ``_flash_errors``'s rule (the no-dropout
+    the same three shapes (the ragged d-128 one runs the d-128 dropout
+    instantiations), held by ``_flash_errors``'s rule (the no-dropout
     modes' tolerances). Each kernel launched twice on one key must be
     bitwise equal, and the four dropout modes' launch counters must move.
     Times (``_mode_rows``) at GPT-2's shape without a bias and at the
@@ -1393,7 +1394,9 @@ def phase_flash_dropout(torch, np, F, K) -> dict:
               None),
              ("bf16_gpt2", GPT2_SHAPE, torch.bfloat16, True, None),
              ("bf16_bert_keypad", bert_shape, torch.bfloat16, False,
-              keypad_bias)]
+              keypad_bias),
+             ("bf16_d128_ragged", (2, 1000, 4, 128), torch.bfloat16, True,
+              None)]
     K.reset_launch_counts()
     checks, repeat = {}, {}
     for name, shape, dtype, causal, bias_of in cases:
@@ -1446,7 +1449,7 @@ def phase_flash_dropout(torch, np, F, K) -> dict:
             ("_fp32_drop_bias", torch.float32, bert_shape, False,
              keypad_bias, keep, ("fp32_bert_keypad",)),
             ("_drop", torch.bfloat16, GPT2_SHAPE, True, None, None,
-             ("bf16_gpt2",)),
+             ("bf16_gpt2", "bf16_d128_ragged")),
             ("_drop_bias", torch.bfloat16, bert_shape, False, keypad_bias,
              keep, ("bf16_bert_keypad",))):
         fp32 = dtype == torch.float32
@@ -2113,7 +2116,7 @@ def phase_train_profile(torch, model, opt, TrainStep, batch,
     GEMMs, everything else: elementwise, casts, reductions, the loss and
     the optimizer), the flash kernels that ran, and the optimizer update
     alone, timed by CUDA events on that step's gradients. ``fwd_mode``
-    (``"<128, false>"``), when given: the step's flash forward must be the
+    (``"<128, false, false>"``), when given: the step's flash forward must be the
     wgmma kernel of that mode alone (``check_wgmma_forward``)."""
     step = TrainStep(model, opt, lambda logits, y: model.loss(logits, y))
     out = _profile_steps(torch, lambda: step(batch, batch), 1, top=None)
@@ -2922,8 +2925,8 @@ def flash_bwd_kernels(names) -> list:
 
 def flash_fwd_kernels(names) -> list:
     """The flash forward kernels among a profile's kernel names, each cut
-    to its template (the wgmma ``fwd_wgmma_kernel<D, HAS_BIAS>``, the
-    mma.sync ``flash_fwd_kernel<T, ...>``)."""
+    to its template (the wgmma ``fwd_wgmma_kernel<D, HAS_BIAS, DROP>``,
+    the mma.sync ``flash_fwd_kernel<T, ...>``)."""
     return sorted({_short_kernel_name(n) for n in names
                    if "fwd_wgmma_kernel<" in n or "flash_fwd_kernel<" in n})
 
@@ -2946,8 +2949,8 @@ GROUPED_FWD = ("dx_h_wgmma_kernel<true, true>",
 
 def check_wgmma_forward(tag, prof, mode, grouped=False) -> None:
     """A profiled bf16 step's flash forward: exactly the wgmma kernel of
-    ``mode`` (``"<64, true>"``: D, HAS_BIAS), so no bf16 mma.sync
-    ``flash_fwd_kernel``. With ``grouped``, its grouped forward: the
+    ``mode`` (``"<64, true, false>"``: D, HAS_BIAS, DROP), so no bf16
+    mma.sync ``flash_fwd_kernel``. With ``grouped``, its grouped forward: the
     wgmma pass 1 and pass 2 (``GROUPED_FWD``), and no first-design
     ``expert_h_kernel`` or ``fwd_out_kernel``."""
     want = [f"flash_wg::fwd_wgmma_kernel{mode}"]
@@ -3027,7 +3030,7 @@ def phase_train_moe_profile(torch, model, opt, TrainStep, batch,
                             fp32=False) -> dict:
     """``_step_profile`` of one MoE training step, by category: the MoE
     expert kernels, the routing kernel, flash, RMSNorm, GEMMs, AdamW,
-    everything else. ``fwd_mode`` (``"<64, false>"``), when given: the
+    everything else. ``fwd_mode`` (``"<64, false, false>"``), when given: the
     step's flash forward must be the wgmma kernel of that mode alone and
     its grouped forward the wgmma passes (``check_wgmma_forward``).
     ``fp32``: its flash backward must be the plain TF32 wgmma kernels
@@ -3261,7 +3264,7 @@ def phase_train_bert_profile(torch, model, opt, TrainStep, args,
     everything else. ``wgmma_mode`` (``"<64, true, false>"``: the padded
     arm's bias mode), when given: the step's flash backward must be the
     wgmma dQ and dK/dV kernels of that mode alone
-    (``check_wgmma_backward``); ``fwd_mode`` (``"<64, true>"``): its
+    (``check_wgmma_backward``); ``fwd_mode`` (``"<64, true, false>"``): its
     flash forward must be the wgmma kernel of that mode alone
     (``check_wgmma_forward``)."""
     step = TrainStep(model, opt, _bert_loss(model), n_inputs=n_inputs)
@@ -3587,20 +3590,23 @@ def dropout_bf16_arms(torch, np, GPTConfig, GPTForCausalLM, BertConfig,
     with ``dtype="bfloat16"`` at its dropout 0.1 on the padded batch.
     Yields (arm, model, its class, TrainStep arguments, n_inputs, the
     loss of a model, LayerNorm launches a step, the flash counters'
-    mode suffix, the wgmma backward's template arguments)."""
+    mode suffix, the wgmma backward's template arguments, the wgmma
+    forward's)."""
     gcfg = gpt2_config(GPTConfig, dtype="bfloat16")
     batch = torch.tensor(np.random.default_rng(SEED + 14).integers(
         0, gcfg.vocab_size, (GPT2_BATCH, GPT2_SEQ)), device="cuda")
     yield ("gpt2_bf16", GPTForCausalLM(gcfg, device="cuda", seed=SEED),
            GPTForCausalLM, (batch, batch), 1, _lm_loss,
-           2 * gcfg.num_hidden_layers + 1, "_drop", "<64, false, true>")
+           2 * gcfg.num_hidden_layers + 1, "_drop", "<64, false, true>",
+           "<64, false, true>")
     del batch
     torch.cuda.empty_cache()
     bcfg = BertConfig(dtype="bfloat16")
     args, n_inputs = bert_batch(torch, np, bcfg, padded=True)
     yield ("bert_bf16", BertForPreTraining(bcfg, device="cuda", seed=SEED),
            BertForPreTraining, args, n_inputs, _bert_loss,
-           2 * bcfg.num_hidden_layers + 2, "_drop_bias", "<64, true, true>")
+           2 * bcfg.num_hidden_layers + 2, "_drop_bias", "<64, true, true>",
+           "<64, true, true>")
     del args
     torch.cuda.empty_cache()
 
@@ -3638,10 +3644,10 @@ def phase_train_dropout_bf16(torch, np, K, GPTConfig, GPTForCausalLM,
     """The bf16 dropout modes on their paths (``dropout_bf16_arms``):
     for each arm ``DROP_BF16_STEPS`` steps (finite losses; 12 of each
     bf16 dropout flash kernel a step, GPT-2 without a bias and BERT with
-    its key-padding bias), one profiled step whose flash backward must be
-    the wgmma dQ
-    and dK/dV kernels in the arm's mode and no bf16 mma.sync kernel
-    (``check_wgmma_backward``), then ``train_dropout_bf16_parity``
+    its key-padding bias), one profiled step whose flash forward and
+    backward must be the wgmma forward, dQ and dK/dV kernels in the arm's
+    mode and no bf16 mma.sync kernel (``check_wgmma_forward``,
+    ``check_wgmma_backward``), then ``train_dropout_bf16_parity``
     (``dropout_bf16_parity_run``): 3 steps through the kernels and 3
     inside ``plain_reference()`` from the state the profiled step
     leaves, both from one generator state, at ``DROP_BF16_PARITY``.
@@ -3668,9 +3674,9 @@ def phase_train_dropout_bf16(torch, np, K, GPTConfig, GPTForCausalLM,
     it as the plain version's, so their ratio is held to 4 (GPT-2 has no
     such parameter: ``UNRESOLVED_RATIO``)."""
     out, parity, failures = {"card": smi}, {}, []
-    for (arm, model, cls, args, n_inputs, loss_of, n_ln, mode,
-         wgmma) in dropout_bf16_arms(torch, np, GPTConfig, GPTForCausalLM,
-                                     BertConfig, BertForPreTraining):
+    for (arm, model, cls, args, n_inputs, loss_of, n_ln, mode, wgmma,
+         fwd) in dropout_bf16_arms(torch, np, GPTConfig, GPTForCausalLM,
+                                   BertConfig, BertForPreTraining):
         L = model.config.num_hidden_layers
         out[arm], opt = _train_steps(torch, K, model, TrainStep, AdamW, args,
                                      n_inputs, loss_of(model),
@@ -3687,11 +3693,14 @@ def phase_train_dropout_bf16(torch, np, K, GPTConfig, GPTForCausalLM,
         out[arm]["profile"] = _step_profile(
             torch, lambda: step(*args), model, opt,
             _BERT_CATEGORIES if arm.startswith("bert") else _GPT2_CATEGORIES)
-        try:
-            check_wgmma_backward(arm, out[arm]["profile"]["flash_bwd_kernels"],
-                                 wgmma)
-        except AssertionError as e:
-            failures.append(str(e))
+        prof = out[arm]["profile"]
+        for check in (lambda: check_wgmma_forward(arm, prof, fwd),
+                      lambda: check_wgmma_backward(
+                          arm, prof["flash_bwd_kernels"], wgmma)):
+            try:
+                check()
+            except AssertionError as e:
+                failures.append(str(e))
         parity[arm] = dropout_bf16_parity_run(
             torch, K, model, opt, TrainStep, cls, args, n_inputs, loss_of,
             DROP_BF16_PARITY[arm],
@@ -4000,7 +4009,7 @@ def main(argv=None) -> int:
     train, opt = phase_train(torch, K, model, TrainStep, AdamW, batch, smi)
     phase_train_parity(torch, K, model, opt, TrainStep, batch)
     train_prof = phase_train_profile(torch, model, opt, TrainStep, batch,
-                                     "<128, false>")
+                                     "<128, false, false>")
     for p in model.parameters():
         p.grad = None
     del model, opt
@@ -4020,7 +4029,7 @@ def main(argv=None) -> int:
                                      batch, smi)
     phase_train_moe_parity(torch, K, model, opt, TrainStep, batch)
     moe_prof = phase_train_moe_profile(torch, model, opt, TrainStep, batch,
-                                       fwd_mode="<64, false>")
+                                       fwd_mode="<64, false, false>")
     for p in model.parameters():
         p.grad = None
     del model, opt
@@ -4060,7 +4069,7 @@ def main(argv=None) -> int:
                                        padded=False)
     phase_train_bert_profile(torch, model, opt, TrainStep, bert_args,
                              n_inputs, "train_bert_profile_unpadded",
-                             "<64, false, false>", "<64, false>")
+                             "<64, false, false>", "<64, false, false>")
     with torch.no_grad():   # the padded arm starts from the same weights
         for k, p in model.named_parameters():
             p.copy_(init[k])
@@ -4073,7 +4082,7 @@ def main(argv=None) -> int:
                             BertForPreTraining, bert_args, n_inputs)
     bert_prof = phase_train_bert_profile(
         torch, model, opt, TrainStep, bert_args, n_inputs,
-        wgmma_mode="<64, true, false>", fwd_mode="<64, true>")
+        wgmma_mode="<64, true, false>", fwd_mode="<64, true, false>")
     for p in model.parameters():
         p.grad = None
     del model, opt, bert_args
@@ -4254,16 +4263,27 @@ def main(argv=None) -> int:
                     "flash_bwd_kernels"],
                 "_fp32_drop_bias": bert_defaults["profile"][
                     "flash_bwd_kernels"]}
+    # and the bf16 dropout forward's that each arm's profiled step ran
+    ran_drop = {suffix: dropout_bf16[arm]["profile"]["flash_fwd_kernels"]
+                for suffix, arm in (("_drop", "gpt2_bf16"),
+                                    ("_drop_bias", "bert_bf16"))}
     for suffix, counts in mode_launches.items():
-        # the bf16 backward's modes run the wgmma kernels, the fp32 ones
-        # (d 64 on these paths) the TF32 wgmma kernels
-        bwd = ("flash_bwd_tf32.cuh" if suffix in ran_fp32
-               else "flash_bwd_wgmma.cuh")
+        # the bf16 modes run the wgmma kernels, forward and backward; the
+        # fp32 ones the mma.sync forward and (d 64 on these paths) the
+        # TF32 wgmma backward
+        fp32 = suffix in ran_fp32
+        fwd = "flash_attention_fwd.cu" if fp32 else "flash_fwd_wgmma.cuh"
+        bwd = "flash_bwd_tf32.cuh" if fp32 else "flash_bwd_wgmma.cuh"
         for kind, source, line in (
-                ("fwd", "flash_attention_fwd.cu", 242),
-                ("dq", bwd, 558), ("dkv", bwd, 590)):
+                ("fwd", fwd, 242), ("dq", bwd, 558), ("dkv", bwd, 590)):
             name = f"flash_{kind}{suffix}"
             row = flash_modes[name]
+            if fp32:
+                ran_k = None if kind == "fwd" else [
+                    k_ for k_ in ran_fp32[suffix]
+                    if k_.split("::")[-1].startswith(kind)]
+            else:
+                ran_k = ran_drop[suffix] if kind == "fwd" else None
             kernels.append({
                 "name": name, "route": "cuda", "source": src + source,
                 "replaces": f"paddle_tpu/ops/pallas/flash_attention.py:{line}",
@@ -4271,10 +4291,8 @@ def main(argv=None) -> int:
                 "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                 "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                 "bound_by": row["bound_by"], "library_ms": row["library_ms"],
-                "shape": row["shape"], **(
-                    {"kernels": [k_ for k_ in ran_fp32[suffix]
-                                 if k_.split("::")[-1].startswith(kind)]}
-                    if kind != "fwd" and suffix in ran_fp32 else {})})
+                "shape": row["shape"],
+                **({"kernels": ran_k} if ran_k is not None else {})})
     # the segment mode: launches from varlen_packed, the slice's path
     for suffix in ("_seg", "_fp32_seg"):
         for kind, source, line in (

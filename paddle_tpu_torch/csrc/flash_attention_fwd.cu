@@ -83,11 +83,11 @@
 // scores take -1e30, the subtracted max is clamped at -1e25, and a row that
 // sees no key gets out = 0 and lse = -1e30, as in the Pallas kernel.
 //
-// The bf16 modes without dropout and segment ids (plain and bias: the
-// ones Llama, Qwen2-MoE and BERT train with) run the wgmma / TMA kernel of
-// flash_fwd_wgmma.cuh instead: launch() routes them there, so this file's
-// kernel is instantiated in bf16 for dropout and segment ids alone, and in
-// fp32 for every mode.
+// The bf16 modes without segment ids (plain, bias, dropout and bias +
+// dropout: the ones Llama, Qwen2-MoE, BERT and GPT-2 train with) run the
+// wgmma / TMA kernel of flash_fwd_wgmma.cuh instead: launch() routes them
+// there, so this file's kernel is instantiated in bf16 for segment ids
+// alone, and in fp32 for every mode.
 //
 // C interface (bound with ctypes): flash_fwd_launch returns the CUDA launch
 // error (0 on success); it never synchronises.
@@ -357,23 +357,20 @@ int launch(const void* q, const void* k, const void* v, void* out, void* lse,
            int causal, uint32_t thresh, float inv_keep,
            cudaStream_t stream) {
   constexpr bool kBf16 = std::is_same<T, bf16>::value;
-  if constexpr (kBf16) {   // plain and bias modes: the wgmma kernel
-    if (!seg[0] && !seed)
+  if constexpr (kBf16) {   // every mode but segment ids: the wgmma kernel
+    if (!seg[0])
       return flash_wg::fwd_launch<D>(
           q, k, v, out, lse, b, h, sq, sk, st, scale, causal,
           {static_cast<const float*>(bias), st[9], st[10], st[11], st[12],
-           nullptr, 0u, 1.f},
+           static_cast<const int64_t*>(seed), thresh, inv_keep},
           stream);
   }
   constexpr int LD = Pitch<T, D>::LD;
   const size_t smem = kBf16 ? sizeof(T) * 4 * kBK * LD
                             : sizeof(T) * (kBQ + 4 * kBK) * LD;
   auto kern = flash_fwd_kernel<T, D, false, false, true>;   // segment ids
-  if (!seg[0]) {
-    if constexpr (kBf16)   // dropout, with or without a bias
-      kern = bias ? flash_fwd_kernel<T, D, true, true, false>
-                  : flash_fwd_kernel<T, D, false, true, false>;
-    else
+  if constexpr (!kBf16) {
+    if (!seg[0])
       kern = bias ? (seed ? flash_fwd_kernel<T, D, true, true, false>
                           : flash_fwd_kernel<T, D, true, false, false>)
                   : (seed ? flash_fwd_kernel<T, D, false, true, false>

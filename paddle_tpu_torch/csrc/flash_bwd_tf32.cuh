@@ -96,7 +96,7 @@
 
 #pragma once
 
-#include "flash_bwd_wgmma.cuh"
+#include "flash_wg_common.cuh"
 
 namespace flash_tf32 {
 

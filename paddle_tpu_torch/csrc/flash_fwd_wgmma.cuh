@@ -2,13 +2,13 @@
 // bias, masked) V and lse on wgmma, K and V fed by TMA through an
 // mbarrier ring.
 //
-// Replaces, for bf16 inputs without segment ids and without dropout
-// (causal or not, d 64 or 128, with or without an additive fp32 bias: the
-// modes that Llama, Qwen2-MoE and BERT train with in bf16),
+// Replaces, for bf16 inputs without segment ids (causal or not, d 64 or
+// 128, with or without an additive fp32 bias and in-kernel dropout: the
+// modes that Llama, Qwen2-MoE, BERT and GPT-2 train with in bf16),
 // paddle_tpu/ops/pallas/flash_attention.py::_fwd_kernel (:96) and _fwd
 // (:174, its pallas_call at :242). flash_attention_fwd.cu's launcher
-// routes these modes here; dropout, segment ids and every fp32 mode keep
-// the mma.sync kernel there.
+// routes these modes here; segment ids and every fp32 mode keep the
+// mma.sync kernel there.
 //
 // Bound on the H100: operations. At the training path's shape (b 4, s 2048,
 // h 16, d 128, causal) the two products are 68.7 GFLOP, 69 us at the 989
@@ -56,6 +56,21 @@
 // row max taken in natural units and log2e folded into the exponent's
 // fma; a bias of -inf or -1e30 gives P = 0 and no NaN.
 //
+// Dropout mode (DROP, a template flag too), as _fwd_kernel (:149-163,
+// _drop_mask :50): the running max and the row sums l take the undropped
+// P, P V takes keep ? P / (1 - p) : 0, rounded to bf16 as the A operand
+// (acc_to_a_kept), and lse is unchanged. A tile's keep bits are drawn
+// where and as dq_wgmma_kernel draws them, in the same m64n64 frame:
+// once S of the tile (and P V of the tile before) is committed, one
+// Philox block per four elements (philox.cuh keep_bits_qk's lane
+// exchange), so the forward's mask is the backward's for every (query,
+// key) by construction. The mma.sync kernel drew each block twice (lanes
+// t and t ^ 1). ptxas issues the draw's integer work before the products
+// (the SASS), and pinned behind S's wait it took the same time on an
+// H100: it costs its issue slots wherever it runs (PERF.md §6). The key
+// (seed, offset) is read from a device int64 [2], so no draw waits for
+// the host.
+//
 // Arithmetic: the mma.sync kernel's (flash_attention_fwd.cu): the fp32
 // product is scaled, P is rounded to bf16 for P V and the row sums take
 // the fp32 P; masked scores take -1e30 and the subtracted max is clamped
@@ -65,7 +80,7 @@
 
 #include <algorithm>
 
-#include "flash_bwd_wgmma.cuh"
+#include "flash_wg_common.cuh"
 
 namespace flash_wg {
 
@@ -90,7 +105,7 @@ __device__ __forceinline__ void cp4(uint32_t dst, const void* src,
 
 // ---- forward: block (batch*head, q tile); q rows q0.., 64 wg.. a
 // consumer ----
-template <int D, bool HAS_BIAS>
+template <int D, bool HAS_BIAS, bool DROP>
 __global__ void __launch_bounds__(kThreads, 1)
 fwd_wgmma_kernel(bf16* __restrict__ out, float* __restrict__ lse, int H,
                  int sq, int sk, float scale, int causal, int group,
@@ -214,12 +229,19 @@ fwd_wgmma_kernel(bf16* __restrict__ out, float* __restrict__ lse, int H,
     boff[1] = one_row ? 2 * t : (lr + 8) * 64 + 2 * t;
     bx = one_row ? 0 : (lr & 7) << 3;
   }
+  uint32_t key0 = 0, key1 = 0;                       // DROP: the Philox key
+  if constexpr (DROP) {
+    key0 = (uint32_t)md.seed[0];
+    key1 = (uint32_t)md.seed[1];
+  }
 
   float o[NC][8][4];
 #pragma unroll
   for (int c = 0; c < NC; ++c) zero(o[c]);
   float m_r[2] = {flash::kNeg, flash::kNeg};   // running max, base 2
   float l_r[2] = {0.f, 0.f};                   // this lane's row sums
+  uint32_t keep = 0;                           // DROP: the keep bits of S's
+                                               // tile (bit 4 n + i: [n][i])
 
   // tile k0's scores in s -> P (fp32), the running max and sums updated,
   // with the bias of stage st; alpha: the factor of the O so far
@@ -289,9 +311,23 @@ fwd_wgmma_kernel(bf16* __restrict__ out, float* __restrict__ lse, int H,
     for (int r = 0; r < 2; ++r) l_r[r] = l_r[r] * alpha[r] + rs[r];
   };
 
+  // DROP: tile k0's keep bits
+  auto draw = [&](int k0) {
+    if constexpr (DROP)
+      keep = flash::keep_bits_qk<8>(bh, row[0], row[1], k0 + 2 * t, key0,
+                                    key1, md.thresh, lane);
+  };
+
   if (n_mine > 0) {
     uint32_t a[4][4];                          // P of the tile before
     float sc[8][4], alpha[2];
+    // P (in sc) as P V's A operand; DROP: keep ? P / (1 - p) : 0
+    auto p_to_a = [&]() {
+      if constexpr (DROP)
+        acc_to_a_kept(a, sc, keep, md.inv_keep);
+      else
+        hop::acc_to_a(a, sc);
+    };
     hop::mbar_wait(hop::smem_u32(&qbar), 0);
     hop::mbar_wait(hop::smem_u32(&full[0]), 0);
     zero(sc);
@@ -301,10 +337,11 @@ fwd_wgmma_kernel(bf16* __restrict__ out, float* __restrict__ lse, int H,
       hop::wgmma_chunk<0, 0>(sc, sQ + c * 2 * kAtom + wg * kAtom,
                              ring + c * kAtom);
     hop::wg_commit();
+    draw(0);                                  // S in flight
     hop::wg_wait<0>();
     hop::acc_fence(sc);
     softmax(sc, 0, ring, alpha);              // O is 0: nothing to rescale
-    hop::acc_to_a(a, sc);
+    p_to_a();
     for (int j = 1; j < n_mine; ++j) {
       const int s = j % S, sp = (j - 1) % S, k0 = j * 64;
       const uint32_t st = ring + s * kStage, stp = ring + sp * kStage;
@@ -318,6 +355,7 @@ fwd_wgmma_kernel(bf16* __restrict__ out, float* __restrict__ lse, int H,
       hop::wg_commit();
       hop::wgmma_rs_chunk<1, NC>(o, a, stp + kKV, kAtom);  // O += P V, j - 1
       hop::wg_commit();
+      draw(k0);                               // S and P V in flight
       hop::wg_wait<1>();                      // S is done, P V runs on
       hop::acc_fence(sc);
       softmax(sc, k0, st, alpha);
@@ -338,7 +376,7 @@ fwd_wgmma_kernel(bf16* __restrict__ out, float* __restrict__ lse, int H,
           o[c][n][2] *= alpha[1];
           o[c][n][3] *= alpha[1];
         }
-      hop::acc_to_a(a, sc);
+      p_to_a();
     }
     const int sl = (n_mine - 1) % S;
     hop::wg_fence();
@@ -381,7 +419,8 @@ fwd_wgmma_kernel(bf16* __restrict__ out, float* __restrict__ lse, int H,
 
 // q, k, v [b, s, h, D] bf16 through their (batch, seq, head) strides st[0..8];
 // out contiguous [b, sq, h, D], lse fp32 [b, h, sq]. md: the bias (null:
-// none) and its strides; no dropout here.
+// none) and its strides, the dropout key (null: none) and its threshold
+// and 1 / (1 - p).
 // The heads of a block group (fwd_wgmma_kernel): as many as keep their K
 // and V within kGroupBytes, so that the blocks in flight (a wave is 132)
 // read them from the 50 MB L2 and not each from memory.
@@ -407,7 +446,10 @@ int fwd_launch(const void* q, const void* k, const void* v, void* out,
   const size_t smem = NC * 2 * kAtom
                       + kFwdStages * (2 * NC * kAtom + (md.bias ? kBiasTile : 0))
                       + 1024;
-  auto kern = md.bias ? fwd_wgmma_kernel<D, true> : fwd_wgmma_kernel<D, false>;
+  auto kern = md.bias ? (md.seed ? fwd_wgmma_kernel<D, true, true>
+                                 : fwd_wgmma_kernel<D, true, false>)
+                      : (md.seed ? fwd_wgmma_kernel<D, false, true>
+                                 : fwd_wgmma_kernel<D, false, false>);
   cudaError_t err = flash::allow_smem(kern, smem);
   if (err != cudaSuccess) return (int)err;
   kern<<<(unsigned)(bh * n_qt), kThreads, smem, stream>>>(

@@ -1,9 +1,12 @@
 """Kernels 3-5: flash attention forward, dQ and dK/dV (CUDA,
 ``csrc/flash_attention_fwd.cu`` and ``csrc/flash_attention_bwd.cu``,
 whose bf16 modes without segment ids, with or without a bias and
-dropout, run the wgmma kernels of ``csrc/flash_bwd_wgmma.cuh``, and
-whose fp32 modes at head_dim 64 without segment ids, with or without a
-bias and dropout, the TF32 wgmma kernels of ``csrc/flash_bwd_tf32.cuh``).
+dropout, run the wgmma kernels of ``csrc/flash_fwd_wgmma.cuh`` (the
+forward) and ``csrc/flash_bwd_wgmma.cuh`` (dQ and dK/dV), and whose
+backward's fp32 modes at head_dim 64 without segment ids, with or
+without a bias and dropout, the TF32 wgmma kernels of
+``csrc/flash_bwd_tf32.cuh``; every other mode runs the ``mma.sync``
+kernels of the two ``.cu`` files).
 
 Replaces ``paddle_tpu/ops/pallas/flash_attention.py``: ``_fwd`` (its
 ``pallas_call`` at :242) and the two ``pallas_call``s of

@@ -1,9 +1,10 @@
 """The card-side checks' own logic, on the CPU.
 
 ``chip_smoke.py`` holds each profiled training step to the flash
-backward instantiations of its mode (``check_fp32_backward``,
-``check_wgmma_backward``, from the profiler's kernel names through
-``flash_bwd_kernels``), and ``chip_mutants.py`` plants each of its
+forward and backward instantiations of its mode (``check_wgmma_forward``,
+``check_fp32_backward``, ``check_wgmma_backward``, from the profiler's
+kernel names through ``flash_fwd_kernels`` and ``flash_bwd_kernels``),
+and ``chip_mutants.py`` plants each of its
 faults by replacing one piece of text of a kernel source, which must
 occur there exactly once. Both run only on the card; these tests pin
 them here, so that a renamed instantiation or an edited source cannot
@@ -58,6 +59,43 @@ def test_fp32_backward_check_takes_its_mode_alone(bias, drop):
         S.check_fp32_backward(
             "t", S.flash_bwd_kernels(_names(bias, drop) + [mma]), drop=drop,
             bias=bias)
+
+
+# profiler names of the bf16 wgmma forward's instantiations
+_FWD_ARGS = ("(__nv_bfloat16*, float*, int, int, int, float, int, int, "
+             "flash_wg::Mode, CUtensorMap_st, CUtensorMap_st, "
+             "CUtensorMap_st)")
+
+
+def _fwd_names(d, bias, drop):
+    b, p = str(bias).lower(), str(drop).lower()
+    return [f"void flash_wg::fwd_wgmma_kernel<{d}, {b}, {p}>{_FWD_ARGS}",
+            "void layer_norm_fwd_kernel<__nv_bfloat16>()"]
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("bias", [False, True])
+@pytest.mark.parametrize("drop", [False, True])
+def test_wgmma_forward_check_takes_its_mode_alone(d, bias, drop):
+    """A step that ran the wgmma forward of its mode (``<D, HAS_BIAS,
+    DROP>``) passes; one that ran another mode's, or a bf16 mma.sync
+    ``flash_fwd_kernel`` beside it, fails."""
+    mode = f"<{d}, {str(bias).lower()}, {str(drop).lower()}>"
+
+    def prof(names):
+        return {"flash_fwd_kernels": S.flash_fwd_kernels(names)}
+
+    S.check_wgmma_forward("t", prof(_fwd_names(d, bias, drop)), mode)
+    for other in ((192 - d, bias, drop), (d, not bias, drop),
+                  (d, bias, not drop)):
+        with pytest.raises(AssertionError):
+            S.check_wgmma_forward("t", prof(_fwd_names(*other)), mode)
+    mma = ("void (anonymous namespace)::flash_fwd_kernel<__nv_bfloat16, "
+           f"{d}, {str(bias).lower()}, {str(drop).lower()}, false>"
+           "(__nv_bfloat16 const*)")
+    with pytest.raises(AssertionError):
+        S.check_wgmma_forward(
+            "t", prof(_fwd_names(d, bias, drop) + [mma]), mode)
 
 
 @pytest.mark.parametrize("name", sorted(M.MUTANTS))

@@ -4,7 +4,7 @@ that two trees (a parent commit unpacked with ``git archive`` and the
 working tree) can be compared on one card in one call, in turns.
 
     python3 tools/flash_ab.py [--tree PATH] [--rows NAME ...] [--train]
-                              [--steps]
+                              [--steps [NAME ...]]
 
 ``--tree`` is the root of a checkout holding ``paddle_tpu_torch`` (default:
 this repository); its kernels are built into that tree's own
@@ -28,17 +28,19 @@ in the output), so that a row slower for the card's state shows it.
 (``train_profile``: device time by category, idle share) on that tree's
 package, with this repository's ``chip_smoke.py`` as the harness.
 ``--steps`` runs, the same way, the steps that the bias and dropout
-backward carry: ``train_bert_padded`` (BERT-Base bf16 on the padded
-batch, 10 steps: the bf16 bias mode), the GPT-2 small bf16 arm of
-``train_dropout_bf16`` at dropout 0.1 (10 steps: the bf16 dropout mode)
-and ``train_gpt2`` (GPT-2 small at its defaults, fp32 at dropout 0.1,
-10 steps: the fp32 dropout mode) and the defaults arm of
+modes carry (those named, in ``STEPS``' order; all without a name):
+``train_bert_padded`` (BERT-Base bf16 on the padded batch, 10 steps: the
+bf16 bias mode), the two arms of ``train_dropout_bf16`` at dropout 0.1,
+``gpt2_bf16`` (GPT-2 small, 10 steps: the bf16 dropout mode) and
+``bert_bf16`` (BERT-Base on the padded batch, 10 steps: the bf16 bias +
+dropout mode), ``train_gpt2`` (GPT-2 small at its defaults, fp32 at
+dropout 0.1, 10 steps: the fp32 dropout mode) and the defaults arm of
 ``train_bert_defaults`` (BERT-Base at its own defaults, fp32 at dropout
 0.1, on the padded batch, 10 steps: the fp32 bias + dropout mode), each
 with one profiled step (device time by category, idle share, the flash
-backward kernels that ran). Prints one JSON line: the tree, the card,
-the times in ms, the steps' figures, and, when this run built the
-kernels, ``ptxas``'s registers and spills per instantiation.
+forward and backward kernels that ran). Prints one JSON line: the tree,
+the card, the times in ms, the steps' figures, and, when this run built
+the kernels, ``ptxas``'s registers and spills per instantiation.
 """
 
 import argparse
@@ -74,6 +76,10 @@ ROWS = {
 }
 
 
+STEPS = ("train_bert_padded", "gpt2_bf16", "bert_bf16", "train_gpt2",
+         "train_bert_defaults")
+
+
 def _gpu_state() -> str:
     """The card's SM clock (MHz), temperature (C) and power draw (W) now,
     as ``nvidia-smi`` reads them."""
@@ -101,7 +107,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", default=HERE)
     ap.add_argument("--train", action="store_true")
-    ap.add_argument("--steps", action="store_true")
+    ap.add_argument("--steps", nargs="*", choices=STEPS,
+                    help="the steps to run (no name: all of STEPS)")
     ap.add_argument("--rows", nargs="+", choices=list(ROWS),
                     help="the rows to time, in this order (default: every "
                          "row, in ROWS' order)")
@@ -164,7 +171,9 @@ def main(argv=None) -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
     train = _train(smi) if args.train else None
-    steps = _steps(smi) if args.steps else None
+    steps = (None if args.steps is None
+             else _steps(smi, [n for n in STEPS
+                               if not args.steps or n in args.steps]))
     print(json.dumps({"tree": args.tree, "device": smi, "ms": times,
                       "gpu": gpu, "train": train, "steps": steps,
                       "ptxas": report}), flush=True)
@@ -184,13 +193,13 @@ def _harness():
 def _profile_figures(prof) -> dict:
     return {k: prof[k] for k in ("wall_ms", "device_ms", "idle_share",
                                  "device_ms_by_category",
-                                 "flash_bwd_kernels") if k in prof}
+                                 "flash_fwd_kernels", "flash_bwd_kernels")
+            if k in prof}
 
 
-def _steps(smi) -> dict:
-    """``train_bert_padded``, the GPT-2 bf16 dropout arm, ``train_gpt2``
-    and ``train_bert_defaults``' defaults arm, each with one profiled
-    step, on the package that ``main`` imported."""
+def _steps(smi, names) -> dict:
+    """The steps ``names`` (of ``STEPS``), each with one profiled step, on
+    the package that ``main`` imported."""
     from paddle_tpu_torch.jit import TrainStep
     from paddle_tpu_torch.models import (BertConfig, BertForPreTraining,
                                          GPTConfig, GPTForCausalLM)
@@ -199,61 +208,67 @@ def _steps(smi) -> dict:
     from paddle_tpu_torch.optimizer import AdamW
     build.build_all(["layer_norm"])
     S = _harness()
-    cfg = S.bert_config(BertConfig)
-    model = BertForPreTraining(cfg, device="cuda", seed=S.SEED)
-    args, n_inputs = S.bert_batch(torch, np, cfg, padded=True)
-    train, opt = S.phase_train_bert(torch, K, model, TrainStep, AdamW, args,
-                                    n_inputs, smi, padded=True)
-    prof = S.phase_train_bert_profile(torch, model, opt, TrainStep, args,
-                                      n_inputs)
-    out = {"train_bert_padded": {
-        "step_ms": train["step_ms"],
-        "median_step_ms": train["median_step_ms"],
-        "profile": _profile_figures(prof)}}
-    del model, opt, args
-    torch.cuda.empty_cache()
-    arm, model, _, args, n_inputs, loss_of, *_ = next(S.dropout_bf16_arms(
-        torch, np, GPTConfig, GPTForCausalLM, BertConfig,
-        BertForPreTraining))
-    res, opt = S._train_steps(torch, K, model, TrainStep, AdamW, args,
-                              n_inputs, loss_of(model), S.BERT_STEPS)
-    step = TrainStep(model, opt, loss_of(model), n_inputs=n_inputs)
-    prof = S._step_profile(torch, lambda: step(*args), model, opt,
-                           S._GPT2_CATEGORIES)
-    out[arm] = {"step_ms": res["step_ms"],
+    out = {}
+
+    def run(model, args, n_inputs, loss_fn, categories) -> dict:
+        res, opt = S._train_steps(torch, K, model, TrainStep, AdamW, args,
+                                  n_inputs, loss_fn, S.BERT_STEPS)
+        step = TrainStep(model, opt, loss_fn, n_inputs=n_inputs)
+        prof = S._step_profile(torch, lambda: step(*args), model, opt,
+                               categories)
+        return {"step_ms": res["step_ms"],
                 "median_step_ms": float(np.median(res["step_ms"][2:])),
                 "profile": _profile_figures(prof)}
-    del model, opt, step, args
-    torch.cuda.empty_cache()
-    model = GPTForCausalLM(S.gpt2_config(GPTConfig), device="cuda",
-                           seed=S.SEED)
-    batch = torch.tensor(np.random.default_rng(S.SEED).integers(
-        0, model.config.vocab_size, (S.GPT2_BATCH, S.GPT2_SEQ)),
-        device="cuda")
-    train, opt = S.phase_train_gpt2(torch, np, K, model, TrainStep, AdamW,
-                                    batch, smi)
-    step = TrainStep(model, opt, lambda logits, y: model.loss(logits, y))
-    prof = S._step_profile(torch, lambda: step(batch, batch), model, opt,
-                           S._GPT2_CATEGORIES)
-    out["train_gpt2"] = {"step_ms": train["step_ms"],
-                         "median_step_ms": train["median_step_ms"],
-                         "profile": _profile_figures(prof)}
-    del model, opt, step, batch
-    torch.cuda.empty_cache()
-    cfg = BertConfig()          # fp32, dropout 0.1
-    model = BertForPreTraining(cfg, device="cuda", seed=S.SEED)
-    args, n_inputs = S.bert_batch(torch, np, cfg, padded=True)
-    res, opt = S._train_steps(torch, K, model, TrainStep, AdamW, args,
-                              n_inputs, S._bert_loss(model), S.BERT_STEPS)
-    step = TrainStep(model, opt, S._bert_loss(model), n_inputs=n_inputs)
-    prof = S._step_profile(torch, lambda: step(*args), model, opt,
-                           S._BERT_CATEGORIES)
-    out["train_bert_defaults"] = {
-        "step_ms": res["step_ms"],
-        "median_step_ms": float(np.median(res["step_ms"][2:])),
-        "profile": _profile_figures(prof)}
-    del model, opt, step, args
-    torch.cuda.empty_cache()
+
+    if "train_bert_padded" in names:
+        cfg = S.bert_config(BertConfig)
+        model = BertForPreTraining(cfg, device="cuda", seed=S.SEED)
+        args, n_inputs = S.bert_batch(torch, np, cfg, padded=True)
+        train, opt = S.phase_train_bert(torch, K, model, TrainStep, AdamW,
+                                        args, n_inputs, smi, padded=True)
+        prof = S.phase_train_bert_profile(torch, model, opt, TrainStep, args,
+                                          n_inputs)
+        out["train_bert_padded"] = {
+            "step_ms": train["step_ms"],
+            "median_step_ms": train["median_step_ms"],
+            "profile": _profile_figures(prof)}
+        del model, opt, args
+        torch.cuda.empty_cache()
+    if {"gpt2_bf16", "bert_bf16"} & set(names):
+        for arm, model, _, args, n_inputs, loss_of, *_ in S.dropout_bf16_arms(
+                torch, np, GPTConfig, GPTForCausalLM, BertConfig,
+                BertForPreTraining):
+            if arm in names:
+                out[arm] = run(model, args, n_inputs, loss_of(model),
+                               S._BERT_CATEGORIES if arm == "bert_bf16"
+                               else S._GPT2_CATEGORIES)
+            del model, args
+            torch.cuda.empty_cache()
+    if "train_gpt2" in names:
+        model = GPTForCausalLM(S.gpt2_config(GPTConfig), device="cuda",
+                               seed=S.SEED)
+        batch = torch.tensor(np.random.default_rng(S.SEED).integers(
+            0, model.config.vocab_size, (S.GPT2_BATCH, S.GPT2_SEQ)),
+            device="cuda")
+        train, opt = S.phase_train_gpt2(torch, np, K, model, TrainStep,
+                                        AdamW, batch, smi)
+        step = TrainStep(model, opt, lambda logits, y: model.loss(logits, y))
+        prof = S._step_profile(torch, lambda: step(batch, batch), model, opt,
+                               S._GPT2_CATEGORIES)
+        out["train_gpt2"] = {"step_ms": train["step_ms"],
+                             "median_step_ms": train["median_step_ms"],
+                             "profile": _profile_figures(prof)}
+        del model, opt, step, batch
+        torch.cuda.empty_cache()
+    if "train_bert_defaults" in names:
+        cfg = BertConfig()          # fp32, dropout 0.1
+        model = BertForPreTraining(cfg, device="cuda", seed=S.SEED)
+        args, n_inputs = S.bert_batch(torch, np, cfg, padded=True)
+        out["train_bert_defaults"] = run(model, args, n_inputs,
+                                         S._bert_loss(model),
+                                         S._BERT_CATEGORIES)
+        del model, args
+        torch.cuda.empty_cache()
     return out
 
 

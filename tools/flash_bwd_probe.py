@@ -1,9 +1,8 @@
 #!/usr/bin/env python3
 """A short first call for the bf16 flash kernels on a GPU: the backward
-(``csrc/flash_bwd_wgmma.cuh``: dQ and dK/dV on wgmma, fed by TMA, in
-their plain, bias, dropout and bias + dropout modes) and the forward
-(``csrc/flash_fwd_wgmma.cuh`` in the plain and bias modes; dropout keeps
-the mma.sync kernel of ``flash_attention_fwd.cu``).
+(``csrc/flash_bwd_wgmma.cuh``: dQ and dK/dV on wgmma, fed by TMA) and
+the forward (``csrc/flash_fwd_wgmma.cuh``), each in its plain, bias,
+dropout and bias + dropout modes.
 
     python3 tools/flash_bwd_probe.py [--report FILE] [--times] [--big]
     python3 tools/flash_bwd_probe.py --fp32 [--report FILE] [--times] [--big]
