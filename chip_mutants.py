@@ -1,10 +1,9 @@
 #!/usr/bin/env python3
 """Plant known faults in the flash attention, MoE, int8 paged and
 LayerNorm kernels, in the flash bias, fp32 (the mma.sync kernels and the
-TF32 wgmma backward), dropout and segment modes and in the grouped-GEMM
-kernels' fp32 mode, and
-show which of ``chip_smoke.py``'s checks catch each one (a mutation
-check, on one GPU).
+TF32 wgmma forward and backward), dropout and segment modes and in the
+grouped-GEMM kernels' fp32 mode, and show which of ``chip_smoke.py``'s
+checks catch each one (a mutation check, on one GPU).
 
     python3 chip_mutants.py [--only NAME ...]
 
@@ -95,6 +94,8 @@ import numpy as np
 BWD, FWD = "flash_attention_bwd.cu", "flash_attention_fwd.cu"
 WGB, WGF = "flash_bwd_wgmma.cuh", "flash_fwd_wgmma.cuh"
 TF32 = "flash_bwd_tf32.cuh"
+TF32C = "flash_tf32_common.cuh"
+TF32F = "flash_fwd_tf32.cuh"
 ROUTE, GG = "moe_routing.cu", "moe_grouped_gemm.cu"
 PAGED = "paged_attention.cu"
 LN = "layer_norm.cu"
@@ -453,7 +454,7 @@ MUTANTS = {
           "nt_product_f32<kBK / 8, D, LD, mma3>(dp,"),
          (BWD, "nt_product_f32<BQ / 8, D, LD, mma4>(dp,",
           "nt_product_f32<BQ / 8, D, LD, mma3>(dp,"),
-         (TF32, "constexpr int first = FOUR ? 0 : 1;",
+         (TF32C, "constexpr int first = FOUR ? 0 : 1;",
           "constexpr int first = 1;")],
         "fp32"),
     "tf32_dq_drops_hi_lo": (
@@ -575,6 +576,81 @@ MUTANTS = {
           "-3.0e38f)"),
          (TF32, "l2 = fmaxf(lse[(int64_t)bh * sq + q], flash::kClamp)",
           "l2 = fmaxf(lse[(int64_t)bh * sq + q], -3.0e38f)")],
+        "fp32"),
+    "tf32_fwd_pv_into_running": (
+        "TF32 wgmma forward: P V's three passes summed into O on the "
+        "tensor cores (O rescaled by alpha first) instead of a fresh "
+        "accumulator added on the CUDA cores (a truncating chain over "
+        "every k tile); the last tile's part unchanged",
+        [(TF32F, """      hop::wg_fence();
+      s_product(st);                          // S, tile j
+      hop::wg_commit();
+      product_rs(part, ahi, alo, stp + 3 * kTile,
+                 stp + 3 * kTile + kTrans);   // part = P V, tile j - 1""",
+          """      for (int n = 0; n < 8; ++n)
+        for (int i = 0; i < 4; ++i) o[n][i] *= alpha[i >> 1];
+      hop::wg_fence();
+      s_product(st);                          // S, tile j
+      hop::wg_commit();
+      for (int kk = 0; kk < 4; ++kk)
+        hop::wgmma64_tf32_rs(o, alo[kk],
+                             hop::desc(stp + 3 * kTile + kk * 32));
+      for (int kk = 0; kk < 4; ++kk)
+        hop::wgmma64_tf32_rs(o, ahi[kk],
+                             hop::desc(stp + 3 * kTile + kTrans + kk * 32));
+      for (int kk = 0; kk < 4; ++kk)
+        hop::wgmma64_tf32_rs(o, ahi[kk],
+                             hop::desc(stp + 3 * kTile + kk * 32));"""),
+         (TF32F, "      rescale_add(o, a_prev, part);\n",
+          "      hop::acc_fence(o);\n")],
+        "fp32"),
+    "tf32_fwd_pv_drops_hi_lo": (
+        "TF32 wgmma forward: P V drops its hi*lo pass (P's hi times V^T's "
+        "lo) on every tile but the last",
+        [(TF32F, """      product_rs(part, ahi, alo, stp + 3 * kTile,
+                 stp + 3 * kTile + kTrans);   // part = P V, tile j - 1""",
+          """      hop::wgmma64_tf32_rs<false>(part, alo[0],
+                                  hop::desc(stp + 3 * kTile));
+      for (int kk = 1; kk < 4; ++kk)
+        hop::wgmma64_tf32_rs(part, alo[kk],
+                             hop::desc(stp + 3 * kTile + kk * 32));
+      for (int kk = 0; kk < 4; ++kk)
+        hop::wgmma64_tf32_rs(part, ahi[kk],
+                             hop::desc(stp + 3 * kTile + kk * 32));""")],
+        "fp32"),
+    "tf32_fwd_drop_l_from_dropped_p": (
+        "TF32 wgmma forward, dropout mode: the row sums l take the dropped "
+        "P (keep ? P / (1 - p) : 0), not the undropped one",
+        [(TF32F, "        rs[i >> 1] += p;\n",
+          "        rs[i >> 1] += DROP ? kept(p, keep, 4 * n + i, md.inv_keep)"
+          " : p;\n")],
+        "dropout"),
+    "tf32_fwd_keep_rows_swapped": (
+        "TF32 wgmma forward, dropout mode: the keep bits drawn with the "
+        "lane's two query rows swapped",
+        [(TF32F, "keep_bits_qk<4>(bh, row[0], row[1],",
+          "keep_bits_qk<4>(bh, row[1], row[0],")],
+        "dropout"),
+    "tf32_fwd_bias_without_query_stride": (
+        "TF32 wgmma forward, bias mode: every query row reads the bias of "
+        "row 0 (the query stride left out), which a key-padding bias "
+        "(query stride 0) cannot show",
+        [(TF32F, "                + (int64_t)min(row[r], sq - 1) * md.b_sq\n",
+          "")],
+        "fp32"),
+    "tf32_fwd_stage_released_before_wait": (
+        "TF32 wgmma forward: a stage goes back to the producer right after "
+        "the commit of its P V, before wgmma.wait_group",
+        [(TF32F, """      hop::wg_commit();
+      under(k0);                              // S and P V in flight""",
+          """      hop::wg_commit();
+      if (lane == 0) hop::mbar_arrive(hop::smem_u32(&empty[sp]));
+      under(k0);                              // S and P V in flight"""),
+         (TF32F, """      // release stage sp (tile j - 1): after the wg_wait<0> just above,
+      // which covers its P V, the last group that read it (its S was
+      // waited for in the iteration before)
+      if (lane == 0) hop::mbar_arrive(hop::smem_u32(&empty[sp]));
+""", "")],
         "fp32"),
     "dkv_ignores_seg": (
         "segment mode, dK/dV: the segment test inside a live tile dropped "

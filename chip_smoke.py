@@ -33,8 +33,9 @@ Phases; any failure ends the run with a traceback and a non-zero exit:
    BERT-Base's shapes, with and without a bias, causal and not, d 64 and
    128, each output within 2x the plain fp32 version's error plus a
    stated floor, and at rows that see one key (a 1-token segment and a
-   key-padding mask leaving one key, d 128; at d 64, where the backward
-   runs the TF32 wgmma kernels, sk 1 and causal sq > sk: ROADMAP C6);
+   key-padding mask leaving one key, d 128; at d 64, where the forward
+   and backward run the TF32 wgmma kernels, sk 1 and causal sq > sk:
+   ROADMAP C6);
    ``flash_dropout``: the dropout mode (p 0.1), bf16 and
    fp32, with and without a bias, d 64 and 128, on one Philox key with
    its plain version, two launches bitwise equal; ``flash_varlen``: the segment
@@ -77,8 +78,8 @@ Phases; any failure ends the run with a traceback and a non-zero exit:
    is printed), through the fp32 modes of the flash and grouped-GEMM
    kernels only; parity at ``FP32_PARITY`` with each MoE layer's own
    output and input gradient, and routing decisions that may differ only
-   below ``ROUTE_MARGIN``; the profiled step's flash backward must be
-   the plain TF32 wgmma kernels alone;
+   below ``ROUTE_MARGIN``; the profiled step's flash forward and
+   backward must be the plain TF32 wgmma kernels alone;
 8. train_bert, train_bert_padded, train_bert_parity, train_bert_profile
    — ``bench.py::bench_bert``'s configuration (BERT-Base at full width
    and depth, bf16, AdamW lr 1e-4, batch 32 x seq 512): 10 steps of
@@ -94,21 +95,21 @@ Phases; any failure ends the run with a traceback and a non-zero exit:
    layers, hidden 512, 8 / 4 heads of 64, [2, 256] ids from
    ``default_rng(0)``): its eval forward on the card (4 fp32 flash
    launches) against ``plain_reference()``, then 3 fp32 training steps
-   of train parity and one profiled step (the plain TF32 wgmma backward
-   alone);
+   of train parity and one profiled step (the plain TF32 wgmma forward
+   and backward alone);
 8c. train_gpt2, train_gpt2_parity, train_gpt2_profile — GPT-2 small at
    its published defaults (``paddle_tpu/models/gpt.py``: fp32, dropout
    0.1, 12 layers of 12 heads of 64, 124,475,904 parameters), b 8 x s
    1024, AdamW lr 1e-4: phase 4's report for 10 steps (the fp32 dropout
    flash kernels 12 a step, LayerNorm 25), 3 steps of parity at dropout
-   0.1 from one generator state, one profiled step (its flash backward:
-   the TF32 wgmma dropout kernels alone);
+   0.1 from one generator state, one profiled step (its flash forward
+   and backward: the TF32 wgmma dropout kernels alone);
 8d. train_bert_defaults — BERT-Base at its own defaults (fp32, dropout
    0.1) on the padded batch: 3 steps (the fp32 bias + dropout mode, 12 a
-   step) and one profiled step (its flash backward: the TF32 wgmma bias
-   + dropout kernels alone), an eval forward and 2 steps at dropout 0
-   (the fp32 bias mode) with one profiled step (the TF32 wgmma bias
-   kernels alone);
+   step) and one profiled step (its flash forward and backward: the
+   TF32 wgmma bias + dropout kernels alone), an eval forward and 2 steps
+   at dropout 0 (the fp32 bias mode) with one profiled step (the TF32
+   wgmma bias kernels alone);
    train_dropout_bf16 — 10 steps each of GPT-2 small and BERT-Base in
    bf16 at dropout 0.1 (the bf16 dropout modes), one profiled step of
    each (its flash forward and backward: the wgmma kernels in the arm's
@@ -2925,10 +2926,12 @@ def flash_bwd_kernels(names) -> list:
 
 def flash_fwd_kernels(names) -> list:
     """The flash forward kernels among a profile's kernel names, each cut
-    to its template (the wgmma ``fwd_wgmma_kernel<D, HAS_BIAS, DROP>``,
-    the mma.sync ``flash_fwd_kernel<T, ...>``)."""
+    to its template (the bf16 wgmma ``fwd_wgmma_kernel<D, HAS_BIAS,
+    DROP>``, the fp32 TF32 wgmma ``fwd_tf32_kernel<HAS_BIAS, DROP>``, the
+    mma.sync ``flash_fwd_kernel<T, ...>``)."""
     return sorted({_short_kernel_name(n) for n in names
-                   if "fwd_wgmma_kernel<" in n or "flash_fwd_kernel<" in n})
+                   if "fwd_wgmma_kernel<" in n or "fwd_tf32_kernel<" in n
+                   or "flash_fwd_kernel<" in n})
 
 
 _GROUPED = _MOE_CATEGORIES[0][1]
@@ -2989,6 +2992,17 @@ def check_fp32_backward(tag, kernels, drop, bias=False) -> None:
                              f"not {want}")
 
 
+def check_fp32_forward(tag, prof, bias, drop) -> None:
+    """A profiled fp32 step's flash forward (d 64): exactly the TF32 wgmma
+    kernel of its mode (``bias``, ``drop``: the ``<HAS_BIAS, DROP>``
+    instantiation), so no fp32 mma.sync ``flash_fwd_kernel``."""
+    mode = f"<{str(bias).lower()}, {str(drop).lower()}>"
+    want = [f"flash_tf32::fwd_tf32_kernel{mode}"]
+    if prof["flash_fwd_kernels"] != want:
+        raise AssertionError(f"{tag}: the fp32 flash forward ran "
+                             f"{prof['flash_fwd_kernels']}, not {want}")
+
+
 def _step_profile(torch, step_fn, model, opt, categories) -> dict:
     """One training step (``step_fn``) under the profiler: device time by
     kernel category (``categories``, then "other"), the idle share, the
@@ -3033,8 +3047,8 @@ def phase_train_moe_profile(torch, model, opt, TrainStep, batch,
     everything else. ``fwd_mode`` (``"<64, false, false>"``), when given: the
     step's flash forward must be the wgmma kernel of that mode alone and
     its grouped forward the wgmma passes (``check_wgmma_forward``).
-    ``fp32``: its flash backward must be the plain TF32 wgmma kernels
-    alone (``check_fp32_backward``)."""
+    ``fp32``: its flash forward and backward must be the plain TF32 wgmma
+    kernels alone (``check_fp32_forward``, ``check_fp32_backward``)."""
     step = TrainStep(model, opt, lambda logits, y: model.loss(logits, y))
     out = _step_profile(torch, lambda: step(batch, batch), model, opt,
                         _MOE_CATEGORIES)
@@ -3042,6 +3056,7 @@ def phase_train_moe_profile(torch, model, opt, TrainStep, batch,
     if fwd_mode is not None:
         check_wgmma_forward(tag, out, fwd_mode, grouped=True)
     if fp32:
+        check_fp32_forward(tag, out, bias=False, drop=False)
         check_fp32_backward(tag, out["flash_bwd_kernels"], drop=False)
     return out
 
@@ -3320,8 +3335,9 @@ def phase_entry_fp32(torch, np, K, LlamaConfig, LlamaForCausalLM,
     through the kernels and inside ``plain_reference()`` from one state
     (``train_parity_run`` at ``FP32_PARITY``: the fp32 flash forward, dQ
     and dK/dV must launch), and one profiled step (``_step_profile``:
-    device time by category; its flash backward must be the plain TF32
-    wgmma kernels alone, ``check_fp32_backward``)."""
+    device time by category; its flash forward and backward must be the
+    plain TF32 wgmma kernels alone, ``check_fp32_forward`` and
+    ``check_fp32_backward``)."""
     cfg = entry_config(LlamaConfig)
     model = LlamaForCausalLM(cfg, device="cuda", seed=0)
     model.eval()
@@ -3353,8 +3369,9 @@ def phase_entry_fp32(torch, np, K, LlamaConfig, LlamaForCausalLM,
            "parity": {k: v for k, v in parity.items() if k != "grad_rel_l2"},
            "profile": {k: prof[k] for k in (
                "wall_ms", "device_ms", "idle_share", "device_ms_by_category",
-               "flash_bwd_kernels")}}
+               "flash_fwd_kernels", "flash_bwd_kernels")}}
     _emit("entry_fp32", out)
+    check_fp32_forward("entry_fp32", prof, bias=False, drop=False)
     check_fp32_backward("entry_fp32", prof["flash_bwd_kernels"], drop=False)
     failures = list(parity["failures"])
     if launches != want:
@@ -3464,12 +3481,13 @@ _GPT2_CATEGORIES = (("flash", ("flash_",)),
 def phase_train_gpt2_profile(torch, model, opt, TrainStep, batch) -> dict:
     """``_step_profile`` of one GPT-2 training step, by category: the
     flash kernels, LayerNorm, GEMMs, AdamW, everything else. Its flash
-    backward must be the TF32 wgmma dropout kernels alone
-    (``check_fp32_backward``)."""
+    forward and backward must be the TF32 wgmma dropout kernels alone
+    (``check_fp32_forward``, ``check_fp32_backward``)."""
     step = TrainStep(model, opt, lambda logits, y: model.loss(logits, y))
     out = _step_profile(torch, lambda: step(batch, batch), model, opt,
                         _GPT2_CATEGORIES)
     _emit("train_gpt2_profile", out)
+    check_fp32_forward("train_gpt2_profile", out, bias=False, drop=True)
     check_fp32_backward("train_gpt2_profile", out["flash_bwd_kernels"],
                         drop=True)
     return out
@@ -3506,8 +3524,9 @@ def phase_train_bert_defaults(torch, np, K, BertConfig, BertForPreTraining,
     batch: 3 steps, each launching 12 of each fp32 flash kernel in its
     bias + dropout mode (``_flash_bias_drop``) and 26 LayerNorm, with
     finite losses, and one profiled step (``profile``: device time by
-    category, idle share; its flash backward must be the TF32 wgmma
-    ``<true, true>`` kernels alone, ``check_fp32_backward``); then the
+    category, idle share; its flash forward and backward must be the
+    TF32 wgmma ``<true, true>`` kernels alone, ``check_fp32_forward`` and
+    ``check_fp32_backward``); then the
     same weights evaluated (eval mode: the fp32 bias-mode forward, 12)
     and 2 steps of ``bench_bert``'s dropout 0 at the default fp32 (the
     fp32 bias mode without dropout, 12 of each a step) and one profiled
@@ -3566,16 +3585,17 @@ def phase_train_bert_defaults(torch, np, K, BertConfig, BertForPreTraining,
 def bert_defaults_profile(torch, model, opt, TrainStep, args, n_inputs,
                           drop) -> dict:
     """``_step_profile`` of one fp32 BERT training step (an arm of
-    ``train_bert_defaults``) by ``_BERT_CATEGORIES``; its flash backward
-    must be the TF32 wgmma bias kernels of the arm's mode alone
-    (``check_fp32_backward``: ``<true, drop>``)."""
+    ``train_bert_defaults``) by ``_BERT_CATEGORIES``; its flash forward
+    and backward must be the TF32 wgmma bias kernels of the arm's mode
+    alone (``check_fp32_forward``, ``check_fp32_backward``: ``<true,
+    drop>``)."""
     step = TrainStep(model, opt, _bert_loss(model), n_inputs=n_inputs)
     out = _step_profile(torch, lambda: step(*args), model, opt,
                         _BERT_CATEGORIES)
-    check_fp32_backward("train_bert_defaults" + ("" if drop else
-                                                 "_no_dropout")
-                        + "_profile", out["flash_bwd_kernels"], drop=drop,
-                        bias=True)
+    tag = ("train_bert_defaults" + ("" if drop else "_no_dropout")
+           + "_profile")
+    check_fp32_forward(tag, out, bias=True, drop=drop)
+    check_fp32_backward(tag, out["flash_bwd_kernels"], drop=drop, bias=True)
     return out
 
 
@@ -4235,12 +4255,14 @@ def main(argv=None) -> int:
             "shape": row["shape"], **({"kernels": ran[name]}
                                       if name in ran else {})})
     # the fp32 and dropout modes, launches from the phase whose path runs
-    # each: entry_fp32 (its forward and 3 kernel training steps),
-    # train_gpt2, train_bert_defaults (its arms), train_dropout_bf16
+    # each: entry_fp32 (its forward and 3 kernel training steps) and
+    # train_moe_fp32, train_gpt2, train_bert_defaults (its arms),
+    # train_dropout_bf16
     entry_train = entry["parity"]["launches_kernels"]
     mode_launches = {
         "_fp32": {k: entry["forward_launches"][f"flash_{k}_fp32"]
                   + entry_train[f"flash_{k}_fp32"]
+                  + train_moe_fp32["launches"][f"flash_{k}_fp32"]
                   for k in ("fwd", "dq", "dkv")},
         "_fp32_bias": {
             k: bert_defaults["no_dropout"]["launches"][f"flash_{k}_fp32_bias"]
@@ -4256,31 +4278,28 @@ def main(argv=None) -> int:
         "_drop_bias": {
             k: dropout_bf16["bert_bf16"]["launches"][f"flash_{k}_drop_bias"]
             for k in ("fwd", "dq", "dkv")}}
-    # the fp32 backward's instantiations that the profiled steps ran
-    ran_fp32 = {"_fp32": moe_fp32_prof["flash_bwd_kernels"],
-                "_fp32_drop": gpt2_prof["flash_bwd_kernels"],
-                "_fp32_bias": bert_defaults["no_dropout_profile"][
-                    "flash_bwd_kernels"],
-                "_fp32_drop_bias": bert_defaults["profile"][
-                    "flash_bwd_kernels"]}
+    # the profiled steps whose fp32 instantiations the rows name
+    ran_fp32 = {"_fp32": moe_fp32_prof, "_fp32_drop": gpt2_prof,
+                "_fp32_bias": bert_defaults["no_dropout_profile"],
+                "_fp32_drop_bias": bert_defaults["profile"]}
     # and the bf16 dropout forward's that each arm's profiled step ran
     ran_drop = {suffix: dropout_bf16[arm]["profile"]["flash_fwd_kernels"]
                 for suffix, arm in (("_drop", "gpt2_bf16"),
                                     ("_drop_bias", "bert_bf16"))}
     for suffix, counts in mode_launches.items():
         # the bf16 modes run the wgmma kernels, forward and backward; the
-        # fp32 ones the mma.sync forward and (d 64 on these paths) the
-        # TF32 wgmma backward
+        # fp32 ones (d 64 on these paths) the TF32 wgmma kernels
         fp32 = suffix in ran_fp32
-        fwd = "flash_attention_fwd.cu" if fp32 else "flash_fwd_wgmma.cuh"
+        fwd = "flash_fwd_tf32.cuh" if fp32 else "flash_fwd_wgmma.cuh"
         bwd = "flash_bwd_tf32.cuh" if fp32 else "flash_bwd_wgmma.cuh"
         for kind, source, line in (
                 ("fwd", fwd, 242), ("dq", bwd, 558), ("dkv", bwd, 590)):
             name = f"flash_{kind}{suffix}"
             row = flash_modes[name]
             if fp32:
-                ran_k = None if kind == "fwd" else [
-                    k_ for k_ in ran_fp32[suffix]
+                prof = ran_fp32[suffix]
+                ran_k = prof["flash_fwd_kernels"] if kind == "fwd" else [
+                    k_ for k_ in prof["flash_bwd_kernels"]
                     if k_.split("::")[-1].startswith(kind)]
             else:
                 ran_k = ran_drop[suffix] if kind == "fwd" else None

@@ -44,10 +44,12 @@
 //     running max, as _fwd_kernel adds it after (q * scale) k (:146-148).
 //     Keys past sk are masked, never read: the JAX code pads them with
 //     -1e30 (_pad_bias :268), which gives them the same p = 0.
-//   - fp32 mode (T = float): the same loop on 3xTF32 products
+//   - fp32 mode (T = float; here at d 128, and with segment ids at d 64
+//     too: see below): the same loop on 3xTF32 products
 //     (flash_common.cuh), Q in its own shared tile (its split fragments
 //     would not fit the registers), fp32 tiles with LD = D + 4.
-//   - dropout mode (DROP, a template flag): as _fwd_kernel (:149-163), the
+//   - dropout mode (DROP, a template flag; here fp32 at d 128): as
+//     _fwd_kernel (:149-163), the
 //     row sums l take the undropped p; each lane then draws the keep bits
 //     of the elements it holds (philox.cuh) and P V takes keep ? p / (1 -
 //     p_drop) : 0. lse is unchanged. The key (seed, offset) is read from a
@@ -83,16 +85,20 @@
 // scores take -1e30, the subtracted max is clamped at -1e25, and a row that
 // sees no key gets out = 0 and lse = -1e30, as in the Pallas kernel.
 //
-// The bf16 modes without segment ids (plain, bias, dropout and bias +
+// The modes without segment ids (plain, bias, dropout and bias +
 // dropout: the ones Llama, Qwen2-MoE, BERT and GPT-2 train with) run the
-// wgmma / TMA kernel of flash_fwd_wgmma.cuh instead: launch() routes them
-// there, so this file's kernel is instantiated in bf16 for segment ids
-// alone, and in fp32 for every mode.
+// wgmma / TMA kernels instead, by mode and shape alone: bf16 the bf16 ones
+// of flash_fwd_wgmma.cuh, fp32 at d 64 the TF32 ones of
+// flash_fwd_tf32.cuh. launch() routes them there, so this file's kernel is
+// instantiated for segment ids alone (bf16 and fp32, d 64 and 128) and
+// for every other fp32 mode at d 128 (8 instantiations); a map or launch
+// that the wgmma kernels refuse returns its error, with no fall back here.
 //
 // C interface (bound with ctypes): flash_fwd_launch returns the CUDA launch
 // error (0 on success); it never synchronises.
 
 #include "flash_common.cuh"
+#include "flash_fwd_tf32.cuh"
 #include "flash_fwd_wgmma.cuh"
 
 namespace {
@@ -357,19 +363,23 @@ int launch(const void* q, const void* k, const void* v, void* out, void* lse,
            int causal, uint32_t thresh, float inv_keep,
            cudaStream_t stream) {
   constexpr bool kBf16 = std::is_same<T, bf16>::value;
+  [[maybe_unused]] const flash_wg::Mode md{
+      static_cast<const float*>(bias), st[9], st[10], st[11], st[12],
+      static_cast<const int64_t*>(seed), thresh, inv_keep};
   if constexpr (kBf16) {   // every mode but segment ids: the wgmma kernel
     if (!seg[0])
-      return flash_wg::fwd_launch<D>(
-          q, k, v, out, lse, b, h, sq, sk, st, scale, causal,
-          {static_cast<const float*>(bias), st[9], st[10], st[11], st[12],
-           static_cast<const int64_t*>(seed), thresh, inv_keep},
-          stream);
+      return flash_wg::fwd_launch<D>(q, k, v, out, lse, b, h, sq, sk, st,
+                                     scale, causal, md, stream);
+  } else if constexpr (D == 64) {   // fp32 at d 64, the same modes: TF32
+    if (!seg[0])
+      return flash_tf32::fwd_launch(q, k, v, out, lse, b, h, sq, sk, st,
+                                    scale, causal, md, stream);
   }
   constexpr int LD = Pitch<T, D>::LD;
   const size_t smem = kBf16 ? sizeof(T) * 4 * kBK * LD
                             : sizeof(T) * (kBQ + 4 * kBK) * LD;
   auto kern = flash_fwd_kernel<T, D, false, false, true>;   // segment ids
-  if constexpr (!kBf16) {
+  if constexpr (!kBf16 && D != 64) {   // fp32 at d 128, every other mode
     if (!seg[0])
       kern = bias ? (seed ? flash_fwd_kernel<T, D, true, true, false>
                           : flash_fwd_kernel<T, D, true, false, false>)

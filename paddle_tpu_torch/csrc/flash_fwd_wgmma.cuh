@@ -87,15 +87,6 @@ namespace flash_wg {
 constexpr int kFwdStages = 3;
 constexpr uint32_t kBiasTile = kRows * 64 * 4;   // fp32 [128 rows][64 keys]
 
-// keep the compiler from reusing an RS product's A registers before the
-// wgmma.wait_group that covers the product
-__device__ __forceinline__ void frag_fence(uint32_t (&a)[4][4]) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a[kk][i]) :: "memory");
-}
-
 // 4 bytes global -> shared, zero-filled past src_bytes (0 or 4)
 __device__ __forceinline__ void cp4(uint32_t dst, const void* src,
                                     int src_bytes) {
@@ -421,11 +412,6 @@ fwd_wgmma_kernel(bf16* __restrict__ out, float* __restrict__ lse, int H,
 // out contiguous [b, sq, h, D], lse fp32 [b, h, sq]. md: the bias (null:
 // none) and its strides, the dropout key (null: none) and its threshold
 // and 1 / (1 - p).
-// The heads of a block group (fwd_wgmma_kernel): as many as keep their K
-// and V within kGroupBytes, so that the blocks in flight (a wave is 132)
-// read them from the 50 MB L2 and not each from memory.
-constexpr int64_t kGroupBytes = 16 << 20;
-
 template <int D>
 int fwd_launch(const void* q, const void* k, const void* v, void* out,
                void* lse, int b, int h, int sq, int sk, const int64_t* st,

@@ -1,6 +1,6 @@
 // The pieces that the bf16 wgmma flash kernels (flash_fwd_wgmma.cuh,
-// flash_bwd_wgmma.cuh) and the fp32 TF32 wgmma backward
-// (flash_bwd_tf32.cuh) share: the block's shape (two consumer warpgroups
+// flash_bwd_wgmma.cuh) and the fp32 TF32 wgmma ones (flash_fwd_tf32.cuh,
+// flash_bwd_tf32.cuh) share: the block's shape (two consumer warpgroups
 // and a producer), 128B-swizzled tile atoms, the shared-memory base, the
 // bias and dropout arguments (Mode), and the fragment helpers of those
 // modes.
@@ -87,6 +87,21 @@ __device__ __forceinline__ void acc_to_a_kept(uint32_t (&a)[4][4],
                                     kept(d[n][3], keep, 4 * n + 3, ik));
     }
 }
+
+// keep the compiler from reusing an RS product's A registers before the
+// wgmma.wait_group that covers the product
+__device__ __forceinline__ void frag_fence(uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a[kk][i]) :: "memory");
+}
+
+// The heads of a forward's block group (fwd_wgmma_kernel,
+// flash_tf32::fwd_tf32_kernel): as many as keep their K and V within
+// kGroupBytes, so that the blocks in flight (a wave is 132) read them from
+// the 50 MB L2 and not each from memory.
+constexpr int64_t kGroupBytes = 16 << 20;
 
 // the tensor map of a strided [b, s, h, d] bf16 tensor (element strides
 // sb, ss, sh), read in boxes of `rows` rows of 64 columns

@@ -3,9 +3,10 @@
 whose bf16 modes without segment ids, with or without a bias and
 dropout, run the wgmma kernels of ``csrc/flash_fwd_wgmma.cuh`` (the
 forward) and ``csrc/flash_bwd_wgmma.cuh`` (dQ and dK/dV), and whose
-backward's fp32 modes at head_dim 64 without segment ids, with or
-without a bias and dropout, the TF32 wgmma kernels of
-``csrc/flash_bwd_tf32.cuh``; every other mode runs the ``mma.sync``
+fp32 modes at head_dim 64 without segment ids, with or without a bias
+and dropout, the TF32 wgmma kernels of ``csrc/flash_fwd_tf32.cuh`` (the
+forward) and ``csrc/flash_bwd_tf32.cuh`` (dQ and dK/dV); every other
+mode, fp32 at head_dim 128 and the segment mode, runs the ``mma.sync``
 kernels of the two ``.cu`` files).
 
 Replaces ``paddle_tpu/ops/pallas/flash_attention.py``: ``_fwd`` (its

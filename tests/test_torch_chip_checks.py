@@ -2,7 +2,8 @@
 
 ``chip_smoke.py`` holds each profiled training step to the flash
 forward and backward instantiations of its mode (``check_wgmma_forward``,
-``check_fp32_backward``, ``check_wgmma_backward``, from the profiler's
+``check_fp32_forward``, ``check_fp32_backward``,
+``check_wgmma_backward``, from the profiler's
 kernel names through ``flash_fwd_kernels`` and ``flash_bwd_kernels``),
 and ``chip_mutants.py`` plants each of its
 faults by replacing one piece of text of a kernel source, which must
@@ -59,6 +60,42 @@ def test_fp32_backward_check_takes_its_mode_alone(bias, drop):
         S.check_fp32_backward(
             "t", S.flash_bwd_kernels(_names(bias, drop) + [mma]), drop=drop,
             bias=bias)
+
+
+# profiler names of the fp32 TF32 wgmma forward's instantiations
+_TF32_FWD_ARGS = ("(float*, float*, int, int, int, float, int, int, "
+                  "flash_wg::Mode, CUtensorMap_st, CUtensorMap_st, "
+                  "CUtensorMap_st)")
+
+
+def _tf32_fwd_names(bias, drop):
+    b, d = str(bias).lower(), str(drop).lower()
+    return [f"void flash_tf32::fwd_tf32_kernel<{b}, {d}>{_TF32_FWD_ARGS}",
+            "void layer_norm_fwd_kernel<float>()"]
+
+
+@pytest.mark.parametrize("bias", [False, True])
+@pytest.mark.parametrize("drop", [False, True])
+def test_fp32_forward_check_takes_its_mode_alone(bias, drop):
+    """A step that ran the TF32 forward of its mode (``<HAS_BIAS,
+    DROP>``) passes; one that ran another mode's, or an fp32 mma.sync
+    ``flash_fwd_kernel`` beside it, fails."""
+    def prof(names):
+        return {"flash_fwd_kernels": S.flash_fwd_kernels(names)}
+
+    S.check_fp32_forward("t", prof(_tf32_fwd_names(bias, drop)), bias=bias,
+                         drop=drop)
+    for other in ((not bias, drop), (bias, not drop)):
+        with pytest.raises(AssertionError):
+            S.check_fp32_forward("t", prof(_tf32_fwd_names(*other)),
+                                 bias=bias, drop=drop)
+    mma = ("void (anonymous namespace)::flash_fwd_kernel<float, 64, "
+           f"{str(bias).lower()}, {str(drop).lower()}, false>"
+           "(float const*)")
+    with pytest.raises(AssertionError):
+        S.check_fp32_forward(
+            "t", prof(_tf32_fwd_names(bias, drop) + [mma]), bias=bias,
+            drop=drop)
 
 
 # profiler names of the bf16 wgmma forward's instantiations

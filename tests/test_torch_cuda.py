@@ -70,6 +70,7 @@ from paddle_tpu_torch.ops.kernels import (launch_counts, layer_norm,
                                           plain_reference,
                                           reset_launch_counts, rms_norm_cuda,
                                           rms_norm_plain)
+from paddle_tpu_torch.ops.kernels.philox import keep_mask
 from paddle_tpu_torch.optimizer import AdamW
 from paddle_tpu_torch.quantization import (Int8ServingLinear, kv_quantize,
                                            quantize_for_serving,
@@ -1186,6 +1187,9 @@ def _bias_of(kind, b, h, sq, sk, q, k, device):
         keep[-1, ..., sk // 3 if kind == "keypad" else 1:] = False
         return FA.attn_bias(keep.expand(b, 1, sq, sk), q, k)
     g = torch.Generator(device=device).manual_seed(7)
+    if kind == "head_keys":   # [b, h, 1, sk]: query stride 0, head stride not
+        m = torch.randn((b, h, 1, sk), generator=g, device=device) * 2
+        return FA.pad_bias(m.expand(b, h, sq, sk), b, h, sq, sk)
     m = torch.randn((b, h, sq, sk), generator=g, device=device) * 2
     if kind == "dead":     # -inf entries and a row that sees no key
         m[..., 3::11] = float("-inf")
@@ -1265,6 +1269,68 @@ def test_flash_fp32_d64_tf32_backward(cuda, b, sq, sk, h, causal, fused,
                                              causal, *mode)
                      for _ in range(2))
     assert all(torch.equal(x, y) for x, y in zip(first, second))
+
+
+@pytest.mark.parametrize("drop", [False, True])
+@pytest.mark.parametrize("b,sq,sk,h,causal,bias", [
+    (2, 300, 1, 2, False, None), (2, 600, 400, 2, True, None),
+    (2, 333, 517, 3, False, "head_keys")])
+def test_flash_fp32_d64_tf32_forward_edges(cuda, b, sq, sk, h, causal, bias,
+                                           drop):
+    """The fp32 forward at d 64 (``csrc/flash_fwd_tf32.cuh``) at the
+    edges ``test_flash_fp32_d64_tf32_backward`` leaves: every one of 300
+    rows sees one key (sk 1); causal [600, 400], where rows 0-199 see no
+    key, so the first 128-row q tile loads no k tile and the next one's
+    first consumer visits none of its block's two; ragged non-causal sq
+    != sk with a [b, h, 1, sk] bias (query stride 0, head stride not);
+    plain and dropout (p 0.1). Held with the backward by ``_fp32_rule``
+    against fp64, the mode's counters one each, and two forward launches
+    bitwise equal."""
+    q, k, v, do = _flash_inputs(b, sq, sk, h, 64, "float32", cuda, seed=12)
+    seed = torch.tensor([31, 7], dtype=torch.int64, device=cuda)
+    mask = _bias_of(bias, b, h, sq, sk, q, k, cuda)
+    mode = (mask, 0.1, seed) if drop else (mask, 0.0, None)
+    reset_launch_counts()
+    out, _ = _fp32_check(q, k, v, do, 0.125, causal, *mode)
+    sfx = "_fp32" + ("_drop" if drop else "") + ("_bias" if bias else "")
+    assert launch_counts() == _counts(**{f"flash_{n}{sfx}": 1
+                                         for n in ("fwd", "dq", "dkv")})
+    again, lse = FA.flash_fwd_cuda(q, k, v, 0.125, causal, *mode)
+    assert torch.equal(again, out)
+    if causal:   # rows that see no key
+        assert bool((again[:, :sq - sk] == 0).all())
+        assert bool((lse[..., :sq - sk] <= -1e29).all())
+
+
+@pytest.mark.parametrize("bias", [None, "dense"])
+def test_flash_fp32_d64_forward_mask_is_the_tf32_dq_mask(cuda, bias):
+    """The TF32 forward's dropout mask is the TF32 dQ's for every (query,
+    key), and both are ``philox.keep_mask``: with K = V = the identity
+    (sk 48 <= d 64) the forward's out[q, j] is the dropped P[q, j] / l,
+    and with delta 0 dQ's dq[q, j] is scale keep P dP / (1 - p), so
+    either is nonzero exactly where the key is kept (P > 0 at these
+    scores and bias). [2, 130] queries: two 128-row q tiles, a ragged
+    32-key ring tile."""
+    b, sq, sk, h, p = 2, 130, 48, 3, 0.1
+    g = torch.Generator(device=cuda).manual_seed(13)
+    q = torch.randn((b, sq, h, 64), generator=g, device=cuda)
+    do = torch.randn((b, sq, h, 64), generator=g, device=cuda)
+    eye = torch.eye(sk, 64, device=cuda)[None, :, None, :].expand(
+        b, sk, h, 64).contiguous()
+    seed = torch.tensor([2029, 3], dtype=torch.int64, device=cuda)
+    mask = _bias_of(bias, b, h, sq, sk, q, eye, cuda)
+    out, lse = FA.flash_fwd_cuda(q, eye, eye, 0.125, False, mask, p, seed)
+    delta = torch.zeros((b, h, sq), device=cuda)
+    dq = FA.flash_bwd_dq_cuda(q, eye, eye, do, lse, delta, 0.125, False,
+                              mask, p, seed)
+    want = keep_mask(seed, p, b * h, sq, sk)
+
+    def kept(x):
+        return (x[..., :sk] != 0).permute(0, 2, 1, 3).reshape(b * h, sq, sk)
+
+    assert 0.85 < want.float().mean().item() < 0.95
+    assert torch.equal(kept(out), want)
+    assert torch.equal(kept(dq), want)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -19,8 +19,12 @@ bias at BERT's; the segment mode on ``bench.py::bench_llama``'s first packed
 host step, bf16 [1, 8760, 16, 128] and fp32 [1, 8760, 12, 64] causal, 8
 documents. Each kernel's time is the mean of 100 launches between CUDA
 events, cycling three input sets (past the 50 MB L2), after 10 warm-up
-launches; ``--rows`` times the rows named, in that order (each row's
-inputs are the same whatever runs before it), and the card's SM clock,
+launches; beside each no-segment row's forward, ``sdpa_fwd`` times
+``scaled_dot_product_attention`` on the same inputs in the row's mode
+(its dtype, causal flag, mask as an additive fp32 bias and dropout p:
+the library yardstick). ``--rows`` times the rows named, in that order
+(each row's inputs are the same whatever runs before it), and the
+card's SM clock,
 temperature and power draw are read before and after each row (``gpu``
 in the output), so that a row slower for the card's state shows it.
 ``--train`` then runs ``chip_smoke.py``'s Llama ``train`` phase
@@ -36,7 +40,10 @@ bf16 bias mode), the two arms of ``train_dropout_bf16`` at dropout 0.1,
 dropout mode), ``train_gpt2`` (GPT-2 small at its defaults, fp32 at
 dropout 0.1, 10 steps: the fp32 dropout mode) and the defaults arm of
 ``train_bert_defaults`` (BERT-Base at its own defaults, fp32 at dropout
-0.1, on the padded batch, 10 steps: the fp32 bias + dropout mode), each
+0.1, on the padded batch, 10 steps: the fp32 bias + dropout mode),
+``train_bert_nodrop`` (the same at dropout 0, ``train_bert_defaults``'
+no-dropout arm: the fp32 bias mode) and ``train_moe_fp32``
+(``chip_smoke.moe_fp32_config``, 10 steps: the fp32 plain mode), each
 with one profiled step (device time by category, idle share, the flash
 forward and backward kernels that ran). Prints one JSON line: the tree,
 the card, the times in ms, the steps' figures, and, when this run built
@@ -77,7 +84,7 @@ ROWS = {
 
 
 STEPS = ("train_bert_padded", "gpt2_bf16", "bert_bf16", "train_gpt2",
-         "train_bert_defaults")
+         "train_bert_defaults", "train_bert_nodrop", "train_moe_fp32")
 
 
 def _gpu_state() -> str:
@@ -154,7 +161,8 @@ def main(argv=None) -> int:
                                    q, k)
             out, lse = F.flash_fwd_cuda(q, k, v, d ** -0.5, causal, bias,
                                         *mode)
-            sets.append((q, k, v, do, lse, F.flash_delta(do, out), bias))
+            sets.append((q, k, v, do, lse, F.flash_delta(do, out), bias,
+                         None if bias is None else bias.to(dtype)))
         sc = d ** -0.5
         gpu[name] = {"before": _gpu_state()}
         times[name] = {
@@ -164,6 +172,11 @@ def main(argv=None) -> int:
                                                      a[6], *mode), sets),
             "dkv": _ms(lambda *a: F.flash_bwd_dkv_cuda(*a[:6], sc, causal,
                                                        a[6], *mode), sets)}
+        if seg is None:
+            times[name]["sdpa_fwd"] = _ms(
+                lambda *a: torch.nn.functional.scaled_dot_product_attention(
+                    *(x.transpose(1, 2) for x in a[:3]), attn_mask=a[7],
+                    dropout_p=p, is_causal=causal, scale=sc), sets)
         gpu[name]["after"] = _gpu_state()
         del sets
         torch.cuda.empty_cache()
@@ -202,11 +215,14 @@ def _steps(smi, names) -> dict:
     the package that ``main`` imported."""
     from paddle_tpu_torch.jit import TrainStep
     from paddle_tpu_torch.models import (BertConfig, BertForPreTraining,
-                                         GPTConfig, GPTForCausalLM)
+                                         GPTConfig, GPTForCausalLM,
+                                         Qwen2MoeConfig, Qwen2MoeForCausalLM)
     from paddle_tpu_torch.ops import kernels as K
     from paddle_tpu_torch.ops.kernels import build
     from paddle_tpu_torch.optimizer import AdamW
-    build.build_all(["layer_norm"])
+    build.build_all(["layer_norm", "rms_norm", "moe_routing",
+                     "moe_grouped_gemm"]
+                    if "train_moe_fp32" in names else ["layer_norm"])
     S = _harness()
     out = {}
 
@@ -260,14 +276,33 @@ def _steps(smi, names) -> dict:
                              "profile": _profile_figures(prof)}
         del model, opt, step, batch
         torch.cuda.empty_cache()
-    if "train_bert_defaults" in names:
-        cfg = BertConfig()          # fp32, dropout 0.1
+    for arm, cfg in (("train_bert_defaults", BertConfig()),   # dropout 0.1
+                     ("train_bert_nodrop", BertConfig(
+                         hidden_dropout_prob=0.0,
+                         attention_probs_dropout_prob=0.0))):
+        if arm not in names:
+            continue
         model = BertForPreTraining(cfg, device="cuda", seed=S.SEED)
         args, n_inputs = S.bert_batch(torch, np, cfg, padded=True)
-        out["train_bert_defaults"] = run(model, args, n_inputs,
-                                         S._bert_loss(model),
-                                         S._BERT_CATEGORIES)
+        out[arm] = run(model, args, n_inputs, S._bert_loss(model),
+                       S._BERT_CATEGORIES)
         del model, args
+        torch.cuda.empty_cache()
+    if "train_moe_fp32" in names:
+        cfg = S.moe_fp32_config(Qwen2MoeConfig, S.MOE_SEQ)
+        model = Qwen2MoeForCausalLM(cfg, device="cuda", seed=S.SEED)
+        batch = torch.tensor(np.random.default_rng(S.SEED).integers(
+            0, cfg.vocab_size, (S.MOE_BATCH, S.MOE_SEQ)), dtype=torch.int32,
+            device="cuda")
+        train, opt = S.phase_train_moe(torch, K, model, TrainStep, AdamW,
+                                       batch, smi, tag="train_moe_fp32")
+        step = TrainStep(model, opt, lambda logits, y: model.loss(logits, y))
+        prof = S._step_profile(torch, lambda: step(batch, batch), model, opt,
+                               S._MOE_CATEGORIES)
+        out["train_moe_fp32"] = {"step_ms": train["step_ms"],
+                                 "median_step_ms": train["median_step_ms"],
+                                 "profile": _profile_figures(prof)}
+        del model, opt, step, batch
         torch.cuda.empty_cache()
     return out
 

@@ -34,14 +34,16 @@ past the L2) at
 the Llama shape (plain), BERT-Base's (plain, keypad, keypad_drop) and
 GPT-2 small's [8, 1024, 12, 64] causal (drop). Prints one JSON line.
 
-``--fp32`` does the same for the fp32 dQ and dK/dV on TF32 wgmma
-(``csrc/flash_bwd_tf32.cuh``, d 64 without segment ids:
+``--fp32`` does the same for the fp32 forward, dQ and dK/dV on TF32
+wgmma (``csrc/flash_fwd_tf32.cuh`` and ``csrc/flash_bwd_tf32.cuh``, d 64
+without segment ids: ``fwd_tf32_kernel<HAS_BIAS, DROP>``,
 ``dq_tf32_kernel<HAS_BIAS, DROP>``, ``dkv_tf32_kernel<HAS_BIAS,
-DROP>``): ``ptxas``'s registers and spills of those eight
+DROP>``): ``ptxas``'s registers and spills of those twelve
 instantiations (a spill fails the run), then ``chip_smoke.py``'s fp32
 rule (``flash_fp32_errors``: each output within 2x the plain fp32
-version's error from fp64 plus 2**-16 / 2**-18) and a bitwise repeat of
-the backward, in the six modes above, at ``FP32_SMALL`` (s 1, 63, 130,
+version's error from fp64 plus 2**-16 / 2**-18, lse within 2x the plain
+version's plus the floor) and a bitwise repeat of the forward and the
+backward, in the six modes above, at ``FP32_SMALL`` (s 1, 63, 130,
 1000; causal and not; sq != sk both ways, with rows that see no key and
 rows that see one key; at sk 1 dq and dk are 0 exactly and their errors
 roundings of 0, so as in the bf16 check only dv is held to the rule
@@ -49,8 +51,8 @@ there: ``chip_smoke.py``'s ``one_key_checks`` hold a whole [4, 256, 4,
 64] sk-1 batch to it) and on strided views of one fused tensor;
 ``--big`` adds GPT-2 small's, ``train_moe_fp32``'s and ``entry()``'s
 shapes (plain, drop) and BERT-Base's (plain, keypad, keypad_drop);
-``--times`` times dQ and dK/dV at GPT-2 small's shape (plain, drop) and
-at BERT-Base's (plain, keypad, keypad_drop).
+``--times`` times the forward, dQ and dK/dV at GPT-2 small's shape
+(plain, drop) and at BERT-Base's (plain, keypad, keypad_drop).
 """
 
 import argparse
@@ -112,6 +114,7 @@ def _inputs(gen, b, sq, sk, h, d, fused, dtype=torch.bfloat16):
 
 
 MODES = ("plain", "keypad", "dense", "drop", "keypad_drop", "dense_drop")
+OUTS = ("out", "dq", "dk", "dv")
 DROP_P = 0.1
 
 
@@ -158,24 +161,25 @@ def _check_fp32(S, F, gen, shape, name, seed, fused=False):
     mode = _mode(F, gen, name, q, k, seed)
     errs = S.flash_fp32_errors(torch, F, q, k, v, do, d ** -0.5, causal,
                                *mode)
-    out, lse = F.flash_fwd_cuda(q, k, v, d ** -0.5, causal, *mode)
+    fwd = [F.flash_fwd_cuda(q, k, v, d ** -0.5, causal, *mode)
+           for _ in range(2)]
+    out, lse = fwd[0]
     delta = F.flash_delta(do, out)
     g = [(F.flash_bwd_dq_cuda(q, k, v, do, lse, delta, d ** -0.5, causal,
                               *mode),)
          + F.flash_bwd_dkv_cuda(q, k, v, do, lse, delta, d ** -0.5, causal,
-                                *mode) for _ in range(2)]
+                                *mode) + fwd[i] for i in range(2)]
     failures = list(errs["failures"])
     if sk == 1:   # dq = dk = 0 exactly: their errors are roundings of 0
         failures = [f for f in failures if not f.startswith(("dq:", "dk:"))]
     if not all(torch.equal(x, y) for x, y in zip(*g)):
         failures.append("two launches differ")
     return {"shape": list(shape), "mode": name, "fused": fused,
-            "row": {o: errs[o]["kernel"]["row"] for o in ("dq", "dk", "dv")},
-            "plain_row": {o: errs[o]["plain"]["row"]
-                          for o in ("dq", "dk", "dv")},
-            "fro": {o: errs[o]["kernel"]["fro"] for o in ("dq", "dk", "dv")},
-            "plain_fro": {o: errs[o]["plain"]["fro"]
-                          for o in ("dq", "dk", "dv")},
+            "row": {o: errs[o]["kernel"]["row"] for o in OUTS},
+            "plain_row": {o: errs[o]["plain"]["row"] for o in OUTS},
+            "fro": {o: errs[o]["kernel"]["fro"] for o in OUTS},
+            "plain_fro": {o: errs[o]["plain"]["fro"] for o in OUTS},
+            "lse": errs["lse"],
             "failures": failures}
 
 
@@ -291,7 +295,7 @@ def _fp32(args, S, F, ptxas, gen, seed) -> int:
     print(json.dumps({"device": smi, "ptxas": report, "spills": spills,
                       "checks": checks, "times_ms": times,
                       "failed": len(failed)}), flush=True)
-    return 1 if failed or spills or len(report) != 8 else 0
+    return 1 if failed or spills or len(report) != 12 else 0
 
 
 if __name__ == "__main__":
