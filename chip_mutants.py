@@ -62,7 +62,9 @@ of the fault's kind (the control runs every kind of the faults chosen):
   ``DROP_BF16_STEPS`` steps;
 - moe_fp32: the fp32 grouped-GEMM kernel check (``moe_fp32_errors``:
   against fp64, within 2x the plain fp32 version's error plus the floor)
-  at the fp32 slice's shapes (T 8192, E 16, D 1024, H 512), and the fp32
+  at the fp32 slice's shapes (T 8192, E 16, D 1024, H 512) and at the
+  long-K case ``MOE_FP32_LONG`` (one expert holding all 8192 tokens:
+  ``moe_fp32_long_errors``, its failures prefixed ``long_k``), and the fp32
   MoE train parity of ``phase_train_moe_fp32_parity`` (``FP32_PARITY``,
   the layers' own outputs and input gradients, the routing-margin rule)
   after 10 steps of ``moe_fp32_config``;
@@ -410,42 +412,93 @@ MUTANTS = {
           "acc_to_a_kept(a, sc, keep, 1.f);")],
         "dropout"),
     "moe_fp32_dw_drops_hi_lo": (
-        "fp32 grouped dW: its 3xTF32 products drop the hi*lo pass (A's hi "
-        "times B's lo); the other fp32 kernels keep all three",
-        [(GG, "        const float* p = Bs + (kk + t) * LD + n * 8 + g;\n"
-              "        flash::mma3(acc[n], a, p[0], p[4 * LD]);",
-          "        const float* p = Bs + (kk + t) * LD + n * 8 + g;\n"
-          "        if (A_T) {    // dw_kernel's products only\n"
-          "          uint32_t bh0, bl0, bh1, bl1;\n"
-          "          flash::split_tf32(p[0], bh0, bl0);\n"
-          "          flash::split_tf32(p[4 * LD], bh1, bl1);\n"
-          "          float part[4] = {0.f, 0.f, 0.f, 0.f};\n"
-          "          flash::mma_tf32(part, a.lo, bh0, bh1);\n"
-          "          flash::mma_tf32(part, a.hi, bh0, bh1);\n"
-          "          for (int i = 0; i < 4; ++i) acc[n][i] += part[i];\n"
-          "        } else {\n"
-          "          flash::mma3(acc[n], a, p[0], p[4 * LD]);\n"
-          "        }")], "moe_fp32"),
+        "fp32 grouped dW: its dW_in product drops the hi*lo pass (A's hi "
+        "times B's lo); the other fp32 products keep all three",
+        [(GG, "      product_add(a1, part, hi, lo, st + QW::D1H, st + QW::D1L);",
+          """      hop::wg_fence();
+      hop::wgmma64_tf32_rs<false>(part, lo[0], hop::desc(st + QW::D1H));
+      for (int ks = 1; ks < 4; ++ks)
+        hop::wgmma64_tf32_rs(part, lo[ks], hop::desc(st + QW::D1H + ks * 32));
+      for (int ks = 0; ks < 4; ++ks)
+        hop::wgmma64_tf32_rs(part, hi[ks], hop::desc(st + QW::D1H + ks * 32));
+      hop::wg_commit();
+      hop::wg_wait<0>();
+      hop::acc_fence(part);
+      flash_tf32::add_to(a1, part);""")], "moe_fp32"),
     "moe_fp32_dx_wgate_bf16_map": (
-        "fp32 grouped dX: the transposed W_gate fragment (an [n][k] tile) "
-        "read with the bf16 fragment's index map (lane (g, t) takes k 2t "
-        "and 2t + 1, where the tf32 fragment takes t and t + 4); the W_in "
-        "product unchanged",
-        [(GG, "      load_dense(sbt, w_gate + e * DH, d.H, dt * kT, d.D, k0, "
-              "d.H);\n      wait_tiles();\n"
-              "      mma_chunk<false, false>(adx, sa, sbt, warp, lane);",
-          "      load_dense(sbt, w_gate + e * DH, d.H, dt * kT, d.D, k0, "
-          "d.H);\n      wait_tiles();\n"
-          "      for (int kk = 0; kk < kT; kk += 8) {\n"
-          "        constexpr int LD = Tile::LD;\n"
-          "        const flash::FragA a = flash::frag_a<LD>(sa, warp * 16, kk,"
-          " lane);\n"
-          "        for (int n = 0; n < 8; ++n) {\n"
-          "          const float* p = sbt + (n * 8 + (lane >> 2)) * LD + kk"
-          " + 2 * (lane & 3);\n"
-          "          flash::mma3(adx[n], a, p[0], p[1]);\n"
-          "        }\n"
-          "      }")], "moe_fp32"),
+        "fp32 grouped dX pass 2: the dhg fragments (the A operand of dhg "
+        "W_gate^T) read with the bf16 fragment's column map (lane (g, t) "
+        "takes k 2t and 2t + 1, where the tf32 fragment takes t and t + 4); "
+        "the dh1 product unchanged",
+        [(GG, """      frag_split<false>(hi2, lo2, st + Q2::DHG + wg * kTile, warp, lane, 1.f,
+                        1.f);""",
+          """      for (int ks = 0; ks < 4; ++ks)
+        for (int i = 0; i < 4; ++i) {
+          const int r = 16 * warp + (lane >> 2) + (i & 1) * 8;
+          const int c = 8 * ks + 2 * (lane & 3) + (i >> 1);
+          const float v = lds(st + Q2::DHG + wg * kTile
+                              + hop::swz(r, c >> 2) + 4 * (c & 3));
+          flash::split_tf32(v, hi2[ks][i], lo2[ks][i]);
+        }""")], "moe_fp32"),
+    "moe_fp32_dw_passes_into_running": (
+        "fp32 grouped dW: the dW_out product's three passes summed into its "
+        "running accumulator on the tensor cores instead of a fresh one "
+        "added on the CUDA cores (a truncating chain over every slot chunk "
+        "of the expert)",
+        [(GG, "      product_add(a3, part, hi, lo, st + QW::HH, st + QW::HL);",
+          """      hop::wg_fence();
+      flash_tf32::product_rs<false>(a3, hi, lo, st + QW::HH, st + QW::HL);
+      hop::wg_commit();
+      hop::wg_wait<0>();
+      hop::acc_fence(a3);""")], "moe_fp32"),
+    "moe_fp32_dx2_drops_hi_lo": (
+        "fp32 grouped dX pass 2: the dh1 W_in^T product drops its hi*lo "
+        "pass (dh1's hi times W_in's lo)",
+        [(GG, "      flash_tf32::product_rs(part, hi, lo, st + Q2::WIH, "
+              "st + Q2::WIL);",
+          """      hop::wgmma64_tf32_rs<false>(part, lo[0], hop::desc(st + Q2::WIH));
+      for (int ks = 1; ks < 4; ++ks)
+        hop::wgmma64_tf32_rs(part, lo[ks], hop::desc(st + Q2::WIH + ks * 32));
+      for (int ks = 0; ks < 4; ++ks)
+        hop::wgmma64_tf32_rs(part, hi[ks], hop::desc(st + Q2::WIH + ks * 32));""")],
+        "moe_fp32"),
+    "moe_fp32_wt_k_renamed": (
+        "fp32 grouped GEMMs: split_hilo_kernel writes the transposed hi and "
+        "lo copies (W_in^T, W_gate^T, W_out^T; dW's h^T, dh1^T, dhg^T) in "
+        "the renamed k order of flash_tf32::renamed (what an accumulator's A "
+        "operand needs) where the A fragments read k in plain order",
+        [(GG, "    const int64_t o = base + (int64_t)c * R + r;",
+          "    const int64_t o = base + (int64_t)c * R\n"
+          "                      + ((r & ~7) | ((r & 7) >> 1) | ((r & 1) << 2));")],
+        "moe_fp32"),
+    "moe_fp32_dw_dy_without_gate": (
+        "fp32 grouped dW: dW_out's dy^T taken from g without the gate "
+        "weight (g^T h where the plain version has (g gate_w)^T h)",
+        [(GG, "      frag_split_t<true>(hi, lo, st + QW::G, 64 * wg, warp, lane, "
+              "cgw[s]);",
+          "      frag_split_t<false>(hi, lo, st + QW::G, 64 * wg, warp, lane, "
+          "cgw[s]);")], "moe_fp32"),
+    "moe_fp32_stage_released_before_wait": (
+        "fp32 grouped dW: a live stage goes back to the producer right after "
+        "the commit of its last product (dW_out's, reading the stage's h^T "
+        "tiles), before wgmma.wait_group",
+        [(GG, """      product_add(a3, part, hi, lo, st + QW::HH, st + QW::HL);
+    }
+    // release stage s: after the wg_wait<0> of the last product above,
+    // the last group that read it (none for a chunk without tokens)
+    if (lane == 0) hop::mbar_arrive(ring.e(c));
+  }""",
+          """      hop::wg_fence();
+      flash_tf32::product_rs(part, hi, lo, st + QW::HH, st + QW::HL);
+      hop::wg_commit();
+      if (lane == 0) hop::mbar_arrive(ring.e(c));
+      hop::wg_wait<0>();
+      hop::acc_fence(part);
+      flash_tf32::add_to(a3, part);
+    } else if (lane == 0) {
+      hop::mbar_arrive(ring.e(c));
+    }
+  }""")], "moe_fp32"),
     "c6_repair_reverted": (
         "fp32 flash backward: dP = dO V^T back to three 3xTF32 passes (no "
         "lo*lo), the product before the ROADMAP C6 repair, in the mma.sync "
@@ -766,6 +819,9 @@ def _moe_fp32_checks(torch, S, K, TrainStep, AdamW) -> tuple:
                               inp["gate_w"], inp["wi"], inp["wg"],
                               inp["wo"], inp["g"])
     del inp
+    torch.cuda.empty_cache()
+    check["long_k"] = S.moe_fp32_long_errors(torch, GG, MR, gen)
+    check["failures"] += [f"long_k {f}" for f in check["long_k"]["failures"]]
     torch.cuda.empty_cache()
     cfg = S.moe_fp32_config(Qwen2MoeConfig, S.MOE_SEQ)
     model = Qwen2MoeForCausalLM(cfg, device="cuda", seed=S.SEED)

@@ -24,9 +24,10 @@ Phases; any failure ends the run with a traceback and a non-zero exit:
    training shapes, after ``MOE_EDGES`` (a padded capacity not a
    multiple of the 128-slot block with the ungated relu FFN, and slot
    blocks with no token); ``moe_fp32_kernels``: their fp32 mode (3xTF32) at
-   the fp32 slice's shapes (H 512) and both FFN kinds at a smaller one,
-   against fp64 within 2x the plain fp32 version's error plus a floor,
-   each launched twice for a bitwise repeat;
+   the fp32 slice's shapes (H 512), both FFN kinds at a smaller one and
+   one expert holding all 8192 tokens (``MOE_FP32_LONG``: dW's long
+   chain), against fp64 within 2x the plain fp32 version's error plus a
+   floor, each launched twice for a bitwise repeat;
    the int8 paged mode and the MoE kernels launched twice for a bitwise
    repeat; ``flash_fp32``: the fp32 mode of the three flash kernels
    (3xTF32 products) against fp64 at GPT-2 small's, ``entry()``'s and
@@ -79,7 +80,9 @@ Phases; any failure ends the run with a traceback and a non-zero exit:
    kernels only; parity at ``FP32_PARITY`` with each MoE layer's own
    output and input gradient, and routing decisions that may differ only
    below ``ROUTE_MARGIN``; the profiled step's flash forward and
-   backward must be the plain TF32 wgmma kernels alone;
+   backward must be the plain TF32 wgmma kernels alone, and its grouped
+   dX and dW the TF32 wgmma ones of the gated FFN
+   (``check_fp32_grouped_backward``);
 8. train_bert, train_bert_padded, train_bert_parity, train_bert_profile
    — ``bench.py::bench_bert``'s configuration (BERT-Base at full width
    and depth, bf16, AdamW lr 1e-4, batch 32 x seq 512): 10 steps of
@@ -1929,7 +1932,8 @@ def train_parity_run(torch, K, model, opt, TrainStep, loss_fn, args,
                      n_inputs=1, kernels=FLASH_KERNELS,
                      limits=(PARITY_DLOSS, PARITY_GRAD_REL, PARITY_DPARAM),
                      reseed=None, probes=(), probe_limits=None,
-                     grad_ref=None, unresolved_ratio=UNRESOLVED_RATIO) -> dict:
+                     grad_ref=None, unresolved_ratio=UNRESOLVED_RATIO,
+                     plain_first=False) -> dict:
     """Three steps from one state (weights and optimizer state cloned)
     through the kernels, then the same three inside plain_reference().
 
@@ -1954,7 +1958,8 @@ def train_parity_run(torch, K, model, opt, TrainStep, loss_fn, args,
     draws random numbers starts both runs from one state). ``probes``
     names modules whose output and input gradient in the first step are
     compared too (relative L2, the worst module against ``probe_limits =
-    (output, input gradient)``).
+    (output, input gradient)``). ``plain_first`` runs the plain steps
+    before the kernel steps.
 
     ``grad_ref``, when given, holds the first step's gradients of an fp32
     copy of the model, through the plain versions, from the same
@@ -1983,7 +1988,8 @@ def train_parity_run(torch, K, model, opt, TrainStep, loss_fn, args,
             lambda m, i, o, n=mod_name: record(n, "out", o)))
         hooks.append(mod.register_full_backward_hook(
             lambda m, gi, go, n=mod_name: record(n, "dx", gi[0])))
-    for name in ("kernels", "plain"):
+    for name in (("plain", "kernels") if plain_first
+                 else ("kernels", "plain")):
         seen = {mod_name: {} for mod_name, _ in probes}
         with torch.no_grad():
             for k, p in params.items():
@@ -2513,6 +2519,10 @@ def phase_moe_kernels(torch, MR, GG) -> dict:
 # and the smaller shape at which both FFN kinds are checked.
 MOE_FP32_H = 512
 MOE_FP32_SMALL = {"T": 2048, "E": 8, "D": 256, "H": 96}
+# the long-K case: one expert holding all T tokens (capacity T, the others
+# empty), so that dW sums over 8192 slots (256 chunks of 32, each into a
+# fresh accumulator) where the slice's fullest expert has 1280
+MOE_FP32_LONG = {"T": 8192, "E": 4, "D": 1024, "H": 128}
 MOE_FP32_KERNELS = ("moe_routing", "moe_fwd_fp32", "moe_dx_fp32",
                     "moe_dw_fp32")
 
@@ -2575,13 +2585,29 @@ def moe_fp32_errors(torch, GG, x, row_id, gate_w, wi, wg, wo, g,
     return {"errors": errs, "bitwise_repeat": repeat, "failures": failures}
 
 
+def moe_fp32_long_errors(torch, GG, MR, gen) -> dict:
+    """``moe_fp32_errors`` (gated silu) at ``MOE_FP32_LONG``, expert 0
+    holding every token (``moe_inputs(hot=True)``, capacity T)."""
+    L = MOE_FP32_LONG
+    inp = moe_inputs(torch, GG, MR, gen, T=L["T"], E=L["E"], D=L["D"],
+                     H=L["H"], dtype="float32", cap=L["T"], hot=True)
+    c = moe_fp32_errors(torch, GG, inp["x"], inp["row_id"], inp["gate_w"],
+                        inp["wi"], inp["wg"], inp["wo"], inp["g"])
+    held = (inp["row_id"] < L["T"]).sum(1).tolist()
+    if held != [L["T"]] + [0] * (L["E"] - 1):
+        c["failures"].append(f"expected one expert to hold every token, "
+                             f"got {held}")
+    return c
+
+
 def phase_moe_fp32_kernels(torch, MR, GG) -> dict:
     """The fp32 mode of the grouped-GEMM forward, dX and dW (3xTF32) at the
     fp32 slice's shapes (T 8192, E 16, D 1024, H ``MOE_FP32_H``, cpad
     1280, gated silu, ``moe_inputs``' skewed logits, so that some experts
     fill) and both FFN kinds (gated silu, ungated relu) at
-    ``MOE_FP32_SMALL``: each held by ``moe_fp32_errors`` against fp64 and
-    launched twice for a bitwise repeat. Then, at the slice's shapes, the
+    ``MOE_FP32_SMALL``, and the long-K case ``MOE_FP32_LONG``: each held
+    by ``moe_fp32_errors`` against fp64 and launched twice for a bitwise
+    repeat. Then, at the slice's shapes, the
     time of each (CUDA events and profiler device time), of its plain
     fp32 version, its bound (its products on this run's occupied slots
     at ``FP32_ACCURATE_FLOPS``, or its bytes), and as a yardstick only
@@ -2607,6 +2633,9 @@ def phase_moe_fp32_kernels(torch, MR, GG) -> dict:
     c = moe_fp32_errors(torch, GG, *args, inp["g"])
     checks["slice"] = c
     failures += [f"slice {f}" for f in c.pop("failures")]
+    c = moe_fp32_long_errors(torch, GG, MR, gen)
+    checks["long_k"] = c
+    failures += [f"long_k {f}" for f in c.pop("failures")]
     _emit("moe_fp32_kernel_check", {"checks": checks, "occupied_slots": n,
                                     "slots": E * cpad,
                                     "small_shape": small})
@@ -2820,18 +2849,40 @@ MOE_FP32_CUT = (f"moe_intermediate_size {MOE_FP32_H} of bench.py's 704: "
                 f"other width as bench.py")
 
 
-def _record_routing(port_moe):
-    """Wrap ``_top2_parts`` to keep each call's logits, uniforms and
-    chosen experts; returns the list and an undo function."""
-    calls, orig = [], port_moe._top2_parts
+def _record_routing(torch, port_moe):
+    """Wrap ``_top2_parts`` for a ``train_parity_run`` whose plain run
+    comes first (``plain_first``), to keep each call's logits, uniforms
+    and chosen experts. Returns the list, a function to call before each
+    run (at its second call it marks where the kernel run starts), and an
+    undo function. A kernel-run row that decides otherwise than the plain
+    run's same call at a near tie (``_near_ties``) is routed on the plain
+    run's logits (their value; its gradient flows through the kernel
+    run's own), so the two runs take one route, which the gradient limits
+    can hold; the plain run is left as it is. The list keeps each call's
+    own logits and decisions, so that ``routing_agreement`` judges and
+    counts every such row."""
+    calls, orig, n_plain = [], port_moe._top2_parts, []
+
+    def mark():
+        if calls and not n_plain:
+            n_plain.append(len(calls))
 
     def recording(logits, capacity, **kw):
         res = orig(logits, capacity, **kw)
-        calls.append((logits.detach().float().clone(), kw["u"].clone(),
-                      res[0].clone(), res[1].clone()))
+        own = (logits.detach().float().clone(), kw["u"].clone(),
+               res[0].clone(), res[1].clone())
+        i = len(calls) - n_plain[0] if n_plain else None
+        calls.append(own)
+        if i is not None and i < n_plain[0]:
+            tie = _near_ties(torch, own, calls[i])[1]
+            if bool(tie.any()):
+                alike = (calls[i][0].to(logits.dtype)
+                         + (logits - logits.detach()))
+                res = orig(torch.where(tie[:, None], alike, logits),
+                           capacity, **kw)
         return res
     port_moe._top2_parts = recording
-    return calls, lambda: setattr(port_moe, "_top2_parts", orig)
+    return calls, mark, lambda: setattr(port_moe, "_top2_parts", orig)
 
 
 def _keep2(torch, logits, u):
@@ -2841,33 +2892,55 @@ def _keep2(torch, logits, u):
     return u < 2.0 * p[:, 1] / torch.clamp(p[:, 0] + p[:, 1], min=1e-9)
 
 
+def _near_ties(torch, kernel_call, plain_call):
+    """The rows of one routing call whose decisions (either expert, the
+    keep of the second) differ between the kernel run and the plain run,
+    and those of them whose plain-run margin (``_route_margin``) is below
+    ``ROUTE_MARGIN``."""
+    (lk, uk, g1k, g2k), (lp, up, g1p, g2p) = kernel_call, plain_call
+    differ = ((g1k != g1p) | (g2k != g2p)
+              | (_keep2(torch, lk, uk) != _keep2(torch, lp, up)))
+    return differ, differ & (_route_margin(torch, lp, up) < ROUTE_MARGIN)
+
+
+# At most this many rows of a kernel run may be routed on the plain run's
+# logits (``_record_routing``): the correct kernels route 1 of the fp32
+# MoE parity's 196,608 (NVIDIA H100 80GB HBM3, 700 W).
+ROUTED_ALIKE_MAX = 16
+
+
 def routing_agreement(torch, calls) -> dict:
     """Routing decisions (both experts and the random keep of the second)
-    of the kernel run (first half of ``calls``) against the plain run's
+    of the plain run (first half of ``calls``) against the kernel run's
     (second half), call by call (a layer in a step): a decision may
     differ only where the plain run's margin (``_route_margin``) is below
-    ``ROUTE_MARGIN``. Returns the count of rows that differ, the largest
-    margin among them, and ``failures``."""
+    ``ROUTE_MARGIN``, and at most ``ROUTED_ALIKE_MAX`` rows so (those
+    ``_record_routing`` routed alike). Returns the count of rows that
+    differ, of those routed alike, the largest margin among them, and
+    ``failures``."""
     n = len(calls) // 2
-    differing, worst, failures = 0, 0.0, []
-    for i, (kc, pc) in enumerate(zip(calls[:n], calls[n:])):
-        (lk, uk, g1k, g2k), (lp, up, g1p, g2p) = kc, pc
-        if not torch.equal(uk, up):
+    differing, alike, worst, failures = 0, 0, 0.0, []
+    for i, (pc, kc) in enumerate(zip(calls[:n], calls[n:])):
+        if not torch.equal(pc[1], kc[1]):
             failures.append(f"routing call {i}: the uniforms differ")
-        differ = ((g1k != g1p) | (g2k != g2p)
-                  | (_keep2(torch, lk, uk) != _keep2(torch, lp, up)))
+        differ, tie = _near_ties(torch, kc, pc)
         nd = int(differ.sum())
         if nd:
             differing += nd
-            worst = max(worst, _route_margin(torch, lp, up)[differ]
+            alike += int(tie.sum())
+            worst = max(worst, _route_margin(torch, pc[0], pc[1])[differ]
                         .max().item())
     if differing and not worst < ROUTE_MARGIN:
         failures.append(f"routing: {differing} rows decide otherwise, one "
                         f"with margin {worst} >= {ROUTE_MARGIN}")
+    if alike > ROUTED_ALIKE_MAX:
+        failures.append(f"routing: {alike} rows routed alike > "
+                        f"{ROUTED_ALIKE_MAX}")
     if len(calls) % 2 or not n:
         failures.append(f"routing: {len(calls)} calls recorded")
     return {"calls_per_run": n, "rows_deciding_otherwise": differing,
-            "their_largest_margin": worst, "failures": failures}
+            "rows_routed_alike": alike, "their_largest_margin": worst,
+            "failures": failures}
 
 
 def phase_train_moe_fp32_parity(torch, K, model, opt, TrainStep,
@@ -2881,16 +2954,26 @@ def phase_train_moe_fp32_parity(torch, K, model, opt, TrainStep,
     fault in its output or dX). The routing-margin rule
     (``routing_agreement``) holds every layer's decisions in all three
     steps: they may differ only where the margin is below
-    ``ROUTE_MARGIN``."""
+    ``ROUTE_MARGIN``. Such a near tie flips either way on rounding (a row
+    at margin 1.5e-7 took one expert under one commit's kernels and the
+    other under the next's, from states 1e-7 apart), and one token routed
+    otherwise moves its layer's router gradient by ~0.5%: so the plain
+    run comes first, and the kernel run routes those rows on the plain
+    run's logits (``_record_routing``; at most ``ROUTED_ALIKE_MAX``, their
+    count is ``routing.rows_routed_alike``), and the gradient limits hold
+    the two runs on one route."""
     from paddle_tpu_torch.distributed import moe as port_moe
-    calls, undo = _record_routing(port_moe)
+    calls, mark, undo = _record_routing(torch, port_moe)
+
+    def reseed():
+        mark()
+        model.generator.manual_seed(SEED + 6)
     try:
         out = train_parity_run(
             torch, K, model, opt, TrainStep, *causal_lm_args(model, batch),
             kernels=FP32_KERNELS + MOE_FP32_KERNELS, limits=FP32_PARITY,
-            reseed=lambda: model.generator.manual_seed(SEED + 6),
-            probes=moe_probes(model),
-            probe_limits=(FP32_PARITY[1], FP32_PARITY[1]))
+            reseed=reseed, probes=moe_probes(model),
+            probe_limits=(FP32_PARITY[1], FP32_PARITY[1]), plain_first=True)
     finally:
         undo()
     route = routing_agreement(torch, calls)
@@ -2907,7 +2990,9 @@ def phase_train_moe_fp32_parity(torch, K, model, opt, TrainStep,
 _MOE_CATEGORIES = (
     ("moe_expert", ("expert_h_kernel", "fwd_out_kernel", "dx_out_kernel",
                     "dgw_reduce_kernel", "dw_kernel", "dx_h_wgmma_kernel",
-                    "dx_out_wgmma_kernel", "dw_wgmma_kernel")),
+                    "dx_out_wgmma_kernel", "dw_wgmma_kernel",
+                    "dx_h_tf32_kernel", "dx_out_tf32_kernel",
+                    "dw_tf32_kernel", "split_hilo_kernel")),
     ("moe_routing", ("routing_kernel",)),) + _CATEGORIES
 
 
@@ -3003,6 +3088,26 @@ def check_fp32_forward(tag, prof, bias, drop) -> None:
                              f"{prof['flash_fwd_kernels']}, not {want}")
 
 
+# the fp32 grouped backward's first design, which no step may run
+GROUPED_FP32_OLD = ("expert_h_kernel<true>", "dx_out_kernel", "dw_kernel")
+
+
+def check_fp32_grouped_backward(tag, prof) -> None:
+    """A profiled fp32 MoE step's grouped backward (the gated silu FFN of
+    ``moe_fp32_config``): exactly the TF32 wgmma dX pass 1, pass 2 and dW
+    instantiations ``<true>``, so no first-design
+    ``expert_h_kernel<true>``, ``dx_out_kernel`` or ``dw_kernel`` and
+    none of the ungated kind's."""
+    ran = prof["grouped_kernels"]
+    tf32 = ("dx_h_tf32_kernel", "dx_out_tf32_kernel", "dw_tf32_kernel")
+    want = sorted(f"{k}<true>" for k in tf32)
+    got = sorted(k_ for k_ in ran if k_.startswith(tf32))
+    old = [k_ for k_ in ran if k_.startswith(GROUPED_FP32_OLD)]
+    if got != want or old:
+        raise AssertionError(f"{tag}: the fp32 grouped backward ran {ran}, "
+                             f"not {want}")
+
+
 def _step_profile(torch, step_fn, model, opt, categories) -> dict:
     """One training step (``step_fn``) under the profiler: device time by
     kernel category (``categories``, then "other"), the idle share, the
@@ -3048,7 +3153,9 @@ def phase_train_moe_profile(torch, model, opt, TrainStep, batch,
     step's flash forward must be the wgmma kernel of that mode alone and
     its grouped forward the wgmma passes (``check_wgmma_forward``).
     ``fp32``: its flash forward and backward must be the plain TF32 wgmma
-    kernels alone (``check_fp32_forward``, ``check_fp32_backward``)."""
+    kernels alone (``check_fp32_forward``, ``check_fp32_backward``), and
+    its grouped backward the TF32 dX and dW of the gated FFN
+    (``check_fp32_grouped_backward``)."""
     step = TrainStep(model, opt, lambda logits, y: model.loss(logits, y))
     out = _step_profile(torch, lambda: step(batch, batch), model, opt,
                         _MOE_CATEGORIES)
@@ -3058,6 +3165,7 @@ def phase_train_moe_profile(torch, model, opt, TrainStep, batch,
     if fp32:
         check_fp32_forward(tag, out, bias=False, drop=False)
         check_fp32_backward(tag, out["flash_bwd_kernels"], drop=False)
+        check_fp32_grouped_backward(tag, out)
     return out
 
 
@@ -4346,6 +4454,16 @@ def main(argv=None) -> int:
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "shape": row["shape"], **({"kernels": ran[name]}
                                       if name in ran else {})})
+    # the fp32 grouped instantiations that train_moe_fp32's profiled step
+    # ran, by pass (dX and dW on TF32 wgmma, the forward on mma.sync)
+    ran_fp32_moe = {
+        name: [k_ for k_ in moe_fp32_prof["grouped_kernels"]
+               if k_.startswith(prefixes)]
+        for name, prefixes in (
+            ("moe_fwd_fp32", ("expert_h_kernel", "fwd_out_kernel")),
+            ("moe_dx_fp32", ("dx_h_tf32_kernel", "dx_out_tf32_kernel",
+                             "dgw_reduce_kernel", "split_hilo_kernel<true>")),
+            ("moe_dw_fp32", ("dw_tf32_kernel", "split_hilo_kernel<false>")))}
     for name, line in (("moe_fwd_fp32", "moe_grouped_gemm.py:263"),
                        ("moe_dx_fp32", "moe_grouped_gemm.py:371"),
                        ("moe_dw_fp32", "moe_grouped_gemm.py:485")):
@@ -4358,7 +4476,7 @@ def main(argv=None) -> int:
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
-            "shape": row["shape"]})
+            "shape": row["shape"], "kernels": ran_fp32_moe[name]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"nvidia-smi: {_nvidia_smi()}", flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -75,21 +75,44 @@
 // bytes a clock and reread the gathered rows for every 64 columns; the
 // ring's loads (gathers most) set the pace. Wider tiles (m64n128) and a
 // persistent grid were tried and measured slower (PERF.md).
-// The fp32 mode (3xTF32) keeps the first design: 64 x 64 output tiles, 4
-// warps, cp.async tile loads waited whole before each chunk's products,
-// mma.sync (the 3xTF32 product of flash_common.cuh on m16n8k8 .tf32,
-// fragments from plain shared loads, one index map per orientation;
-// fp32 tiles take LD = 64 + 4
-// floats a row and dynamic shared memory: the backward's first pass holds
-// five tiles, 87 KB). H need only be a multiple of 32 there: tiles past H
-// are zero-filled on load and not stored. Its move to wgmma is later work
-// (PERF.md).
+// fp32 dX and dW (dx_h_tf32_kernel, dx_out_tf32_kernel, dw_tf32_kernel):
+// TF32 wgmma, each product to fp32 accuracy by three passes (lo*hi, hi*lo,
+// hi*hi of x = hi + lo, both rounded to tf32: flash_common.cuh split_tf32;
+// flash_tf32_common.cuh product_rs)
+// into a fresh accumulator that the CUDA cores add to the running one, so
+// that no truncating tensor-core sum spans more than one 32-deep chunk
+// (ROADMAP C6). TF32 wgmma has no transpose bit (hopper.cuh): B is K-major
+// in shared memory, hi and lo, and A comes from registers (the RS form),
+// loaded by each consumer thread from the landed tile in whatever layout
+// it has and split there: no operand a warpgroup reads is split twice, and
+// the gathered rows need no copy of their own. The B operands are split
+// (and where needed transposed) once a call by split_hilo_kernel into
+// scratch that the wrapper allocates: dX the three weights, each as [E, H,
+// D] for pass 1 and [E, D, H] for pass 2 (hi and lo of 4 x [E, D, H] fp32
+// a weight); dW the transposes [E, H, cpad] of h, dh1, dhg. The rings are
+// 2 stages of 32-deep chunks (the hi / lo B tiles fill a stage); blocks as
+// in bf16, two consumer warpgroups of 64 output rows and a producer:
+// - dX pass 1 (128 slots x 64 H columns, K = D): A = x, dy = g * gate_w
+//   (cp.async gathers), B = W_in^T, W_gate^T, W_out; h, dh1, dhg; a block
+//   without tokens returns (the wrapper zeroes inter).
+// - dX pass 2 (128 slots x 64 D columns, K = H, every operand by TMA): A =
+//   dh1, dhg (one fresh accumulator for both), h; B = W_in, W_gate, W_out^T.
+// - dW (128 D columns x 64 H columns of one expert, K = its slots): A =
+//   x^T, dy^T from the gathered rows (a padded layout that the transposed
+//   fragment loads read without bank conflicts), B = dh1^T, dhg^T, h^T;
+//   dW_out is stored transposed from its [d][j] accumulator.
+// The fp32 forward keeps the first design (expert_h_kernel, fwd_out_kernel:
+// 64 x 64 output tiles, 4 warps, cp.async tile loads waited whole before
+// each chunk's products, mma.sync with the 3xTF32 product of
+// flash_common.cuh; fp32 tiles take LD = 64 + 4 floats a row). H need only
+// be a multiple of 32: tiles past H are zero-filled on load and not stored.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "flash_common.cuh"
+#include "flash_tf32_common.cuh"
 #include "hopper.cuh"
 
 namespace {
@@ -185,27 +208,6 @@ __device__ __forceinline__ void load_dense(float* dst, const float* src,
   }
 }
 
-// dy = g[row] * gate_w (fp32: nothing rounded) for the 64 slots, columns
-// col0..col0+63 of [T, D] g; zeros for an empty slot. Synchronous.
-__device__ __forceinline__ void load_dy(float* dst, const float* g, int D,
-                                        const int* rows, const float* gw,
-                                        int col0) {
-  using G = Tile;
-  for (unsigned i = threadIdx.x; i < kT * G::kChunks; i += kThreads) {
-    const int r = i / G::kChunks, c = (i % G::kChunks) * G::kPer;
-    const int row = rows[r];
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row >= 0) {
-      v = *reinterpret_cast<const float4*>(g + (int64_t)row * D + col0 + c);
-      v.x *= gw[r];
-      v.y *= gw[r];
-      v.z *= gw[r];
-      v.w *= gw[r];
-    }
-    *reinterpret_cast<float4*>(dst + r * G::LD + c) = v;
-  }
-}
-
 __device__ __forceinline__ void wait_tiles() {
   flash::cp_async_commit();
   flash::cp_async_wait<0>();
@@ -213,38 +215,23 @@ __device__ __forceinline__ void wait_tiles() {
 }
 
 // acc[64 x 64 warp slice] += A[64 x 64] B[64 x 64] over one 64-deep chunk
-// of fp32 tiles (the bf16 passes run the wgmma kernels below). Warp w owns
-// output rows 16w..16w+15 and all 64 columns (8 n-tiles). A_T: A is stored
-// [k][m] (else [m][k]); B_T: B is stored [k][n] (else [n][k]). 3xTF32 on
-// mma.m16n8k8 (8 k-steps). A [m][k] with B [n][k] is
-// flash::nt_product_f32; the transposed layouts read the tf32 fragments (flash_common.cuh: lane (g, t) takes A (g, t),
-// (g+8, t), (g, t+4), (g+8, t+4) and B (k t, n g), (k t+4, n g)) as
-//   A [k][m]: As[(kk + t) * LD + r0 + g] and +8 columns, +4 rows;
-//   B [k][n]: Bs[(kk + t) * LD + 8n + g] and +4 rows.
-template <bool A_T, bool B_T>
-__device__ __forceinline__ void mma_chunk(float (&acc)[8][4],
-                                          const float* As, const float* Bs,
-                                          int warp, int lane) {
-  static_assert(B_T || !A_T, "an [k][m] A meets only a [k][n] B");
+// of fp32 tiles, A stored [m][k] and B [k][n] (the fp32 forward's
+// products). Warp w owns output rows 16w..16w+15 and all 64 columns (8
+// n-tiles). 3xTF32 on mma.m16n8k8 (8 k-steps); lane (g, t) takes B (k t,
+// n g) and (k t+4, n g) (flash_common.cuh): Bs[(kk + t) * LD + 8n + g] and
+// +4 rows.
+__device__ __forceinline__ void mma_chunk(float (&acc)[8][4], const float* As,
+                                          const float* Bs, int warp,
+                                          int lane) {
   constexpr int LD = Tile::LD;
   const int g = lane >> 2, t = lane & 3, r0 = warp * 16;
-  if constexpr (!B_T) {
-    flash::nt_product_f32<8, kT, LD>(acc, As, r0, Bs, lane);
-  } else {
 #pragma unroll
-    for (int kk = 0; kk < kT; kk += 8) {
-      flash::FragA a;
-      if (A_T) {
-        const float* p = As + (kk + t) * LD + r0 + g;
-        a = flash::split_a(p[0], p[8], p[4 * LD], p[4 * LD + 8]);
-      } else {
-        a = flash::frag_a<LD>(As, r0, kk, lane);
-      }
+  for (int kk = 0; kk < kT; kk += 8) {
+    const flash::FragA a = flash::frag_a<LD>(As, r0, kk, lane);
 #pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        const float* p = Bs + (kk + t) * LD + n * 8 + g;
-        flash::mma3(acc[n], a, p[0], p[4 * LD]);
-      }
+    for (int n = 0; n < 8; ++n) {
+      const float* p = Bs + (kk + t) * LD + n * 8 + g;
+      flash::mma3(acc[n], a, p[0], p[4 * LD]);
     }
   }
 }
@@ -271,24 +258,17 @@ __device__ __forceinline__ float* smem_tiles() {
   return reinterpret_cast<float*>(smem_raw);
 }
 
-// ---- pass 1 of the fp32 forward and of fp32 dX: the expert's
-// H-side products ----
+// ---- pass 1 of the fp32 forward: h ----
 // Block (jt, sb, e): slots sb*64.., H columns jt*64... K runs over D.
-// Forward: h. Backward: h, dh1, dhg (and dh from dy W_out^T).
-// Shared: tiles sx, swi, swg (+ sdy, swo for BWD).
-template <bool BWD>
+// Shared: tiles sx, swi, swg.
 __global__ void __launch_bounds__(kThreads) expert_h_kernel(
     const float* __restrict__ x, const int* __restrict__ row_id,
     const float* __restrict__ gate_w, const float* __restrict__ w_in,
-    const float* __restrict__ w_gate, const float* __restrict__ w_out,
-    const float* __restrict__ g, float* __restrict__ h_out,
-    float* __restrict__ dh1_out, float* __restrict__ dhg_out, Dims d) {
+    const float* __restrict__ w_gate, float* __restrict__ h_out, Dims d) {
   constexpr int kE = Tile::kElems;
   float* sx = smem_tiles();
   float* swi = sx + kE;
   float* swg = swi + kE;
-  float* sdy = swg + kE;
-  float* swo = sdy + kE;
   __shared__ int rows[kT];
   __shared__ float gw[kT];
   const int jt = blockIdx.x, sb = blockIdx.y, e = blockIdx.z;
@@ -297,23 +277,16 @@ __global__ void __launch_bounds__(kThreads) expert_h_kernel(
   const int64_t DH = (int64_t)d.D * d.H;
   const float* wi = w_in + e * DH;
   const float* wg = d.gated ? w_gate + e * DH : nullptr;
-  const float* wo = w_out + e * DH;
-  float a1[8][4], ag[8][4], adh[8][4];
+  float a1[8][4], ag[8][4];
   zero(a1);
   zero(ag);
-  zero(adh);
   for (int k0 = 0; k0 < d.D; k0 += kT) {
     load_gather(sx, x, d.D, rows, k0, d.D);
     load_dense(swi, wi, d.H, k0, d.D, jt * kT, d.H);          // [k][n]
     if (d.gated) load_dense(swg, wg, d.H, k0, d.D, jt * kT, d.H);
-    if constexpr (BWD) {
-      load_dense(swo, wo, d.D, jt * kT, d.H, k0, d.D);        // [n][k]
-      load_dy(sdy, g, d.D, rows, gw, k0);
-    }
     wait_tiles();
-    mma_chunk<false, true>(a1, sx, swi, warp, lane);
-    if (d.gated) mma_chunk<false, true>(ag, sx, swg, warp, lane);
-    if constexpr (BWD) mma_chunk<false, false>(adh, sdy, swo, warp, lane);
+    mma_chunk(a1, sx, swi, warp, lane);
+    if (d.gated) mma_chunk(ag, sx, swg, warp, lane);
     __syncthreads();
   }
 #pragma unroll
@@ -323,24 +296,15 @@ __global__ void __launch_bounds__(kThreads) expert_h_kernel(
       const int r = acc_row(warp, lane, i), c = jt * kT + acc_col(lane, n, i);
       const int s = sb * kT + r;
       if (s >= d.cpad || c >= d.H) continue;
-      const int64_t o = ((int64_t)e * d.cpad + s) * d.H + c;
-      float hv[2], d1[2], dg[2];
+      float hv[2];
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
         const float h1 = a1[n][i + j], hg = ag[n][i + j];
         const float act = act_f(d.act, d.gated ? hg : h1);
         hv[j] = d.gated ? act * h1 : act;
-        if (BWD) {
-          const float dh = adh[n][i + j];
-          d1[j] = d.gated ? dh * act : dh * dact_f(d.act, h1);
-          dg[j] = d.gated ? dh * h1 * dact_f(d.act, hg) : 0.f;
-        }
       }
-      flash::store2(h_out + o, hv[0], hv[1]);
-      if (BWD) {
-        flash::store2(dh1_out + o, d1[0], d1[1]);
-        if (d.gated) flash::store2(dhg_out + o, dg[0], dg[1]);
-      }
+      flash::store2(h_out + ((int64_t)e * d.cpad + s) * d.H + c, hv[0],
+                    hv[1]);
     }
 }
 
@@ -366,7 +330,7 @@ __global__ void __launch_bounds__(kThreads) fwd_out_kernel(
     load_dense(sh, hb, d.H, sb * kT, d.cpad, k0, d.H);        // [m][k]
     load_dense(swo, wo, d.D, k0, d.H, dt * kT, d.D);          // [k][n]
     wait_tiles();
-    mma_chunk<false, true>(acc, sh, swo, warp, lane);
+    mma_chunk(acc, sh, swo, warp, lane);
     __syncthreads();
   }
 #pragma unroll
@@ -380,73 +344,6 @@ __global__ void __launch_bounds__(kThreads) fwd_out_kernel(
     }
 }
 
-// ---- pass 2 of fp32 dX: dx[row] += dh1 W_in^T + dhg W_gate^T, and y =
-// h W_out for this D tile's share of dgw = <g[row], y> (written per tile,
-// summed in a fixed order by dgw_reduce_kernel). Block (dt, sb, e); K over
-// H. Shared: tiles sa, sbt.
-__global__ void __launch_bounds__(kThreads) dx_out_kernel(
-    const int* __restrict__ row_id, const float* __restrict__ gate_w,
-    const float* __restrict__ w_in, const float* __restrict__ w_gate,
-    const float* __restrict__ w_out, const float* __restrict__ g,
-    const float* __restrict__ h, const float* __restrict__ dh1,
-    const float* __restrict__ dhg, float* __restrict__ dx,
-    float* __restrict__ part, Dims d) {
-  float* sa = smem_tiles();
-  float* sbt = sa + Tile::kElems;
-  __shared__ int rows[kT];
-  __shared__ float gw[kT];
-  const int dt = blockIdx.x, sb = blockIdx.y, e = blockIdx.z;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float* prow = part + (int64_t)dt * d.E * d.cpad + (int64_t)e * d.cpad;
-  if (!slot_rows(row_id, gate_w, e, sb, d, rows, gw)) {
-    const int s = sb * kT + threadIdx.x;
-    if (threadIdx.x < kT && s < d.cpad) prow[s] = 0.f;
-    return;
-  }
-  const int64_t DH = (int64_t)d.D * d.H, CH = (int64_t)d.cpad * d.H;
-  float adx[8][4], ay[8][4];
-  zero(adx);
-  zero(ay);
-  for (int k0 = 0; k0 < d.H; k0 += kT) {
-    // dh1 W_in^T: W_in[e] rows d (n), columns j (k): stored [n][k]
-    load_dense(sa, dh1 + e * CH, d.H, sb * kT, d.cpad, k0, d.H);
-    load_dense(sbt, w_in + e * DH, d.H, dt * kT, d.D, k0, d.H);
-    wait_tiles();
-    mma_chunk<false, false>(adx, sa, sbt, warp, lane);
-    __syncthreads();
-    if (d.gated) {
-      load_dense(sa, dhg + e * CH, d.H, sb * kT, d.cpad, k0, d.H);
-      load_dense(sbt, w_gate + e * DH, d.H, dt * kT, d.D, k0, d.H);
-      wait_tiles();
-      mma_chunk<false, false>(adx, sa, sbt, warp, lane);
-      __syncthreads();
-    }
-    // h W_out: W_out[e] rows j (k), columns d (n): stored [k][n]
-    load_dense(sa, h + e * CH, d.H, sb * kT, d.cpad, k0, d.H);
-    load_dense(sbt, w_out + e * DH, d.D, k0, d.H, dt * kT, d.D);
-    wait_tiles();
-    mma_chunk<false, true>(ay, sa, sbt, warp, lane);
-    __syncthreads();
-  }
-  float dot[2] = {0.f, 0.f};        // rows g and g + 8 of this warp
-#pragma unroll
-  for (int n = 0; n < 8; ++n)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = acc_row(warp, lane, i);
-      if (rows[r] < 0) continue;
-      const int64_t o = (int64_t)rows[r] * d.D + dt * kT + acc_col(lane, n, i);
-      atomicAdd(dx + o, adx[n][i]);
-      dot[i >> 1] += g[o] * ay[n][i];
-    }
-#pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    const float v = flash::quad_sum(dot[j]);
-    const int r = warp * 16 + (lane >> 2) + j * 8, s = sb * kT + r;
-    if ((lane & 3) == 0 && s < d.cpad) prow[s] = v;
-  }
-}
-
 __global__ void dgw_reduce_kernel(const float* __restrict__ part,
                                   float* __restrict__ dgw, int n_slots,
                                   int n_tiles) {
@@ -455,76 +352,6 @@ __global__ void dgw_reduce_kernel(const float* __restrict__ part,
   float v = 0.f;
   for (int t = 0; t < n_tiles; ++t) v += part[(int64_t)t * n_slots + s];
   dgw[s] = v;
-}
-
-// ---- fp32 dW: one output tile of one expert's dW per block, K over its
-// slots. Blocks [0, nd * nj): dW_in and dW_gate tile (dt, jt) = x^T
-// [dh1 | dhg]; blocks [nd * nj, 2 nd * nj): dW_out tile (jt, dt) = h^T dy.
-// Shared: tiles sa, sb1, sb2.
-__global__ void __launch_bounds__(kThreads) dw_kernel(
-    const float* __restrict__ x, const int* __restrict__ row_id,
-    const float* __restrict__ gate_w, const float* __restrict__ g,
-    const float* __restrict__ h, const float* __restrict__ dh1,
-    const float* __restrict__ dhg, float* __restrict__ dwi,
-    float* __restrict__ dwg, float* __restrict__ dwo, Dims d) {
-  constexpr int kE = Tile::kElems;
-  float* sa = smem_tiles();
-  float* sb1 = sa + kE;
-  float* sb2 = sb1 + kE;
-  __shared__ int rows[kT];
-  __shared__ float gw[kT];
-  const int e = blockIdx.y;
-  const int nd = d.D / kT, nj = (d.H + kT - 1) / kT;
-  const bool w_out_tile = (int)blockIdx.x >= nd * nj;
-  const int t = w_out_tile ? blockIdx.x - nd * nj : blockIdx.x;
-  // dW_in / dW_gate tiles: rows d (m) dt*64.., columns j (n) jt*64..
-  // dW_out tiles: rows j (m) jt*64.., columns d (n) dt*64..
-  const int dt = w_out_tile ? t % nd : t / nj;
-  const int jt = w_out_tile ? t / nd : t % nj;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int64_t CH = (int64_t)d.cpad * d.H;
-  const bool gated = d.gated && !w_out_tile;
-  float a1[8][4], a2[8][4];
-  zero(a1);
-  zero(a2);
-  const int n_sb = (d.cpad + kT - 1) / kT;
-  for (int sb = 0; sb < n_sb; ++sb) {
-    if (!slot_rows(row_id, gate_w, e, sb, d, rows, gw)) continue;
-    if (!w_out_tile) {
-      load_gather(sa, x, d.D, rows, dt * kT, d.D);              // [k][m]
-      load_dense(sb1, dh1 + e * CH, d.H, sb * kT, d.cpad, jt * kT, d.H);
-      if (gated)
-        load_dense(sb2, dhg + e * CH, d.H, sb * kT, d.cpad, jt * kT, d.H);
-      wait_tiles();
-      mma_chunk<true, true>(a1, sa, sb1, warp, lane);
-      if (gated) mma_chunk<true, true>(a2, sa, sb2, warp, lane);
-    } else {
-      load_dense(sa, h + e * CH, d.H, sb * kT, d.cpad, jt * kT, d.H);
-      load_dy(sb1, g, d.D, rows, gw, dt * kT);
-      wait_tiles();
-      mma_chunk<true, true>(a1, sa, sb1, warp, lane);
-    }
-    __syncthreads();
-  }
-  const int64_t DH = (int64_t)d.D * d.H;
-#pragma unroll
-  for (int n = 0; n < 8; ++n)
-#pragma unroll
-    for (int i = 0; i < 4; i += 2) {
-      const int r = acc_row(warp, lane, i), c = acc_col(lane, n, i);
-      if (!w_out_tile) {
-        const int dd = dt * kT + r, j = jt * kT + c;
-        if (j >= d.H) continue;
-        const int64_t o = e * DH + (int64_t)dd * d.H + j;
-        flash::store2(dwi + o, a1[n][i], a1[n][i + 1]);
-        if (gated) flash::store2(dwg + o, a2[n][i], a2[n][i + 1]);
-      } else {
-        const int j = jt * kT + r, dd = dt * kT + c;
-        if (j >= d.H) continue;
-        flash::store2(dwo + e * DH + (int64_t)j * d.D + dd, a1[n][i],
-                      a1[n][i + 1]);
-      }
-    }
 }
 
 // ---- bf16 dX and dW on Hopper: wgmma fed by a TMA / cp.async ring ----
@@ -1028,6 +855,511 @@ __global__ void __launch_bounds__(kConsumers + kGatherers, 1)
     }
 }
 
+// ---- fp32 dX and dW on Hopper: TF32 wgmma fed by TMA / cp.async rings ----
+
+// The tf32 hi and lo of a [B][R][C] fp32 tensor (split_tf32: both rounded
+// to nearest), transposed into [B][C][R] at trans and, with PLAIN, as they
+// are into [B][R][C] at plain; each lo array lies lo_off elements after its
+// hi one, so that one tensor map over [2B][.][.] reads both. A block moves
+// one 32 x 32 tile through shared memory (every access coalesced).
+template <bool PLAIN>
+__global__ void __launch_bounds__(256) split_hilo_kernel(
+    const float* __restrict__ src, float* __restrict__ plain,
+    float* __restrict__ trans, int R, int C, int64_t lo_off) {
+  __shared__ float sh[32][33], sl[32][33];
+  const int c0 = blockIdx.x * 32, r0 = blockIdx.y * 32;
+  const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
+  const int64_t base = (int64_t)blockIdx.z * R * C;
+  for (int i = ty; i < 32; i += 8) {
+    const int r = r0 + i, c = c0 + tx;
+    uint32_t hb = 0, lb = 0;
+    if (r < R && c < C) {
+      const int64_t o = base + (int64_t)r * C + c;
+      flash::split_tf32(src[o], hb, lb);
+      if constexpr (PLAIN) {
+        plain[o] = __uint_as_float(hb);
+        plain[lo_off + o] = __uint_as_float(lb);
+      }
+    }
+    sh[i][tx] = __uint_as_float(hb);
+    sl[i][tx] = __uint_as_float(lb);
+  }
+  __syncthreads();
+  for (int i = ty; i < 32; i += 8) {
+    const int c = c0 + i, r = r0 + tx;
+    if (c >= C || r >= R) continue;
+    const int64_t o = base + (int64_t)c * R + r;
+    trans[o] = sh[tx][i];
+    trans[lo_off + o] = sl[tx][i];
+  }
+}
+
+// Stage layouts of the fp32 rings (byte offsets; every TMA tile 1024-byte
+// aligned). A B tile is [64 n][32 k] fp32, 8 KB (kTile); an A tile of 128
+// rows [128][32], 16 KB; hi and lo of each B operand.
+// dX pass 1: W_in^T, W_gate^T, W_out hi and lo ([64 j][32 d], TMA); x and g
+// rows [128 slots][32 d], gathered into the swizzled layout.
+struct Q1 {
+  enum : uint32_t { WIH = 0, WIL = kTile, WGH = 2 * kTile, WGL = 3 * kTile,
+                    WOH = 4 * kTile, WOL = 5 * kTile, X = 6 * kTile,
+                    G = 8 * kTile, BYTES = 10 * kTile, STAGES = 2 };
+};
+// dX pass 2: dh1, dhg, h [128 slots][32 j]; W_in, W_gate, W_out^T hi and
+// lo [64 d][32 j]; all by TMA.
+struct Q2 {
+  enum : uint32_t { DH1 = 0, DHG = 2 * kTile, H = 4 * kTile, WIH = 6 * kTile,
+                    WIL = 7 * kTile, WGH = 8 * kTile, WGL = 9 * kTile,
+                    WOH = 10 * kTile, WOL = 11 * kTile, BYTES = 12 * kTile,
+                    STAGES = 2 };
+};
+// dW: dh1^T, dhg^T, h^T hi and lo [64 j][32 slots] (TMA); x and g rows
+// [32 slots][128 d] gathered into rows of kLdW floats (136: the transposed
+// fragment loads of frag_split_t then fall on 32 distinct banks).
+constexpr int kLdW = 136;
+struct QW {
+  enum : uint32_t { D1H = 0, D1L = kTile, DGH = 2 * kTile, DGL = 3 * kTile,
+                    HH = 4 * kTile, HL = 5 * kTile, X = 6 * kTile,
+                    G = 6 * kTile + 32 * kLdW * 4,
+                    BYTES = 6 * kTile + 2 * 32 * kLdW * 4, STAGES = 2 };
+};
+static_assert(QW::BYTES % 1024 == 0, "a dW stage keeps its TMA tiles aligned");
+
+__device__ __forceinline__ float lds(uint32_t a) {
+  float v;
+  asm volatile("ld.shared.f32 %0, [%1];\n" : "=f"(v) : "r"(a));
+  return v;
+}
+
+// The tf32 RS A fragments (hopper.cuh: a[0] row l / 4, column l % 4; a[1]
+// 8 rows down; a[2], a[3] 4 columns right) of the four k-steps of one
+// 32-deep chunk, rows 16 warp.. of a K-major swizzled tile at shared
+// address p (64 rows of 128 bytes), each value times its row's scale (s0
+// for row l / 4, s1 for 8 rows down: SCALE) and split into hi and lo.
+template <bool SCALE>
+__device__ __forceinline__ void frag_split(uint32_t (&hi)[4][4],
+                                           uint32_t (&lo)[4][4], uint32_t p,
+                                           int warp, int lane, float s0,
+                                           float s1) {
+  const int r = 16 * warp + (lane >> 2), t = lane & 3;
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float v = lds(p + hop::swz(r + (i & 1) * 8, 2 * ks + (i >> 1)) + 4 * t);
+      if constexpr (SCALE) v *= (i & 1) ? s1 : s0;
+      flash::split_tf32(v, hi[ks][i], lo[ks][i]);
+    }
+}
+
+// The same of the transpose of a [32 k][kLdW] tile at p (rows k, A[m][k] =
+// tile[k][m0 + m]), each value times its k row's scale sc[k] (SCALE).
+template <bool SCALE>
+__device__ __forceinline__ void frag_split_t(uint32_t (&hi)[4][4],
+                                             uint32_t (&lo)[4][4], uint32_t p,
+                                             int m0, int warp, int lane,
+                                             const float* sc) {
+  const int m = m0 + 16 * warp + (lane >> 2), t = lane & 3;
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int k = 8 * ks + t + (i >> 1) * 4;
+      float v = lds(p + 4 * (k * kLdW + m + (i & 1) * 8));
+      if constexpr (SCALE) v *= sc[k];
+      flash::split_tf32(v, hi[ks][i], lo[ks][i]);
+    }
+}
+
+// acc += A B over one 32-deep chunk to fp32 accuracy: A's hi and lo from
+// registers (frag_split), B's hi at bh and lo at bl ([64 n][32 k] K-major
+// tiles), the three passes (flash_tf32::product_rs) into the fresh
+// accumulator part, waited, then added on the CUDA cores. Every group this
+// warpgroup committed is complete on return.
+__device__ __forceinline__ void product_add(float (&acc)[8][4],
+                                            float (&part)[8][4],
+                                            const uint32_t (&hi)[4][4],
+                                            const uint32_t (&lo)[4][4],
+                                            uint32_t bh, uint32_t bl) {
+  hop::wg_fence();
+  flash_tf32::product_rs(part, hi, lo, bh, bl);
+  hop::wg_commit();
+  hop::wg_wait<0>();
+  hop::acc_fence(part);
+  flash_tf32::add_to(acc, part);
+}
+
+// ---- pass 1 of fp32 dX: h, dh1, dhg. Block (jt, sb, e): slots sb*128..,
+// H columns jt*64..; K = D in 32-deep chunks; consumer warpgroup wg takes
+// slots 64 wg... tm_wi, tm_wg, tm_wo: W_in^T, W_gate^T, W_out hi and lo as
+// [2E, H, D] (split_hilo_kernel). ----
+template <bool GATED>
+__global__ void __launch_bounds__(kConsumers + kGatherers, 1)
+    dx_h_tf32_kernel(const float* __restrict__ x,
+                     const int* __restrict__ row_id,
+                     const float* __restrict__ gate_w,
+                     const float* __restrict__ g, float* __restrict__ h_out,
+                     float* __restrict__ dh1_out, float* __restrict__ dhg_out,
+                     Dims d, const __grid_constant__ CUtensorMap tm_wi,
+                     const __grid_constant__ CUtensorMap tm_wg,
+                     const __grid_constant__ CUtensorMap tm_wo) {
+  constexpr int S = Q1::STAGES;
+  __shared__ Ring<S> ring;
+  __shared__ int rows[kM];
+  __shared__ float gw[kM];
+  const int jt = blockIdx.x, sb = blockIdx.y, e = blockIdx.z;
+  const int tid = threadIdx.x;
+  // no token in the block: its inter rows stay the wrapper's zeros
+  if (!slot_rows<kM>(row_id, gate_w, e, sb, d, rows, gw)) return;
+  unsigned char* tiles = ring_tiles();
+  const uint32_t base = hop::smem_u32(tiles);
+  if (tid == 0) ring.init(kGatherers + 1);
+  __syncthreads();
+  const int nk = d.D / 32;
+  if (tid >= kConsumers) {                       // the producer warpgroup
+    hop::reg_dealloc<24>();
+    const int t = tid - kConsumers;
+    constexpr uint32_t kTma = (GATED ? 6 : 4) * kTile;
+    for (int k = 0; k < nk; ++k) {
+      hop::mbar_wait(ring.e(k), Ring<S>::parity(k) ^ 1);
+      const uint32_t st = base + (k % S) * Q1::BYTES, full = ring.f(k);
+      if (t == 0) {
+        hop::mbar_arrive_tx(full, kTma);
+        hop::tma_load4(st + Q1::WIH, &tm_wi, full, k * 32, jt * 64, e, 0);
+        hop::tma_load4(st + Q1::WIL, &tm_wi, full, k * 32, jt * 64, e + d.E,
+                       0);
+        if constexpr (GATED) {
+          hop::tma_load4(st + Q1::WGH, &tm_wg, full, k * 32, jt * 64, e, 0);
+          hop::tma_load4(st + Q1::WGL, &tm_wg, full, k * 32, jt * 64,
+                         e + d.E, 0);
+        }
+        hop::tma_load4(st + Q1::WOH, &tm_wo, full, k * 32, jt * 64, e, 0);
+        hop::tma_load4(st + Q1::WOL, &tm_wo, full, k * 32, jt * 64, e + d.E,
+                       0);
+      }
+#pragma unroll 2
+      for (int i = 0; i < 8; ++i) {            // 128 rows x 8 chunks of 16 B
+        const int idx = t + kGatherers * i, r = idx >> 3, c = idx & 7;
+        const int row = rows[r];
+        const int64_t o = (int64_t)(row < 0 ? 0 : row) * d.D + k * 32 + c * 4;
+        hop::cp16(st + Q1::X + hop::swz(r, c), x + o, row < 0 ? 0 : 16);
+        hop::cp16(st + Q1::G + hop::swz(r, c), g + o, row < 0 ? 0 : 16);
+      }
+      hop::cp_arrive(full);
+    }
+    return;
+  }
+  hop::reg_alloc<240>();
+  const int wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+  // this lane's two rows' gate weights, read again for each chunk (held
+  // across the loop, the two registers were what ptxas spilled)
+  const uint32_t gwa = hop::smem_u32(gw + 64 * wg + 16 * warp + (lane >> 2));
+  float a1[8][4], ag[8][4], adh[8][4], part[8][4];
+  zero(a1);
+  zero(ag);
+  zero(adh);
+  for (int k = 0; k < nk; ++k) {
+    hop::mbar_wait(ring.f(k), Ring<S>::parity(k));
+    const uint32_t st = base + (k % S) * Q1::BYTES;
+    uint32_t hi[4][4], lo[4][4];
+    frag_split<false>(hi, lo, st + Q1::X + wg * kTile, warp, lane, 1.f, 1.f);
+    product_add(a1, part, hi, lo, st + Q1::WIH, st + Q1::WIL);
+    if constexpr (GATED)
+      product_add(ag, part, hi, lo, st + Q1::WGH, st + Q1::WGL);
+    // dy = g * gate_w (fp32: rounded as the plain version rounds it)
+    frag_split<true>(hi, lo, st + Q1::G + wg * kTile, warp, lane, lds(gwa),
+                     lds(gwa + 32));
+    product_add(adh, part, hi, lo, st + Q1::WOH, st + Q1::WOL);
+    // release stage k: after the wg_wait<0> of the product just above,
+    // the last group that read it (A came from registers)
+    if (lane == 0) hop::mbar_arrive(ring.e(k));
+  }
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; i += 2) {
+      const int s = sb * kM + 64 * wg + acc_row(warp, lane, i);
+      const int c = jt * 64 + acc_col(lane, n, i);
+      if (s >= d.cpad || c >= d.H) continue;
+      const int64_t o = ((int64_t)e * d.cpad + s) * d.H + c;
+      float hv[2], d1[2], dg[2];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const float h1 = a1[n][i + j], hg = ag[n][i + j],
+                    dh = adh[n][i + j];
+        const float act = act_f(d.act, GATED ? hg : h1);
+        hv[j] = GATED ? act * h1 : act;
+        d1[j] = GATED ? dh * act : dh * dact_f(d.act, h1);
+        dg[j] = GATED ? dh * h1 * dact_f(d.act, hg) : 0.f;
+      }
+      flash::store2(h_out + o, hv[0], hv[1]);
+      flash::store2(dh1_out + o, d1[0], d1[1]);
+      if constexpr (GATED) flash::store2(dhg_out + o, dg[0], dg[1]);
+    }
+}
+
+// ---- pass 2 of fp32 dX: dx[row] += dh1 W_in^T + dhg W_gate^T, and y =
+// h W_out for this D tile's share of dgw (dgw_reduce_kernel sums the
+// shares in a fixed order). Block (dt, sb, e): slots sb*128.., D columns
+// dt*64..; K = H in 32-deep chunks. Every operand by TMA (the producer is
+// one thread): tm_dh1, tm_dhg, tm_h [E, cpad, H]; tm_wi, tm_wg, tm_wo:
+// W_in, W_gate, W_out^T hi and lo as [2E, D, H]. ----
+template <bool GATED>
+__global__ void __launch_bounds__(kConsumers + kGatherers, 1) dx_out_tf32_kernel(
+    const int* __restrict__ row_id, const float* __restrict__ gate_w,
+    const float* __restrict__ g, float* __restrict__ dx,
+    float* __restrict__ part_out, Dims d,
+    const __grid_constant__ CUtensorMap tm_wi,
+    const __grid_constant__ CUtensorMap tm_wg,
+    const __grid_constant__ CUtensorMap tm_wo,
+    const __grid_constant__ CUtensorMap tm_dh1,
+    const __grid_constant__ CUtensorMap tm_dhg,
+    const __grid_constant__ CUtensorMap tm_h) {
+  constexpr int S = Q2::STAGES;
+  __shared__ Ring<S> ring;
+  __shared__ int rows[kM];
+  __shared__ float gw[kM];
+  const int dt = blockIdx.x, sb = blockIdx.y, e = blockIdx.z;
+  const int tid = threadIdx.x;
+  float* prow = part_out + (int64_t)dt * d.E * d.cpad + (int64_t)e * d.cpad;
+  if (!slot_rows<kM>(row_id, gate_w, e, sb, d, rows, gw)) {
+    const int s = sb * kM + tid;
+    if (tid < kM && s < d.cpad) prow[s] = 0.f;
+    return;
+  }
+  unsigned char* tiles = ring_tiles();
+  const uint32_t base = hop::smem_u32(tiles);
+  if (tid == 0) ring.init(1);
+  __syncthreads();
+  const int nk = d.H / 32;
+  if (tid >= kConsumers) {           // the producer warpgroup: one thread
+    hop::reg_dealloc<40>();
+    if (tid != kConsumers) return;
+    constexpr uint32_t kBytes = (GATED ? 6 : 4) * 2 * kTile;
+    for (int k = 0; k < nk; ++k) {
+      hop::mbar_wait(ring.e(k), Ring<S>::parity(k) ^ 1);
+      const uint32_t st = base + (k % S) * Q2::BYTES, full = ring.f(k);
+      const int j0 = k * 32, d0 = dt * 64, s0 = sb * kM;
+      hop::mbar_arrive_tx(full, kBytes);
+      hop::tma_load4(st + Q2::DH1, &tm_dh1, full, j0, s0, e, 0);
+      hop::tma_load4(st + Q2::H, &tm_h, full, j0, s0, e, 0);
+      hop::tma_load4(st + Q2::WIH, &tm_wi, full, j0, d0, e, 0);
+      hop::tma_load4(st + Q2::WIL, &tm_wi, full, j0, d0, e + d.E, 0);
+      if constexpr (GATED) {
+        hop::tma_load4(st + Q2::DHG, &tm_dhg, full, j0, s0, e, 0);
+        hop::tma_load4(st + Q2::WGH, &tm_wg, full, j0, d0, e, 0);
+        hop::tma_load4(st + Q2::WGL, &tm_wg, full, j0, d0, e + d.E, 0);
+      }
+      hop::tma_load4(st + Q2::WOH, &tm_wo, full, j0, d0, e, 0);
+      hop::tma_load4(st + Q2::WOL, &tm_wo, full, j0, d0, e + d.E, 0);
+    }
+    return;
+  }
+  hop::reg_alloc<232>();
+  const int wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+  float adx[8][4], ay[8][4], part[8][4];
+  zero(adx);
+  zero(ay);
+  for (int k = 0; k < nk; ++k) {
+    hop::mbar_wait(ring.f(k), Ring<S>::parity(k));
+    const uint32_t st = base + (k % S) * Q2::BYTES;
+    uint32_t hi[4][4], lo[4][4];
+    frag_split<false>(hi, lo, st + Q2::DH1 + wg * kTile, warp, lane, 1.f,
+                      1.f);
+    if constexpr (GATED) {   // dh1 W_in^T + dhg W_gate^T: one fresh part
+      uint32_t hi2[4][4], lo2[4][4];
+      frag_split<false>(hi2, lo2, st + Q2::DHG + wg * kTile, warp, lane, 1.f,
+                        1.f);
+      hop::wg_fence();
+      flash_tf32::product_rs(part, hi, lo, st + Q2::WIH, st + Q2::WIL);
+      flash_tf32::product_rs<false>(part, hi2, lo2, st + Q2::WGH,
+                                    st + Q2::WGL);
+      hop::wg_commit();
+      hop::wg_wait<0>();
+      hop::acc_fence(part);
+      flash_tf32::add_to(adx, part);
+    } else {
+      product_add(adx, part, hi, lo, st + Q2::WIH, st + Q2::WIL);
+    }
+    frag_split<false>(hi, lo, st + Q2::H + wg * kTile, warp, lane, 1.f, 1.f);
+    product_add(ay, part, hi, lo, st + Q2::WOH, st + Q2::WOL);
+    // release stage k: after the wg_wait<0> of the y product just above,
+    // the last group that read it
+    if (lane == 0) hop::mbar_arrive(ring.e(k));
+  }
+  float dot[2] = {0.f, 0.f};        // rows lane / 4 and + 8 of this warp
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; i += 2) {
+      const int row = rows[64 * wg + acc_row(warp, lane, i)];
+      if (row < 0) continue;
+      const int64_t o = (int64_t)row * d.D + dt * 64 + acc_col(lane, n, i);
+      atomicAdd(reinterpret_cast<float2*>(dx + o),
+                make_float2(adx[n][i], adx[n][i + 1]));
+      const float2 gv = *reinterpret_cast<const float2*>(g + o);
+      dot[i >> 1] += gv.x * ay[n][i] + gv.y * ay[n][i + 1];
+    }
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const float v = flash::quad_sum(dot[j]);
+    const int s = sb * kM + 64 * wg + acc_row(warp, lane, 2 * j);
+    if ((lane & 3) == 0 && s < d.cpad) prow[s] = v;
+  }
+}
+
+// ---- fp32 dW: block (jt, dt, e) owns D columns dt*128.. and H columns
+// jt*64.. of expert e's dW_in, dW_gate and dW_out; K = its slots in
+// 32-slot chunks up to the last that holds a token (a chunk without
+// tokens before it passes through the ring with no loads and no
+// products). Consumer warpgroup wg takes D columns 64 wg.. (the M side:
+// x^T and dy^T from registers). tm_dh1, tm_dhg, tm_h: dh1^T, dhg^T, h^T
+// hi and lo as [2E, H, cpad] (split_hilo_kernel). ----
+template <bool GATED>
+__global__ void __launch_bounds__(kConsumers + kGatherers, 1)
+    dw_tf32_kernel(const float* __restrict__ x,
+                   const int* __restrict__ row_id,
+                   const float* __restrict__ gate_w,
+                   const float* __restrict__ g, float* __restrict__ dwi,
+                   float* __restrict__ dwg, float* __restrict__ dwo, Dims d,
+                   const __grid_constant__ CUtensorMap tm_dh1,
+                   const __grid_constant__ CUtensorMap tm_dhg,
+                   const __grid_constant__ CUtensorMap tm_h) {
+  constexpr int S = QW::STAGES;
+  __shared__ Ring<S> ring;
+  __shared__ int crow[S][32];      // each chunk's token rows,
+  __shared__ float cgw[S][32];     // gate weights
+  __shared__ int clive[S];         // and whether it holds a token
+  __shared__ int clast;
+  const int jt = blockIdx.x, dt = blockIdx.y, e = blockIdx.z;
+  const int tid = threadIdx.x;
+  unsigned char* tiles = ring_tiles();
+  const uint32_t base = hop::smem_u32(tiles);
+  if (tid == 0) {
+    ring.init(kGatherers + 1);
+    clast = -1;
+  }
+  __syncthreads();
+  {  // the chunks up to the last that holds a token
+    int mine = -1;
+    for (int s = tid; s < d.cpad; s += blockDim.x) {
+      const int r = row_id[(int64_t)e * d.cpad + s];
+      if (r >= 0 && r < d.T) mine = s;
+    }
+    if (mine >= 0) atomicMax(&clast, mine >> 5);
+  }
+  __syncthreads();
+  const int n_chunks = clast + 1;
+  if (tid >= kConsumers) {                       // the producer warpgroup
+    hop::reg_dealloc<40>();
+    const int t = tid - kConsumers;
+    // slot t of chunk c (t < 32): its row id and gate weight, loaded a
+    // chunk ahead
+    const int64_t slots = (int64_t)e * d.cpad + t;
+    auto fetch = [&](int c, int& r, float& w) {
+      r = -1;
+      w = 0.f;
+      if (t < 32 && c < n_chunks && c * 32 + t < d.cpad) {
+        r = row_id[slots + c * 32];
+        w = gate_w[slots + c * 32];
+      }
+    };
+    int r_next;
+    float w_next;
+    fetch(0, r_next, w_next);
+    for (int c = 0; c < n_chunks; ++c) {
+      const bool token = r_next >= 0 && r_next < d.T;
+      const int row = token ? r_next : -1;
+      const float w = token ? w_next : 0.f;
+      fetch(c + 1, r_next, w_next);
+      hop::mbar_wait(ring.e(c), Ring<S>::parity(c) ^ 1);
+      const int s = c % S;
+      if (t < 32) {
+        crow[s][t] = row;
+        cgw[s][t] = w;
+      }
+      const bool live = hop::bar_any(3, kGatherers, row >= 0);
+      const uint32_t st = base + s * QW::BYTES, full = ring.f(c);
+      if (t == 0) {
+        clive[s] = live;
+        if (live) {
+          hop::mbar_arrive_tx(full, (GATED ? 6 : 4) * kTile);
+          hop::tma_load4(st + QW::D1H, &tm_dh1, full, c * 32, jt * 64, e, 0);
+          hop::tma_load4(st + QW::D1L, &tm_dh1, full, c * 32, jt * 64,
+                         e + d.E, 0);
+          if constexpr (GATED) {
+            hop::tma_load4(st + QW::DGH, &tm_dhg, full, c * 32, jt * 64, e,
+                           0);
+            hop::tma_load4(st + QW::DGL, &tm_dhg, full, c * 32, jt * 64,
+                           e + d.E, 0);
+          }
+          hop::tma_load4(st + QW::HH, &tm_h, full, c * 32, jt * 64, e, 0);
+          hop::tma_load4(st + QW::HL, &tm_h, full, c * 32, jt * 64, e + d.E,
+                         0);
+        } else {
+          hop::mbar_arrive(full);
+        }
+      }
+      if (live) {
+#pragma unroll 2
+        for (int i = 0; i < 8; ++i) {       // 32 rows x 32 chunks of 16 B
+          const int idx = t + kGatherers * i, r = idx >> 5, cc = idx & 31;
+          const int rr = crow[s][r], col = dt * 128 + cc * 4;
+          const bool ok = rr >= 0 && col < d.D;
+          const int64_t o = ok ? (int64_t)rr * d.D + col : 0;
+          const uint32_t at = 4 * (r * kLdW + cc * 4);
+          hop::cp16(st + QW::X + at, x + o, ok ? 16 : 0);
+          hop::cp16(st + QW::G + at, g + o, ok ? 16 : 0);
+        }
+      }
+      hop::cp_arrive(full);
+    }
+    return;
+  }
+  hop::reg_alloc<232>();
+  const int wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+  float a1[8][4], a2[8][4], a3[8][4], part[8][4];
+  zero(a1);
+  zero(a2);
+  zero(a3);
+  for (int c = 0; c < n_chunks; ++c) {
+    hop::mbar_wait(ring.f(c), Ring<S>::parity(c));
+    const int s = c % S;
+    // a vote, so that ptxas sees the products' branch uniform
+    if (__any_sync(0xffffffffu, clive[s] != 0)) {
+      const uint32_t st = base + s * QW::BYTES;
+      uint32_t hi[4][4], lo[4][4];
+      frag_split_t<false>(hi, lo, st + QW::X, 64 * wg, warp, lane, nullptr);
+      product_add(a1, part, hi, lo, st + QW::D1H, st + QW::D1L);
+      if constexpr (GATED)
+        product_add(a2, part, hi, lo, st + QW::DGH, st + QW::DGL);
+      // dy^T = (g * gate_w)^T: each k row (slot) times its gate weight
+      frag_split_t<true>(hi, lo, st + QW::G, 64 * wg, warp, lane, cgw[s]);
+      product_add(a3, part, hi, lo, st + QW::HH, st + QW::HL);
+    }
+    // release stage s: after the wg_wait<0> of the last product above,
+    // the last group that read it (none for a chunk without tokens)
+    if (lane == 0) hop::mbar_arrive(ring.e(c));
+  }
+  const int d0 = dt * 128 + 64 * wg;
+  if (d0 >= d.D) return;
+  const int64_t DH = (int64_t)d.D * d.H;
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; i += 2) {
+      const int dd = d0 + acc_row(warp, lane, i);
+      const int j = jt * 64 + acc_col(lane, n, i);   // j + 1 < H too
+      if (j >= d.H) continue;
+      const int64_t o = e * DH + (int64_t)dd * d.H + j;
+      flash::store2(dwi + o, a1[n][i], a1[n][i + 1]);
+      if constexpr (GATED) flash::store2(dwg + o, a2[n][i], a2[n][i + 1]);
+      // dW_out [j][d] from its transposed accumulator
+      const int64_t oo = e * DH + (int64_t)j * d.D + dd;
+      dwo[oo] = a3[n][i];
+      dwo[oo + d.D] = a3[n][i + 1];
+    }
+}
+
 bool dims_ok(const Dims& d) {
   return d.T > 0 && d.D > 0 && d.H > 0 && d.E > 0 && d.cpad > 0 &&
          d.D % kT == 0 && d.H % 32 == 0 && d.E <= 65535 &&
@@ -1053,9 +1385,8 @@ int fwd_f32(const void* x, const int* row_id, const float* gate_w,
   using CF = const float*;
   const int n_sb = (d.cpad + kT - 1) / kT;
   cudaError_t err = launch(
-      expert_h_kernel<false>, 3, dim3((d.H + kT - 1) / kT, n_sb, d.E),
-      stream, CF(x), row_id, gate_w, CF(w_in), CF(w_gate), CF(w_out),
-      CF(nullptr), static_cast<float*>(h), nullptr, nullptr, d);
+      expert_h_kernel, 3, dim3((d.H + kT - 1) / kT, n_sb, d.E), stream,
+      CF(x), row_id, gate_w, CF(w_in), CF(w_gate), static_cast<float*>(h), d);
   if (err != cudaSuccess) return err;
   return launch(fwd_out_kernel, 2, dim3(d.D / kT, n_sb, d.E), stream, row_id,
                 gate_w, CF(w_out), CF(h), out, d);
@@ -1070,39 +1401,6 @@ cudaError_t reduce_dgw(const float* part, float* dgw, int n_tiles,
   return cudaGetLastError();
 }
 
-// fp32 dX (the bf16 one is dx_bf16)
-int dx_f32(const void* x, const int* row_id, const float* gate_w,
-           const void* w_in, const void* w_gate, const void* w_out,
-           const void* g, void* h, void* dh1, void* dhg, float* dxo,
-           float* dgw, float* part, const Dims& d, cudaStream_t stream) {
-  using CF = const float*;
-  const int n_sb = (d.cpad + kT - 1) / kT;
-  cudaError_t err = launch(
-      expert_h_kernel<true>, 5, dim3((d.H + kT - 1) / kT, n_sb, d.E),
-      stream, CF(x), row_id, gate_w, CF(w_in), CF(w_gate), CF(w_out), CF(g),
-      static_cast<float*>(h), static_cast<float*>(dh1),
-      static_cast<float*>(dhg), d);
-  if (err != cudaSuccess) return err;
-  err = launch(dx_out_kernel, 2, dim3(d.D / kT, n_sb, d.E), stream, row_id,
-               gate_w, CF(w_in), CF(w_gate), CF(w_out), CF(g), CF(h),
-               CF(dh1), CF(dhg), dxo, part, d);
-  if (err != cudaSuccess) return err;
-  return reduce_dgw(part, dgw, d.D / kT, d, stream);
-}
-
-// fp32 dW (the bf16 one is dw_bf16)
-int dw_f32(const void* x, const int* row_id, const float* gate_w,
-           const void* g, const void* h, const void* dh1, const void* dhg,
-           void* dwi, void* dwg, void* dwo, const Dims& d,
-           cudaStream_t stream) {
-  using CF = const float*;
-  const int tiles = 2 * (d.D / kT) * ((d.H + kT - 1) / kT);
-  return launch(dw_kernel, 3, dim3(tiles, d.E), stream, CF(x), row_id,
-                gate_w, CF(g), CF(h), CF(dh1), CF(dhg),
-                static_cast<float*>(dwi), static_cast<float*>(dwg),
-                static_cast<float*>(dwo), d);
-}
-
 // a wgmma kernel: `threads` threads and the ring's dynamic shared memory
 template <typename Kern, typename... Args>
 cudaError_t launch_ring(Kern kern, dim3 grid, int threads, uint32_t stage,
@@ -1112,6 +1410,116 @@ cudaError_t launch_ring(Kern kern, dim3 grid, int threads, uint32_t stage,
   if (err != cudaSuccess) return err;
   kern<<<grid, threads, smem, stream>>>(args...);
   return cudaGetLastError();
+}
+
+// An fp32 [n2][n1][n0] tensor (n0 contiguous) read in boxes of 32 x b1
+// elements, 128B-swizzled (f32_map4 with a last dimension of 1)
+bool f32_map3(CUtensorMap* m, const void* base, uint64_t n0, uint64_t n1,
+              uint64_t n2, uint32_t b1) {
+  const uint64_t n[4] = {n0, n1, n2, 1};
+  const int64_t st[3] = {(int64_t)n0, (int64_t)(n0 * n1), 0};
+  return hop::f32_map4(m, base, n, st, b1);
+}
+
+// split_hilo_kernel over a [B][R][C] tensor: hi and lo transposed at
+// trans and, when plain is given, as they are at plain
+cudaError_t split_hilo(const void* src, float* plain, float* trans, int B,
+                       int R, int C, cudaStream_t stream) {
+  const dim3 grid((C + 31) / 32, (R + 31) / 32, B);
+  const int64_t lo_off = (int64_t)B * R * C;
+  const float* f = static_cast<const float*>(src);
+  if (plain)
+    split_hilo_kernel<true><<<grid, 256, 0, stream>>>(f, plain, trans, R, C,
+                                                      lo_off);
+  else
+    split_hilo_kernel<false><<<grid, 256, 0, stream>>>(f, plain, trans, R, C,
+                                                       lo_off);
+  return cudaGetLastError();
+}
+
+// fp32 dX (the bf16 one is dx_bf16): the weights' hi and lo into scratch
+// (W = E D H elements each: W_in^T, W_in, W_out, W_out^T, then W_gate^T,
+// W_gate, each hi then lo: 8 W, 12 W gated), their tensor maps (boxes 32
+// x 64 rows) and those of h, dh1, dhg (32 x 128 slots), then the two
+// passes and dgw
+int dx_f32(const void* x, const int* row_id, const float* gate_w,
+           const void* w_in, const void* w_gate, const void* w_out,
+           const void* g, void* h, void* dh1, void* dhg, float* dxo,
+           float* dgw, float* part, void* scratch, const Dims& d,
+           cudaStream_t stream) {
+  if (!scratch) return cudaErrorInvalidValue;
+  const int64_t W = (int64_t)d.E * d.D * d.H;
+  float* sc = static_cast<float*>(scratch);
+  float *wit = sc, *wip = sc + 2 * W, *wop = sc + 4 * W, *wot = sc + 6 * W,
+        *wgt = sc + 8 * W, *wgp = sc + 10 * W;
+  cudaError_t err = split_hilo(w_in, wip, wit, d.E, d.D, d.H, stream);
+  if (err == cudaSuccess && d.gated)
+    err = split_hilo(w_gate, wgp, wgt, d.E, d.D, d.H, stream);
+  if (err == cudaSuccess)
+    err = split_hilo(w_out, wop, wot, d.E, d.H, d.D, stream);
+  if (err != cudaSuccess) return err;
+  CUtensorMap m1_wi, m1_wg = {}, m1_wo, m2_wi, m2_wg = {}, m2_wo, m_dh1,
+              m_dhg = {}, m_h;
+  const uint64_t E2 = 2 * d.E;
+  if (!f32_map3(&m1_wi, wit, d.D, d.H, E2, 64) ||
+      (d.gated && !f32_map3(&m1_wg, wgt, d.D, d.H, E2, 64)) ||
+      !f32_map3(&m1_wo, wop, d.D, d.H, E2, 64) ||
+      !f32_map3(&m2_wi, wip, d.H, d.D, E2, 64) ||
+      (d.gated && !f32_map3(&m2_wg, wgp, d.H, d.D, E2, 64)) ||
+      !f32_map3(&m2_wo, wot, d.H, d.D, E2, 64) ||
+      !f32_map3(&m_dh1, dh1, d.H, d.cpad, d.E, kM) ||
+      (d.gated && !f32_map3(&m_dhg, dhg, d.H, d.cpad, d.E, kM)) ||
+      !f32_map3(&m_h, h, d.H, d.cpad, d.E, kM))
+    return cudaErrorInvalidValue;
+  using CF = const float*;
+  const int n_sb = (d.cpad + kM - 1) / kM;
+  err = launch_ring(
+      d.gated ? dx_h_tf32_kernel<true> : dx_h_tf32_kernel<false>,
+      dim3((d.H + 63) / 64, n_sb, d.E), kConsumers + kGatherers, Q1::BYTES,
+      Q1::STAGES, stream, CF(x), row_id, gate_w, CF(g),
+      static_cast<float*>(h), static_cast<float*>(dh1),
+      static_cast<float*>(dhg), d, m1_wi, m1_wg, m1_wo);
+  if (err != cudaSuccess) return err;
+  err = launch_ring(
+      d.gated ? dx_out_tf32_kernel<true> : dx_out_tf32_kernel<false>,
+      dim3(d.D / 64, n_sb, d.E), kConsumers + kGatherers, Q2::BYTES,
+      Q2::STAGES, stream, row_id, gate_w, CF(g), dxo, part, d, m2_wi, m2_wg,
+      m2_wo, m_dh1,
+      m_dhg, m_h);
+  if (err != cudaSuccess) return err;
+  return reduce_dgw(part, dgw, d.D / 64, d, stream);
+}
+
+// fp32 dW (the bf16 one is dw_bf16): the transposed hi and lo of h, dh1,
+// dhg into scratch (I = E cpad H elements each, hi then lo: 4 I, 6 I
+// gated), their tensor maps (boxes 32 slots x 64 rows), one launch
+int dw_f32(const void* x, const int* row_id, const float* gate_w,
+           const void* g, const void* h, const void* dh1, const void* dhg,
+           void* dwi, void* dwg, void* dwo, void* scratch, const Dims& d,
+           cudaStream_t stream) {
+  if (!scratch) return cudaErrorInvalidValue;
+  const int64_t I = (int64_t)d.E * d.cpad * d.H;
+  float* sc = static_cast<float*>(scratch);
+  float *ht = sc, *d1t = sc + 2 * I, *dgt = sc + 4 * I;
+  cudaError_t err = split_hilo(h, nullptr, ht, d.E, d.cpad, d.H, stream);
+  if (err == cudaSuccess)
+    err = split_hilo(dh1, nullptr, d1t, d.E, d.cpad, d.H, stream);
+  if (err == cudaSuccess && d.gated)
+    err = split_hilo(dhg, nullptr, dgt, d.E, d.cpad, d.H, stream);
+  if (err != cudaSuccess) return err;
+  CUtensorMap m_dh1, m_dhg = {}, m_h;
+  const uint64_t E2 = 2 * d.E;
+  if (!f32_map3(&m_dh1, d1t, d.cpad, d.H, E2, 64) ||
+      (d.gated && !f32_map3(&m_dhg, dgt, d.cpad, d.H, E2, 64)) ||
+      !f32_map3(&m_h, ht, d.cpad, d.H, E2, 64))
+    return cudaErrorInvalidValue;
+  using CF = const float*;
+  return launch_ring(
+      d.gated ? dw_tf32_kernel<true> : dw_tf32_kernel<false>,
+      dim3((d.H + 63) / 64, (d.D + 127) / 128, d.E), kConsumers + kGatherers,
+      QW::BYTES, QW::STAGES, stream, CF(x), row_id, gate_w, CF(g),
+      static_cast<float*>(dwi), static_cast<float*>(dwg),
+      static_cast<float*>(dwo), d, m_dh1, m_dhg, m_h);
 }
 
 // bf16 dX: the tensor maps of the weights (boxes 64 x 64) and of h, dh1,
@@ -1206,7 +1614,8 @@ int dw_bf16(const void* x, const int* row_id, const float* gate_w,
 
 // x, g, the expert weights, h, dh1, dhg and the dW outputs are one dtype:
 // dtype 1 bfloat16, 0 float32 (the flash kernels' codes). row_id is int32
-// and gate_w, out, dx, dgw and part are float32.
+// and gate_w, out, dx, dgw and part are float32. scratch: fp32 dX's 12 E D
+// H floats (8 ungated), fp32 dW's 6 E cpad H (4 ungated); bf16 takes none.
 extern "C" int moe_fwd_launch(const void* x, const int* row_id,
                               const float* gate_w, const void* w_in,
                               const void* w_gate, const void* w_out, void* h,
@@ -1228,7 +1637,8 @@ extern "C" int moe_dx_launch(const void* x, const int* row_id,
                              const float* gate_w, const void* w_in,
                              const void* w_gate, const void* w_out,
                              const void* g, void* h, void* dh1, void* dhg,
-                             float* dxo, float* dgw, float* part, int T,
+                             float* dxo, float* dgw, float* part,
+                             void* scratch, int T,
                              int D, int H, int E, int cpad, int act,
                              int gated, int dtype, cudaStream_t stream) {
   const Dims d{T, D, H, E, cpad, act, gated};
@@ -1239,14 +1649,15 @@ extern "C" int moe_dx_launch(const void* x, const int* row_id,
                    dxo, dgw, part, d, stream);
   if (dtype == 0)
     return dx_f32(x, row_id, gate_w, w_in, w_gate, w_out, g, h, dh1, dhg,
-                  dxo, dgw, part, d, stream);
+                  dxo, dgw, part, scratch, d, stream);
   return cudaErrorInvalidValue;
 }
 
 extern "C" int moe_dw_launch(const void* x, const int* row_id,
                              const float* gate_w, const void* g,
                              const void* h, const void* dh1, const void* dhg,
-                             void* dwi, void* dwg, void* dwo, int T, int D,
+                             void* dwi, void* dwg, void* dwo, void* scratch,
+                             int T, int D,
                              int H, int E, int cpad, int dtype,
                              cudaStream_t stream) {
   const int gated = dhg != nullptr;
@@ -1256,7 +1667,7 @@ extern "C" int moe_dw_launch(const void* x, const int* row_id,
     return dw_bf16(x, row_id, gate_w, g, h, dh1, dhg, dwi, dwg, dwo, d,
                    stream);
   if (dtype == 0)
-    return dw_f32(x, row_id, gate_w, g, h, dh1, dhg, dwi, dwg, dwo, d,
-                  stream);
+    return dw_f32(x, row_id, gate_w, g, h, dh1, dhg, dwi, dwg, dwo, scratch,
+                  d, stream);
   return cudaErrorInvalidValue;
 }

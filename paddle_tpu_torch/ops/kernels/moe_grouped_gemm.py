@@ -22,10 +22,14 @@ weight ``gate_w`` (0 for an empty slot).
   kernels' wrappers; each launches on bf16 or fp32 CUDA tensors (x, g
   and the three weights of one dtype) or raises outside
   :func:`kernel_gate`, and counts its calls (one call enqueues the
-  kernel's passes: 2 for the forward, 3 for dX, 1 for dW) in
+  kernel's passes: 2 for the forward, 3 for dX, 1 for dW; the fp32 dX
+  and dW add the launches that split their B operands) in
   ``.launches`` (bf16) or ``.fp32_launches`` (fp32, the 3xTF32 mode).
-  bf16 dX and dW run on Hopper's wgmma with TMA-fed tiles; the forward
-  and the fp32 mode on mma.sync.
+  bf16 forward, dX and dW run on Hopper's wgmma with TMA-fed tiles; fp32
+  dX and dW on TF32 wgmma (three passes a product, the weights, or dW's
+  h, dh1 and dhg, split into tf32 hi and lo once a call into scratch
+  that the wrapper allocates: 12 or 8 x ``E D H`` floats for dX, 6 or 4
+  x ``E cpad H`` for dW); the fp32 forward on mma.sync.
 - The dX pass hands dW what both Pallas passes recompute: ``h``, ``dh1``
   and ``dhg`` per slot, rounded to x's dtype (``inter``; in fp32 nothing
   is rounded). The dW pass takes them instead of recomputing them.
@@ -312,6 +316,14 @@ def _count(fn, x):
     setattr(fn, attr, getattr(fn, attr) + 1)
 
 
+def _scratch(x, n):
+    """The fp32 kernels' scratch (``n`` floats: the tf32 hi and lo of their
+    B operands); None for bf16, whose kernels take none."""
+    if x.dtype != torch.float32:
+        return None
+    return torch.empty((n,), dtype=torch.float32, device=x.device)
+
+
 def _stream(dev):
     return torch.cuda.current_stream(dev).cuda_stream
 
@@ -352,11 +364,12 @@ def moe_dx_cuda(x, row_id, gate_w, w_in, w_gate, w_out, g, act_name):
     part = torch.empty((D // 64, E * cpad), dtype=torch.float32,
                        device=x.device)
     dhg = inter[2] if w_gate is not None else None
+    scratch = _scratch(x, (12 if w_gate is not None else 8) * E * D * H)
     with torch.cuda.device(x.device):
-        err = _fn("moe_dx_launch", 13, 8)(
+        err = _fn("moe_dx_launch", 14, 8)(
             _ptr(x), _ptr(row_id), _ptr(gate_w), _ptr(w_in), _ptr(w_gate),
             _ptr(w_out), _ptr(g), _ptr(inter[0]), _ptr(inter[1]), _ptr(dhg),
-            _ptr(dx), _ptr(dgw), _ptr(part),
+            _ptr(dx), _ptr(dgw), _ptr(part), _ptr(scratch),
             *_dims(x, row_id, w_in, act_name, w_gate is not None),
             _stream(x.device))
     _raise_on(err, "moe grouped dX")
@@ -386,10 +399,12 @@ def moe_dw_cuda(x, row_id, gate_w, g, inter):
     dwi = torch.empty((E, D, H), dtype=x.dtype, device=x.device)
     dwg = None if dhg is None else torch.empty_like(dwi)
     dwo = torch.empty((E, H, D), dtype=x.dtype, device=x.device)
+    scratch = _scratch(x, (6 if dhg is not None else 4) * E * cpad * H)
     with torch.cuda.device(x.device):
-        err = _fn("moe_dw_launch", 10, 6)(
+        err = _fn("moe_dw_launch", 11, 6)(
             _ptr(x), _ptr(row_id), _ptr(gate_w), _ptr(g), _ptr(h),
             _ptr(dh1), _ptr(dhg), _ptr(dwi), _ptr(dwg), _ptr(dwo),
+            _ptr(scratch),
             x.shape[0], D, H, E, cpad, _DTYPE_CODE[x.dtype],
             _stream(x.device))
     _raise_on(err, "moe grouped dW")

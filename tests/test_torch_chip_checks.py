@@ -4,7 +4,9 @@
 forward and backward instantiations of its mode (``check_wgmma_forward``,
 ``check_fp32_forward``, ``check_fp32_backward``,
 ``check_wgmma_backward``, from the profiler's
-kernel names through ``flash_fwd_kernels`` and ``flash_bwd_kernels``),
+kernel names through ``flash_fwd_kernels`` and ``flash_bwd_kernels``) and
+the fp32 MoE step to its grouped backward's
+(``check_fp32_grouped_backward``, through ``grouped_kernels``),
 and ``chip_mutants.py`` plants each of its
 faults by replacing one piece of text of a kernel source, which must
 occur there exactly once. Both run only on the card; these tests pin
@@ -96,6 +98,89 @@ def test_fp32_forward_check_takes_its_mode_alone(bias, drop):
         S.check_fp32_forward(
             "t", prof(_tf32_fwd_names(bias, drop) + [mma]), bias=bias,
             drop=drop)
+
+
+# profiler names of an fp32 MoE step's grouped kernels (the forward on the
+# first design, dX and dW on TF32 wgmma), as CUPTI gives them
+_ANON = "void (anonymous namespace)::"
+
+
+def _grouped_names(gated, extra=()):
+    g = str(gated).lower()
+    return ([f"{_ANON}expert_h_kernel(float const*, int const*)",
+             f"{_ANON}fwd_out_kernel(int const*, float const*)",
+             f"{_ANON}split_hilo_kernel<true>(float const*, float*)",
+             f"{_ANON}split_hilo_kernel<false>(float const*, float*)",
+             f"{_ANON}dgw_reduce_kernel(float const*, float*, int, int)"]
+            + [f"{_ANON}{k}_tf32_kernel<{g}>(float const*, int const*)"
+               for k in ("dx_h", "dx_out", "dw")]
+            + [f"{_ANON}{k}" for k in extra])
+
+
+@pytest.mark.parametrize("gated", [False, True])
+def test_fp32_grouped_backward_check_takes_its_kind_alone(gated):
+    """The fp32 MoE step's FFN is gated silu. A step whose grouped
+    backward ran the TF32 dX pass 1, pass 2 and dW ``<true>`` passes; one
+    that ran the ungated kind's, in place of them or beside them, fails,
+    and so does one that lacked one of them or ran a first-design
+    ``expert_h_kernel<true>``, ``dx_out_kernel`` or ``dw_kernel``."""
+    def prof(names):
+        return {"grouped_kernels": S.grouped_kernels(names)}
+
+    if not gated:
+        for names in (_grouped_names(False),
+                      _grouped_names(True) + _grouped_names(False)[-3:]):
+            with pytest.raises(AssertionError):
+                S.check_fp32_grouped_backward("t", prof(names))
+        return
+    S.check_fp32_grouped_backward("t", prof(_grouped_names(True)))
+    without_dw = [n for n in _grouped_names(True) if "dw_tf32" not in n]
+    with pytest.raises(AssertionError):
+        S.check_fp32_grouped_backward("t", prof(without_dw))
+    for old in ("expert_h_kernel<true>(float const*)",
+                "dx_out_kernel(int const*, float const*)",
+                "dw_kernel(float const*, int const*)"):
+        with pytest.raises(AssertionError):
+            S.check_fp32_grouped_backward(
+                "t", prof(_grouped_names(True, [old])))
+
+
+@pytest.mark.parametrize("wide", [False, True])
+def test_routing_record_routes_near_ties_alike(wide):
+    """The fp32 MoE parity's routing record (``_record_routing``), the
+    plain run first: a kernel-run row whose top expert differs from the
+    plain run's at a margin below ``ROUTE_MARGIN`` is routed on the plain
+    run's logits, the plain run keeps its own route, and the record keeps
+    the kernel run's own decision, so that ``routing_agreement`` still
+    counts it; a row that differs at a wide margin (``wide``) keeps its
+    own route and fails the rule."""
+    import torch
+    from paddle_tpu_torch.distributed import moe as port_moe
+    gen = torch.Generator().manual_seed(0)
+    plain = torch.randn((64, 8), generator=gen)
+    u = torch.rand((64,), generator=gen)
+    plain[3, :2] = torch.tensor([2.0, 2.0 + 2e-7])    # a near tie
+    kernel = plain.clone()
+    kernel[3, 1] = 2.0 - 2e-7                          # decided otherwise
+    if wide:
+        kernel[7] = -kernel[7]
+    orig = port_moe._top2_parts
+    calls, mark, undo = S._record_routing(torch, port_moe)
+    try:
+        mark()
+        a = port_moe._top2_parts(plain, 16, u=u)
+        mark()
+        b = port_moe._top2_parts(kernel, 16, u=u)
+    finally:
+        undo()
+    assert port_moe._top2_parts is orig
+    assert a[0][3] == b[0][3] == 1            # the plain run's route
+    assert calls[1][2][3] == 0                # the record: its own route
+    assert (a[0][7] != b[0][7]) == wide
+    route = S.routing_agreement(torch, calls)
+    assert route["rows_deciding_otherwise"] == (2 if wide else 1)
+    assert route["rows_routed_alike"] == 1
+    assert bool(route["failures"]) == wide
 
 
 # profiler names of the bf16 wgmma forward's instantiations

@@ -925,6 +925,24 @@ def test_moe_grouped_kernels_one_hot_expert(cuda, act, dtype):
     _check_grouped(cuda, 1024, 4, 128, 64, 2.0, act, dtype, hot=True)
 
 
+@pytest.mark.parametrize("T,E,D,H,capfac,act,hot", [
+    (1024, 4, 128, 32, 1.25, "silu", False),    # H 32: half a 64-column tile
+    (1024, 4, 128, 96, 1.25, "relu", False),    # H 96, the ungated FFN
+    # capacity 129 (cpad 256): every expert's last 128-slot block (and last
+    # 32-slot dW chunk) holds one token
+    (2048, 16, 128, 96, 129 / 256, "silu", False),
+    # one expert holding all 4096 tokens at D 1024: dW's chain over 4096
+    # slots, 128 chunks, each into a fresh accumulator
+    (4096, 4, 1024, 64, 2.0, "silu", True)])
+def test_moe_fp32_tf32_ring_edges(cuda, T, E, D, H, capfac, act, hot):
+    """The fp32 dX and dW on TF32 wgmma (``dx_h_tf32_kernel``,
+    ``dx_out_tf32_kernel``, ``dw_tf32_kernel``) at the edges of their
+    rings, with the forward: each output against the plain versions in
+    fp64 within ``_fp32_rule`` of the plain fp32 versions, each launch
+    repeated bitwise (``_check_grouped``)."""
+    _check_grouped(cuda, T, E, D, H, capfac, act, "float32", hot=hot)
+
+
 def _check_grouped(cuda, T, E, D, H, capfac, act, dtype, hot=False):
     from paddle_tpu_torch.ops.kernels import moe_grouped_gemm as GG
     inp = _moe_inputs(cuda, T, E, D, H, seed=H, capfac=capfac, dtype=dtype,

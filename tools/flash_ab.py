@@ -44,8 +44,9 @@ dropout 0.1, 10 steps: the fp32 dropout mode) and the defaults arm of
 ``train_bert_nodrop`` (the same at dropout 0, ``train_bert_defaults``'
 no-dropout arm: the fp32 bias mode) and ``train_moe_fp32``
 (``chip_smoke.moe_fp32_config``, 10 steps: the fp32 plain mode), each
-with one profiled step (device time by category, idle share, the flash
-forward and backward kernels that ran). Prints one JSON line: the tree,
+with its peak memory over the 10 steps and one profiled step (device
+time by category, idle share, the flash forward and backward kernels
+that ran). Prints one JSON line: the tree,
 the card, the times in ms, the steps' figures, and, when this run built
 the kernels, ``ptxas``'s registers and spills per instantiation.
 """
@@ -234,6 +235,7 @@ def _steps(smi, names) -> dict:
                                categories)
         return {"step_ms": res["step_ms"],
                 "median_step_ms": float(np.median(res["step_ms"][2:])),
+                "max_memory_allocated_gb": res["max_memory_allocated_gb"],
                 "profile": _profile_figures(prof)}
 
     if "train_bert_padded" in names:
@@ -247,6 +249,7 @@ def _steps(smi, names) -> dict:
         out["train_bert_padded"] = {
             "step_ms": train["step_ms"],
             "median_step_ms": train["median_step_ms"],
+            "max_memory_allocated_gb": train["max_memory_allocated_gb"],
             "profile": _profile_figures(prof)}
         del model, opt, args
         torch.cuda.empty_cache()
@@ -273,6 +276,8 @@ def _steps(smi, names) -> dict:
                                S._GPT2_CATEGORIES)
         out["train_gpt2"] = {"step_ms": train["step_ms"],
                              "median_step_ms": train["median_step_ms"],
+                             "max_memory_allocated_gb":
+                                 train["max_memory_allocated_gb"],
                              "profile": _profile_figures(prof)}
         del model, opt, step, batch
         torch.cuda.empty_cache()
@@ -301,6 +306,8 @@ def _steps(smi, names) -> dict:
                                S._MOE_CATEGORIES)
         out["train_moe_fp32"] = {"step_ms": train["step_ms"],
                                  "median_step_ms": train["median_step_ms"],
+                                 "max_memory_allocated_gb":
+                                     train["max_memory_allocated_gb"],
                                  "profile": _profile_figures(prof)}
         del model, opt, step, batch
         torch.cuda.empty_cache()
