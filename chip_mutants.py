@@ -27,7 +27,9 @@ of the fault's kind (the control runs every kind of the faults chosen):
 - moe: the MoE kernel checks (``routing_errors``, ``moe_errors``) at the
   Qwen2-MoE training shapes, and the MoE train parity of
   ``phase_train_moe_parity`` (``MOE_PARITY``) after 10 steps of the
-  ``qwen2_moe_fused`` configuration;
+  ``qwen2_moe_fused`` configuration (a routing fault that makes the
+  kernel trap fails ``routing_errors`` by its exception, and the parity
+  is then not run);
 - int8: the int8 paged kernel check (``paged_int8_errors``) at the
   serving shapes, and slice parity over the int8 pool
   (``parity_run(kv_quant=True)``): one decode step through the kernels
@@ -62,9 +64,11 @@ of the fault's kind (the control runs every kind of the faults chosen):
   ``DROP_BF16_STEPS`` steps;
 - moe_fp32: the fp32 grouped-GEMM kernel check (``moe_fp32_errors``:
   against fp64, within 2x the plain fp32 version's error plus the floor)
-  at the fp32 slice's shapes (T 8192, E 16, D 1024, H 512) and at the
+  at the fp32 slice's shapes (T 8192, E 16, D 1024, H 512), at the
   long-K case ``MOE_FP32_LONG`` (one expert holding all 8192 tokens:
-  ``moe_fp32_long_errors``, its failures prefixed ``long_k``), and the fp32
+  ``moe_fp32_long_errors``, its failures prefixed ``long_k``) and at the
+  long-H case ``MOE_FP32_LONG_H`` (H 8192: ``moe_fp32_long_h_errors``,
+  ``long_h``), and the fp32
   MoE train parity of ``phase_train_moe_fp32_parity`` (``FP32_PARITY``,
   the layers' own outputs and input gradients, the routing-margin rule)
   after 10 steps of ``moe_fp32_config``;
@@ -290,8 +294,22 @@ MUTANTS = {
     "moe_routing_top2_not_after_top1": (
         "routing: count1 reported as 0, so the top-2 claims take slots "
         "from position 0, on top of the top-1 claims instead of after them",
-        [(ROUTE, "count1_out[tid] = (float)run1[tid];",
+        [(ROUTE, "count1_out[tid] = (float)(off[tid] + n1);",
           "count1_out[tid] = 0.f;")], "moe"),
+    "moe_routing_offset_inclusive": (
+        "routing: a tile's offsets summed over its predecessors and itself "
+        "(the inclusive count), so its positions start after its own claims",
+        [(ROUTE, "  const int n_prev = tile * W2;",
+          "  const int n_prev = (tile + 1) * W2;")], "moe"),
+    "moe_routing_me_sum_drops_last_tile": (
+        "routing: me_sum summed without the last tile's probability sums",
+        [(ROUTE, "j1 = min(n_tiles, j0 + per);",
+          "j1 = min(n_tiles - 1, j0 + per);")], "moe"),
+    "moe_routing_ticket_unreset": (
+        "routing: the last block leaves the tile ticket where the call "
+        "ended, so the next call's tickets start past the last tile",
+        [(ROUTE, "    w->ticket = 0u;\n    w->done = 0u;",
+          "    w->done = 0u;")], "moe"),
     "int8_v_scale_dropped": (
         "int8 paged: V codes read as if their row scale were 1",
         [(PAGED, "vv[e] *= sv;", "vv[e] *= 1.f;")], "int8"),
@@ -499,6 +517,83 @@ MUTANTS = {
       hop::mbar_arrive(ring.e(c));
     }
   }""")], "moe_fp32"),
+    "moe_fp32_fwd1_drops_hi_lo": (
+        "fp32 grouped forward, pass 1: x W_in drops its hi*lo pass (x's hi "
+        "times W_in^T's lo); dX's pass 1 unchanged",
+        [(GG, """      product_add<FWD>(a1[h], part, hi, lo, st + Q::WIH + o,
+                       st + Q::WIL + o);""",
+          """      if constexpr (FWD) {
+        hop::wg_fence();
+        hop::wgmma64_tf32_rs<false>(part, lo[0], hop::desc(st + Q::WIH + o));
+        for (int ks = 1; ks < 4; ++ks)
+          hop::wgmma64_tf32_rs(part, lo[ks],
+                               hop::desc(st + Q::WIH + o + ks * 32));
+        for (int ks = 0; ks < 4; ++ks)
+          hop::wgmma64_tf32_rs(part, hi[ks],
+                               hop::desc(st + Q::WIH + o + ks * 32));
+        hop::wg_commit();
+        hop::wg_wait<0>();
+        hop::acc_fence(part);
+        flash_tf32::add_to(a1[h], part);
+      } else {
+        product_add<FWD>(a1[h], part, hi, lo, st + Q::WIH + o,
+                         st + Q::WIL + o);
+      }""")], "moe_fp32"),
+    "moe_fp32_fwd2_passes_into_running": (
+        "fp32 grouped forward, pass 2: y's three passes summed into its "
+        "running accumulator on the tensor cores instead of a fresh one "
+        "added on the CUDA cores (a truncating chain over every 32-deep "
+        "chunk of H); dX's pass 2 unchanged",
+        [(GG, """      product_add(ay[h], part, hi, lo, st + Q::WOH + h * Q::HALF,
+                  st + Q::WOL + h * Q::HALF);""",
+          """      if constexpr (FWD) {
+        hop::wg_fence();
+        flash_tf32::product_rs<false>(ay[h], hi, lo,
+                                      st + Q::WOH + h * Q::HALF,
+                                      st + Q::WOL + h * Q::HALF);
+        hop::wg_commit();
+        hop::wg_wait<0>();
+        hop::acc_fence(ay[h]);
+      } else {
+        product_add(ay[h], part, hi, lo, st + Q::WOH + h * Q::HALF,
+                    st + Q::WOL + h * Q::HALF);
+      }""")], "moe_fp32"),
+    "moe_fp32_fwd_scatter_without_gate": (
+        "fp32 grouped forward, pass 2: out[row] += y, the gate weight left "
+        "out of the scatter",
+        [(GG, "make_float2(ay[h][n][i] * gwr, ay[h][n][i + 1] * gwr)",
+          "make_float2(ay[h][n][i], ay[h][n][i + 1])")], "moe_fp32"),
+    "moe_fp32_fwd_gate_weight_wg0": (
+        "fp32 grouped forward, pass 2: warpgroup 1's rows scattered with "
+        "warpgroup 0's gate weights",
+        [(GG, "const float gwr = gw[r];", "const float gwr = gw[r % 64];")],
+        "moe_fp32"),
+    "moe_fp32_fwd_stage_released_before_wait": (
+        "fp32 grouped forward, pass 2: a stage goes back to the producer "
+        "right after the commit of its last product (y's second 64-column "
+        "half, reading the stage's h and W_out^T tiles), before "
+        "wgmma.wait_group",
+        [(GG, """#pragma unroll
+    for (int h = 0; h < ND; ++h)
+      product_add(ay[h], part, hi, lo, st + Q::WOH + h * Q::HALF,
+                  st + Q::WOL + h * Q::HALF);
+    // release stage k: after the wg_wait<0> of the y product just above,
+    // the last group that read it
+    if (lane == 0) hop::mbar_arrive(ring.e(k));""",
+          """    if constexpr (FWD) {
+      product_add(ay[0], part, hi, lo, st + Q::WOH, st + Q::WOL);
+      hop::wg_fence();
+      flash_tf32::product_rs(part, hi, lo, st + Q::WOH + Q::HALF,
+                             st + Q::WOL + Q::HALF);
+      hop::wg_commit();
+      if (lane == 0) hop::mbar_arrive(ring.e(k));
+      hop::wg_wait<0>();
+      hop::acc_fence(part);
+      flash_tf32::add_to(ay[1], part);
+    } else {
+      product_add(ay[0], part, hi, lo, st + Q::WOH, st + Q::WOL);
+      if (lane == 0) hop::mbar_arrive(ring.e(k));
+    }""")], "moe_fp32"),
     "c6_repair_reverted": (
         "fp32 flash backward: dP = dO V^T back to three 3xTF32 passes (no "
         "lo*lo), the product before the ROADMAP C6 repair, in the mma.sync "
@@ -784,7 +879,11 @@ def _moe_checks(torch, S, K, TrainStep, AdamW) -> tuple:
     from paddle_tpu_torch.ops.kernels import moe_routing as MR
     gen = torch.Generator(device="cuda").manual_seed(S.SEED + 5)
     inp = S.moe_inputs(torch, GG, MR, gen)
-    route = S.routing_errors(torch, MR, inp["logits"], inp["u"])
+    try:
+        route = S.routing_errors(torch, MR, inp["logits"], inp["u"])
+    except RuntimeError as e:      # a kernel that traps: the smoke fails
+        return ({"failures": [f"routing_errors raised: {str(e)[:300]}"]},
+                {"failures": [], "not_run": "the CUDA context is lost"})
     grouped = S.moe_errors(torch, GG, inp["x"], inp["row_id"],
                            inp["gate_w"], inp["wi"], inp["wg"], inp["wo"],
                            inp["g"])
@@ -822,6 +921,8 @@ def _moe_fp32_checks(torch, S, K, TrainStep, AdamW) -> tuple:
     torch.cuda.empty_cache()
     check["long_k"] = S.moe_fp32_long_errors(torch, GG, MR, gen)
     check["failures"] += [f"long_k {f}" for f in check["long_k"]["failures"]]
+    check["long_h"] = S.moe_fp32_long_h_errors(torch, GG, MR, gen)
+    check["failures"] += [f"long_h {f}" for f in check["long_h"]["failures"]]
     torch.cuda.empty_cache()
     cfg = S.moe_fp32_config(Qwen2MoeConfig, S.MOE_SEQ)
     model = Qwen2MoeForCausalLM(cfg, device="cuda", seed=S.SEED)

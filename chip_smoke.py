@@ -81,8 +81,8 @@ Phases; any failure ends the run with a traceback and a non-zero exit:
    output and input gradient, and routing decisions that may differ only
    below ``ROUTE_MARGIN``; the profiled step's flash forward and
    backward must be the plain TF32 wgmma kernels alone, and its grouped
-   dX and dW the TF32 wgmma ones of the gated FFN
-   (``check_fp32_grouped_backward``);
+   forward, dX and dW the TF32 wgmma ones of the gated FFN
+   (``check_fp32_grouped_forward``, ``check_fp32_grouped_backward``);
 8. train_bert, train_bert_padded, train_bert_parity, train_bert_profile
    — ``bench.py::bench_bert``'s configuration (BERT-Base at full width
    and depth, bf16, AdamW lr 1e-4, batch 32 x seq 512): 10 steps of
@@ -2096,10 +2096,12 @@ def _profile_steps(torch, fn, n_steps, top=10) -> dict:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / n_steps
     by_name: dict[str, float] = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            by_name[e.name] = by_name.get(e.name, 0.0) \
-                + e.time_range.elapsed_us()
+    device = sorted((e for e in prof.events()
+                     if e.device_type == DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    for e in device:
+        by_name[e.name] = by_name.get(e.name, 0.0) \
+            + e.time_range.elapsed_us()
     busy_ms = sum(by_name.values()) / 1e3 / n_steps
     ranked = [[k, us / 1e3 / n_steps] for k, us in
               sorted(by_name.items(), key=lambda kv: -kv[1])]
@@ -2109,6 +2111,7 @@ def _profile_steps(torch, fn, n_steps, top=10) -> dict:
            "top_kernels_ms": [[k[:90], ms] for k, ms in ranked[:10]]}
     if top is None:
         out["all_kernels_ms"] = ranked
+        out["kernel_sequence"] = [e.name for e in device]
     return out
 
 
@@ -2523,6 +2526,10 @@ MOE_FP32_SMALL = {"T": 2048, "E": 8, "D": 256, "H": 96}
 # empty), so that dW sums over 8192 slots (256 chunks of 32, each into a
 # fresh accumulator) where the slice's fullest expert has 1280
 MOE_FP32_LONG = {"T": 8192, "E": 4, "D": 1024, "H": 128}
+# the long-H case: the forward's y = h W_out and dX's dh1 W_in^T sum over
+# K = H 8192 (256 chunks of 32, each into a fresh accumulator) where the
+# slice's H gives 16
+MOE_FP32_LONG_H = {"T": 2048, "E": 4, "D": 256, "H": 8192}
 MOE_FP32_KERNELS = ("moe_routing", "moe_fwd_fp32", "moe_dx_fp32",
                     "moe_dw_fp32")
 
@@ -2600,12 +2607,23 @@ def moe_fp32_long_errors(torch, GG, MR, gen) -> dict:
     return c
 
 
+def moe_fp32_long_h_errors(torch, GG, MR, gen) -> dict:
+    """``moe_fp32_errors`` (gated silu) at ``MOE_FP32_LONG_H``."""
+    L = MOE_FP32_LONG_H
+    inp = moe_inputs(torch, GG, MR, gen, T=L["T"], E=L["E"], D=L["D"],
+                     H=L["H"], dtype="float32")
+    return moe_fp32_errors(torch, GG, inp["x"], inp["row_id"],
+                           inp["gate_w"], inp["wi"], inp["wg"], inp["wo"],
+                           inp["g"])
+
+
 def phase_moe_fp32_kernels(torch, MR, GG) -> dict:
     """The fp32 mode of the grouped-GEMM forward, dX and dW (3xTF32) at the
     fp32 slice's shapes (T 8192, E 16, D 1024, H ``MOE_FP32_H``, cpad
     1280, gated silu, ``moe_inputs``' skewed logits, so that some experts
     fill) and both FFN kinds (gated silu, ungated relu) at
-    ``MOE_FP32_SMALL``, and the long-K case ``MOE_FP32_LONG``: each held
+    ``MOE_FP32_SMALL``, the long-K case ``MOE_FP32_LONG`` and the long-H
+    case ``MOE_FP32_LONG_H``: each held
     by ``moe_fp32_errors`` against fp64 and launched twice for a bitwise
     repeat. Then, at the slice's shapes, the
     time of each (CUDA events and profiler device time), of its plain
@@ -2636,6 +2654,9 @@ def phase_moe_fp32_kernels(torch, MR, GG) -> dict:
     c = moe_fp32_long_errors(torch, GG, MR, gen)
     checks["long_k"] = c
     failures += [f"long_k {f}" for f in c.pop("failures")]
+    c = moe_fp32_long_h_errors(torch, GG, MR, gen)
+    checks["long_h"] = c
+    failures += [f"long_h {f}" for f in c.pop("failures")]
     _emit("moe_fp32_kernel_check", {"checks": checks, "occupied_slots": n,
                                     "slots": E * cpad,
                                     "small_shape": small})
@@ -2993,7 +3014,8 @@ _MOE_CATEGORIES = (
                     "dx_out_wgmma_kernel", "dw_wgmma_kernel",
                     "dx_h_tf32_kernel", "dx_out_tf32_kernel",
                     "dw_tf32_kernel", "split_hilo_kernel")),
-    ("moe_routing", ("routing_kernel",)),) + _CATEGORIES
+    ("moe_routing", ("routing_tiles_kernel", "routing_kernel")),
+) + _CATEGORIES
 
 
 def flash_bwd_kernels(names) -> list:
@@ -3020,6 +3042,7 @@ def flash_fwd_kernels(names) -> list:
 
 
 _GROUPED = _MOE_CATEGORIES[0][1]
+_ROUTING = _MOE_CATEGORIES[1][1]
 
 
 def grouped_kernels(names) -> list:
@@ -3027,6 +3050,48 @@ def grouped_kernels(names) -> list:
     to its template."""
     return sorted({_short_kernel_name(n) for n in names
                    if any(k_ in n for k_ in _GROUPED)})
+
+
+def routing_kernels(names) -> list:
+    """The routing kernels among a profile's kernel names."""
+    return sorted({_short_kernel_name(n) for n in names
+                   if any(k_ in n for k_ in _ROUTING)})
+
+
+def _grouped_pass(short: str) -> str | None:
+    """The pass that a grouped kernel (a short name) belongs to: "fwd",
+    "dx" or "dw"; None for a split, which serves the pass after it."""
+    if short.startswith("split_hilo_kernel"):
+        return None
+    if short.startswith(("dx_h_", "dx_out_")):
+        return "fwd" if short.endswith(", true>") else "dx"
+    if short.startswith("dgw_reduce_kernel"):
+        return "dx"
+    if short.startswith("dw_"):
+        return "dw"
+    return "fwd" if short.startswith(("expert_h_kernel", "fwd_out_kernel")) \
+        else None
+
+
+def grouped_passes(sequence) -> dict:
+    """The grouped kernels of a profile's kernel names in launch order
+    (``sequence``), by pass: each kernel's own, and each split launch
+    (``split_hilo_kernel``, which the fp32 forward and dW both launch as
+    ``<false>``) the pass of the next grouped kernel after it, the one
+    that reads what it wrote."""
+    out: dict = {}
+    pending: set = set()
+    for n in sequence:
+        if not any(k_ in n for k_ in _GROUPED):
+            continue
+        short = _short_kernel_name(n)
+        kind = _grouped_pass(short)
+        if kind is None:
+            pending.add(short)
+            continue
+        out.setdefault(kind, set()).update(pending | {short})
+        pending = set()
+    return {k: sorted(v) for k, v in out.items()}
 
 
 # the bf16 grouped forward: pass 1 (h) of either FFN kind, and pass 2
@@ -3090,22 +3155,45 @@ def check_fp32_forward(tag, prof, bias, drop) -> None:
 
 # the fp32 grouped backward's first design, which no step may run
 GROUPED_FP32_OLD = ("expert_h_kernel<true>", "dx_out_kernel", "dw_kernel")
+# the fp32 grouped backward of the gated FFN: dX pass 1, pass 2 (FWD false)
+# and dW
+GROUPED_FP32_BWD = ("dw_tf32_kernel<true>", "dx_h_tf32_kernel<true, false>",
+                    "dx_out_tf32_kernel<true, false>")
+# and its forward: pass 1 of the gated kind and pass 2, which both kinds
+# share (instantiated ungated)
+GROUPED_FP32_FWD = ("dx_h_tf32_kernel<true, true>",
+                    "dx_out_tf32_kernel<false, true>")
+_TF32_GROUPED = ("dx_h_tf32_kernel", "dx_out_tf32_kernel", "dw_tf32_kernel")
 
 
 def check_fp32_grouped_backward(tag, prof) -> None:
     """A profiled fp32 MoE step's grouped backward (the gated silu FFN of
     ``moe_fp32_config``): exactly the TF32 wgmma dX pass 1, pass 2 and dW
-    instantiations ``<true>``, so no first-design
-    ``expert_h_kernel<true>``, ``dx_out_kernel`` or ``dw_kernel`` and
-    none of the ungated kind's."""
+    instantiations of the gated kind (``GROUPED_FP32_BWD``), so no
+    first-design ``expert_h_kernel<true>``, ``dx_out_kernel`` or
+    ``dw_kernel`` and none of the ungated kind's."""
     ran = prof["grouped_kernels"]
-    tf32 = ("dx_h_tf32_kernel", "dx_out_tf32_kernel", "dw_tf32_kernel")
-    want = sorted(f"{k}<true>" for k in tf32)
-    got = sorted(k_ for k_ in ran if k_.startswith(tf32))
+    got = sorted(k_ for k_ in ran if k_.startswith(_TF32_GROUPED)
+                 and _grouped_pass(k_) != "fwd")
     old = [k_ for k_ in ran if k_.startswith(GROUPED_FP32_OLD)]
-    if got != want or old:
+    if got != sorted(GROUPED_FP32_BWD) or old:
         raise AssertionError(f"{tag}: the fp32 grouped backward ran {ran}, "
-                             f"not {want}")
+                             f"not {sorted(GROUPED_FP32_BWD)}")
+
+
+def check_fp32_grouped_forward(tag, prof) -> None:
+    """A profiled fp32 MoE step's grouped forward (the gated silu FFN):
+    exactly the TF32 wgmma FWD instantiations of the gated kind
+    (``GROUPED_FP32_FWD``), so no ungated pass 1 and no first-design
+    ``expert_h_kernel`` or ``fwd_out_kernel``."""
+    ran = prof["grouped_kernels"]
+    got = sorted(k_ for k_ in ran if k_.startswith(_TF32_GROUPED)
+                 and _grouped_pass(k_) == "fwd")
+    old = [k_ for k_ in ran if k_.startswith(("expert_h_kernel",
+                                              "fwd_out_kernel"))]
+    if got != sorted(GROUPED_FP32_FWD) or old:
+        raise AssertionError(f"{tag}: the fp32 grouped forward ran {ran}, "
+                             f"not {sorted(GROUPED_FP32_FWD)}")
 
 
 def _step_profile(torch, step_fn, model, opt, categories) -> dict:
@@ -3120,6 +3208,8 @@ def _step_profile(torch, step_fn, model, opt, categories) -> dict:
     cats = {name: 0.0 for name, _ in categories}
     cats["other"] = 0.0
     ranked = out.pop("all_kernels_ms")
+    out["grouped_passes"] = grouped_passes(out.pop("kernel_sequence"))
+    out["routing_kernels"] = routing_kernels(k for k, _ in ranked)
     for kname, ms in ranked:
         cat = next((name for name, keys in categories
                     if any(k_ in kname for k_ in keys)), "other")
@@ -3154,17 +3244,22 @@ def phase_train_moe_profile(torch, model, opt, TrainStep, batch,
     its grouped forward the wgmma passes (``check_wgmma_forward``).
     ``fp32``: its flash forward and backward must be the plain TF32 wgmma
     kernels alone (``check_fp32_forward``, ``check_fp32_backward``), and
-    its grouped backward the TF32 dX and dW of the gated FFN
-    (``check_fp32_grouped_backward``)."""
+    its grouped forward, dX and dW the TF32 wgmma kernels of the gated FFN
+    (``check_fp32_grouped_forward``, ``check_fp32_grouped_backward``). Its
+    routing must be the tiled routing kernel."""
     step = TrainStep(model, opt, lambda logits, y: model.loss(logits, y))
     out = _step_profile(torch, lambda: step(batch, batch), model, opt,
                         _MOE_CATEGORIES)
     _emit(tag, out)
+    if out["routing_kernels"] != ["routing_tiles_kernel"]:
+        raise AssertionError(f"{tag}: the routing ran "
+                             f"{out['routing_kernels']}, not the tiled kernel")
     if fwd_mode is not None:
         check_wgmma_forward(tag, out, fwd_mode, grouped=True)
     if fp32:
         check_fp32_forward(tag, out, bias=False, drop=False)
         check_fp32_backward(tag, out["flash_bwd_kernels"], drop=False)
+        check_fp32_grouped_forward(tag, out)
         check_fp32_grouped_backward(tag, out)
     return out
 
@@ -4323,7 +4418,8 @@ def main(argv=None) -> int:
     ran = {"flash_fwd": train_prof["flash_fwd_kernels"],
            "flash_fwd_bias": bert_prof["flash_fwd_kernels"],
            "moe_fwd": [k_ for k_ in moe_prof["grouped_kernels"]
-                       if k_ in GROUPED_FWD]}
+                       if k_ in GROUPED_FWD],
+           "moe_routing": moe_prof["routing_kernels"]}
     for name, source, line in (
             ("flash_fwd", "flash_fwd_wgmma.cuh", 242),
             ("flash_dq", "flash_bwd_wgmma.cuh", 558),
@@ -4455,15 +4551,12 @@ def main(argv=None) -> int:
             "shape": row["shape"], **({"kernels": ran[name]}
                                       if name in ran else {})})
     # the fp32 grouped instantiations that train_moe_fp32's profiled step
-    # ran, by pass (dX and dW on TF32 wgmma, the forward on mma.sync)
-    ran_fp32_moe = {
-        name: [k_ for k_ in moe_fp32_prof["grouped_kernels"]
-               if k_.startswith(prefixes)]
-        for name, prefixes in (
-            ("moe_fwd_fp32", ("expert_h_kernel", "fwd_out_kernel")),
-            ("moe_dx_fp32", ("dx_h_tf32_kernel", "dx_out_tf32_kernel",
-                             "dgw_reduce_kernel", "split_hilo_kernel<true>")),
-            ("moe_dw_fp32", ("dw_tf32_kernel", "split_hilo_kernel<false>")))}
+    # ran, by pass (all on TF32 wgmma; each split launch with the pass
+    # after it, grouped_passes)
+    ran_fp32_moe = {name: moe_fp32_prof["grouped_passes"].get(kind, [])
+                    for name, kind in (("moe_fwd_fp32", "fwd"),
+                                       ("moe_dx_fp32", "dx"),
+                                       ("moe_dw_fp32", "dw"))}
     for name, line in (("moe_fwd_fp32", "moe_grouped_gemm.py:263"),
                        ("moe_dx_fp32", "moe_grouped_gemm.py:371"),
                        ("moe_dw_fp32", "moe_grouped_gemm.py:485")):

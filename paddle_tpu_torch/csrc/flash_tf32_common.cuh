@@ -160,13 +160,14 @@ __device__ __forceinline__ void acc_to_a_tf32(uint32_t (&hi)[4][4],
 
 // part[64 x 64] = A[64 x 32] B (part's old values not read; with FRESH
 // false, += them), A from registers (acc_to_a_tf32), B the transposed hi
-// (th) and lo (tl) tiles: lo*hi, hi*lo, hi*hi
-template <bool FRESH = true>
+// (th) and lo (tl) tiles: lo*hi, hi*lo, hi*hi. TIED: part keeps its
+// registers (hop::wgmma64_tf32_rs).
+template <bool FRESH = true, bool TIED = false>
 __device__ __forceinline__ void product_rs(float (&part)[8][4],
                                            const uint32_t (&hi)[4][4],
                                            const uint32_t (&lo)[4][4],
                                            uint32_t th, uint32_t tl) {
-  hop::wgmma64_tf32_rs<!FRESH>(part, lo[0], hop::desc(th));
+  hop::wgmma64_tf32_rs<!FRESH, TIED>(part, lo[0], hop::desc(th));
 #pragma unroll
   for (int kk = 1; kk < 4; ++kk)
     hop::wgmma64_tf32_rs(part, lo[kk], hop::desc(th + kk * 32));

@@ -334,8 +334,12 @@ __device__ __forceinline__ void wgmma32_tf32(float (&d)[4][4], uint64_t a,
 // d[64 x 64] (+)= A[64 x 8] B[8 x 64], A from registers (the tf32
 // fragment above), B K-major from shared memory by descriptor; ACC as
 // above. The registers of a must keep their values until a
-// wgmma.wait_group covers this product.
-template <bool ACC = true>
+// wgmma.wait_group covers this product. TIED (with ACC false): d's old
+// values are not read, but its registers are named as read, so that the
+// compiler keeps d in one set of registers from product to product
+// instead of renaming a fresh set for each (which lets a product start
+// before the last one's result is used, at 32 registers a set).
+template <bool ACC = true, bool TIED = false>
 __device__ __forceinline__ void wgmma64_tf32_rs(float (&d)[8][4],
                                                 const uint32_t (&a)[4],
                                                 uint64_t b) {
@@ -355,7 +359,7 @@ __device__ __forceinline__ void wgmma64_tf32_rs(float (&d)[8][4],
         C(d[7][2]), C(d[7][3])                                               \
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),                  \
         "r"(ACC ? 1 : 0))
-  if constexpr (ACC) HOP_WGMMA64_TF32_RS("+f");
+  if constexpr (ACC || TIED) HOP_WGMMA64_TF32_RS("+f");
   else HOP_WGMMA64_TF32_RS("=f");
 #undef HOP_WGMMA64_TF32_RS
 }

@@ -75,7 +75,8 @@
 // bytes a clock and reread the gathered rows for every 64 columns; the
 // ring's loads (gathers most) set the pace. Wider tiles (m64n128) and a
 // persistent grid were tried and measured slower (PERF.md).
-// fp32 dX and dW (dx_h_tf32_kernel, dx_out_tf32_kernel, dw_tf32_kernel):
+// fp32 forward, dX and dW (dx_h_tf32_kernel and dx_out_tf32_kernel, each
+// with a FWD mode, and dw_tf32_kernel):
 // TF32 wgmma, each product to fp32 accuracy by three passes (lo*hi, hi*lo,
 // hi*hi of x = hi + lo, both rounded to tf32: flash_common.cuh split_tf32;
 // flash_tf32_common.cuh product_rs)
@@ -87,25 +88,31 @@
 // it has and split there: no operand a warpgroup reads is split twice, and
 // the gathered rows need no copy of their own. The B operands are split
 // (and where needed transposed) once a call by split_hilo_kernel into
-// scratch that the wrapper allocates: dX the three weights, each as [E, H,
+// scratch that the wrapper allocates: the forward W_in^T, W_gate^T, W_out^T
+// (hi and lo of 3 x [E, D, H] fp32); dX the three weights, each as [E, H,
 // D] for pass 1 and [E, D, H] for pass 2 (hi and lo of 4 x [E, D, H] fp32
 // a weight); dW the transposes [E, H, cpad] of h, dh1, dhg. The rings are
-// 2 stages of 32-deep chunks (the hi / lo B tiles fill a stage); blocks as
-// in bf16, two consumer warpgroups of 64 output rows and a producer:
-// - dX pass 1 (128 slots x 64 H columns, K = D): A = x, dy = g * gate_w
-//   (cp.async gathers), B = W_in^T, W_gate^T, W_out; h, dh1, dhg; a block
-//   without tokens returns (the wrapper zeroes inter).
-// - dX pass 2 (128 slots x 64 D columns, K = H, every operand by TMA): A =
-//   dh1, dhg (one fresh accumulator for both), h; B = W_in, W_gate, W_out^T.
+// 32-deep chunks (the hi / lo B tiles fill a stage); blocks as in bf16, two
+// consumer warpgroups of 64 output rows and a producer:
+// - dX pass 1 (128 slots x 64 H columns, K = D, 2 stages): A = x, dy = g *
+//   gate_w (cp.async gathers), B = W_in^T, W_gate^T, W_out; h, dh1, dhg; a
+//   block without tokens returns (the wrapper zeroes inter). The forward's
+//   pass 1 (FWD): 128 slots x 128 H columns, two 64-column halves, so that
+//   each split x fragment feeds four products (gated); no g, no W_out;
+//   writes h.
+// - dX pass 2 (128 slots x 64 D columns, K = H, every operand by TMA, 2
+//   stages): A = dh1, dhg (one fresh accumulator for both), h; B = W_in,
+//   W_gate, W_out^T. The forward's pass 2 (FWD, 4 stages): y = h W_out
+//   alone (B = W_out^T) over 128 D columns (each split h fragment feeds two
+//   products), then out[row] += gate_w y by float2 atomicAdd. Both passes
+//   skip the same slot blocks (those without a token), so pass 2 never
+//   reads an h row that pass 1 left unwritten.
 // - dW (128 D columns x 64 H columns of one expert, K = its slots): A =
 //   x^T, dy^T from the gathered rows (a padded layout that the transposed
 //   fragment loads read without bank conflicts), B = dh1^T, dhg^T, h^T;
 //   dW_out is stored transposed from its [d][j] accumulator.
-// The fp32 forward keeps the first design (expert_h_kernel, fwd_out_kernel:
-// 64 x 64 output tiles, 4 warps, cp.async tile loads waited whole before
-// each chunk's products, mma.sync with the 3xTF32 product of
-// flash_common.cuh; fp32 tiles take LD = 64 + 4 floats a row). H need only
-// be a multiple of 32: tiles past H are zero-filled on load and not stored.
+// H need only be a multiple of 32: columns past H are zero-filled by TMA
+// and not stored.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -119,18 +126,7 @@ namespace {
 
 using flash::bf16;
 
-constexpr int kT = 64;            // tile edge (slots, D or H)
-constexpr int kThreads = 128;     // 4 warps, 16 output rows each
-
-// Shared tile geometry of the first design's fp32 kernels: LD floats a
-// row (16-byte rows, 4 apart in banks), 16-byte chunks of kPer floats.
-struct Tile {
-  static constexpr int LD = kT + 4;
-  static constexpr int kElems = kT * LD;
-  static constexpr int kPer = 4;
-  static constexpr int kChunks = kT / kPer;
-  static constexpr size_t bytes(int n) { return sizeof(float) * kElems * n; }
-};
+constexpr int kT = 64;            // D and slot-count granule (dims_ok)
 
 struct Dims {
   int T, D, H, E, cpad, act, gated;
@@ -151,7 +147,7 @@ __device__ __forceinline__ float dact_f(int act, float v) {
 // The N slots of block sb of expert e: their token rows (-1 for an empty
 // slot or one past cpad) and combine weights, in shared memory. Returns
 // whether any slot holds a token (the same answer for every thread).
-template <int N = kT>
+template <int N>
 __device__ __forceinline__ bool slot_rows(const int* row_id,
                                           const float* gate_w, int e, int sb,
                                           const Dims& d, int* rows,
@@ -177,65 +173,6 @@ __device__ __forceinline__ bool slot_rows(const int* row_id,
   return __syncthreads_or(live) != 0;
 }
 
-// A 64 x 64 tile from 64 gathered global rows (rows[r] < 0: zeros),
-// columns col0.., columns >= ncol zero-filled.
-__device__ __forceinline__ void load_gather(float* dst, const float* src,
-                                            int ld, const int* rows,
-                                            int col0, int ncol) {
-  using G = Tile;
-  for (unsigned i = threadIdx.x; i < kT * G::kChunks; i += kThreads) {
-    const int r = i / G::kChunks, c = (i % G::kChunks) * G::kPer;
-    const int row = rows[r];
-    const bool ok = row >= 0 && col0 + c < ncol;
-    flash::cp_async16(dst + r * G::LD + c,
-                      ok ? src + (int64_t)row * ld + col0 + c : src,
-                      ok ? 16 : 0);
-  }
-}
-
-// A 64 x 64 tile of global rows row0.. (rows >= nrow and columns >= ncol
-// zero-filled).
-__device__ __forceinline__ void load_dense(float* dst, const float* src,
-                                           int64_t ld, int row0, int nrow,
-                                           int col0, int ncol) {
-  using G = Tile;
-  for (unsigned i = threadIdx.x; i < kT * G::kChunks; i += kThreads) {
-    const int r = i / G::kChunks, c = (i % G::kChunks) * G::kPer;
-    const bool ok = row0 + r < nrow && col0 + c < ncol;
-    flash::cp_async16(dst + r * G::LD + c,
-                      ok ? src + (row0 + r) * ld + col0 + c : src,
-                      ok ? 16 : 0);
-  }
-}
-
-__device__ __forceinline__ void wait_tiles() {
-  flash::cp_async_commit();
-  flash::cp_async_wait<0>();
-  __syncthreads();
-}
-
-// acc[64 x 64 warp slice] += A[64 x 64] B[64 x 64] over one 64-deep chunk
-// of fp32 tiles, A stored [m][k] and B [k][n] (the fp32 forward's
-// products). Warp w owns output rows 16w..16w+15 and all 64 columns (8
-// n-tiles). 3xTF32 on mma.m16n8k8 (8 k-steps); lane (g, t) takes B (k t,
-// n g) and (k t+4, n g) (flash_common.cuh): Bs[(kk + t) * LD + 8n + g] and
-// +4 rows.
-__device__ __forceinline__ void mma_chunk(float (&acc)[8][4], const float* As,
-                                          const float* Bs, int warp,
-                                          int lane) {
-  constexpr int LD = Tile::LD;
-  const int g = lane >> 2, t = lane & 3, r0 = warp * 16;
-#pragma unroll
-  for (int kk = 0; kk < kT; kk += 8) {
-    const flash::FragA a = flash::frag_a<LD>(As, r0, kk, lane);
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      const float* p = Bs + (kk + t) * LD + n * 8 + g;
-      flash::mma3(acc[n], a, p[0], p[4 * LD]);
-    }
-  }
-}
-
 __device__ __forceinline__ void zero(float (&acc)[8][4]) {
 #pragma unroll
   for (int n = 0; n < 8; ++n)
@@ -250,98 +187,6 @@ __device__ __forceinline__ int acc_row(int warp, int lane, int i) {
 }
 __device__ __forceinline__ int acc_col(int lane, int n, int i) {
   return n * 8 + (lane & 3) * 2 + (i & 1);
-}
-
-// the fp32 shared tiles in dynamic shared memory
-__device__ __forceinline__ float* smem_tiles() {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  return reinterpret_cast<float*>(smem_raw);
-}
-
-// ---- pass 1 of the fp32 forward: h ----
-// Block (jt, sb, e): slots sb*64.., H columns jt*64... K runs over D.
-// Shared: tiles sx, swi, swg.
-__global__ void __launch_bounds__(kThreads) expert_h_kernel(
-    const float* __restrict__ x, const int* __restrict__ row_id,
-    const float* __restrict__ gate_w, const float* __restrict__ w_in,
-    const float* __restrict__ w_gate, float* __restrict__ h_out, Dims d) {
-  constexpr int kE = Tile::kElems;
-  float* sx = smem_tiles();
-  float* swi = sx + kE;
-  float* swg = swi + kE;
-  __shared__ int rows[kT];
-  __shared__ float gw[kT];
-  const int jt = blockIdx.x, sb = blockIdx.y, e = blockIdx.z;
-  if (!slot_rows(row_id, gate_w, e, sb, d, rows, gw)) return;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int64_t DH = (int64_t)d.D * d.H;
-  const float* wi = w_in + e * DH;
-  const float* wg = d.gated ? w_gate + e * DH : nullptr;
-  float a1[8][4], ag[8][4];
-  zero(a1);
-  zero(ag);
-  for (int k0 = 0; k0 < d.D; k0 += kT) {
-    load_gather(sx, x, d.D, rows, k0, d.D);
-    load_dense(swi, wi, d.H, k0, d.D, jt * kT, d.H);          // [k][n]
-    if (d.gated) load_dense(swg, wg, d.H, k0, d.D, jt * kT, d.H);
-    wait_tiles();
-    mma_chunk(a1, sx, swi, warp, lane);
-    if (d.gated) mma_chunk(ag, sx, swg, warp, lane);
-    __syncthreads();
-  }
-#pragma unroll
-  for (int n = 0; n < 8; ++n)
-#pragma unroll
-    for (int i = 0; i < 4; i += 2) {
-      const int r = acc_row(warp, lane, i), c = jt * kT + acc_col(lane, n, i);
-      const int s = sb * kT + r;
-      if (s >= d.cpad || c >= d.H) continue;
-      float hv[2];
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const float h1 = a1[n][i + j], hg = ag[n][i + j];
-        const float act = act_f(d.act, d.gated ? hg : h1);
-        hv[j] = d.gated ? act * h1 : act;
-      }
-      flash::store2(h_out + ((int64_t)e * d.cpad + s) * d.H + c, hv[0],
-                    hv[1]);
-    }
-}
-
-// ---- pass 2 of the fp32 forward: y = h W_out, out[row] += gate_w * y ----
-// Block (dt, sb, e): slots sb*64.., D columns dt*64... K runs over H.
-// Shared: tiles sh, swo.
-__global__ void __launch_bounds__(kThreads) fwd_out_kernel(
-    const int* __restrict__ row_id, const float* __restrict__ gate_w,
-    const float* __restrict__ w_out, const float* __restrict__ h,
-    float* __restrict__ out, Dims d) {
-  float* sh = smem_tiles();
-  float* swo = sh + Tile::kElems;
-  __shared__ int rows[kT];
-  __shared__ float gw[kT];
-  const int dt = blockIdx.x, sb = blockIdx.y, e = blockIdx.z;
-  if (!slot_rows(row_id, gate_w, e, sb, d, rows, gw)) return;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const float* wo = w_out + (int64_t)e * d.H * d.D;
-  const float* hb = h + (int64_t)e * d.cpad * d.H;
-  float acc[8][4];
-  zero(acc);
-  for (int k0 = 0; k0 < d.H; k0 += kT) {
-    load_dense(sh, hb, d.H, sb * kT, d.cpad, k0, d.H);        // [m][k]
-    load_dense(swo, wo, d.D, k0, d.H, dt * kT, d.D);          // [k][n]
-    wait_tiles();
-    mma_chunk(acc, sh, swo, warp, lane);
-    __syncthreads();
-  }
-#pragma unroll
-  for (int n = 0; n < 8; ++n)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = acc_row(warp, lane, i);
-      if (rows[r] < 0) continue;
-      atomicAdd(out + (int64_t)rows[r] * d.D + dt * kT + acc_col(lane, n, i),
-                acc[n][i] * gw[r]);
-    }
 }
 
 __global__ void dgw_reduce_kernel(const float* __restrict__ part,
@@ -896,21 +741,36 @@ __global__ void __launch_bounds__(256) split_hilo_kernel(
 
 // Stage layouts of the fp32 rings (byte offsets; every TMA tile 1024-byte
 // aligned). A B tile is [64 n][32 k] fp32, 8 KB (kTile); an A tile of 128
-// rows [128][32], 16 KB; hi and lo of each B operand.
+// rows [128][32], 16 KB; hi and lo of each B operand. HALF: the step from
+// a B tile of the block's first 64 output columns to its second (FWD).
 // dX pass 1: W_in^T, W_gate^T, W_out hi and lo ([64 j][32 d], TMA); x and g
 // rows [128 slots][32 d], gathered into the swizzled layout.
 struct Q1 {
   enum : uint32_t { WIH = 0, WIL = kTile, WGH = 2 * kTile, WGL = 3 * kTile,
                     WOH = 4 * kTile, WOL = 5 * kTile, X = 6 * kTile,
-                    G = 8 * kTile, BYTES = 10 * kTile, STAGES = 2 };
+                    G = 8 * kTile, HALF = 0, BYTES = 10 * kTile, STAGES = 2 };
+};
+// The forward's pass 1: W_in^T, W_gate^T hi and lo for two 64-column halves
+// of H ([64 j][32 d] each, TMA); x rows [128 slots][32 d], gathered. No g,
+// no W_out.
+struct Q1F {
+  enum : uint32_t { WIH = 0, WIL = kTile, WGH = 4 * kTile, WGL = 5 * kTile,
+                    X = 8 * kTile, HALF = 2 * kTile, BYTES = 10 * kTile,
+                    STAGES = 2 };
 };
 // dX pass 2: dh1, dhg, h [128 slots][32 j]; W_in, W_gate, W_out^T hi and
 // lo [64 d][32 j]; all by TMA.
 struct Q2 {
   enum : uint32_t { DH1 = 0, DHG = 2 * kTile, H = 4 * kTile, WIH = 6 * kTile,
                     WIL = 7 * kTile, WGH = 8 * kTile, WGL = 9 * kTile,
-                    WOH = 10 * kTile, WOL = 11 * kTile, BYTES = 12 * kTile,
-                    STAGES = 2 };
+                    WOH = 10 * kTile, WOL = 11 * kTile, HALF = 0,
+                    BYTES = 12 * kTile, STAGES = 2 };
+};
+// The forward's pass 2: h [128 slots][32 j]; W_out^T hi and lo [64 d][32 j]
+// for two 64-column halves of D; all by TMA.
+struct Q2F {
+  enum : uint32_t { H = 0, WOH = 2 * kTile, WOL = 3 * kTile, HALF = 2 * kTile,
+                    BYTES = 6 * kTile, STAGES = 4 };
 };
 // dW: dh1^T, dhg^T, h^T hi and lo [64 j][32 slots] (TMA); x and g rows
 // [32 slots][128 d] gathered into rows of kLdW floats (136: the transposed
@@ -974,25 +834,31 @@ __device__ __forceinline__ void frag_split_t(uint32_t (&hi)[4][4],
 // registers (frag_split), B's hi at bh and lo at bl ([64 n][32 k] K-major
 // tiles), the three passes (flash_tf32::product_rs) into the fresh
 // accumulator part, waited, then added on the CUDA cores. Every group this
-// warpgroup committed is complete on return.
+// warpgroup committed is complete on return. TIED keeps part in one set of
+// registers across products (the forward's gated pass 1 holds four
+// accumulators: with a renamed part a product, ptxas spilled 284 bytes).
+template <bool TIED = false>
 __device__ __forceinline__ void product_add(float (&acc)[8][4],
                                             float (&part)[8][4],
                                             const uint32_t (&hi)[4][4],
                                             const uint32_t (&lo)[4][4],
                                             uint32_t bh, uint32_t bl) {
   hop::wg_fence();
-  flash_tf32::product_rs(part, hi, lo, bh, bl);
+  flash_tf32::product_rs<true, TIED>(part, hi, lo, bh, bl);
   hop::wg_commit();
   hop::wg_wait<0>();
   hop::acc_fence(part);
   flash_tf32::add_to(acc, part);
 }
 
-// ---- pass 1 of fp32 dX: h, dh1, dhg. Block (jt, sb, e): slots sb*128..,
-// H columns jt*64..; K = D in 32-deep chunks; consumer warpgroup wg takes
-// slots 64 wg... tm_wi, tm_wg, tm_wo: W_in^T, W_gate^T, W_out hi and lo as
-// [2E, H, D] (split_hilo_kernel). ----
-template <bool GATED>
+// ---- pass 1 of fp32 dX: h, dh1, dhg, and with FWD of the forward: h.
+// Block (jt, sb, e): slots sb*128.., H columns jt*BJ..; K = D in 32-deep
+// chunks; consumer warpgroup wg takes slots 64 wg... tm_wi, tm_wg, tm_wo:
+// W_in^T, W_gate^T, W_out hi and lo as [2E, H, D] (split_hilo_kernel). FWD
+// drops the g gather, the W_out tiles and the dy W_out^T product, and takes
+// 128 H columns a block (BJ), two 64-column halves, so that each split x
+// fragment feeds twice the products. ----
+template <bool GATED, bool FWD>
 __global__ void __launch_bounds__(kConsumers + kGatherers, 1)
     dx_h_tf32_kernel(const float* __restrict__ x,
                      const int* __restrict__ row_id,
@@ -1002,13 +868,16 @@ __global__ void __launch_bounds__(kConsumers + kGatherers, 1)
                      Dims d, const __grid_constant__ CUtensorMap tm_wi,
                      const __grid_constant__ CUtensorMap tm_wg,
                      const __grid_constant__ CUtensorMap tm_wo) {
-  constexpr int S = Q1::STAGES;
+  using Q = typename std::conditional<FWD, Q1F, Q1>::type;
+  constexpr int S = Q::STAGES;
+  constexpr int NJ = FWD ? 2 : 1, BJ = 64 * NJ;   // H columns a block
   __shared__ Ring<S> ring;
   __shared__ int rows[kM];
   __shared__ float gw[kM];
   const int jt = blockIdx.x, sb = blockIdx.y, e = blockIdx.z;
   const int tid = threadIdx.x;
-  // no token in the block: its inter rows stay the wrapper's zeros
+  // no token in the block: its inter rows stay the wrapper's zeros; the
+  // forward's h rows stay unwritten, and pass 2 skips the same block
   if (!slot_rows<kM>(row_id, gate_w, e, sb, d, rows, gw)) return;
   unsigned char* tiles = ring_tiles();
   const uint32_t base = hop::smem_u32(tiles);
@@ -1018,31 +887,38 @@ __global__ void __launch_bounds__(kConsumers + kGatherers, 1)
   if (tid >= kConsumers) {                       // the producer warpgroup
     hop::reg_dealloc<24>();
     const int t = tid - kConsumers;
-    constexpr uint32_t kTma = (GATED ? 6 : 4) * kTile;
+    constexpr uint32_t kTma = (NJ * (GATED ? 4 : 2) + (FWD ? 0 : 2)) * kTile;
     for (int k = 0; k < nk; ++k) {
       hop::mbar_wait(ring.e(k), Ring<S>::parity(k) ^ 1);
-      const uint32_t st = base + (k % S) * Q1::BYTES, full = ring.f(k);
+      const uint32_t st = base + (k % S) * Q::BYTES, full = ring.f(k);
       if (t == 0) {
         hop::mbar_arrive_tx(full, kTma);
-        hop::tma_load4(st + Q1::WIH, &tm_wi, full, k * 32, jt * 64, e, 0);
-        hop::tma_load4(st + Q1::WIL, &tm_wi, full, k * 32, jt * 64, e + d.E,
-                       0);
-        if constexpr (GATED) {
-          hop::tma_load4(st + Q1::WGH, &tm_wg, full, k * 32, jt * 64, e, 0);
-          hop::tma_load4(st + Q1::WGL, &tm_wg, full, k * 32, jt * 64,
-                         e + d.E, 0);
+        for (int h = 0; h < NJ; ++h) {
+          const uint32_t o = h * Q::HALF;
+          const int j0 = jt * BJ + 64 * h;
+          hop::tma_load4(st + Q::WIH + o, &tm_wi, full, k * 32, j0, e, 0);
+          hop::tma_load4(st + Q::WIL + o, &tm_wi, full, k * 32, j0, e + d.E,
+                         0);
+          if constexpr (GATED) {
+            hop::tma_load4(st + Q::WGH + o, &tm_wg, full, k * 32, j0, e, 0);
+            hop::tma_load4(st + Q::WGL + o, &tm_wg, full, k * 32, j0,
+                           e + d.E, 0);
+          }
         }
-        hop::tma_load4(st + Q1::WOH, &tm_wo, full, k * 32, jt * 64, e, 0);
-        hop::tma_load4(st + Q1::WOL, &tm_wo, full, k * 32, jt * 64, e + d.E,
-                       0);
+        if constexpr (!FWD) {
+          hop::tma_load4(st + Q::WOH, &tm_wo, full, k * 32, jt * 64, e, 0);
+          hop::tma_load4(st + Q::WOL, &tm_wo, full, k * 32, jt * 64, e + d.E,
+                         0);
+        }
       }
 #pragma unroll 2
       for (int i = 0; i < 8; ++i) {            // 128 rows x 8 chunks of 16 B
         const int idx = t + kGatherers * i, r = idx >> 3, c = idx & 7;
         const int row = rows[r];
         const int64_t o = (int64_t)(row < 0 ? 0 : row) * d.D + k * 32 + c * 4;
-        hop::cp16(st + Q1::X + hop::swz(r, c), x + o, row < 0 ? 0 : 16);
-        hop::cp16(st + Q1::G + hop::swz(r, c), g + o, row < 0 ? 0 : 16);
+        hop::cp16(st + Q::X + hop::swz(r, c), x + o, row < 0 ? 0 : 16);
+        if constexpr (!FWD)
+          hop::cp16(st + Q::G + hop::swz(r, c), g + o, row < 0 ? 0 : 16);
       }
       hop::cp_arrive(full);
     }
@@ -1050,41 +926,56 @@ __global__ void __launch_bounds__(kConsumers + kGatherers, 1)
   }
   hop::reg_alloc<240>();
   const int wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
-  // this lane's two rows' gate weights, read again for each chunk (held
-  // across the loop, the two registers were what ptxas spilled)
-  const uint32_t gwa = hop::smem_u32(gw + 64 * wg + 16 * warp + (lane >> 2));
-  float a1[8][4], ag[8][4], adh[8][4], part[8][4];
-  zero(a1);
-  zero(ag);
+  float a1[NJ][8][4], ag[NJ][8][4], adh[8][4], part[8][4];
+#pragma unroll
+  for (int h = 0; h < NJ; ++h) {
+    zero(a1[h]);
+    zero(ag[h]);
+  }
   zero(adh);
+  zero(part);                 // named as read by the TIED products (FWD)
   for (int k = 0; k < nk; ++k) {
     hop::mbar_wait(ring.f(k), Ring<S>::parity(k));
-    const uint32_t st = base + (k % S) * Q1::BYTES;
+    const uint32_t st = base + (k % S) * Q::BYTES;
     uint32_t hi[4][4], lo[4][4];
-    frag_split<false>(hi, lo, st + Q1::X + wg * kTile, warp, lane, 1.f, 1.f);
-    product_add(a1, part, hi, lo, st + Q1::WIH, st + Q1::WIL);
-    if constexpr (GATED)
-      product_add(ag, part, hi, lo, st + Q1::WGH, st + Q1::WGL);
-    // dy = g * gate_w (fp32: rounded as the plain version rounds it)
-    frag_split<true>(hi, lo, st + Q1::G + wg * kTile, warp, lane, lds(gwa),
-                     lds(gwa + 32));
-    product_add(adh, part, hi, lo, st + Q1::WOH, st + Q1::WOL);
+    frag_split<false>(hi, lo, st + Q::X + wg * kTile, warp, lane, 1.f, 1.f);
+#pragma unroll
+    for (int h = 0; h < NJ; ++h) {
+      const uint32_t o = h * Q::HALF;
+      product_add<FWD>(a1[h], part, hi, lo, st + Q::WIH + o,
+                       st + Q::WIL + o);
+      if constexpr (GATED)
+        product_add<FWD>(ag[h], part, hi, lo, st + Q::WGH + o,
+                         st + Q::WGL + o);
+    }
+    if constexpr (!FWD) {
+      // dy = g * gate_w (fp32: rounded as the plain version rounds it);
+      // this lane's two rows' gate weights read again for each chunk (held
+      // across the loop, the two registers were what ptxas spilled)
+      const uint32_t gwa =
+          hop::smem_u32(gw + 64 * wg + 16 * warp + (lane >> 2));
+      frag_split<true>(hi, lo, st + Q::G + wg * kTile, warp, lane, lds(gwa),
+                       lds(gwa + 32));
+      product_add(adh, part, hi, lo, st + Q::WOH, st + Q::WOL);
+    }
     // release stage k: after the wg_wait<0> of the product just above,
     // the last group that read it (A came from registers)
     if (lane == 0) hop::mbar_arrive(ring.e(k));
   }
 #pragma unroll
+  for (int h = 0; h < NJ; ++h)
+#pragma unroll
   for (int n = 0; n < 8; ++n)
 #pragma unroll
     for (int i = 0; i < 4; i += 2) {
       const int s = sb * kM + 64 * wg + acc_row(warp, lane, i);
-      const int c = jt * 64 + acc_col(lane, n, i);
+      const int c = jt * BJ + 64 * h + acc_col(lane, n, i);
       if (s >= d.cpad || c >= d.H) continue;
       const int64_t o = ((int64_t)e * d.cpad + s) * d.H + c;
       float hv[2], d1[2], dg[2];
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
-        const float h1 = a1[n][i + j], hg = ag[n][i + j],
+        const float h1 = a1[h][n][i + j], hg = ag[h][n][i + j],
                     dh = adh[n][i + j];
         const float act = act_f(d.act, GATED ? hg : h1);
         hv[j] = GATED ? act * h1 : act;
@@ -1092,18 +983,23 @@ __global__ void __launch_bounds__(kConsumers + kGatherers, 1)
         dg[j] = GATED ? dh * h1 * dact_f(d.act, hg) : 0.f;
       }
       flash::store2(h_out + o, hv[0], hv[1]);
-      flash::store2(dh1_out + o, d1[0], d1[1]);
-      if constexpr (GATED) flash::store2(dhg_out + o, dg[0], dg[1]);
+      if constexpr (!FWD) {
+        flash::store2(dh1_out + o, d1[0], d1[1]);
+        if constexpr (GATED) flash::store2(dhg_out + o, dg[0], dg[1]);
+      }
     }
 }
 
 // ---- pass 2 of fp32 dX: dx[row] += dh1 W_in^T + dhg W_gate^T, and y =
 // h W_out for this D tile's share of dgw (dgw_reduce_kernel sums the
-// shares in a fixed order). Block (dt, sb, e): slots sb*128.., D columns
-// dt*64..; K = H in 32-deep chunks. Every operand by TMA (the producer is
-// one thread): tm_dh1, tm_dhg, tm_h [E, cpad, H]; tm_wi, tm_wg, tm_wo:
-// W_in, W_gate, W_out^T hi and lo as [2E, D, H]. ----
-template <bool GATED>
+// shares in a fixed order); with FWD, of the forward: y = h W_out alone
+// and out[row] += gate_w y (out in dx's place; no g, no part, no dh1, dhg,
+// W_in, W_gate), over 128 D columns a block (BD), two 64-column halves.
+// Block (dt, sb, e): slots sb*128.., D columns dt*BD..; K = H in 32-deep
+// chunks. Every operand by TMA (the producer is one thread): tm_dh1,
+// tm_dhg, tm_h [E, cpad, H]; tm_wi, tm_wg, tm_wo: W_in, W_gate, W_out^T hi
+// and lo as [2E, D, H]. ----
+template <bool GATED, bool FWD>
 __global__ void __launch_bounds__(kConsumers + kGatherers, 1) dx_out_tf32_kernel(
     const int* __restrict__ row_id, const float* __restrict__ gate_w,
     const float* __restrict__ g, float* __restrict__ dx,
@@ -1114,16 +1010,20 @@ __global__ void __launch_bounds__(kConsumers + kGatherers, 1) dx_out_tf32_kernel
     const __grid_constant__ CUtensorMap tm_dh1,
     const __grid_constant__ CUtensorMap tm_dhg,
     const __grid_constant__ CUtensorMap tm_h) {
-  constexpr int S = Q2::STAGES;
+  using Q = typename std::conditional<FWD, Q2F, Q2>::type;
+  constexpr int S = Q::STAGES;
+  constexpr int ND = FWD ? 2 : 1, BD = 64 * ND;   // D columns a block
   __shared__ Ring<S> ring;
   __shared__ int rows[kM];
   __shared__ float gw[kM];
   const int dt = blockIdx.x, sb = blockIdx.y, e = blockIdx.z;
   const int tid = threadIdx.x;
-  float* prow = part_out + (int64_t)dt * d.E * d.cpad + (int64_t)e * d.cpad;
+  float* prow = FWD ? nullptr
+                    : part_out + (int64_t)dt * d.E * d.cpad
+                          + (int64_t)e * d.cpad;
   if (!slot_rows<kM>(row_id, gate_w, e, sb, d, rows, gw)) {
     const int s = sb * kM + tid;
-    if (tid < kM && s < d.cpad) prow[s] = 0.f;
+    if (!FWD && tid < kM && s < d.cpad) prow[s] = 0.f;
     return;
   }
   unsigned char* tiles = ring_tiles();
@@ -1134,38 +1034,47 @@ __global__ void __launch_bounds__(kConsumers + kGatherers, 1) dx_out_tf32_kernel
   if (tid >= kConsumers) {           // the producer warpgroup: one thread
     hop::reg_dealloc<40>();
     if (tid != kConsumers) return;
-    constexpr uint32_t kBytes = (GATED ? 6 : 4) * 2 * kTile;
+    constexpr uint32_t kBytes =
+        (FWD ? 2 + 2 * ND : (GATED ? 6 : 4) * 2) * kTile;
     for (int k = 0; k < nk; ++k) {
       hop::mbar_wait(ring.e(k), Ring<S>::parity(k) ^ 1);
-      const uint32_t st = base + (k % S) * Q2::BYTES, full = ring.f(k);
-      const int j0 = k * 32, d0 = dt * 64, s0 = sb * kM;
+      const uint32_t st = base + (k % S) * Q::BYTES, full = ring.f(k);
+      const int j0 = k * 32, d0 = dt * BD, s0 = sb * kM;
       hop::mbar_arrive_tx(full, kBytes);
-      hop::tma_load4(st + Q2::DH1, &tm_dh1, full, j0, s0, e, 0);
-      hop::tma_load4(st + Q2::H, &tm_h, full, j0, s0, e, 0);
-      hop::tma_load4(st + Q2::WIH, &tm_wi, full, j0, d0, e, 0);
-      hop::tma_load4(st + Q2::WIL, &tm_wi, full, j0, d0, e + d.E, 0);
-      if constexpr (GATED) {
+      hop::tma_load4(st + Q::H, &tm_h, full, j0, s0, e, 0);
+      if constexpr (!FWD) {
+        hop::tma_load4(st + Q2::DH1, &tm_dh1, full, j0, s0, e, 0);
+        hop::tma_load4(st + Q2::WIH, &tm_wi, full, j0, d0, e, 0);
+        hop::tma_load4(st + Q2::WIL, &tm_wi, full, j0, d0, e + d.E, 0);
+      }
+      if constexpr (!FWD && GATED) {
         hop::tma_load4(st + Q2::DHG, &tm_dhg, full, j0, s0, e, 0);
         hop::tma_load4(st + Q2::WGH, &tm_wg, full, j0, d0, e, 0);
         hop::tma_load4(st + Q2::WGL, &tm_wg, full, j0, d0, e + d.E, 0);
       }
-      hop::tma_load4(st + Q2::WOH, &tm_wo, full, j0, d0, e, 0);
-      hop::tma_load4(st + Q2::WOL, &tm_wo, full, j0, d0, e + d.E, 0);
+      for (int h = 0; h < ND; ++h) {
+        const uint32_t o = h * Q::HALF;
+        hop::tma_load4(st + Q::WOH + o, &tm_wo, full, j0, d0 + 64 * h, e, 0);
+        hop::tma_load4(st + Q::WOL + o, &tm_wo, full, j0, d0 + 64 * h,
+                       e + d.E, 0);
+      }
     }
     return;
   }
   hop::reg_alloc<232>();
   const int wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
-  float adx[8][4], ay[8][4], part[8][4];
+  float adx[8][4], ay[ND][8][4], part[8][4];
   zero(adx);
-  zero(ay);
+#pragma unroll
+  for (int h = 0; h < ND; ++h) zero(ay[h]);
   for (int k = 0; k < nk; ++k) {
     hop::mbar_wait(ring.f(k), Ring<S>::parity(k));
-    const uint32_t st = base + (k % S) * Q2::BYTES;
+    const uint32_t st = base + (k % S) * Q::BYTES;
     uint32_t hi[4][4], lo[4][4];
-    frag_split<false>(hi, lo, st + Q2::DH1 + wg * kTile, warp, lane, 1.f,
-                      1.f);
-    if constexpr (GATED) {   // dh1 W_in^T + dhg W_gate^T: one fresh part
+    if constexpr (!FWD)
+      frag_split<false>(hi, lo, st + Q2::DH1 + wg * kTile, warp, lane, 1.f,
+                        1.f);
+    if constexpr (!FWD && GATED) {   // dh1 W_in^T + dhg W_gate^T: one part
       uint32_t hi2[4][4], lo2[4][4];
       frag_split<false>(hi2, lo2, st + Q2::DHG + wg * kTile, warp, lane, 1.f,
                         1.f);
@@ -1177,14 +1086,33 @@ __global__ void __launch_bounds__(kConsumers + kGatherers, 1) dx_out_tf32_kernel
       hop::wg_wait<0>();
       hop::acc_fence(part);
       flash_tf32::add_to(adx, part);
-    } else {
+    } else if constexpr (!FWD) {
       product_add(adx, part, hi, lo, st + Q2::WIH, st + Q2::WIL);
     }
-    frag_split<false>(hi, lo, st + Q2::H + wg * kTile, warp, lane, 1.f, 1.f);
-    product_add(ay, part, hi, lo, st + Q2::WOH, st + Q2::WOL);
+    frag_split<false>(hi, lo, st + Q::H + wg * kTile, warp, lane, 1.f, 1.f);
+#pragma unroll
+    for (int h = 0; h < ND; ++h)
+      product_add(ay[h], part, hi, lo, st + Q::WOH + h * Q::HALF,
+                  st + Q::WOL + h * Q::HALF);
     // release stage k: after the wg_wait<0> of the y product just above,
     // the last group that read it
     if (lane == 0) hop::mbar_arrive(ring.e(k));
+  }
+  if constexpr (FWD) {   // out[row] += gate_w y, at most two adds onto 0
+#pragma unroll
+    for (int h = 0; h < ND; ++h)
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; i += 2) {
+        const int r = 64 * wg + acc_row(warp, lane, i), row = rows[r];
+        const int c = dt * BD + 64 * h + acc_col(lane, n, i);
+        if (row < 0 || c >= d.D) continue;
+        const float gwr = gw[r];
+        atomicAdd(reinterpret_cast<float2*>(dx + (int64_t)row * d.D + c),
+                  make_float2(ay[h][n][i] * gwr, ay[h][n][i + 1] * gwr));
+      }
+    return;
   }
   float dot[2] = {0.f, 0.f};        // rows lane / 4 and + 8 of this warp
 #pragma unroll
@@ -1197,7 +1125,7 @@ __global__ void __launch_bounds__(kConsumers + kGatherers, 1) dx_out_tf32_kernel
       atomicAdd(reinterpret_cast<float2*>(dx + o),
                 make_float2(adx[n][i], adx[n][i + 1]));
       const float2 gv = *reinterpret_cast<const float2*>(g + o);
-      dot[i >> 1] += gv.x * ay[n][i] + gv.y * ay[n][i + 1];
+      dot[i >> 1] += gv.x * ay[0][n][i] + gv.y * ay[0][n][i + 1];
     }
 #pragma unroll
   for (int j = 0; j < 2; ++j) {
@@ -1366,32 +1294,6 @@ bool dims_ok(const Dims& d) {
          (d.cpad + kT - 1) / kT <= 65535 && (d.act == 0 || d.act == 1);
 }
 
-// launch kern with `tiles` fp32 shared tiles after raising its dynamic
-// shared memory limit where that is above 48 KB
-template <typename Kern, typename... Args>
-cudaError_t launch(Kern kern, int tiles, dim3 grid, cudaStream_t stream,
-                   Args... args) {
-  const size_t smem = Tile::bytes(tiles);
-  cudaError_t err = flash::allow_smem(kern, smem);
-  if (err != cudaSuccess) return err;
-  kern<<<grid, kThreads, smem, stream>>>(args...);
-  return cudaGetLastError();
-}
-
-// fp32 forward (the bf16 one is fwd_bf16)
-int fwd_f32(const void* x, const int* row_id, const float* gate_w,
-            const void* w_in, const void* w_gate, const void* w_out, void* h,
-            float* out, const Dims& d, cudaStream_t stream) {
-  using CF = const float*;
-  const int n_sb = (d.cpad + kT - 1) / kT;
-  cudaError_t err = launch(
-      expert_h_kernel, 3, dim3((d.H + kT - 1) / kT, n_sb, d.E), stream,
-      CF(x), row_id, gate_w, CF(w_in), CF(w_gate), static_cast<float*>(h), d);
-  if (err != cudaSuccess) return err;
-  return launch(fwd_out_kernel, 2, dim3(d.D / kT, n_sb, d.E), stream, row_id,
-                gate_w, CF(w_out), CF(h), out, d);
-}
-
 // dgw from the partial sums of n_tiles D tiles, in a fixed order
 cudaError_t reduce_dgw(const float* part, float* dgw, int n_tiles,
                        const Dims& d, cudaStream_t stream) {
@@ -1437,6 +1339,49 @@ cudaError_t split_hilo(const void* src, float* plain, float* trans, int B,
   return cudaGetLastError();
 }
 
+// fp32 forward (the bf16 one is fwd_bf16): the weights' transposed hi and
+// lo into scratch (W = E D H elements each: W_in^T, W_out^T, then W_gate^T,
+// each hi then lo: 4 W, 6 W gated), their tensor maps (boxes 32 x 64 rows)
+// and h's (32 x 128 slots), then pass 1 (h) and pass 2 (out += gate_w h
+// W_out)
+int fwd_f32(const void* x, const int* row_id, const float* gate_w,
+            const void* w_in, const void* w_gate, const void* w_out, void* h,
+            float* out, void* scratch, const Dims& d, cudaStream_t stream) {
+  if (!scratch) return cudaErrorInvalidValue;
+  const int64_t W = (int64_t)d.E * d.D * d.H;
+  float* sc = static_cast<float*>(scratch);
+  float *wit = sc, *wot = sc + 2 * W, *wgt = sc + 4 * W;
+  cudaError_t err = split_hilo(w_in, nullptr, wit, d.E, d.D, d.H, stream);
+  if (err == cudaSuccess && d.gated)
+    err = split_hilo(w_gate, nullptr, wgt, d.E, d.D, d.H, stream);
+  if (err == cudaSuccess)
+    err = split_hilo(w_out, nullptr, wot, d.E, d.H, d.D, stream);
+  if (err != cudaSuccess) return err;
+  CUtensorMap m_wi, m_wg = {}, m_wo, m_h, none = {};
+  const uint64_t E2 = 2 * d.E;
+  if (!f32_map3(&m_wi, wit, d.D, d.H, E2, 64) ||
+      (d.gated && !f32_map3(&m_wg, wgt, d.D, d.H, E2, 64)) ||
+      !f32_map3(&m_wo, wot, d.H, d.D, E2, 64) ||
+      !f32_map3(&m_h, h, d.H, d.cpad, d.E, kM))
+    return cudaErrorInvalidValue;
+  using CF = const float*;
+  float* const no = nullptr;
+  const int n_sb = (d.cpad + kM - 1) / kM;
+  err = launch_ring(
+      d.gated ? dx_h_tf32_kernel<true, true> : dx_h_tf32_kernel<false, true>,
+      dim3((d.H + 127) / 128, n_sb, d.E), kConsumers + kGatherers,
+      Q1F::BYTES, Q1F::STAGES, stream, CF(x), row_id, gate_w, CF(no),
+      static_cast<float*>(h), no, no, d, m_wi, m_wg, none);
+  if (err != cudaSuccess) return err;
+  // pass 2 is one kernel for both FFN kinds: its template flag GATED only
+  // selects dX's dhg product, so the forward instantiates it ungated
+  return launch_ring(dx_out_tf32_kernel<false, true>,
+                     dim3((d.D + 127) / 128, n_sb, d.E),
+                     kConsumers + kGatherers, Q2F::BYTES, Q2F::STAGES, stream,
+                     row_id, gate_w, CF(no), out, no, d, none, none, m_wo,
+                     none, none, m_h);
+}
+
 // fp32 dX (the bf16 one is dx_bf16): the weights' hi and lo into scratch
 // (W = E D H elements each: W_in^T, W_in, W_out, W_out^T, then W_gate^T,
 // W_gate, each hi then lo: 8 W, 12 W gated), their tensor maps (boxes 32
@@ -1474,14 +1419,16 @@ int dx_f32(const void* x, const int* row_id, const float* gate_w,
   using CF = const float*;
   const int n_sb = (d.cpad + kM - 1) / kM;
   err = launch_ring(
-      d.gated ? dx_h_tf32_kernel<true> : dx_h_tf32_kernel<false>,
+      d.gated ? dx_h_tf32_kernel<true, false>
+              : dx_h_tf32_kernel<false, false>,
       dim3((d.H + 63) / 64, n_sb, d.E), kConsumers + kGatherers, Q1::BYTES,
       Q1::STAGES, stream, CF(x), row_id, gate_w, CF(g),
       static_cast<float*>(h), static_cast<float*>(dh1),
       static_cast<float*>(dhg), d, m1_wi, m1_wg, m1_wo);
   if (err != cudaSuccess) return err;
   err = launch_ring(
-      d.gated ? dx_out_tf32_kernel<true> : dx_out_tf32_kernel<false>,
+      d.gated ? dx_out_tf32_kernel<true, false>
+              : dx_out_tf32_kernel<false, false>,
       dim3(d.D / 64, n_sb, d.E), kConsumers + kGatherers, Q2::BYTES,
       Q2::STAGES, stream, row_id, gate_w, CF(g), dxo, part, d, m2_wi, m2_wg,
       m2_wo, m_dh1,
@@ -1614,13 +1561,14 @@ int dw_bf16(const void* x, const int* row_id, const float* gate_w,
 
 // x, g, the expert weights, h, dh1, dhg and the dW outputs are one dtype:
 // dtype 1 bfloat16, 0 float32 (the flash kernels' codes). row_id is int32
-// and gate_w, out, dx, dgw and part are float32. scratch: fp32 dX's 12 E D
-// H floats (8 ungated), fp32 dW's 6 E cpad H (4 ungated); bf16 takes none.
+// and gate_w, out, dx, dgw and part are float32. scratch: the fp32
+// forward's 6 E D H floats (4 ungated), fp32 dX's 12 E D H (8 ungated),
+// fp32 dW's 6 E cpad H (4 ungated); bf16 takes none.
 extern "C" int moe_fwd_launch(const void* x, const int* row_id,
                               const float* gate_w, const void* w_in,
                               const void* w_gate, const void* w_out, void* h,
-                              float* out, int T, int D, int H, int E,
-                              int cpad, int act, int gated, int dtype,
+                              float* out, void* scratch, int T, int D, int H,
+                              int E, int cpad, int act, int gated, int dtype,
                               cudaStream_t stream) {
   const Dims d{T, D, H, E, cpad, act, gated};
   if (!dims_ok(d) || (gated && !w_gate)) return cudaErrorInvalidValue;
@@ -1628,8 +1576,8 @@ extern "C" int moe_fwd_launch(const void* x, const int* row_id,
     return fwd_bf16(x, row_id, gate_w, w_in, w_gate, w_out, h, out, d,
                     stream);
   if (dtype == 0)
-    return fwd_f32(x, row_id, gate_w, w_in, w_gate, w_out, h, out, d,
-                   stream);
+    return fwd_f32(x, row_id, gate_w, w_in, w_gate, w_out, h, out, scratch,
+                   d, stream);
   return cudaErrorInvalidValue;
 }
 

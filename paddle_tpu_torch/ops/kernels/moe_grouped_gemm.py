@@ -22,14 +22,14 @@ weight ``gate_w`` (0 for an empty slot).
   kernels' wrappers; each launches on bf16 or fp32 CUDA tensors (x, g
   and the three weights of one dtype) or raises outside
   :func:`kernel_gate`, and counts its calls (one call enqueues the
-  kernel's passes: 2 for the forward, 3 for dX, 1 for dW; the fp32 dX
-  and dW add the launches that split their B operands) in
+  kernel's passes: 2 for the forward, 3 for dX, 1 for dW; the fp32
+  passes add the launches that split their B operands) in
   ``.launches`` (bf16) or ``.fp32_launches`` (fp32, the 3xTF32 mode).
   bf16 forward, dX and dW run on Hopper's wgmma with TMA-fed tiles; fp32
-  dX and dW on TF32 wgmma (three passes a product, the weights, or dW's
-  h, dh1 and dhg, split into tf32 hi and lo once a call into scratch
-  that the wrapper allocates: 12 or 8 x ``E D H`` floats for dX, 6 or 4
-  x ``E cpad H`` for dW); the fp32 forward on mma.sync.
+  forward, dX and dW on TF32 wgmma (three passes a product, the weights,
+  or dW's h, dh1 and dhg, split into tf32 hi and lo once a call into
+  scratch that the wrapper allocates: 6 or 4 x ``E D H`` floats for the
+  forward, 12 or 8 for dX, 6 or 4 x ``E cpad H`` for dW).
 - The dX pass hands dW what both Pallas passes recompute: ``h``, ``dh1``
   and ``dhg`` per slot, rounded to x's dtype (``inter``; in fp32 nothing
   is rounded). The dW pass takes them instead of recomputing them.
@@ -335,10 +335,12 @@ def moe_fwd_cuda(x, row_id, gate_w, w_in, w_gate, w_out, act_name):
     h = torch.empty((E * cpad, w_in.shape[2]), dtype=x.dtype,
                     device=x.device)
     out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    scratch = _scratch(x, (6 if w_gate is not None else 4) * E
+                       * x.shape[1] * w_in.shape[2])
     with torch.cuda.device(x.device):
-        err = _fn("moe_fwd_launch", 8, 8)(
+        err = _fn("moe_fwd_launch", 9, 8)(
             _ptr(x), _ptr(row_id), _ptr(gate_w), _ptr(w_in), _ptr(w_gate),
-            _ptr(w_out), _ptr(h), _ptr(out),
+            _ptr(w_out), _ptr(h), _ptr(out), _ptr(scratch),
             *_dims(x, row_id, w_in, act_name, w_gate is not None),
             _stream(x.device))
     _raise_on(err, "moe grouped forward")

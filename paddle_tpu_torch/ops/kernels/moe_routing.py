@@ -12,6 +12,8 @@ design answers that.
   all tokens in token order;
 - :func:`moe_routing_cuda` — the kernel's wrapper: launches on a CUDA
   tensor or raises; ``moe_routing_cuda.launches`` counts its launches;
+  one launch a call, its blocks handing the running counts on through a
+  workspace that the wrapper keeps a device and stream (:func:`_work`);
 - :func:`fused_top2_routing` — the differentiable routing (counterpart
   of the JAX ``custom_vjp`` of the same name): the kernel (or its plain
   version on a CPU tensor) plus the capacity / renormalisation / aux
@@ -92,11 +94,26 @@ def routing_plain(logits: torch.Tensor, u: torch.Tensor | None,
 def _fn():
     fn = library("moe_routing").moe_routing_launch
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 11
+        fn.argtypes = ([ctypes.c_void_p] * 12
                        + [ctypes.c_int, ctypes.c_int, ctypes.c_int,
                           ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
+
+
+_WORK: dict = {}
+
+
+def _work(dev, stream) -> torch.Tensor:
+    """The kernel's workspace for ``stream`` on ``dev``: its tile ticket,
+    ready flags and per-tile counts, zeroed once; every call leaves it
+    zeroed again, so calls in one stream need no reset between them."""
+    key = (dev, stream)
+    if key not in _WORK:
+        size = library("moe_routing").moe_routing_work_bytes
+        size.restype = ctypes.c_size_t
+        _WORK[key] = torch.zeros((size(),), dtype=torch.uint8, device=dev)
+    return _WORK[key]
 
 
 def moe_routing_cuda(logits: torch.Tensor, u: torch.Tensor | None,
@@ -138,7 +155,8 @@ def moe_routing_cuda(logits: torch.Tensor, u: torch.Tensor | None,
                     ints[0].data_ptr(), ints[1].data_ptr(), g1.data_ptr(),
                     g2.data_ptr(), p1.data_ptr(), c2.data_ptr(),
                     keep2.data_ptr(), count1.data_ptr(), me_sum.data_ptr(),
-                    T, E, int(bool(random_keep2)), stream)
+                    _work(dev, stream).data_ptr(), T, E,
+                    int(bool(random_keep2)), stream)
     if err != 0:
         raise RuntimeError(f"moe routing kernel launch failed: CUDA error "
                            f"{err}")

@@ -5,8 +5,10 @@ forward and backward instantiations of its mode (``check_wgmma_forward``,
 ``check_fp32_forward``, ``check_fp32_backward``,
 ``check_wgmma_backward``, from the profiler's
 kernel names through ``flash_fwd_kernels`` and ``flash_bwd_kernels``) and
-the fp32 MoE step to its grouped backward's
-(``check_fp32_grouped_backward``, through ``grouped_kernels``),
+the fp32 MoE step to its grouped forward's and backward's
+(``check_fp32_grouped_forward``, ``check_fp32_grouped_backward``,
+through ``grouped_kernels``; each split launch goes to its pass by
+``grouped_passes``),
 and ``chip_mutants.py`` plants each of its
 faults by replacing one piece of text of a kernel source, which must
 occur there exactly once. Both run only on the card; these tests pin
@@ -100,36 +102,48 @@ def test_fp32_forward_check_takes_its_mode_alone(bias, drop):
             drop=drop)
 
 
-# profiler names of an fp32 MoE step's grouped kernels (the forward on the
-# first design, dX and dW on TF32 wgmma), as CUPTI gives them
+# profiler names of an fp32 MoE step's grouped kernels (forward, dX and
+# dW on TF32 wgmma), as CUPTI gives them
 _ANON = "void (anonymous namespace)::"
+_SPLIT = [f"{_ANON}split_hilo_kernel<{p}>(float const*, float*)"
+          for p in ("true", "false")]
+
+
+def _tf32_names(gated, fwd):
+    """Pass 1 and pass 2 of the fp32 forward (``fwd``) or dX of the gated
+    kind or not (``gated``), and dW with dX; pass 2 of the forward is the
+    ungated instantiation whatever the kind."""
+    g, f = str(gated).lower(), str(fwd).lower()
+    args = "(float const*, int const*)"
+    if fwd:
+        return [f"{_ANON}dx_h_tf32_kernel<{g}, true>{args}",
+                f"{_ANON}dx_out_tf32_kernel<false, true>{args}"]
+    return ([f"{_ANON}{k}_tf32_kernel<{g}, false>{args}"
+             for k in ("dx_h", "dx_out")]
+            + [f"{_ANON}dw_tf32_kernel<{g}>{args}"])
 
 
 def _grouped_names(gated, extra=()):
-    g = str(gated).lower()
-    return ([f"{_ANON}expert_h_kernel(float const*, int const*)",
-             f"{_ANON}fwd_out_kernel(int const*, float const*)",
-             f"{_ANON}split_hilo_kernel<true>(float const*, float*)",
-             f"{_ANON}split_hilo_kernel<false>(float const*, float*)",
-             f"{_ANON}dgw_reduce_kernel(float const*, float*, int, int)"]
-            + [f"{_ANON}{k}_tf32_kernel<{g}>(float const*, int const*)"
-               for k in ("dx_h", "dx_out", "dw")]
+    return (_SPLIT + [f"{_ANON}dgw_reduce_kernel(float const*, float*, int, "
+                      "int)"]
+            + _tf32_names(gated, True) + _tf32_names(gated, False)
             + [f"{_ANON}{k}" for k in extra])
 
 
 @pytest.mark.parametrize("gated", [False, True])
 def test_fp32_grouped_backward_check_takes_its_kind_alone(gated):
     """The fp32 MoE step's FFN is gated silu. A step whose grouped
-    backward ran the TF32 dX pass 1, pass 2 and dW ``<true>`` passes; one
-    that ran the ungated kind's, in place of them or beside them, fails,
-    and so does one that lacked one of them or ran a first-design
-    ``expert_h_kernel<true>``, ``dx_out_kernel`` or ``dw_kernel``."""
+    backward ran the TF32 dX pass 1, pass 2 and dW of the gated kind
+    passes; one that ran the ungated kind's, in place of them or beside
+    them, fails, and so does one that lacked one of them or ran a
+    first-design ``expert_h_kernel<true>``, ``dx_out_kernel`` or
+    ``dw_kernel``."""
     def prof(names):
         return {"grouped_kernels": S.grouped_kernels(names)}
 
     if not gated:
         for names in (_grouped_names(False),
-                      _grouped_names(True) + _grouped_names(False)[-3:]):
+                      _grouped_names(True) + _tf32_names(False, False)):
             with pytest.raises(AssertionError):
                 S.check_fp32_grouped_backward("t", prof(names))
         return
@@ -143,6 +157,78 @@ def test_fp32_grouped_backward_check_takes_its_kind_alone(gated):
         with pytest.raises(AssertionError):
             S.check_fp32_grouped_backward(
                 "t", prof(_grouped_names(True, [old])))
+
+
+@pytest.mark.parametrize("gated", [False, True])
+def test_fp32_grouped_forward_check_takes_its_kind_alone(gated):
+    """A step whose grouped forward ran the TF32 FWD pass 1 of the gated
+    kind and the shared pass 2 passes, whatever its backward ran; one that
+    ran the ungated pass 1, in place of the gated one or beside it, fails,
+    and so does one that lacked pass 2 or ran a first-design
+    ``expert_h_kernel`` or ``fwd_out_kernel`` beside them."""
+    def prof(names):
+        return {"grouped_kernels": S.grouped_kernels(names)}
+
+    if not gated:
+        for names in (_grouped_names(False),
+                      _grouped_names(True) + _tf32_names(False, True)):
+            with pytest.raises(AssertionError):
+                S.check_fp32_grouped_forward("t", prof(names))
+        return
+    S.check_fp32_grouped_forward("t", prof(_grouped_names(True)))
+    without_p2 = [n for n in _grouped_names(True)
+                  if "dx_out_tf32_kernel<false, true>" not in n]
+    with pytest.raises(AssertionError):
+        S.check_fp32_grouped_forward("t", prof(without_p2))
+    for old in ("expert_h_kernel(float const*, int const*)",
+                "fwd_out_kernel(int const*, float const*)"):
+        with pytest.raises(AssertionError):
+            S.check_fp32_grouped_forward(
+                "t", prof(_grouped_names(True, [old])))
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+def test_grouped_passes_give_each_split_its_pass(dtype):
+    """In launch order (a profiled fp32 step: forward split, pass 1, pass
+    2, ..., dX split, dX passes, dgw, dW split x3, dW), each split launch
+    goes to the pass of the grouped kernel after it, and kernels of other
+    kinds between them change nothing; the bf16 passes need no split."""
+    fwd, dx = _tf32_names(True, True), _tf32_names(True, False)
+    dgw = f"{_ANON}dgw_reduce_kernel(float const*, float*, int, int)"
+    other = "void rms_norm_kernel<float>(float const*)"
+    if dtype == "fp32":
+        seq = ([_SPLIT[1], other] + fwd + [other, _SPLIT[0]] + dx[:2]
+               + [dgw] + [_SPLIT[1]] * 3 + dx[2:])
+        want = {"fwd": sorted(S._short_kernel_name(n)
+                              for n in [_SPLIT[1]] + fwd),
+                "dx": sorted(S._short_kernel_name(n)
+                             for n in [_SPLIT[0]] + dx[:2] + [dgw]),
+                "dw": sorted(S._short_kernel_name(n)
+                             for n in [_SPLIT[1], dx[2]])}
+    else:
+        names = [f"{_ANON}dx_h_wgmma_kernel<true, true>(bf16 const*)",
+                 f"{_ANON}dx_out_wgmma_kernel<false, true>(int const*)",
+                 f"{_ANON}dx_h_wgmma_kernel<true, false>(bf16 const*)",
+                 f"{_ANON}dx_out_wgmma_kernel<true, false>(int const*)",
+                 dgw, f"{_ANON}dw_wgmma_kernel<true>(bf16 const*)"]
+        seq = names[:2] + [other] + names[2:]
+        short = [S._short_kernel_name(n) for n in names]
+        want = {"fwd": sorted(short[:2]), "dx": sorted(short[2:5]),
+                "dw": short[5:]}
+    assert S.grouped_passes(seq) == want
+    assert S.grouped_passes([]) == {}
+
+
+def test_routing_kernels_named():
+    """The routing kernels among a step's names: the tiled kernel, and the
+    one-block kernel that a parent tree's step runs
+    (``tools/flash_ab.py --tree``)."""
+    names = [f"{_ANON}routing_tiles_kernel(float const*, float const*)",
+             "void rms_norm_kernel<float>(float const*)",
+             f"{_ANON}dx_h_tf32_kernel<true, true>(float const*)"]
+    assert S.routing_kernels(names) == ["routing_tiles_kernel"]
+    assert S.routing_kernels(names + [f"{_ANON}routing_kernel(float*)"]) \
+        == ["routing_kernel", "routing_tiles_kernel"]
 
 
 @pytest.mark.parametrize("wide", [False, True])

@@ -858,12 +858,13 @@ def _moe_inputs(cuda, T, E, D, H, seed=0, capfac=1.25, dtype="bfloat16",
 
 @pytest.mark.parametrize("random_keep2", [True, False])
 @pytest.mark.parametrize("T,E", [(1024, 16), (8192, 16), (2048, 8),
-                                 (1024, 128)])
+                                 (1024, 128), (65536, 16), (1024, 2)])
 def test_moe_routing_kernel_matches_plain(cuda, T, E, random_keep2):
     """Decisions equal wherever the row's top-2 / keep2 margin is at least
     1e-6 (two fp32 softmaxes, sums in another order); positions exactly
     the scan of the kernel's own decisions; g1, g2 to 1e-6; me_sum to
-    1e-5 relative; a second launch bitwise equal."""
+    1e-5 relative; a second launch bitwise equal. The tiled kernel at its
+    edges: 4 tiles (T 1024) to 256 (T 65536), E 2 to 128."""
     from paddle_tpu_torch.ops.kernels import moe_routing as MR
     inp = _moe_inputs(cuda, T, E, 64, 64)
     logits, u = inp["logits"], inp["u"]
@@ -876,9 +877,10 @@ def test_moe_routing_kernel_matches_plain(cuda, T, E, random_keep2):
     want = MR.routing_plain(logits, u, random_keep2)
     differ = ((got[0] != want[0]) | (got[1] != want[1])
               | (got[6] != want[6]))
-    p = torch.softmax(logits, -1).topk(3, -1).values
+    p = torch.softmax(logits, -1).topk(min(3, E), -1).values
     thr = 2 * p[:, 1] / (p[:, 0] + p[:, 1])
-    margin = torch.stack([p[:, 0] - p[:, 1], p[:, 1] - p[:, 2],
+    margin = torch.stack([p[:, 0] - p[:, 1],      # E 2: no third expert
+                          p[:, 1] - p[:, 2] if E > 2 else torch.ones_like(u),
                           (u - thr).abs() if random_keep2
                           else torch.ones_like(u)]).amin(0)
     assert bool((margin[differ] < 1e-6).all()), margin[differ]
@@ -933,13 +935,16 @@ def test_moe_grouped_kernels_one_hot_expert(cuda, act, dtype):
     (2048, 16, 128, 96, 129 / 256, "silu", False),
     # one expert holding all 4096 tokens at D 1024: dW's chain over 4096
     # slots, 128 chunks, each into a fresh accumulator
-    (4096, 4, 1024, 64, 2.0, "silu", True)])
+    (4096, 4, 1024, 64, 2.0, "silu", True),
+    # H 160, D 192: the forward's last 128-column block holds one 32- (H)
+    # or 64-column (D) half and one past the edge, in each pass
+    (1024, 4, 192, 160, 1.25, "silu", False)])
 def test_moe_fp32_tf32_ring_edges(cuda, T, E, D, H, capfac, act, hot):
-    """The fp32 dX and dW on TF32 wgmma (``dx_h_tf32_kernel``,
-    ``dx_out_tf32_kernel``, ``dw_tf32_kernel``) at the edges of their
-    rings, with the forward: each output against the plain versions in
-    fp64 within ``_fp32_rule`` of the plain fp32 versions, each launch
-    repeated bitwise (``_check_grouped``)."""
+    """The fp32 forward, dX and dW on TF32 wgmma (``dx_h_tf32_kernel``
+    and ``dx_out_tf32_kernel`` in their FWD and dX modes,
+    ``dw_tf32_kernel``) at the edges of their rings: each output against
+    the plain versions in fp64 within ``_fp32_rule`` of the plain fp32
+    versions, each launch repeated bitwise (``_check_grouped``)."""
     _check_grouped(cuda, T, E, D, H, capfac, act, "float32", hot=hot)
 
 

@@ -42,11 +42,13 @@ dropout 0.1, 10 steps: the fp32 dropout mode) and the defaults arm of
 ``train_bert_defaults`` (BERT-Base at its own defaults, fp32 at dropout
 0.1, on the padded batch, 10 steps: the fp32 bias + dropout mode),
 ``train_bert_nodrop`` (the same at dropout 0, ``train_bert_defaults``'
-no-dropout arm: the fp32 bias mode) and ``train_moe_fp32``
-(``chip_smoke.moe_fp32_config``, 10 steps: the fp32 plain mode), each
+no-dropout arm: the fp32 bias mode), ``train_moe_fp32``
+(``chip_smoke.moe_fp32_config``, 10 steps: the fp32 plain mode) and
+``train_moe`` (``chip_smoke.moe_config``, bf16, 10 steps), each
 with its peak memory over the 10 steps and one profiled step (device
 time by category, idle share, the flash forward and backward kernels
-that ran). Prints one JSON line: the tree,
+that ran, and the grouped-GEMM kernels by pass and the routing kernel
+where the step has them). Prints one JSON line: the tree,
 the card, the times in ms, the steps' figures, and, when this run built
 the kernels, ``ptxas``'s registers and spills per instantiation.
 """
@@ -85,7 +87,8 @@ ROWS = {
 
 
 STEPS = ("train_bert_padded", "gpt2_bf16", "bert_bf16", "train_gpt2",
-         "train_bert_defaults", "train_bert_nodrop", "train_moe_fp32")
+         "train_bert_defaults", "train_bert_nodrop", "train_moe_fp32",
+         "train_moe")
 
 
 def _gpu_state() -> str:
@@ -207,8 +210,9 @@ def _harness():
 def _profile_figures(prof) -> dict:
     return {k: prof[k] for k in ("wall_ms", "device_ms", "idle_share",
                                  "device_ms_by_category",
-                                 "flash_fwd_kernels", "flash_bwd_kernels")
-            if k in prof}
+                                 "flash_fwd_kernels", "flash_bwd_kernels",
+                                 "grouped_passes", "routing_kernels")
+            if prof.get(k)}
 
 
 def _steps(smi, names) -> dict:
@@ -223,7 +227,8 @@ def _steps(smi, names) -> dict:
     from paddle_tpu_torch.optimizer import AdamW
     build.build_all(["layer_norm", "rms_norm", "moe_routing",
                      "moe_grouped_gemm"]
-                    if "train_moe_fp32" in names else ["layer_norm"])
+                    if {"train_moe_fp32", "train_moe"} & set(names)
+                    else ["layer_norm"])
     S = _harness()
     out = {}
 
@@ -293,22 +298,25 @@ def _steps(smi, names) -> dict:
                        S._BERT_CATEGORIES)
         del model, args
         torch.cuda.empty_cache()
-    if "train_moe_fp32" in names:
-        cfg = S.moe_fp32_config(Qwen2MoeConfig, S.MOE_SEQ)
+    for tag, config in (("train_moe_fp32", S.moe_fp32_config),
+                        ("train_moe", S.moe_config)):
+        if tag not in names:
+            continue
+        cfg = config(Qwen2MoeConfig, S.MOE_SEQ)
         model = Qwen2MoeForCausalLM(cfg, device="cuda", seed=S.SEED)
         batch = torch.tensor(np.random.default_rng(S.SEED).integers(
             0, cfg.vocab_size, (S.MOE_BATCH, S.MOE_SEQ)), dtype=torch.int32,
             device="cuda")
         train, opt = S.phase_train_moe(torch, K, model, TrainStep, AdamW,
-                                       batch, smi, tag="train_moe_fp32")
+                                       batch, smi, tag=tag)
         step = TrainStep(model, opt, lambda logits, y: model.loss(logits, y))
         prof = S._step_profile(torch, lambda: step(batch, batch), model, opt,
                                S._MOE_CATEGORIES)
-        out["train_moe_fp32"] = {"step_ms": train["step_ms"],
-                                 "median_step_ms": train["median_step_ms"],
-                                 "max_memory_allocated_gb":
-                                     train["max_memory_allocated_gb"],
-                                 "profile": _profile_figures(prof)}
+        out[tag] = {"step_ms": train["step_ms"],
+                    "median_step_ms": train["median_step_ms"],
+                    "max_memory_allocated_gb":
+                        train["max_memory_allocated_gb"],
+                    "profile": _profile_figures(prof)}
         del model, opt, step, batch
         torch.cuda.empty_cache()
     return out

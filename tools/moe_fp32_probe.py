@@ -4,7 +4,9 @@
 spills per instantiation go to the file ``--report`` names), then hold
 the fp32 forward, dX and dW against the plain versions in fp64
 (``chip_smoke.moe_fp32_errors``: the flash fp32 rule per output, a
-bitwise repeat) at small shapes, gated silu and ungated relu, and the
+bitwise repeat) at small shapes, gated silu and ungated relu, the
+routing kernel against its plain version (``chip_smoke.routing_errors``)
+at ``ROUTES``' [T, E], and the
 bf16 mode against its plain version (``chip_smoke.moe_errors``) at
 ``BF16``'s shapes: H past a 64 tile, D not a multiple of 128, the
 training shape, and ``chip_smoke.MOE_EDGES`` (cpad 40 with ungated relu;
@@ -17,9 +19,10 @@ one expert holding every token, so whole 128-slot blocks are empty).
 ``moe_kernels`` phases (the slice's shapes, with their times).
 ``--times`` runs the timings alone: the forward, dX and dW at the
 Qwen2-MoE training shapes (T 8192, E 16, D 1024, cpad 1280; bf16 at H
-704 and, where the tree's kernels take fp32, fp32 at H 512), mean ms of
-100 calls between CUDA events and each pass's device time by kernel name
-(a profiler trace of 20 calls), with the kernels of the checkout
+704 and, where the tree's kernels take fp32, fp32 at H 512), and the
+routing kernel at [8192, 16] and [65536, 16], mean ms of 100 calls
+between CUDA events and each pass's device time by kernel name (a
+profiler trace of 20 calls), with the kernels of the checkout
 ``--tree`` names (built into its own ``build/kernels``), so that two
 trees can be compared on one card in one call, in turns. Prints one
 JSON line: the tree, the card, the times. ``--train`` then runs
@@ -41,7 +44,11 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 SMALL = [  # (T, E, D, H, act)
     (1024, 4, 128, 64, "silu"), (1024, 4, 128, 96, "relu"),
-    (2048, 8, 256, 512, "silu"), (1024, 16, 128, 32, "silu")]
+    (2048, 8, 256, 512, "silu"), (1024, 16, 128, 32, "silu"),
+    # H 160 and D 192: the forward's last 128-column block half empty in
+    # both passes
+    (1024, 4, 192, 160, "silu")]
+ROUTES = [(8192, 16), (65536, 16), (2048, 128), (3072, 6)]
 BF16 = [(1024, 4, 128, 96), (2048, 16, 192, 32), (8192, 16, 1024, 704)]
 
 
@@ -92,6 +99,13 @@ def main(argv=None) -> int:
             inp["wg"] if act == "silu" else None, inp["wo"], inp["g"], act)
         failures += res["failures"]
         print(json.dumps({"fp32": [T, E, D, H, act], **res}), flush=True)
+    for T, E in ROUTES:
+        logits = (torch.randn((T, E), generator=gen, device="cuda") * 1.5
+                  + torch.linspace(0.0, 1.5, E, device="cuda"))
+        u = torch.rand((T,), generator=gen, device="cuda")
+        res = S.routing_errors(torch, MR, logits, u)
+        failures += [f"routing {[T, E]} {f}" for f in res["failures"]]
+        print(json.dumps({"routing": [T, E], **res}), flush=True)
     for T, E, D, H in BF16:
         inp = S.moe_inputs(torch, GG, MR, gen, T=T, E=E, D=D, H=H)
         res = S.moe_errors(torch, GG, inp["x"], inp["row_id"],
@@ -144,6 +158,16 @@ def _times(S, tree, report):
             for k, (fn, a) in calls.items()}
         del inp, args, inter
         torch.cuda.empty_cache()
+    for T, E in ((8192, 16), (65536, 16)):
+        logits = (torch.randn((T, E), generator=gen, device="cuda") * 1.5
+                  + torch.linspace(0.0, 1.5, E, device="cuda"))
+        u = torch.rand((T,), generator=gen, device="cuda")
+        name = f"routing_{T}x{E}"
+        ms[name] = S._time_ms(torch, MR.moe_routing_cuda, [(logits, u, True)])
+        passes[name] = {S._short_kernel_name(n): t for n, t in
+                        S._profile_steps(
+                            torch, lambda: MR.moe_routing_cuda(logits, u, True),
+                            20, top=None)["all_kernels_ms"]}
     print(json.dumps({"tree": tree, "device": S._nvidia_smi(), "ms": ms,
                       "device_ms_by_kernel": passes}), flush=True)
     return 0
