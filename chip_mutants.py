@@ -30,11 +30,14 @@ of the fault's kind (the control runs every kind of the faults chosen):
   ``qwen2_moe_fused`` configuration (a routing fault that makes the
   kernel trap fails ``routing_errors`` by its exception, and the parity
   is then not run);
-- int8: the int8 paged kernel check (``paged_int8_errors``) at the
-  serving shapes, and slice parity over the int8 pool
-  (``parity_run(kv_quant=True)``): one decode step through the kernels
-  and inside ``plain_reference()`` on a model of Llama-3-8B widths with
-  int8 weights, cut to ``INT8_LAYERS`` layers;
+- paged: the paged kernel checks, each launch repeated bitwise: the
+  int8 mode at the serving shapes (``paged_int8_errors``), the bf16 mode
+  at ``phase_paged``'s shapes on two argument sets in turn and at the
+  long context (``paged_errors``), and the gate sweep with its
+  dominant-last-chunk cases (``paged_sweep_errors``); and slice parity
+  over the int8 pool (``parity_run(kv_quant=True)``): one decode step
+  through the kernels and inside ``plain_reference()`` on a model of
+  Llama-3-8B widths with int8 weights, cut to ``INT8_LAYERS`` layers;
 - bert: the LayerNorm kernel check (``layer_norm_errors``) at the BERT
   training shape [16384, 768] bf16 with a random weight and bias, the
   flash kernel check in the bias mode (``_flash_errors(bias=)``, the
@@ -312,11 +315,71 @@ MUTANTS = {
           "    w->done = 0u;")], "moe"),
     "int8_v_scale_dropped": (
         "int8 paged: V codes read as if their row scale were 1",
-        [(PAGED, "vv[e] *= sv;", "vv[e] *= 1.f;")], "int8"),
+        [(PAGED, "v *= rsc[j];", "v *= 1.f;")], "paged"),
     "int8_k_scale_wrong_row": (
-        "int8 paged: each K row takes the scale of the next row of its page",
-        [(PAGED, "k_scale[(page * ps + t % ps) * kvh + n]",
-          "k_scale[(page * ps + (t + 1) % ps) * kvh + n]")], "int8"),
+        "int8 paged: each K row takes the scale of the tile's next live row",
+        [(PAGED, "rs = live ? rsc[j] : 0.f;",
+          "rs = live ? rsc[(j + 1) % ntt] : 0.f;")],
+        "paged"),
+    "paged_chunk_drops_last_position": (
+        "paged: a full chunk drops its last position (position 63 of "
+        "each 64 at serving sizes), at the chunk edge, from its scores and "
+        "its PV product",
+        [(PAGED, "const int nt = min(chunk, len - t0);",
+          "const int nt = min(chunk - 1, len - t0);")], "paged"),
+    "paged_max_without_last_chunk": (
+        "paged: a PV item takes the context's max without the last "
+        "chunk's statistics (the sum is still scaled to that max)",
+        [(PAGED, "float m = fmaxf(fmaxf(v[0].x, v[1].x), fmaxf(v[2].x, "
+                 "v[3].x));",
+          "float m = -CUDART_INF_F;\n#pragma unroll\n"
+          "    for (int k = 0; k < 4; ++k)\n"
+          "      if (lane + 32 * k < nlive - 1) m = fmaxf(m, v[k].x);")],
+        "paged"),
+    "paged_partials_arrival_order": (
+        "paged: the pair's last PV item adds the other partials in the "
+        "order their flags are seen (each thread polling on its own), not "
+        "in chunk order",
+        [(PAGED, """  for (int i = tid; i < nlive - 1; i += kThreads)
+    wait_published(&w.done[first + i]);
+  __syncthreads();
+  const float* p0 = w.part + first * G * D;
+  float tot[kAcc];
+#pragma unroll
+  for (int a_ = 0; a_ < kAcc; ++a_) {
+    const int g = h0 + a_;
+    tot[a_] = g < G ? __ldcg(p0 + g * D + tid % D) : 0.f;
+  }
+#pragma unroll 4
+  for (int i = 1; i < nlive - 1; ++i) {
+""", """  const float* p0 = w.part + first * G * D;
+  float tot[kAcc];
+#pragma unroll
+  for (int a_ = 0; a_ < kAcc; ++a_) tot[a_] = 0.f;
+  for (unsigned long long seen = 0ull; __popcll(seen) < nlive - 1;)
+    for (int i = 0; i < nlive - 1 && i < 64; ++i)
+      if (!((seen >> i) & 1ull) && ld_acquire(&w.done[first + i]) == 1u) {
+        seen |= 1ull << i;
+#pragma unroll
+        for (int a_ = 0; a_ < kAcc; ++a_) {
+          const int g = h0 + a_;
+          if (g < G)
+            tot[a_] += __ldcg(p0 + (int64_t)i * G * D + g * D + tid % D);
+        }
+      }
+  __syncthreads();
+  for (int i = nlive - 1; i < nlive - 1; ++i) {
+""")], "paged"),
+    "paged_done_flags_unreset": (
+        "paged: the pair's last PV item leaves the partials' flags set "
+        "where the call ended (the workspace is not left zeroed), so the "
+        "next call's last item reads partials before they are written",
+        [(PAGED, "    w.done[first + i] = 0u;\n", "")], "paged"),
+    "paged_stats_without_wait": (
+        "paged: a PV item reads its pair's chunk statistics and scores "
+        "without waiting on the score items' flags",
+        [(PAGED, "    wait_published(&w.flag[first + i]);",
+          "    (void)w.flag[first + i];")], "paged"),
     "ln_drops_shift": (
         "LayerNorm: the shift (bias) is not added",
         [(LN, "v[j][e] = v[j][e] * inv * wf[e] + bf[e];",
@@ -818,11 +881,18 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 
 
 def _copy(name: str) -> str:
-    """A copy of the package and chip_smoke.py with mutant ``name``."""
+    """A copy of the package and chip_smoke.py with mutant ``name``, and
+    of the kernels this tree has built (``build/kernels``: a library is
+    named by its source's digest, so the copy rebuilds only the source
+    the mutant edits)."""
     root = tempfile.mkdtemp(prefix=f"mutant-{name}-")
     shutil.copytree(os.path.join(HERE, "paddle_tpu_torch"),
                     os.path.join(root, "paddle_tpu_torch"),
                     ignore=shutil.ignore_patterns("__pycache__"))
+    built = os.path.join(HERE, "build", "kernels")
+    if os.path.isdir(built):
+        shutil.copytree(built, os.path.join(root, "build", "kernels"),
+                        ignore=shutil.ignore_patterns("*.tmp"))
     for f in ("chip_smoke.py", "chip_mutants.py"):
         shutil.copy(os.path.join(HERE, f), root)
     for source, old, new in MUTANTS.get(name, ("", []))[1]:
@@ -943,13 +1013,29 @@ def _moe_fp32_checks(torch, S, K, TrainStep, AdamW) -> tuple:
     return check, parity
 
 
-def _int8_checks(torch, S, K, TrainStep, AdamW) -> tuple:
+def _paged_checks(torch, S, K, TrainStep, AdamW) -> tuple:
     from paddle_tpu_torch import quantization as QZ
     from paddle_tpu_torch.models import LlamaForCausalLM, llama_3_8b
     from paddle_tpu_torch.serving import ServingEngine
     gen = torch.Generator(device="cuda").manual_seed(S.SEED + 7)
-    check = S.paged_int8_errors(torch, K,
-                                S.paged_int8_inputs(torch, QZ, gen, 1)[0])
+    check = {"int8": S.paged_int8_errors(
+        torch, K, S.paged_int8_inputs(torch, QZ, gen, 1)[0])}
+    # the bf16 serving shapes, two sets in turn (a statistic read before
+    # it is published then finds the other set's in the workspace)
+    sets = S.paged_inputs(torch, torch.Generator(device="cuda").manual_seed(
+        S.SEED + 1), n_sets=2)
+    check["bf16_set1"] = S.paged_errors(torch, K, sets[1])
+    check["bf16"] = S.paged_errors(torch, K, sets[0])
+    del sets
+    long = S.paged_inputs(torch, torch.Generator(device="cuda").manual_seed(
+        S.SEED + 21), S.LONG_CONTEXTS, M=S.LONG_PAGES, n_sets=1)
+    check["long_bf16"] = S.paged_errors(torch, K, long[0])
+    del long
+    check["sweep"] = S.paged_sweep_errors(torch, K, QZ, torch.Generator(
+        device="cuda").manual_seed(S.SEED + 23))
+    check["failures"] = [f"{k}: {f}" for k, v in check.items()
+                         for f in v["failures"]]
+    torch.cuda.empty_cache()
     cfg = llama_3_8b(dtype="bfloat16")
     cfg.num_hidden_layers = INT8_LAYERS
     model = QZ.quantize_for_serving(
@@ -1128,7 +1214,7 @@ def child(name: str, kinds=None) -> dict:
         name, ("none (the kernels as they are)",))[0]}
     caught_k, caught_p = False, False
     checks = {"flash": _flash_checks, "moe": _moe_checks,
-              "int8": _int8_checks, "bert": _bert_checks,
+              "paged": _paged_checks, "bert": _bert_checks,
               "fp32": _fp32_checks, "dropout": _dropout_checks,
               "varlen": _varlen_checks, "moe_fp32": _moe_fp32_checks}
     for kind in kinds:
@@ -1138,7 +1224,7 @@ def child(name: str, kinds=None) -> dict:
             parity["top_grad_rel_l2"] = sorted(grads.items(),
                                                key=lambda kv: -kv[1])[:5]
         out[kind] = check
-        out[kind + {"int8": "_slice_parity", "varlen": "_per_doc_parity"}
+        out[kind + {"paged": "_slice_parity", "varlen": "_per_doc_parity"}
             .get(kind, "_train_parity")] = parity
         caught_k |= bool(check["failures"])
         caught_p |= bool(parity["failures"])
@@ -1163,6 +1249,9 @@ def main(argv=None) -> int:
         return 2
     names = ["control"] + (args.only or list(MUTANTS))
     kinds = sorted({_kind(n) for n in names[1:]})
+    sys.path.insert(0, HERE)
+    from paddle_tpu_torch.ops.kernels import build
+    build.build_all()                       # the copies reuse these
     results = {}
     for name in names:
         root = _copy(name)
@@ -1171,6 +1260,10 @@ def main(argv=None) -> int:
                 [sys.executable, os.path.join(root, "chip_mutants.py"),
                  "--child", name, "--kinds", ",".join(kinds)], cwd=root,
                 capture_output=True, text=True, timeout=1200)
+        except subprocess.TimeoutExpired:
+            # a fault that hangs the kernel: the child is killed, the
+            # run goes on to the next fault
+            proc = subprocess.CompletedProcess([], "timeout", "", "")
         finally:
             shutil.rmtree(root, ignore_errors=True)
         lines = proc.stdout.strip().splitlines()

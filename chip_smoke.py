@@ -10,7 +10,12 @@ Phases; any failure ends the run with a traceback and a non-zero exit:
    source, all started together;
 3. kernel vs plain — each kernel against its plain PyTorch version in
    bf16 at its path's shapes (RMSNorm and paged decode, fp and int8
-   modes, at the serving shapes; flash forward, dQ and dK/dV at the
+   modes, at the serving shapes, each launched twice and bitwise equal;
+   the paged kernel also at a long context, ``LONG_CONTEXTS``, with
+   SDPA as its yardstick, and over its gate, ``paged_sweep``: q fp32 and
+   bf16 against fp32, bf16 and int8 pools, d 32 and 64, G 1, 8 and 16,
+   pages of 1, 5 and 64 positions, live lengths on and one past the
+   kernel's 64-position chunk edges, each case repeated bitwise; flash forward, dQ and dK/dV at the
    Llama training shape, plus ragged shapes, sq != sk, BERT-Base's shape
    without a bias, scores far below 0 and q, k, v as views of one fused
    tensor (``FLASH_CASES``), each launched twice and bitwise equal;
@@ -329,19 +334,22 @@ def _sdpa_int8_yardstick(torch, q, kq, vq, tables, seq_lens, ks, vs):
                       vg.reshape(b, -1, kvh, d), seq_lens)
 
 
-def phase_paged(torch, K) -> dict:
-    """Paged decode at the serving shapes: b=8 slots, h=32, kvh=8,
-    d=128, page 16, 32-page tables; ragged lengths with k*16-1 and k*16
-    values, one inactive slot and a ~300-token context. bf16 tolerance
-    1e-2 absolute: two bf16 ulps at |out| < 2 — q, the probabilities and
-    the output are each rounded to bf16, and a rounding can flip by one
-    ulp when the fp32 sums before it run in another order."""
-    b, h, kvh, d, ps, M = 8, 32, 8, 128, 16, 32
-    lens = [15, 16, 127, None, 300, 64, 255, 200]   # None: inactive
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+# seq_lens of phase_paged's slots: k*16-1 and k*16 values, one inactive
+# slot (None) and a ~300-token context
+PAGED_LENS = (15, 16, 127, None, 300, 64, 255, 200)
+
+
+def paged_inputs(torch, gen, lens=PAGED_LENS, h=32, kvh=8, d=128, ps=16,
+                 M=32, n_sets=16) -> list:
+    """Argument sets of the paged kernel's bf16 mode: b = len(lens) slots
+    (seq_lens ``lens``, None an inactive slot: seq_lens 0 and a table of
+    scratch page 0), each slot on its own random pages of a pool of
+    b * M + 1 pages. The defaults are phase_paged's serving shapes: 16
+    sets of ~4 MB of live KV cycle through the 50 MB L2."""
+    b = len(lens)
     n_pages = b * M + 1
     sets = []
-    for _ in range(16):     # 16 x ~4 MB of live KV: cycles through L2
+    for _ in range(n_sets):
         perm = torch.randperm(n_pages - 1, generator=gen,
                               device="cuda") + 1
         tables = torch.zeros((b, M), dtype=torch.int32, device="cuda")
@@ -358,33 +366,75 @@ def phase_paged(torch, K) -> dict:
             torch.randn(shape, generator=gen, device="cuda").bfloat16(),
             torch.randn(shape, generator=gen, device="cuda").bfloat16(),
             tables, seq))
-    got = K.paged_attention_cuda(*sets[0])
+    return sets
+
+
+def paged_errors(torch, K, args, atol=1e-2) -> dict:
+    """The paged kernel (fp mode) against its plain version on one
+    argument set, within ``atol``; two launches must agree bitwise.
+    Returns the errors and a list of failures."""
+    got = K.paged_attention_cuda(*args)
+    again = K.paged_attention_cuda(*args)
     torch.cuda.synchronize()
+    want = K.paged_attention_plain(*args)
+    out = {"max_abs_err": (got.float() - want.float()).abs().max().item(),
+           "bitwise_repeat": bool(torch.equal(got, again))}
+    out["failures"] = (
+        ([] if out["max_abs_err"] <= atol else
+         [f"max |err| {out['max_abs_err']:.3g} > {atol}"])
+        + ([] if out["bitwise_repeat"] else ["two launches differ"]))
+    return out
+
+
+def _paged_bound(b, h, kvh, d, positions, elem_bytes, scale_bytes=0,
+                 M=32, flops_per_s=BF16_TENSOR_FLOPS, dequant=False):
+    """The paged kernel's least time (ms) and what bounds it: q in and
+    out (bf16), each live K and V row (and its scale) read once, the
+    tables and seq_lens; 4 operations per KV element pair (+ 2 per
+    element to dequantize)."""
+    nbytes = (2 * b * h * d * 2
+              + 2 * positions * kvh * (d * elem_bytes + scale_bytes)
+              + b * M * 4 + b * 4)
+    flops = 4 * positions * h * d + (2 * positions * kvh * d if dequant
+                                     else 0)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / flops_per_s
+    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops
+            else "operations", nbytes)
+
+
+def phase_paged(torch, K) -> dict:
+    """Paged decode at the serving shapes: b=8 slots, h=32, kvh=8,
+    d=128, page 16, 32-page tables; ragged lengths with k*16-1 and k*16
+    values, one inactive slot and a ~300-token context (``PAGED_LENS``).
+    bf16 tolerance 1e-2 absolute: two bf16 ulps at |out| < 2 — q, the
+    probabilities and the output are each rounded to bf16, and a
+    rounding can flip by one ulp when the fp32 sums before it run in
+    another order. Two launches must agree bitwise."""
+    b, h, kvh, d, ps, M = len(PAGED_LENS), 32, 8, 128, 16, 32
+    sets = paged_inputs(torch, torch.Generator(device="cuda").manual_seed(
+        SEED + 1))
+    errs = paged_errors(torch, K, sets[0])
+    if errs["failures"]:
+        raise AssertionError(f"paged kernel differs from its plain "
+                             f"version: {errs}")
     want = K.paged_attention_plain(*sets[0])
-    torch.testing.assert_close(got.float(), want.float(), atol=1e-2, rtol=0)
-    err = (got.float() - want.float()).abs().max().item()
     lib_err = (_sdpa_yardstick(torch, *sets[0]).float()
                - want.float()).abs().max().item()
-    positions = sum((n if n is not None else 0) + 1 for n in lens)
-    nbytes = (2 * b * h * d * 2                  # q in, out
-              + 2 * positions * kvh * d * 2      # live K and V rows
-              + b * M * 4 + b * 4)               # tables, seq_lens
-    flops = 4 * positions * h * d
-    bound = max(nbytes / HBM_BYTES_PER_S, flops / BF16_TENSOR_FLOPS) * 1e3
+    positions = sum((n if n is not None else 0) + 1 for n in PAGED_LENS)
+    bound, bound_by, _ = _paged_bound(b, h, kvh, d, positions, 2, M=M)
     row = {
         "shape": {"b": b, "h": h, "kvh": kvh, "d": d, "page_size": ps,
                   "max_pages": M, "seq_lens": [n if n is not None else 0
-                                               for n in lens],
+                                               for n in PAGED_LENS],
                   "inactive_slots": [3]},
-        "max_abs_err": err, "tolerance": "atol 1e-2 (two bf16 ulps)",
+        **{k: v for k, v in errs.items() if k != "failures"},
+        "tolerance": "atol 1e-2 (two bf16 ulps)",
         "library_max_abs_err": lib_err,
         **_timings(torch, {
             "kernel": K.paged_attention_cuda,
             "plain": K.paged_attention_plain,
             "library": lambda *a: _sdpa_yardstick(torch, *a)}, sets),
-        "bound_ms": bound,
-        "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
-                     >= flops / BF16_TENSOR_FLOPS else "operations")}
+        "bound_ms": bound, "bound_by": bound_by}
     _emit("kernel_vs_plain", {"name": "paged_attention", **row})
     return row
 
@@ -411,24 +461,26 @@ def _bf16_half_ulps(torch, got, want, floor=INT8_ULP_FLOOR) -> float:
     return ((got.float() - want.float()).abs() / half).max().item()
 
 
-def paged_int8_inputs(torch, QZ, gen, n_sets=24) -> list:
+def paged_int8_inputs(torch, QZ, gen, n_sets=24, contexts=SERVE_CONTEXTS,
+                      M=32) -> list:
     """Argument sets of the int8 paged kernel at the serving shapes: b=8
     slots, h=32, kvh=8, d=128, page 16, 32-page tables, bf16 q, int8
     pools made by ``kv_quantize`` from normal values, the serve trace's
     decode contexts (``SERVE_CONTEXTS``), each slot on its own random
     pages. 24 sets of ~2.9 MB of live codes and scales cycle through
-    more than the 50 MB L2."""
-    b, h, kvh, d, ps, M = 8, 32, 8, 128, 16, 32
+    more than the 50 MB L2. ``contexts`` and ``M`` give other seq_lens
+    and table widths (one slot per context)."""
+    b, h, kvh, d, ps = len(contexts), 32, 8, 128, 16
     n_pages = b * M + 1
     sets = []
     for _ in range(n_sets):
         perm = torch.randperm(n_pages - 1, generator=gen,
                               device="cuda") + 1
         tables = torch.zeros((b, M), dtype=torch.int32, device="cuda")
-        for s, n in enumerate(SERVE_CONTEXTS):
+        for s, n in enumerate(contexts):
             live = -(-(n + 1) // ps)
             tables[s, :live] = perm[s * M:s * M + live].int()
-        seq = torch.tensor(SERVE_CONTEXTS, dtype=torch.int32, device="cuda")
+        seq = torch.tensor(contexts, dtype=torch.int32, device="cuda")
         shape = (n_pages, ps, kvh, d)
         ck = QZ.kv_quantize(torch.randn(shape, generator=gen, device="cuda"))
         cv = QZ.kv_quantize(torch.randn(shape, generator=gen, device="cuda"))
@@ -487,11 +539,9 @@ def phase_paged_int8(torch, K, QZ) -> dict:
     lib_err = (_sdpa_int8_yardstick(torch, *sets[0]).float()
                - _paged_int8_plain(K, *sets[0]).float()).abs().max().item()
     positions = sum(n + 1 for n in SERVE_CONTEXTS)
-    nbytes = (2 * b * h * d * 2                    # q in, out
-              + 2 * positions * kvh * (d + 4)      # live codes and scales
-              + b * M * 4 + b * 4)                 # tables, seq_lens
-    flops = 4 * positions * h * d + 2 * positions * kvh * d   # + dequant
-    bound = max(nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS) * 1e3
+    bound, bound_by, nbytes = _paged_bound(
+        b, h, kvh, d, positions, 1, 4, M=M, flops_per_s=FP32_FLOPS,
+        dequant=True)
     row = {
         "shape": {"b": b, "h": h, "kvh": kvh, "d": d,
                   "page_size": kq.shape[1], "max_pages": M,
@@ -504,11 +554,200 @@ def phase_paged_int8(torch, K, QZ) -> dict:
             "kernel": lambda *a: _paged_int8(K, *a),
             "plain": lambda *a: _paged_int8_plain(K, *a),
             "library": lambda *a: _sdpa_int8_yardstick(torch, *a)}, sets),
-        "bound_ms": bound, "bound_bytes": nbytes,
-        "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
-                     >= flops / FP32_FLOPS else "operations")}
+        "bound_ms": bound, "bound_bytes": nbytes, "bound_by": bound_by}
     _emit("kernel_vs_plain", {"name": "paged_attention_int8", **row})
     return row
+
+
+# the long-context point: 8 slots of 4096 live positions (seq_lens 4095)
+# over 256-page tables of 16 positions, every chunk of the kernel live
+LONG_CONTEXTS = (4095,) * 8
+LONG_PAGES = 256
+
+
+def phase_paged_long(torch, K, QZ) -> dict:
+    """The paged kernel at a long context (``LONG_CONTEXTS``: b 8, h 32,
+    kvh 8, d 128, page 16, M 256), bf16 and int8 pools: each against
+    its plain version under phase_paged's and phase_paged_int8's rules
+    (two launches bitwise equal), with its times, its byte bound (~134
+    MB of bf16 K and V) and gather + SDPA as the yardstick. Three
+    argument sets, each past the 50 MB L2."""
+    b, h, kvh, d = len(LONG_CONTEXTS), 32, 8, 128
+    positions = sum(n + 1 for n in LONG_CONTEXTS)
+    out = {"shape": {"b": b, "h": h, "kvh": kvh, "d": d, "page_size": 16,
+                     "max_pages": LONG_PAGES,
+                     "seq_lens": list(LONG_CONTEXTS)}}
+    sets = paged_inputs(torch, torch.Generator(device="cuda").manual_seed(
+        SEED + 21), LONG_CONTEXTS, M=LONG_PAGES, n_sets=3)
+    errs = paged_errors(torch, K, sets[0])
+    bound, bound_by, nbytes = _paged_bound(b, h, kvh, d, positions, 2,
+                                           M=LONG_PAGES)
+    out["bf16"] = {
+        **{k: v for k, v in errs.items() if k != "failures"},
+        **_timings(torch, {
+            "kernel": K.paged_attention_cuda,
+            "library": lambda *a: _sdpa_yardstick(torch, *a)}, sets),
+        "bound_ms": bound, "bound_by": bound_by, "bound_bytes": nbytes}
+    failures = [f"bf16: {f}" for f in errs["failures"]]
+    del sets
+    torch.cuda.empty_cache()
+    sets = paged_int8_inputs(
+        torch, QZ, torch.Generator(device="cuda").manual_seed(SEED + 22),
+        n_sets=3, contexts=LONG_CONTEXTS, M=LONG_PAGES)
+    errs = paged_int8_errors(torch, K, sets[0])
+    bound, bound_by, nbytes = _paged_bound(
+        b, h, kvh, d, positions, 1, 4, M=LONG_PAGES, flops_per_s=FP32_FLOPS,
+        dequant=True)
+    out["int8"] = {
+        **{k: v for k, v in errs.items() if k != "failures"},
+        **_timings(torch, {
+            "kernel": lambda *a: _paged_int8(K, *a),
+            "library": lambda *a: _sdpa_int8_yardstick(torch, *a)}, sets),
+        "bound_ms": bound, "bound_by": bound_by, "bound_bytes": nbytes}
+    failures += [f"int8: {f}" for f in errs["failures"]]
+    del sets
+    torch.cuda.empty_cache()
+    out["bf16_over_bound"] = out["bf16"]["device_ms"] / out["bf16"][
+        "bound_ms"] if out["bf16"]["device_ms"] else None
+    _emit("paged_long", out)
+    if failures:
+        raise AssertionError(f"paged kernel at the long context: {failures}")
+    return out
+
+
+# the gate sweep: seq_lens giving live lengths 64 and 128 (multiples of
+# the kernel's 64-position chunk), 65 and 129 (a multiple plus one), 11
+# (inside one chunk) and an inactive slot
+SWEEP_LENS = (63, 64, 127, 128, 10, None)
+
+
+def paged_sweep_cases() -> list:
+    """(q dtype, pool dtype, d, G, page size) of the gate sweep: q fp32
+    and bf16 against fp32, bf16 and int8 pools, d 32 and 64, G 1, 8 and
+    16, pages of 1, 5 and 64 positions; and G 16 over fp32 pools at d
+    128 (the largest shared-memory footprint), page 16."""
+    import itertools
+    cases = list(itertools.product(("float32", "bfloat16"),
+                                   ("float32", "bfloat16", "int8"),
+                                   (32, 64), (1, 8, 16), (1, 5, 64)))
+    return cases + [(qd, "float32", 128, 16, 16)
+                    for qd in ("float32", "bfloat16")]
+
+
+def paged_case_inputs(torch, QZ, gen, qd, pool, d, g, ps, kvh=2,
+                      lens=SWEEP_LENS, device="cuda") -> tuple:
+    """One argument set of a sweep case, (q, pool_k, pool_v, tables,
+    seq_lens, k_scale, v_scale), scales None outside int8."""
+    b = len(lens)
+    M = -(-max(n + 1 for n in lens if n is not None) // ps) + 1
+    n_pages = b * M + 1
+    perm = torch.randperm(n_pages - 1, generator=gen, device=device) + 1
+    tables = torch.zeros((b, M), dtype=torch.int32, device=device)
+    seq = torch.zeros((b,), dtype=torch.int32, device=device)
+    for s, n in enumerate(lens):
+        if n is not None:
+            live = -(-(n + 1) // ps)
+            tables[s, :live] = perm[s * M:s * M + live].int()
+            seq[s] = n
+    shape = (n_pages, ps, kvh, d)
+    k = torch.randn(shape, generator=gen, device=device)
+    v = torch.randn(shape, generator=gen, device=device)
+    q = torch.randn((b, 1, g * kvh, d), generator=gen,
+                    device=device).to(getattr(torch, qd))
+    if pool == "int8":
+        ck, cv = QZ.kv_quantize(k), QZ.kv_quantize(v)
+        return q, ck.q, cv.q, tables, seq, ck.scale, cv.scale
+    dt = getattr(torch, pool)
+    return q, k.to(dt), v.to(dt), tables, seq, None, None
+
+
+def paged_case_errors(torch, K, args, qd, pool) -> dict:
+    """A sweep case against the plain version, two launches bitwise
+    equal. Tolerances, as the CUDA tests state them: an fp32 output over
+    fp32 or int8 pools 2e-5 absolute (the same arithmetic, sums in
+    another order); a bf16 output over int8 pools one bf16 ulp (2
+    half-ulps) of max(|plain|, 2**-8); every other case 1e-2 absolute
+    (two bf16 ulps at |out| < 2)."""
+    q, pk, pv, tables, seq, ks, vs = args
+
+    def run(fn):
+        return fn(q, pk, pv, tables, seq, k_scale=ks, v_scale=vs)
+    got, again = run(K.paged_attention_cuda), run(K.paged_attention_cuda)
+    torch.cuda.synchronize()
+    want = run(K.paged_attention_plain)
+    out = {"max_abs_err": (got.float() - want.float()).abs().max().item(),
+           "bitwise_repeat": bool(torch.equal(got, again)),
+           "finite": bool(torch.isfinite(got).all())}
+    if pool == "int8" and qd == "bfloat16":
+        out["max_err_half_ulps"] = _bf16_half_ulps(torch, got, want)
+        ok = out["max_err_half_ulps"] <= 2.0
+    else:
+        atol = 2e-5 if qd == "float32" and pool != "bfloat16" else 1e-2
+        ok = out["max_abs_err"] <= atol
+    out["failures"] = (([] if ok else ["outside the tolerance"])
+                       + ([] if out["bitwise_repeat"]
+                          else ["two launches differ"])
+                       + ([] if out["finite"] else ["non-finite output"]))
+    return out
+
+
+def paged_dominant_last(torch, QZ, gen, pool, device="cuda") -> tuple:
+    """A case whose largest score sits alone in the context's last
+    chunk: one slot of 129 live positions (seq_lens 128: chunks of 64,
+    64 and 1), kvh 2, G 4, d 64, pages of 16, bf16 q. Position 128's K
+    row of each kv head points along its first query head's q, so that
+    head's score there is ~120 (exp(120) overflows fp32: a softmax max
+    that misses the last chunk gives inf or NaN). Pools ``pool``
+    (bfloat16 or int8)."""
+    q, pk, pv, tables, seq, _, _ = paged_case_inputs(
+        torch, QZ, gen, "bfloat16", "float32", 64, 4, 16, lens=(128,),
+        device=device)
+    page, row = int(tables[0, 128 // 16]), 128 % 16
+    for n in range(pk.shape[2]):
+        q0 = q[0, 0, 4 * n].float()
+        pk[page, row, n] = q0 * (120.0 * 64 ** 0.5 / (q0 * q0).sum())
+    if pool == "int8":
+        ck, cv = QZ.kv_quantize(pk), QZ.kv_quantize(pv)
+        return q, ck.q, cv.q, tables, seq, ck.scale, cv.scale
+    return q, pk.bfloat16(), pv.bfloat16(), tables, seq, None, None
+
+
+def paged_sweep_errors(torch, K, QZ, gen, cases=None,
+                       device="cuda") -> dict:
+    """Each case of ``cases`` (default: every case of
+    ``paged_sweep_cases``) and ``paged_dominant_last`` over bf16 and
+    int8 pools: the largest error by mode and the failing cases."""
+    out = {"cases": 0, "max_abs_err": {}, "max_err_half_ulps": 0.0,
+           "failures": []}
+    runs = [(c, paged_case_inputs(torch, QZ, gen, *c, device=device))
+            for c in cases or paged_sweep_cases()]
+    runs += [(("bfloat16", pool, 64, 4, "16 dominant last"),
+              paged_dominant_last(torch, QZ, gen, pool, device=device))
+             for pool in ("bfloat16", "int8")]
+    for (qd, pool, d, g, ps), args in runs:
+        errs = paged_case_errors(torch, K, args, qd, pool)
+        mode = f"q_{qd}/{pool}"
+        out["max_abs_err"][mode] = max(out["max_abs_err"].get(mode, 0.0),
+                                       errs["max_abs_err"])
+        out["max_err_half_ulps"] = max(out["max_err_half_ulps"],
+                                       errs.get("max_err_half_ulps", 0.0))
+        out["cases"] += 1
+        out["failures"] += [f"{mode} d {d} G {g} page {ps}: {f}"
+                            for f in errs["failures"]]
+    return out
+
+
+def phase_paged_sweep(torch, K, QZ) -> dict:
+    """The kernel's gate on the card (``paged_sweep_cases``): slots
+    whose live lengths sit on and one past the 64-position chunk edges
+    (``SWEEP_LENS``), kvh 2, each case against the plain version and
+    repeated bitwise."""
+    out = paged_sweep_errors(torch, K, QZ, torch.Generator(
+        device="cuda").manual_seed(SEED + 23))
+    _emit("paged_sweep", out)
+    if out["failures"]:
+        raise AssertionError(f"paged gate sweep: {out['failures'][:10]}")
+    return out
 
 
 def _flash_work(b, sq, sk, h, d, causal, kind, bias_bytes=0, kept=None,
@@ -4139,6 +4378,14 @@ def phase_profile(torch, np, model, ServingEngine,
     return out
 
 
+def _long_row(paged_long, mode) -> dict:
+    """The long-context figures of one paged mode for the kernels line."""
+    row = paged_long[mode]
+    return {k: row[k] for k in ("ms", "device_ms", "bound_ms",
+                                "library_ms", "library_device_ms",
+                                "max_abs_err")}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--layers", type=int, default=None,
@@ -4202,6 +4449,9 @@ def main(argv=None) -> int:
     rms = phase_rms_norm(torch, K)
     paged = phase_paged(torch, K)
     paged_int8 = phase_paged_int8(torch, K, QZ)
+    paged_long = phase_paged_long(torch, K, QZ)
+    phase_paged_sweep(torch, K, QZ)
+    torch.cuda.empty_cache()
     flash = phase_flash(torch, F)
     torch.cuda.empty_cache()
     ln = phase_layer_norm(torch, K)
@@ -4402,7 +4652,8 @@ def main(argv=None) -> int:
          "max_abs_err": paged["max_abs_err"], "ms": paged["ms"],
          "plain_ms": paged["plain_ms"], "bound_ms": paged["bound_ms"],
          "bound_by": paged["bound_by"], "library_ms": paged["library_ms"],
-         "shape": paged["shape"]},
+         "shape": paged["shape"], "long_context": _long_row(paged_long,
+                                                            "bf16")},
         {"name": "paged_attention_int8", "route": "cuda",
          "source": src + "paged_attention.cu",
          "replaces": "paddle_tpu/ops/pallas/paged_attention.py:181",
@@ -4412,7 +4663,8 @@ def main(argv=None) -> int:
          "bound_ms": paged_int8["bound_ms"],
          "bound_by": paged_int8["bound_by"],
          "library_ms": paged_int8["library_ms"],
-         "shape": paged_int8["shape"]},
+         "shape": paged_int8["shape"], "long_context": _long_row(paged_long,
+                                                                 "int8")},
     ]
     # the instantiations that the profiled steps ran
     ran = {"flash_fwd": train_prof["flash_fwd_kernels"],

@@ -3,8 +3,9 @@
 Replaces ``paddle_tpu/ops/pallas/paged_attention.py::paged_attention_tpu``
 in both its modes: fp pools, and int8 pools (codes ``[P, ps, kvh, d]``
 with fp32 row scales ``k_scale``/``v_scale`` ``[P, ps, kvh]``,
-dequantized inside the page loop). See the source for what bounds it on
-the H100, how the design answers that, and which arithmetic it
+dequantized per element). See the source for what bounds it on the
+H100, how the design answers that (chunks of tiles of ``TILE``
+positions as ticketed items of one launch), and which arithmetic it
 reproduces (the grouped GQA core's, not the TPU kernel's).
 
 - :func:`paged_attention_plain` — the plain PyTorch version: gather the
@@ -13,7 +14,11 @@ reproduces (the grouped GQA core's, not the TPU kernel's).
 - :func:`paged_attention_cuda` — the kernel's wrapper: launches on CUDA
   tensors or raises on anything outside :func:`kernel_gate`;
   ``paged_attention_cuda.launches`` counts its fp-mode launches and
-  ``paged_attention_cuda.int8_launches`` its int8-mode ones.
+  ``paged_attention_cuda.int8_launches`` its int8-mode ones;
+- :func:`chunk_tiles`, :func:`n_chunks`, :func:`workspace_bytes` — the
+  launch's shape and the workspace it needs, from shapes alone
+  (``seq_lens`` stays on the card); the workspace is kept per device and
+  stream (``_work``).
 
 The router is ``nn.functional.paged_attention_decode``: its ``t == 1``
 rows take the kernel on CUDA, its ``t > 1`` rows take the gather path
@@ -30,10 +35,14 @@ import torch
 from .build import library
 
 __all__ = ["paged_attention_plain", "paged_attention_cuda", "kernel_gate",
-           "HEAD_DIMS", "MAX_GROUP"]
+           "chunk_tiles", "n_chunks", "workspace_bytes", "HEAD_DIMS",
+           "MAX_GROUP", "TILE"]
 
 HEAD_DIMS = (32, 64, 128)
 MAX_GROUP = 16
+TILE = 64            # positions a tile (kTile in the source)
+MAX_TILES = 8        # tiles a chunk (kMaxTiles)
+TARGET_CHUNKS = 1024  # the chunk count (b * kvh * chunks a pair) aimed at
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 
@@ -116,10 +125,62 @@ def kernel_gate(q, pool_k, pool_v, block_tables, seq_lens, k_scale=None,
     return None
 
 
+def chunk_tiles(b: int, kvh: int, max_pages: int, page_size: int) -> int:
+    """Tiles of ``TILE`` positions a chunk: the fewest of 1, 2, 4 and 8
+    that keep ``b * kvh`` pairs' chunks at most ``TARGET_CHUNKS`` (1 at
+    serving sizes; more for long tables, so that each block streams more
+    rows for its fixed costs)."""
+    tiles = 1
+    while (tiles < MAX_TILES and b * kvh * -(-(max_pages * page_size)
+                                             // (TILE * tiles))
+           > TARGET_CHUNKS):
+        tiles *= 2
+    return tiles
+
+
+def n_chunks(b: int, kvh: int, max_pages: int, page_size: int) -> int:
+    """Chunks in a slot's whole table: the kernel launches
+    ``2 * b * kvh * n_chunks`` blocks (a score item and a PV item a
+    chunk); those past a slot's live length exit at once."""
+    tile = TILE * chunk_tiles(b, kvh, max_pages, page_size)
+    return -(-(max_pages * page_size) // tile)
+
+
+def workspace_bytes(b: int, kvh: int, g: int, d: int, max_pages: int,
+                    page_size: int) -> tuple[int, int]:
+    """Bytes of the kernel's two workspace parts for one call's shapes:
+    control (the ticket and 3 words of padding, and two flags a chunk:
+    its statistics published, its partial published; zero between
+    calls) and data (per chunk and query head: the chunk's max and sum,
+    its scores and its ``d``-wide fp32 partial; no reset needed)."""
+    tiles = chunk_tiles(b, kvh, max_pages, page_size)
+    items = b * kvh * n_chunks(b, kvh, max_pages, page_size)
+    return 4 * (4 + 2 * items), 4 * items * g * (2 + TILE * tiles + d)
+
+
+_WORK: dict = {}
+
+
+def _work(dev, stream, ctrl_bytes: int, data_bytes: int):
+    """The kernel's workspace for ``stream`` on ``dev``: its control part,
+    zeroed once (every call leaves it zeroed), and its data part, each
+    grown when a call needs more and otherwise reused as it is."""
+    ctrl, data = _WORK.get((dev, stream), (None, None))
+    if ctrl is None or ctrl.numel() < ctrl_bytes:
+        ctrl = torch.zeros((ctrl_bytes,), dtype=torch.uint8, device=dev)
+    if data is None or data.numel() < data_bytes:
+        data = torch.empty((data_bytes,), dtype=torch.uint8, device=dev)
+    _WORK[(dev, stream)] = ctrl, data
+    return ctrl, data
+
+
 def _fn():
     fn = library("paged_attention").paged_decode_launch
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
+        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_size_t,
+                                                ctypes.c_void_p,
+                                                ctypes.c_size_t]
+                       + [ctypes.c_int] * 8
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                           ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -136,7 +197,7 @@ def paged_attention_cuda(q, pool_k, pool_v, block_tables, seq_lens,
     Returns ``[b, 1, h, d]`` in q's dtype. Raises ValueError outside
     :func:`kernel_gate`. ``seq_lens`` must be >= 0; a value past
     ``M * page_size - 1`` attends all ``M * page_size`` positions, as the
-    gather path does."""
+    gather path does. One launch; allocates only the output."""
     why = kernel_gate(q, pool_k, pool_v, block_tables, seq_lens, k_scale,
                       v_scale)
     if why is not None:
@@ -150,16 +211,19 @@ def paged_attention_cuda(q, pool_k, pool_v, block_tables, seq_lens,
     out = torch.empty_like(q)
     if b == 0:
         return out
-    scores = torch.empty((b, kvh, g, M * ps), dtype=torch.float32,
-                         device=q.device)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
+    dev = q.device
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        ctrl_bytes, data_bytes = workspace_bytes(b, kvh, g, d, M, ps)
+        ctrl, data = _work(dev, stream, ctrl_bytes, data_bytes)
         err = _fn()(q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
                     k_scale.data_ptr() if k_scale is not None else None,
                     v_scale.data_ptr() if v_scale is not None else None,
                     block_tables.data_ptr(), seq_lens.data_ptr(),
-                    out.data_ptr(), scores.data_ptr(), b, kvh, g, d, ps, M,
-                    float(scale), _DTYPE_CODE[q.dtype],
+                    out.data_ptr(), ctrl.data_ptr(), ctrl.numel(),
+                    data.data_ptr(), data.numel(), b, kvh, g, d, ps, M,
+                    TILE, chunk_tiles(b, kvh, M, ps), float(scale),
+                    _DTYPE_CODE[q.dtype],
                     _DTYPE_CODE[pool_k.dtype], stream)
     if err != 0:
         raise RuntimeError(f"paged attention kernel launch failed: CUDA "

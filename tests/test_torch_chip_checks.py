@@ -11,15 +11,21 @@ through ``grouped_kernels``; each split launch goes to its pass by
 ``grouped_passes``),
 and ``chip_mutants.py`` plants each of its
 faults by replacing one piece of text of a kernel source, which must
-occur there exactly once. Both run only on the card; these tests pin
+occur there exactly once. The paged kernel's gate sweep
+(``paged_sweep_errors``) is rehearsed with the plain version standing in
+for the kernel: it must pass it and fail a kernel that is off by 1% or
+that does not repeat itself. Both run only on the card; these tests pin
 them here, so that a renamed instantiation or an edited source cannot
 leave a check that passes every step or a fault that no longer plants.
 """
 
 import importlib.util
+import itertools
+import types
 from pathlib import Path
 
 import pytest
+import torch
 
 from torch_one_thread import one_torch_thread  # noqa: F401
 
@@ -315,3 +321,57 @@ def test_mutant_plants_once(name):
         text = (CSRC / source).read_text()
         assert text.count(old) == 1, (source, old)
         assert new != old
+
+
+def test_paged_sweep_covers_the_gate():
+    """Every q dtype x pool dtype x d x G x page size of the sweep, G 16
+    over fp32 pools at d 128, and live lengths on and one past the
+    kernel's chunk edges."""
+    cases = S.paged_sweep_cases()
+    want = set(itertools.product(("float32", "bfloat16"),
+                                 ("float32", "bfloat16", "int8"), (32, 64),
+                                 (1, 8, 16), (1, 5, 64)))
+    assert want <= set(cases)
+    assert {("float32", "float32", 128, 16, 16),
+            ("bfloat16", "float32", 128, 16, 16)} <= set(cases)
+    live = {n + 1 for n in S.SWEEP_LENS if n is not None}
+    assert {64, 65, 128, 129} <= live and None in S.SWEEP_LENS
+
+
+def _plain_kernels(fn):
+    from paddle_tpu_torch.ops.kernels import paged_attention_plain
+    return types.SimpleNamespace(paged_attention_cuda=fn(
+        paged_attention_plain), paged_attention_plain=paged_attention_plain)
+
+
+@pytest.mark.parametrize("fault", [None, "scaled", "unrepeatable"])
+def test_paged_sweep_check_on_cpu(fault, monkeypatch):
+    from paddle_tpu_torch import quantization as QZ
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    calls = []
+
+    def wrap(plain):
+        def run(*a, **k):
+            calls.append(1)
+            out = plain(*a, **k)
+            if fault == "scaled":
+                return out * 1.01
+            if fault == "unrepeatable" and len(calls) % 2 == 0:
+                return out.clone().view(-1).roll(1).view(out.shape)
+            return out
+        return run
+    cases = [c for c in S.paged_sweep_cases() if c[3] in (1, 16)
+             and c[2] == 32]
+    out = S.paged_sweep_errors(torch, _plain_kernels(wrap), QZ,
+                               torch.Generator().manual_seed(0), cases,
+                               device="cpu")
+    assert out["cases"] == len(cases) + 2
+    if fault is None:
+        assert out["failures"] == []
+    else:
+        # every case fails, the dominant-last ones included
+        assert len({f.split(":")[0] for f in out["failures"]}) \
+            == out["cases"]
+        reason = ("outside the tolerance" if fault == "scaled"
+                  else "two launches differ")
+        assert all(reason in f for f in out["failures"])
